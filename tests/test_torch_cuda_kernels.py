@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here is marked ``cuda`` and skips where
+``torch.cuda.is_available()`` is false.  The file imports no JAX, so it
+also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest
+
+Tolerances: f32 at rtol 1e-5, atol 1e-6; bf16 within one bf16 ulp (both
+sides do f32 math and round once).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from sparknet_tpu_torch.ops import cuda_kernels as ck
+
+ALPHA, BETA, K = 0.3, 0.75, 1.0
+
+pytestmark = pytest.mark.cuda
+
+
+def _ids(case):
+    shape, size, relu = case
+    return f"{'x'.join(map(str, shape))}-n{size}-{'relu' if relu else 'lrn'}"
+
+
+def _input(shape, seed=0) -> np.ndarray:
+    return (np.random.default_rng(seed).normal(size=shape) * 2.0).astype(
+        np.float32)
+
+
+def _assert_within_bf16_ulp(got: np.ndarray, want: np.ndarray) -> None:
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), 2.0 ** -126)
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    err = np.abs(got - want)
+    assert (err <= ulp).all(), (
+        f"{int((err > ulp).sum())} elements beyond 1 bf16 ulp, "
+        f"max |err| {err.max():.3e}")
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+GPU_CASES = [((2, 6, 5, 7), 5, False), ((1, 8, 3, 3), 3, True),
+             ((2, 16, 5, 5), 4, False), ((2, 16, 5, 5), 4, True),
+             ((4, 96, 27, 27), 5, False), ((4, 256, 13, 13), 5, False),
+             ((2, 192, 56, 56), 5, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", GPU_CASES, ids=_ids)
+def test_cuda_kernel_matches_plain(case, dtype):
+    _need_cuda()
+    shape, size, relu = case
+    x = torch.from_numpy(_input(shape)).to("cuda", dtype)
+    before = ck.launch_counts["lrn_across_channels"]
+    got = ck.lrn_across_channels(x, size, ALPHA, BETA, K, relu=relu)
+    want = ck.lrn_across_channels_reference(x, size, ALPHA, BETA, K, relu)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["lrn_across_channels"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    else:
+        _assert_within_bf16_ulp(got.float().cpu().numpy(),
+                                want.float().cpu().numpy())
+
+
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
+    _need_cuda()
+    x = torch.ones((2, 4, 3, 3), device="cuda")
+    with pytest.raises(TypeError):
+        ck.lrn_across_channels(x.half(), 5, ALPHA, BETA, K)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.lrn_across_channels(x.transpose(2, 3), 5, ALPHA, BETA, K)
+    with pytest.raises(ValueError, match="N, C, H, W"):
+        ck.lrn_across_channels(x[0], 5, ALPHA, BETA, K)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_engine_on_the_card_goes_through_the_kernel(dtype):
+    """CaffeNet at a 67x67 crop served on the card: two LRN launches per
+    dispatched batch, and probabilities that match the port's CPU forward
+    on the same weights (f32: rtol 1e-4, atol 1e-6 with TF32 off; bf16:
+    atol 2e-2, since cuDNN and the CPU round to bf16 in other places)."""
+    _need_cuda()
+    from sparknet_tpu_torch.models import caffenet
+    from sparknet_tpu_torch.parallel.serving import (
+        InferenceEngine, LoadedModel, ModelHouse, ServeConfig)
+
+    cfg = ServeConfig(batch_shapes=(1, 4), max_delay_ms=50.0, dtype=dtype)
+    house = ModelHouse(cfg, device="cuda")
+    lm = LoadedModel("caffenet67", caffenet(1, 1, crop=67), cfg,
+                     device="cuda")
+    house._models[lm.name] = lm
+    xs = [_input((3, 67, 67), seed=i) for i in range(6)]
+    ck.reset_launch_counts()
+    with InferenceEngine(house, cfg) as eng:
+        res = [f.result(30.0) for f in [eng.submit(lm.name, x) for x in xs]]
+        dispatches = eng.stats()["dispatches"]
+    assert ck.launch_counts["lrn_across_channels"] == 2 * dispatches
+    cpu_params = {k: [b.cpu() for b in v] for k, v in lm._fwd_params.items()}
+    with torch.inference_mode():
+        want = lm.net.apply(cpu_params, {"data": torch.from_numpy(
+            np.stack(xs))})["prob"].float().numpy()
+    got = np.stack([r.probs for r in res])
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-2)
