@@ -9,13 +9,18 @@ params are on.
 Params are a plain ``{layer name: [blobs...]}`` dict of tensors, the
 JAX package's ``WeightCollection``, with the JAX blob layouts.  With a
 ``compute_dtype`` (bf16), params and activations are cast per layer over
-f32 master weights while loss layers stay f32 (``_cast``, net.py:529 of
-the JAX package).  Not ported yet: cross-layer param sharing, horizontal
-and vertical fusion and the lowering tuner.
+f32 master weights while loss and accuracy layers stay f32 (``_cast``,
+net.py:529 of the JAX package).  :meth:`Net.forward` also sums the loss
+tops, weighted by their ``loss_weight`` (``NetOutputs``, net.py:46-62),
+and runs the TRAIN phase's stochastic layers from a CPU
+``torch.Generator``; gradients come from ``torch.autograd``.  Not ported
+yet: cross-layer param sharing, horizontal and vertical fusion and the
+lowering tuner.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Mapping, Sequence
 
@@ -23,10 +28,18 @@ import torch
 
 from .. import ops  # noqa: F401  (registers the layer implementations)
 from ..ops.registry import LayerImpl, Shape, get_layer_impl
-from ..proto.caffe_pb import LayerParameter, NetParameter, NetState
+from ..proto.caffe_pb import LayerParameter, NetParameter, NetState, Phase
 from ..utils.device import resolve_device
 
 Params = dict[str, list[torch.Tensor]]
+
+
+@dataclasses.dataclass
+class NetOutputs:
+    """Result of one forward pass."""
+
+    blobs: dict[str, torch.Tensor]   # the net's output blobs
+    loss: torch.Tensor               # sum of loss_weight x top, f32
 
 
 class _LayerNode:
@@ -38,6 +51,14 @@ class _LayerNode:
         self.impl = impl
         self.bottoms = bottoms
         self.tops = tops
+
+    def loss_weights(self) -> list[float]:
+        """Per-top loss weights, Layer::SetLossWeights: the explicit
+        ``loss_weight``s, else 1 on a loss layer's first top."""
+        weights = list(self.lp.loss_weight)
+        if not weights and self.impl.is_loss():
+            weights = [1.0] + [0.0] * (len(self.tops) - 1)
+        return weights
 
 
 class Net:
@@ -123,6 +144,22 @@ class Net:
                 params[node.lp.name] = [b.to(dev) for b in blobs]
         return params
 
+    def lr_mult_tree(self, params: Params) -> dict[str, list[float]]:
+        """Per-blob lr multipliers, keyed like ``params``
+        (ParamSpec.lr_mult, 1 where a layer declares fewer specs)."""
+        return self._mult_tree(params, "lr_mult")
+
+    def decay_mult_tree(self, params: Params) -> dict[str, list[float]]:
+        """Per-blob weight-decay multipliers, keyed like ``params``."""
+        return self._mult_tree(params, "decay_mult")
+
+    def _mult_tree(self, params: Params, attr: str) -> dict[str, list[float]]:
+        specs = {node.lp.name: node.lp.param for node in self.nodes}
+        return {key: [getattr(specs[key][i], attr)
+                      if i < len(specs.get(key, ())) else 1.0
+                      for i in range(len(blobs))]
+                for key, blobs in params.items()}
+
     def forward_flops(self) -> int:
         """Multiply-add FLOPs (2 per MAC) of one forward at the declared
         shapes, counted from the Convolution and InnerProduct geometries."""
@@ -152,14 +189,36 @@ class Net:
 
     def apply(self, params: Mapping[str, Sequence[torch.Tensor]],
               inputs: Mapping[str, torch.Tensor], *, train: bool = False,
-              blobs: Sequence[str] | None = None) -> dict[str, torch.Tensor]:
+              blobs: Sequence[str] | None = None,
+              generator: torch.Generator | None = None
+              ) -> dict[str, torch.Tensor]:
         """One forward pass.  ``inputs`` binds every input blob.  Returns
         the named ``blobs`` (the net's output blobs by default) at their
-        final values: an in-place top holds what its last writer wrote."""
+        final values: an in-place top holds what its last writer wrote.
+        ``generator`` is the CPU generator that train-mode Dropout draws
+        its masks from."""
+        values, _ = self._run(params, inputs, train, generator)
+        return {b: values[b] for b in (self.output_blobs if blobs is None
+                                       else blobs)}
+
+    def forward(self, params: Mapping[str, Sequence[torch.Tensor]],
+                inputs: Mapping[str, torch.Tensor], *,
+                train: bool | None = None,
+                generator: torch.Generator | None = None) -> NetOutputs:
+        """One forward pass with the loss: the net's output blobs and the
+        sum of every loss top times its weight, in f32.  ``train``
+        defaults to whether the net's phase is TRAIN."""
+        if train is None:
+            train = self.state.phase == Phase.TRAIN
+        values, loss = self._run(params, inputs, train, generator)
+        return NetOutputs({b: values[b] for b in self.output_blobs}, loss)
+
+    def _run(self, params, inputs, train, generator):
         for name in self.input_blobs:
             if name not in inputs:
                 raise ValueError(f"missing input blob {name!r}")
         values: dict[str, torch.Tensor] = dict(inputs)
+        loss = None
         cd = self.compute_dtype
         for node in self.nodes:
             if node.impl.is_input():
@@ -167,12 +226,18 @@ class Net:
             p = list(params.get(node.lp.name, []))
             bots = [values[b] for b in node.bottoms]
             if cd is not None:
-                # numerics-critical loss layers stay f32
-                dtype = torch.float32 if node.impl.is_loss() else cd
+                # numerics-critical loss and accuracy layers stay f32
+                dtype = (torch.float32 if node.impl.is_loss()
+                         or node.lp.type == "Accuracy" else cd)
                 bots = self._cast(bots, dtype)
                 p = self._cast(p, dtype)
-            for t, v in zip(node.tops,
-                            node.impl.apply(node.lp, p, bots, train)):
+            tops = node.impl.apply(node.lp, p, bots, train, generator)
+            for t, v in zip(node.tops, tops):
                 values[t] = v
-        return {b: values[b] for b in (self.output_blobs if blobs is None
-                                       else blobs)}
+            for w, v in zip(node.loss_weights(), tops):
+                if w:
+                    term = w * v.float().sum()
+                    loss = term if loss is None else loss + term
+        if loss is None:
+            loss = torch.zeros((), dtype=torch.float32)
+        return values, loss

@@ -15,7 +15,7 @@ class InputLikeLayer(LayerImpl):
     def is_input(self) -> bool:
         return True
 
-    def apply(self, lp, params, bottoms, train):
+    def apply(self, lp, params, bottoms, train, gen=None):
         raise RuntimeError(
             f"input layer {lp.name!r} must be fed by the caller, not applied")
 

@@ -28,8 +28,10 @@ class LayerImpl:
       - ``init(gen, lp, bottom_shapes)``: create the learnable blobs as f32
         CPU tensors drawn from ``gen``, mirroring each Caffe layer's
         ``LayerSetUp`` filler logic.
-      - ``apply(lp, params, bottoms, train)``: forward compute; returns the
-        list of top tensors.
+      - ``apply(lp, params, bottoms, train, gen)``: forward compute;
+        returns the list of top tensors.  ``gen`` is the CPU
+        ``torch.Generator`` a stochastic layer (train-mode Dropout) draws
+        from, None elsewhere.
     """
 
     type: str = ""
@@ -47,8 +49,8 @@ class LayerImpl:
         return []
 
     def apply(self, lp: LayerParameter, params: Sequence[torch.Tensor],
-              bottoms: Sequence[torch.Tensor],
-              train: bool) -> list[torch.Tensor]:
+              bottoms: Sequence[torch.Tensor], train: bool,
+              gen: torch.Generator | None = None) -> list[torch.Tensor]:
         raise NotImplementedError(self.type)
 
     def is_loss(self) -> bool:

@@ -7,7 +7,13 @@ pooling_layer.cpp:90-110 ceil-mode output sizing, lrn_layer.cpp scale
 formula).  Layout is NCHW and weights are OIHW, the JAX package's
 ``DIMNUMS``.  Convolution goes to cuDNN through ``F.conv2d``, as the JAX
 package left it to XLA.  ACROSS_CHANNELS LRN goes through the port's
-hand-written kernel (``ops/cuda_kernels.py``) on every CUDA tensor.
+hand-written kernels (``ops/cuda_kernels.py``) on every CUDA tensor: the
+inference kernel without autograd, and under autograd a
+``torch.autograd.Function`` whose forward and backward are the training
+kernels (the JAX package's ``relu_lrn_across_channels`` custom VJP).  MAX
+pooling's forward is the library max pool over explicit -inf padding (the
+JAX primal ``reduce_window``); under autograd its backward is the port's
+first-maximum kernel (the JAX package's ``max_pool_vmem_bwd``).
 WITHIN_CHANNEL LRN and AVE/STOCHASTIC pooling are not ported yet.
 """
 
@@ -20,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ..proto.caffe_pb import LayerParameter
-from .cuda_kernels import lrn_across_channels
+from .cuda_kernels import (lrn_across_channels, lrn_across_channels_bwd,
+                           lrn_across_channels_fwd, max_pool_bwd)
 from .fillers import fill_weight_bias
 from .registry import LayerImpl, Shape, register_layer
 
@@ -82,7 +89,7 @@ class ConvolutionLayer(LayerImpl):
         return fill_weight_bias(gen, lp.sub("convolution_param"),
                                 self.param_shapes(lp, bottom_shapes))
 
-    def apply(self, lp, params, bottoms, train):
+    def apply(self, lp, params, bottoms, train, gen=None):
         kh, kw, sh, sw, ph, pw, dh, dw, _, group, bias_term = \
             conv_geometry(lp)
         bias = params[1] if bias_term else None
@@ -136,6 +143,26 @@ def max_pool(x: torch.Tensor, kh, kw, sh, sw, ph, pw, oh, ow) -> torch.Tensor:
     return F.max_pool2d(x, (kh, kw), (sh, sw))
 
 
+class MaxPool(torch.autograd.Function):
+    """Caffe MAX pooling whose backward is the port's first-maximum kernel
+    (``cuda_kernels.max_pool_bwd``), the counterpart of the JAX package's
+    ``max_pool_vmem_bwd`` (ops/pallas_kernels.py:379-405): the forward is
+    :func:`max_pool`, and only ``x`` is saved; the backward re-derives
+    each window's first maximum from it."""
+
+    @staticmethod
+    def forward(ctx, x, kh, kw, sh, sw, ph, pw, oh, ow):
+        ctx.save_for_backward(x)
+        ctx.geometry = (kh, kw, sh, sw, ph, pw, oh, ow)
+        return max_pool(x, kh, kw, sh, sw, ph, pw, oh, ow)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        dx = max_pool_bwd(x.contiguous(), dy.contiguous(), *ctx.geometry)
+        return (dx,) + (None,) * 8
+
+
 @register_layer("Pooling")
 class PoolingLayer(LayerImpl):
     """MAX pooling (reference: pooling_layer.cpp Forward_cpu MAX branch)."""
@@ -145,7 +172,7 @@ class PoolingLayer(LayerImpl):
         kh, kw, sh, sw, ph, pw, _ = _pool_geometry(lp, bottom_shapes[0])
         return [(n, c) + pool_output_size(h, w, kh, kw, sh, sw, ph, pw)]
 
-    def apply(self, lp, params, bottoms, train):
+    def apply(self, lp, params, bottoms, train, gen=None):
         x = bottoms[0]
         kh, kw, sh, sw, ph, pw, method = _pool_geometry(lp, tuple(x.shape))
         if method != "MAX":
@@ -153,6 +180,8 @@ class PoolingLayer(LayerImpl):
                 f"layer {lp.name!r}: {method} pooling is not ported yet")
         oh, ow = pool_output_size(x.shape[2], x.shape[3], kh, kw, sh, sw,
                                   ph, pw)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return [MaxPool.apply(x, kh, kw, sh, sw, ph, pw, oh, ow)]
         return [max_pool(x, kh, kw, sh, sw, ph, pw, oh, ow)]
 
 
@@ -164,17 +193,47 @@ def lrn_geometry(lp: LayerParameter):
             str(p.get("norm_region", "ACROSS_CHANNELS")))
 
 
+class LRNAcrossChannels(torch.autograd.Function):
+    """[ReLU +] ACROSS_CHANNELS LRN under autograd, the counterpart of the
+    JAX package's ``relu_lrn_across_channels`` custom VJP
+    (ops/pallas_kernels.py:152-171): the forward is the training kernel,
+    which also writes ``scale``; it saves ``(x, scale)``, Caffe's own
+    residual, and the backward is the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, size, alpha, beta, k, relu):
+        x = x.contiguous()
+        y, scale = lrn_across_channels_fwd(x, size, alpha, beta, k, relu)
+        ctx.save_for_backward(x, scale)
+        ctx.args = (size, alpha, beta, relu)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx = lrn_across_channels_bwd(x, scale, dy.contiguous(), *ctx.args)
+        return (dx,) + (None,) * 5
+
+
+def relu_lrn(x: torch.Tensor, size: int, alpha: float, beta: float,
+             k: float, relu: bool = False) -> torch.Tensor:
+    """[ReLU +] ACROSS_CHANNELS LRN: under autograd the training kernels
+    (:class:`LRNAcrossChannels`), else the inference kernel."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return LRNAcrossChannels.apply(x, size, alpha, beta, k, relu)
+    return lrn_across_channels(x, size, alpha, beta, k, relu)
+
+
 @register_layer("LRN")
 class LRNLayer(LayerImpl):
     """Local response normalization (reference: lrn_layer.cpp):
     scale = k + (alpha/n)·Σ x² over a size-n channel window,
-    out = x · scale^-beta — the hand-written kernel on a CUDA tensor, its
-    plain version on a CPU tensor."""
+    out = x · scale^-beta — the hand-written kernels on a CUDA tensor, their
+    plain versions on a CPU tensor."""
 
-    def apply(self, lp, params, bottoms, train):
+    def apply(self, lp, params, bottoms, train, gen=None):
         size, alpha, beta, k, region = lrn_geometry(lp)
         if region != "ACROSS_CHANNELS":
             raise NotImplementedError(
                 f"layer {lp.name!r}: {region} LRN is not ported yet")
-        return [lrn_across_channels(bottoms[0], size, alpha, beta, k,
-                                    relu=False)]
+        return [relu_lrn(bottoms[0], size, alpha, beta, k, relu=False)]

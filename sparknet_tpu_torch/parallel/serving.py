@@ -28,9 +28,10 @@ harvester waits on the event and demuxes rows to their waiters.
 thread-local in PyTorch, so the forward enters ``torch.inference_mode``
 on the thread that runs it.
 
-f32 serving means full f32: loading an f32 model on the card turns TF32
-off for cuDNN convolutions and for matmuls, process-wide (bf16 models
-leave the flags alone).
+f32 serving means full f32: an f32 model's forwards run inside
+``utils.device.full_f32``, which clears the TF32 flags of cuDNN
+convolutions and of matmuls for the length of the forward's enqueue and
+then restores them (bf16 models leave the flags alone).
 
 Not ported yet: the SLO monitor, health beacons, the telemetry registry,
 fault injection, registry versions and weight files, and the HTTP shell
@@ -39,6 +40,7 @@ fault injection, registry versions and weight files, and the HTTP shell
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -55,7 +57,7 @@ from ..models import alexnet, caffenet, lenet
 from ..models.dsl import softmax_layer
 from ..proto.caffe_pb import BlobShape, NetParameter, NetState, Phase
 from ..utils import knobs
-from ..utils.device import resolve_device
+from ..utils.device import full_f32, resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -288,15 +290,17 @@ class LoadedModel:
             k: Net._cast(v, compute) for k, v in self.params.items()}
         self._out_blob = self.net.output_blobs[-1]
         self.classes = int(self.net.blob_shapes[self._out_blob][-1])
-        if self.device.type == "cuda" and compute is None:
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         for s in self.batch_shapes:
             self.infer(np.zeros((s,) + self.in_shape, np.float32))
         big = self.batch_shapes[-1]
         self.flops_per_image = self.net.forward_flops() / big
         self.warmup_s = round(time.perf_counter() - t0, 3)
         self.last_used = time.monotonic()
+
+    def precision(self):
+        """The scope this model's forwards run in: full f32 (TF32 off)
+        for an f32 model, nothing for bf16."""
+        return full_f32() if self.dtype == "f32" else contextlib.nullcontext()
 
     def pad_shape(self, n: int) -> int:
         """Smallest batch shape holding ``n`` requests."""
@@ -314,8 +318,9 @@ class LoadedModel:
             x = torch.from_numpy(batch)
             if self.device.type == "cuda":
                 x = x.pin_memory().to(self.device, non_blocking=True)
-            out = self.net.apply(self._fwd_params, {"data": x},
-                                 blobs=[self._out_blob])[self._out_blob]
+            with self.precision():
+                out = self.net.apply(self._fwd_params, {"data": x},
+                                     blobs=[self._out_blob])[self._out_blob]
             # f32 rows whatever the compute dtype: the cast is exact and
             # deterministic, so the bit-identity contract survives it
             out = out.float()

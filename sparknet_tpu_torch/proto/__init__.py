@@ -8,5 +8,8 @@ from .caffe_pb import (
     NetStateRule,
     ParamSpec,
     Phase,
+    SolverParameter,
     load_net_prototxt,
+    load_solver_prototxt,
+    load_solver_prototxt_with_net,
 )

@@ -1,13 +1,14 @@
-"""Typed views over parsed prototxt for the Caffe net schema.
+"""Typed views over parsed prototxt for the Caffe net and solver schema.
 
-The port's own copy of the net half of ``sparknet_tpu/proto/caffe_pb.py``:
+The port's own copy of part of ``sparknet_tpu/proto/caffe_pb.py``:
 ``NetParameter``, ``LayerParameter``, ``NetState``/``NetStateRule``,
 ``Phase``, ``ParamSpec``, ``FillerParameter`` and ``BlobShape``, read from
-new-style (V2) nets.  V0/V1 upgrades, solver configs and ``.caffemodel``
-blobs are not carried over.  Per-layer parameter sub-messages stay as
-``PMessage`` and are read with defaulting accessors by the op
-implementations (reference: caffe.proto:64 NetParameter, :310
-LayerParameter).
+new-style (V2) nets, and ``SolverParameter`` with the fields the learning
+rate policies, the update rules and ``iter_size`` read.  V0/V1 upgrades
+and ``.caffemodel`` blobs are not carried over.  Per-layer parameter
+sub-messages stay as ``PMessage`` and are read with defaulting accessors
+by the op implementations (reference: caffe.proto:64 NetParameter, :102
+SolverParameter, :310 LayerParameter).
 """
 
 from __future__ import annotations
@@ -141,9 +142,9 @@ class ParamSpec:
 
 
 _PARAM_SUBMSG_KEYS = (
-    "convolution_param", "dropout_param", "inner_product_param",
-    "input_param", "java_data_param", "lrn_param", "pooling_param",
-    "relu_param", "softmax_param",
+    "accuracy_param", "convolution_param", "dropout_param",
+    "inner_product_param", "input_param", "java_data_param", "loss_param",
+    "lrn_param", "pooling_param", "relu_param", "softmax_param",
 )
 
 
@@ -230,12 +231,81 @@ class NetParameter:
             state=state)
 
 
+@dataclasses.dataclass
+class SolverParameter:
+    """Training config (reference: caffe.proto:102), the fields that
+    SGDSolver and the port's trainer read, with the proto defaults
+    (reference: caffe/src/caffe/solvers/sgd_solver.cpp, solver.cpp).
+    Snapshot and test-net fields are not ported."""
+
+    net_param: NetParameter | None = None
+    train_net_param: NetParameter | None = None
+    base_lr: float = 0.01
+    max_iter: int = 0
+    iter_size: int = 1
+    lr_policy: str = "fixed"
+    gamma: float = 0.0
+    power: float = 0.0
+    momentum: float = 0.0
+    weight_decay: float = 0.0
+    regularization_type: str = "L2"
+    stepsize: int = 0
+    stepvalue: list[int] = dataclasses.field(default_factory=list)
+    clip_gradients: float = -1.0
+    solver_type: str = "SGD"  # SGD|NESTEROV|ADAGRAD|RMSPROP|ADADELTA|ADAM
+
+    @classmethod
+    def from_pmsg(cls, m: PMessage) -> "SolverParameter":
+        def net_of(key: str) -> NetParameter | None:
+            sub = m.get(key)
+            return (NetParameter.from_pmsg(sub) if isinstance(sub, PMessage)
+                    else None)
+
+        return cls(
+            net_param=net_of("net_param"),
+            train_net_param=net_of("train_net_param"),
+            base_lr=float(m.get("base_lr", 0.01)),
+            max_iter=int(m.get("max_iter", 0)),
+            iter_size=int(m.get("iter_size", 1)),
+            lr_policy=str(m.get("lr_policy", "fixed")),
+            gamma=float(m.get("gamma", 0.0)),
+            power=float(m.get("power", 0.0)),
+            momentum=float(m.get("momentum", 0.0)),
+            weight_decay=float(m.get("weight_decay", 0.0)),
+            regularization_type=str(m.get("regularization_type", "L2")),
+            stepsize=int(m.get("stepsize", 0)),
+            stepvalue=[int(v) for v in m.get_all("stepvalue")],
+            clip_gradients=float(m.get("clip_gradients", -1.0)),
+            solver_type=str(m.get("type", m.get("solver_type", "SGD"))
+                            ).upper(),
+        )
+
+
+def _read(path_or_text: str) -> str:
+    """Literal prototxt text, or the contents of the file it names."""
+    if "\n" in path_or_text or "{" in path_or_text:
+        return path_or_text
+    with open(path_or_text) as f:
+        return f.read()
+
+
 def load_net_prototxt(path_or_text: str) -> NetParameter:
     """Parse a net prototxt from a file path or literal text
     (ProtoLoader.loadNetPrototxt, reference: ProtoLoader.scala:20)."""
-    if "\n" in path_or_text or "{" in path_or_text:
-        text = path_or_text
-    else:
-        with open(path_or_text) as f:
-            text = f.read()
-    return NetParameter.from_pmsg(parse(text))
+    return NetParameter.from_pmsg(parse(_read(path_or_text)))
+
+
+def load_solver_prototxt(path_or_text: str) -> SolverParameter:
+    """ProtoLoader.loadSolverPrototxt (reference: ProtoLoader.scala:9)."""
+    return SolverParameter.from_pmsg(parse(_read(path_or_text)))
+
+
+def load_solver_prototxt_with_net(solver_path_or_text: str,
+                                  net: NetParameter) -> SolverParameter:
+    """A solver config with ``net`` embedded as its net
+    (ProtoLoader.loadSolverPrototxtWithNet, reference:
+    ProtoLoader.scala:31-43; snapshotting is not ported)."""
+    sp = load_solver_prototxt(solver_path_or_text)
+    sp.net_param = net
+    sp.train_net_param = None
+    return sp

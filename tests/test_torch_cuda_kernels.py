@@ -115,3 +115,129 @@ def test_engine_on_the_card_goes_through_the_kernel(dtype):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
     else:
         np.testing.assert_allclose(got, want, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# The training kernels: the LRN forward with scale, its backward, and the
+# MAX-pool backward, each against its plain version on the same card
+# tensors.  The LRN backward in f32 at rtol 1e-4 (its powf calls may
+# differ by an ulp from torch's, and the difference of two terms can
+# cancel); the pool backward at rtol 1e-4, atol 1e-6 (overlapping windows
+# add in another order).
+# ---------------------------------------------------------------------------
+
+def _assert_close_for(dtype, got, want, rtol=1e-5):
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=rtol, atol=1e-6)
+    else:
+        _assert_within_bf16_ulp(got.float().cpu().numpy(),
+                                want.float().cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", GPU_CASES, ids=_ids)
+def test_cuda_train_lrn_kernels_match_plain(case, dtype):
+    _need_cuda()
+    shape, size, relu = case
+    x = torch.from_numpy(_input(shape)).to("cuda", dtype)
+    dy = torch.from_numpy(_input(shape, seed=1)).to("cuda", dtype)
+    before = dict(ck.launch_counts)
+    y, scale = ck.lrn_across_channels_fwd(x, size, ALPHA, BETA, K, relu)
+    dx = ck.lrn_across_channels_bwd(x, scale, dy, size, ALPHA, BETA, relu)
+    wy, wscale = ck.lrn_across_channels_fwd_reference(x, size, ALPHA, BETA,
+                                                      K, relu)
+    wdx = ck.lrn_across_channels_bwd_reference(x, scale, dy, size, ALPHA,
+                                               BETA, relu)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["lrn_across_channels_fwd"] == \
+        before["lrn_across_channels_fwd"] + 1
+    assert ck.launch_counts["lrn_across_channels_bwd"] == \
+        before["lrn_across_channels_bwd"] + 1
+    assert y.dtype == scale.dtype == dx.dtype == dtype
+    _assert_close_for(dtype, y, wy)
+    _assert_close_for(dtype, scale, wscale)
+    _assert_close_for(dtype, dx, wdx, rtol=1e-4)
+    # the training forward writes what the inference kernel writes
+    torch.testing.assert_close(
+        y, ck.lrn_across_channels(x, size, ALPHA, BETA, K, relu),
+        rtol=0, atol=0)
+
+
+POOL_GPU_CASES = [((2, 3, 13, 13), 3, 2, 0), ((2, 4, 14, 14), 3, 1, 1),
+                  ((1, 3, 13, 13), 3, 2, 1), ((1, 2, 7, 7), 5, 3, 2),
+                  ((1, 2, 17, 17), 2, 3, 1), ((4, 96, 55, 55), 3, 2, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", POOL_GPU_CASES,
+                         ids=lambda c: "x".join(map(str, c[0]))
+                         + f"-k{c[1]}s{c[2]}p{c[3]}")
+def test_cuda_max_pool_bwd_matches_plain_on_ties(case, dtype):
+    _need_cuda()
+    from sparknet_tpu_torch.ops.vision import pool_output_size
+    shape, k, s, p = case
+    rng = np.random.default_rng(0)
+    x = np.round(2 * np.maximum(rng.normal(size=shape), 0)) / 2
+    oh, ow = pool_output_size(shape[2], shape[3], k, k, s, s, p, p)
+    dy = rng.normal(size=shape[:2] + (oh, ow))
+    x = torch.from_numpy(x).to("cuda", dtype)
+    dy = torch.from_numpy(dy).to("cuda", dtype)
+    before = ck.launch_counts["max_pool_bwd"]
+    got = ck.max_pool_bwd(x, dy, k, k, s, s, p, p, oh, ow)
+    want = ck.max_pool_bwd_reference(x, dy, k, k, s, s, p, p, oh, ow)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["max_pool_bwd"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_cuda_train_wrappers_refuse_what_the_kernels_do_not_take():
+    _need_cuda()
+    x = torch.ones((2, 4, 5, 5), device="cuda")
+    _, scale = ck.lrn_across_channels_fwd(x, 5, ALPHA, BETA, K)
+    with pytest.raises(ValueError, match="dtype|float32|bfloat16"):
+        ck.lrn_across_channels_bwd(x, scale.bfloat16(), x, 5, ALPHA, BETA)
+    with pytest.raises(ValueError, match="shape"):
+        ck.lrn_across_channels_bwd(x, scale, x[:1].contiguous(), 5, ALPHA,
+                                   BETA)
+    with pytest.raises(ValueError, match="output"):
+        ck.max_pool_bwd(x, torch.ones((2, 4, 3, 3), device="cuda"), 3, 3,
+                        2, 2, 0, 0, 2, 2)
+    with pytest.raises(ValueError, match="window"):
+        ck.max_pool_bwd(x, torch.ones((2, 4, 9, 9), device="cuda"), 3, 3,
+                        1, 1, 2, 2, 9, 9)
+
+
+def test_cuda_training_step_goes_through_every_kernel():
+    """One local-SGD round of CaffeNet at a 67x67 crop on the card: 2 LRN
+    forward and backward launches and 3 pool-backward launches per
+    worker step, and a loss that matches the CPU round from the same
+    weights, batches and Dropout masks (TF32 off)."""
+    _need_cuda()
+    from sparknet_tpu_torch.models import caffenet
+    from sparknet_tpu_torch.parallel.trainer import (DistributedTrainer,
+                                                     TrainerConfig)
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    sp = load_solver_prototxt_with_net(
+        'base_lr: 0.01\nmomentum: 0.9\nweight_decay: 0.0005\n',
+        caffenet(4, 4, crop=67))
+    rng = np.random.default_rng(0)
+    batches = {"data": (50 * rng.normal(size=(2, 4, 3, 67, 67))).astype(
+        np.float32), "label": rng.integers(0, 1000, (2, 4)).astype(
+        np.float32)}
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        tr = DistributedTrainer(sp, 2, TrainerConfig(tau=2), seed=0,
+                                device=dev)
+        ck.reset_launch_counts()
+        losses[dev] = tr.train_round(batches)
+        if dev == "cuda":
+            assert ck.launch_counts == {
+                "lrn_across_channels": 0, "lrn_across_channels_fwd": 8,
+                "lrn_across_channels_bwd": 8, "max_pool_bwd": 12}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -192,7 +192,8 @@ def test_cpu_engine_launches_no_kernel(lenet_house):
     ck.reset_launch_counts()
     with engine_for(lenet_house, max_delay_ms=0.0) as eng:
         eng.classify("lenet", lenet_inputs(1)[0])
-    assert ck.launch_counts == {"lrn_across_channels": 0}
+    assert ck.launch_counts == dict.fromkeys(ck.launch_counts, 0)
+    assert "lrn_across_channels" in ck.launch_counts
 
 
 def test_two_requests_pad_to_middle_shape(lenet_house):
