@@ -91,6 +91,7 @@ LRN_CASES = [
     ("odd_size3", (3, 7, 5, 9), 3, False),
     ("odd_size4_relu", (3, 7, 5, 9), 4, True),
     ("odd_size5", (3, 7, 5, 9), 5, False),
+    ("odd_size7_generic", (3, 7, 5, 9), 7, False),
 ]
 LRN_ALPHA, LRN_BETA, LRN_K = 1e-4, 0.75, 1.0
 # Spread of the LRN checks' inputs.  At unit scale CaffeNet's alpha moves
@@ -162,6 +163,8 @@ def check_lrn(ck, dev) -> list[dict]:
             numel = x.numel()
             row = {"case": label, "shape": list(shape), "size": size,
                    "relu": relu, "dtype": str(dtype).split(".")[-1],
+                   "plan": ck.lrn_plan(shape[0], shape[1],
+                                       shape[2] * shape[3])._asdict(),
                    "max_abs_err": float(err.max()), "tolerance": tol,
                    "planted_outside_tol": controls,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -185,6 +188,7 @@ LRN_TRAIN_CASES = [
     ("odd_size4", (3, 7, 5, 9), 4, False),
     ("odd_size4_relu", (3, 7, 5, 9), 4, True),
     ("odd_size5", (3, 7, 5, 9), 5, False),
+    ("odd_size7_generic", (3, 7, 5, 9), 7, False),
 ]
 
 
@@ -278,7 +282,9 @@ def check_lrn_train(ck, dev) -> list[dict]:
             numel, elt = x.numel(), x.element_size()
             base = {"case": label, "shape": list(shape), "size": size,
                     "relu": relu, "dtype": str(dtype).split(".")[-1]}
+            plan = ck.lrn_plan(shape[0], shape[1], shape[2] * shape[3])
             fwd = {**base, "kernel": "lrn_across_channels_fwd",
+                   "plan": plan._asdict(),
                    "max_abs_err": max(errs["y"], errs["scale"]),
                    "ms": timings["fwd_ms"],
                    "plain_ms": timings["fwd_plain_ms"],
@@ -299,8 +305,11 @@ def check_lrn_train(ck, dev) -> list[dict]:
 
 
 # (label, input shape, kernel, stride, pad): CaffeNet's three pools at the
-# training batch, GoogLeNet's stride-1 pad-1 pools, and the padded and
-# remainder geometries of tests/test_pallas.py:120-156
+# training batch, GoogLeNet's stride-1 pad-1 pools, the padded and
+# remainder geometries of tests/test_pallas.py:120-156, two geometries
+# whose planes the kernel cuts into bands of rows (VGG's pool1 at batch 2,
+# and a 3x3 stride-2 pad-1 pool on 224x224 planes, banded in bf16 too),
+# and a plane count that is no multiple of the planes packed per block
 POOL_CASES = [
     (f"caffenet_pool1_b{TRAIN_BATCH}", (TRAIN_BATCH, 96, 55, 55), 3, 2, 0),
     (f"caffenet_pool2_b{TRAIN_BATCH}", (TRAIN_BATCH, 256, 27, 27), 3, 2, 0),
@@ -309,6 +318,9 @@ POOL_CASES = [
     ("padded_13_k3s2p1", (2, 4, 13, 13), 3, 2, 1),
     ("overlap_7_k5s3p2", (2, 4, 7, 7), 5, 3, 2),
     ("clipped_17_k2s3p1", (2, 4, 17, 17), 2, 3, 1),
+    ("vgg_pool1_b2_banded", (2, 64, 224, 224), 2, 2, 0),
+    ("k3s2p1_224_banded", (2, 8, 224, 224), 3, 2, 1),
+    ("pool5_planes_not_multiple", (64, 251, 13, 13), 3, 2, 0),
 ]
 
 
@@ -341,6 +353,14 @@ def check_pool_bwd(ck, dev) -> list[dict]:
                                .astype(np.float32)).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             x, dy = xf.to(dtype), dyf.to(dtype)
+            plan = ck.max_pool_bwd_plan(shape[0] * shape[1], *shape[2:],
+                                        *geom, x.element_size())
+            if label.endswith("_banded") and plan.bands == 1:
+                fail(f"pool bwd {label} {dtype}: plan {plan} is not banded")
+            if (label.endswith("_not_multiple") and
+                    (plan.planes_per_block == 1 or shape[0] * shape[1]
+                     % plan.planes_per_block == 0)):
+                fail(f"pool bwd {label}: plan {plan} leaves no partial group")
             got = ck.max_pool_bwd(x, dy, *geom)
             want = ck.max_pool_bwd_reference(x, dy, *geom)
             wrong = pool_bwd_last_max(ck, x, dy, *geom)
@@ -360,6 +380,7 @@ def check_pool_bwd(ck, dev) -> list[dict]:
             yl = max_pool(xr, *geom)
             row = {"case": label, "kernel": "max_pool_bwd",
                    "shape": list(shape), "kernel_stride_pad": [k, st, p],
+                   "plan": plan._asdict(),
                    "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
                    "tolerance": tol, "planted_outside_tol": planted,
                    "ms": time_ms(lambda: ck.max_pool_bwd(x, dy, *geom), 50,
@@ -810,6 +831,11 @@ def main() -> int:
     lrn_rows = check_lrn(ck, dev)
     lrn_train_rows = check_lrn_train(ck, dev)
     pool_rows = check_pool_bwd(ck, dev)
+    print("plans " + json.dumps(
+        [{"kernel": r.get("kernel", "lrn_across_channels"), "case": r["case"],
+          "dtype": r["dtype"], **r["plan"]}
+         for r in lrn_rows + lrn_train_rows + pool_rows if "plan" in r]),
+        flush=True)
 
     # phase 4: serving, bf16 then f32 on the same weights
     bf16, lm16 = serve("bf16", dev, duration_s=2.0, n_inputs=16)

@@ -29,11 +29,16 @@ forward, also returning ``scale``.
 ``_maxpool_bwd_kernel_s1`` (:203-265) and ``_maxpool_bwd_kernel_strided``
 (:277-341) under ``max_pool_vmem_bwd`` (:379-405): the MAX-pool backward
 with Caffe's first-maximum tie-break, any stride and padding.
+
+The LRN forward and the pool backward take a launch plan chosen here by
+shape (:func:`lrn_plan`, :func:`max_pool_bwd_plan`): plain functions that
+the CPU tests check for coverage and limits without a card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -42,6 +47,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -61,9 +67,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "lrn": {
         "sparknet_lrn_across_channels":
-            [_P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P],
+            [_P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
         "sparknet_lrn_across_channels_fwd":
-            [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P],
+            [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
     },
     "lrn_bwd": {
         "sparknet_lrn_across_channels_bwd":
@@ -71,8 +77,8 @@ _SIGNATURES = {
     },
     "maxpool_bwd": {
         "sparknet_max_pool_bwd":
-            [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I,
-             _I, _I, _I, _I, _P],
+            [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I, _I,
+             _I, _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -199,9 +205,178 @@ def _check_lrn(what: str, x: torch.Tensor, size: int) -> None:
     _check_cuda_input(x, what)
     if size < 1:
         raise ValueError(f"{what}: local_size must be >= 1, got {size}")
-    if x.shape[0] > 65535:
-        raise ValueError(f"{what}: batch {x.shape[0]} exceeds the kernel's "
-                         f"grid limit of 65535")
+
+
+# ---------------------------------------------------------------------------
+# Launch plans
+# ---------------------------------------------------------------------------
+
+SMS = 132                      # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232_448             # shared bytes one block may opt in to
+SMEM_DEFAULT = 48 * 1024       # shared bytes a block gets without opting in
+GRID_X_MAX, GRID_Y_MAX = 2**31 - 1, 65535
+
+
+class LRNPlan(NamedTuple):
+    """The LRN forward's launch: ``chunk`` channels per thread over a grid
+    of ``blocks`` = (position blocks, channel chunks) of ``threads``."""
+    chunk: int
+    blocks: tuple[int, int]
+    threads: int
+
+
+LRN_THREADS = 128
+LRN_CHUNKS = (4, 8)             # the kernel's compile-time chunk lengths
+# threads one wave of the card holds (2,048 a multiprocessor): below this
+# a longer chunk would leave multiprocessors idle
+LRN_FILL_THREADS = SMS * 2048
+
+
+@functools.lru_cache(maxsize=512)
+def lrn_plan(n: int, c: int, hw: int) -> LRNPlan:
+    """The longer chunk where it still gives the card a full wave of
+    threads, else the shorter, and no longer than the channels need:
+    short chunks spread a small batch over the card, long ones cut the
+    halo's reloads at large batches.  Threads run over (n, p) flattened,
+    so any batch with ``n * hw < 2**31`` is taken."""
+    positions = n * hw
+    if n < 1 or c < 1 or hw < 1:
+        raise ValueError(f"lrn_plan: empty shape ({n}, {c}, {hw})")
+    if positions > GRID_X_MAX:
+        raise ValueError(f"lrn_plan: n * hw = {positions} positions exceed "
+                         f"the kernel's int32 index")
+    chunk = LRN_CHUNKS[0]
+    for cand in LRN_CHUNKS:
+        if positions * -(-c // cand) >= LRN_FILL_THREADS:
+            chunk = cand
+    chunk = min(chunk, next((k for k in LRN_CHUNKS if k >= c),
+                            LRN_CHUNKS[-1]))
+    blocks = (-(-positions // LRN_THREADS), -(-c // chunk))
+    if blocks[1] > GRID_Y_MAX:
+        raise ValueError(f"lrn_plan: {c} channels need {blocks[1]} chunks, "
+                         f"over the grid's {GRID_Y_MAX}")
+    return LRNPlan(chunk, blocks, LRN_THREADS)
+
+
+class PoolBand(NamedTuple):
+    """One band of a plane in the pool backward, as the kernel's
+    ``band_of`` computes it: it owns dx rows [r0, r1), computes window
+    rows [oi0, oi0 + nwr) and stages input rows [xr0, xr0 + nxr)."""
+    r0: int
+    r1: int
+    oi0: int
+    nwr: int
+    xr0: int
+    nxr: int
+
+
+def pool_band(band: int, bands: int, band_rows: int, h: int, kh: int,
+              sh: int, ph: int, oh: int) -> PoolBand:
+    """``csrc/maxpool_bwd.cu::band_of``, line for line.  The last band
+    stages down to the plane's last row, so one band of whole planes is
+    one contiguous range."""
+    r0 = band * band_rows
+    r1 = min(r0 + band_rows, h)
+    oi0 = (r0 + ph - kh) // sh + 1 if r0 + ph >= kh else 0
+    oi1 = min((r1 - 1 + ph) // sh, oh - 1)
+    nwr = max(oi1 - oi0 + 1, 0)
+    xr0 = max(oi0 * sh - ph, 0)
+    xr1 = h if band == bands - 1 else min(oi1 * sh - ph + kh, h)
+    return PoolBand(r0, r1, oi0, nwr, xr0, max(xr1 - xr0, 0))
+
+
+def pool_band_bytes(b: PoolBand, planes: int, w: int, ow: int,
+                    elem_bytes: int) -> int:
+    """Shared bytes of a block for a band of ``planes`` planes, as the
+    kernel's ``band_bytes``: an (argmax, dy) int2 per window, then the
+    staged x rows, with 16 bytes of slack to align them as their
+    source."""
+    wins = planes * b.nwr * ow
+    return -(-8 * wins // 16) * 16 + 16 + elem_bytes * planes * b.nxr * w
+
+
+class PoolPlan(NamedTuple):
+    """The pool backward's launch: blocks of ``planes_per_block`` whole
+    planes, or of one band of ``band_rows`` dx rows of a plane cut into
+    ``bands``; ``blocks`` blocks of ``threads`` threads with ``smem_bytes``
+    each.  The kernel derives ``threads`` from the plane's width."""
+    planes_per_block: int
+    band_rows: int
+    bands: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+POOL_THREADS = 256             # the most threads of a pool block
+POOL_BLOCK_ELEMS = 3072        # dx elements a block of packed planes aims at
+POOL_FILL_BLOCKS = 8           # blocks a multiprocessor that packing leaves
+POOL_MAX_ROWS = 1 << 22        # the kernel's float-reciprocal division bound
+
+
+def pool_block_threads(w: int) -> int:
+    """Threads of a pool block, as the kernel's ``block_threads``: whole
+    rows of ``min(w, 256)`` lanes."""
+    lanes = min(w, POOL_THREADS)
+    return POOL_THREADS // lanes * lanes
+
+
+def _pool_smem(planes: int, band_rows: int, h: int, w: int, kh: int,
+               sh: int, ph: int, oh: int, ow: int, elem_bytes: int) -> int:
+    """The largest band's shared bytes, as the kernel's ``launch``."""
+    bands = -(-h // band_rows)
+    return max(pool_band_bytes(pool_band(b, bands, band_rows, h, kh, sh, ph,
+                                         oh), planes, w, ow, elem_bytes)
+               for b in range(bands))
+
+
+@functools.lru_cache(maxsize=512)
+def max_pool_bwd_plan(planes: int, h: int, w: int, kh: int, kw: int,
+                      sh: int, sw: int, ph: int, pw: int, oh: int, ow: int,
+                      elem_bytes: int) -> PoolPlan:
+    """A plane whose staging fits the default 48 KB of shared memory is
+    one band, and several such planes share a block up to about
+    ``POOL_BLOCK_ELEMS`` dx elements and 48 KB, while leaving at least
+    ``POOL_FILL_BLOCKS`` blocks a multiprocessor.  A bigger plane is cut
+    into the tallest bands of dx rows that fit 48 KB, or, failing that,
+    the 227 KB a block may opt in to; a plane whose single-row band does
+    not fit is refused.  Few planes are cut into more bands, so that the
+    grid still fills the card."""
+    if planes < 1 or min(h, w, kh, kw, sh, sw, oh, ow) < 1:
+        raise ValueError("max_pool_bwd_plan: empty shape or geometry")
+    if h + ph >= POOL_MAX_ROWS or w + pw >= POOL_MAX_ROWS:
+        raise ValueError(f"max_pool_bwd_plan: a {h}x{w} plane exceeds the "
+                         f"kernel's {POOL_MAX_ROWS} rows or columns")
+    smem = functools.partial(_pool_smem, h=h, w=w, kh=kh, sh=sh, ph=ph,
+                             oh=oh, ow=ow, elem_bytes=elem_bytes)
+    if smem(1, h) <= SMEM_DEFAULT:
+        ppb = max(1, min(POOL_BLOCK_ELEMS // (h * w),
+                         planes // (POOL_FILL_BLOCKS * SMS)))
+        while ppb > 1 and smem(ppb, h) > SMEM_DEFAULT:
+            ppb -= 1
+        band_rows = h
+    else:
+        ppb = 1
+        fits = lambda limit: next((r for r in range(h, 0, -1)
+                                   if smem(1, r) <= limit), None)
+        band_rows = fits(SMEM_DEFAULT) or fits(SMEM_MAX)
+        if band_rows is None:
+            raise ValueError(f"max_pool_bwd_plan: one dx row of a {h}x{w} "
+                             f"plane needs {smem(1, 1)} shared bytes, over "
+                             f"the {SMEM_MAX} a block may use")
+        # as many bands, of even height where that fits no worse
+        even = -(-h // -(-h // band_rows))
+        if smem(1, even) <= smem(1, band_rows):
+            band_rows = even
+    if ppb == 1 and planes * -(-h // band_rows) < 2 * SMS:
+        band_rows = min(band_rows, -(-h // min(h, -(-2 * SMS // planes))))
+    bands = -(-h // band_rows)
+    blocks = -(-planes // ppb) * bands
+    if blocks > GRID_X_MAX:
+        raise ValueError(f"max_pool_bwd_plan: {blocks} blocks exceed the "
+                         f"grid's {GRID_X_MAX}")
+    return PoolPlan(ppb, band_rows, bands, blocks, pool_block_threads(w),
+                    smem(ppb, band_rows))
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +438,8 @@ def lrn_across_channels(x: torch.Tensor, size: int, alpha: float,
         return y
     _launch("lrn_across_channels", "lrn", "sparknet_lrn_across_channels",
             x.device, x.data_ptr(), y.data_ptr(), n, c, h * w, size,
-            alpha / size, beta, k, int(relu), int(x.dtype == torch.bfloat16))
+            alpha / size, beta, k, int(relu), int(x.dtype == torch.bfloat16),
+            lrn_plan(n, c, h * w).chunk)
     return y
 
 
@@ -297,7 +473,8 @@ def lrn_across_channels_fwd(x: torch.Tensor, size: int, alpha: float,
     _launch("lrn_across_channels_fwd", "lrn",
             "sparknet_lrn_across_channels_fwd", x.device, x.data_ptr(),
             y.data_ptr(), scale.data_ptr(), n, c, h * w, size, alpha / size,
-            beta, k, int(relu), int(x.dtype == torch.bfloat16))
+            beta, k, int(relu), int(x.dtype == torch.bfloat16),
+            lrn_plan(n, c, h * w).chunk)
     return y, scale
 
 
@@ -330,6 +507,9 @@ def lrn_across_channels_bwd(x: torch.Tensor, scale: torch.Tensor,
                                                  beta, relu)
     what = "lrn_across_channels_bwd"
     _check_lrn(what, x, size)
+    if x.shape[0] > 65535:
+        raise ValueError(f"{what}: batch {x.shape[0]} exceeds the kernel's "
+                         f"grid limit of 65535")
     _check_alike(what, x, scale=scale, dy=dy)
     if scale.shape != x.shape or dy.shape != x.shape:
         raise ValueError(f"{what}: x {tuple(x.shape)}, scale "
@@ -419,10 +599,10 @@ def max_pool_bwd(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
-    # each window's argmax position, the kernel's first pass
-    argpos = torch.empty(n * c * oh * ow, dtype=torch.int32, device=x.device)
+    plan = max_pool_bwd_plan(n * c, h, w, kh, kw, sh, sw, ph, pw, oh, ow,
+                             x.element_size())
     _launch(what, "maxpool_bwd", "sparknet_max_pool_bwd", x.device,
-            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), argpos.data_ptr(),
-            n * c, h, w, kh, kw, sh, sw, ph, pw, oh, ow,
-            int(x.dtype == torch.bfloat16))
+            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n * c, h, w, kh, kw,
+            sh, sw, ph, pw, oh, ow, plan.planes_per_block, plan.band_rows,
+            plan.smem_bytes, int(x.dtype == torch.bfloat16))
     return dx

@@ -49,7 +49,13 @@ def _need_cuda():
 GPU_CASES = [((2, 6, 5, 7), 5, False), ((1, 8, 3, 3), 3, True),
              ((2, 16, 5, 5), 4, False), ((2, 16, 5, 5), 4, True),
              ((4, 96, 27, 27), 5, False), ((4, 256, 13, 13), 5, False),
-             ((2, 192, 56, 56), 5, True)]
+             ((2, 192, 56, 56), 5, True),
+             # batch 1 (the shortest chunk), the sized instantiations 3/4/5
+             # on a chunk boundary, and sizes the generic form takes
+             ((1, 96, 27, 27), 5, False), ((1, 256, 13, 13), 5, True),
+             ((3, 33, 4, 5), 3, False), ((3, 33, 4, 5), 4, True),
+             ((3, 33, 4, 5), 5, False), ((2, 19, 3, 7), 7, False),
+             ((2, 19, 3, 7), 2, True), ((2, 19, 3, 7), 1, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -167,7 +173,14 @@ def test_cuda_train_lrn_kernels_match_plain(case, dtype):
 
 POOL_GPU_CASES = [((2, 3, 13, 13), 3, 2, 0), ((2, 4, 14, 14), 3, 1, 1),
                   ((1, 3, 13, 13), 3, 2, 1), ((1, 2, 7, 7), 5, 3, 2),
-                  ((1, 2, 17, 17), 2, 3, 1), ((4, 96, 55, 55), 3, 2, 0)]
+                  ((1, 2, 17, 17), 2, 3, 1), ((4, 96, 55, 55), 3, 2, 0),
+                  # banded planes: VGG's pool1, a 224x224 3x3 stride-2
+                  # pad-1 pool, and a stride-1 pool on a plane whose one-row
+                  # band opts in to more than 48 KB of shared memory
+                  ((1, 8, 224, 224), 2, 2, 0), ((1, 4, 224, 224), 3, 2, 1),
+                  ((1, 2, 9, 5000), 3, 1, 1),
+                  # packed planes with a partial last group
+                  ((64, 251, 13, 13), 3, 2, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -194,6 +207,38 @@ def test_cuda_max_pool_bwd_matches_plain_on_ties(case, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=1e-4,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_lrn_forward_takes_a_batch_above_65535(dtype):
+    """The positions are flattened over (n, p), so the batch is no grid
+    dimension: 70,000 images of a 3-channel 2x2 plane."""
+    _need_cuda()
+    x = torch.from_numpy(_input((70_000, 3, 2, 2))).to("cuda", dtype)
+    got = ck.lrn_across_channels(x, 3, ALPHA, BETA, K)
+    y, scale = ck.lrn_across_channels_fwd(x, 3, ALPHA, BETA, K)
+    want, wscale = ck.lrn_across_channels_fwd_reference(x, 3, ALPHA, BETA,
+                                                        K)
+    torch.cuda.synchronize()
+    _assert_close_for(dtype, got, want)
+    _assert_close_for(dtype, scale, wscale)
+    torch.testing.assert_close(y, got, rtol=0, atol=0)
+
+
+def test_cuda_max_pool_bwd_refuses_a_plan_short_of_shared_memory():
+    """The entry point recomputes the shared bytes a plan needs and
+    refuses one that gives less, before launching."""
+    _need_cuda()
+    x = torch.ones((1, 1, 13, 13), device="cuda")
+    dy = torch.ones((1, 1, 6, 6), device="cuda")
+    dx = torch.empty_like(x)
+    plan = ck.max_pool_bwd_plan(1, 13, 13, 3, 3, 2, 2, 0, 0, 6, 6, 4)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ck._launch("max_pool_bwd", "maxpool_bwd", "sparknet_max_pool_bwd",
+                   x.device, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), 1,
+                   13, 13, 3, 3, 2, 2, 0, 0, 6, 6, plan.planes_per_block,
+                   plan.band_rows, plan.smem_bytes - 4, 0)
 
 
 def test_cuda_train_wrappers_refuse_what_the_kernels_do_not_take():
