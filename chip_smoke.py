@@ -178,7 +178,10 @@ def check_lrn(ck, dev) -> list[dict]:
 
 # The training kernels.  The CaffeNet rows are the shapes the training
 # path launches them at (batch 64, f32 there); the others carry
-# GoogLeNet's relu face and odd and even window sizes.
+# GoogLeNet's relu face, odd and even window sizes, and the backward's
+# chunk and block edges: one channel, fewer channels than the window, 13
+# channels (the last warp with one), 37 (a partial last block), and a
+# batch above 65535.
 TRAIN_BATCH = 64
 LRN_TRAIN_CASES = [
     *((f"caffenet_{norm}_b{TRAIN_BATCH}", (TRAIN_BATCH, c, hw, hw), 5, False)
@@ -189,6 +192,11 @@ LRN_TRAIN_CASES = [
     ("odd_size4_relu", (3, 7, 5, 9), 4, True),
     ("odd_size5", (3, 7, 5, 9), 5, False),
     ("odd_size7_generic", (3, 7, 5, 9), 7, False),
+    ("one_channel_relu", (3, 1, 5, 9), 5, True),
+    ("c3_under_size5", (3, 3, 5, 9), 5, False),
+    ("c13_size3_relu", (3, 13, 5, 9), 3, True),
+    ("c37_size4_partial_block", (3, 37, 5, 9), 4, False),
+    ("batch_70000", (70_000, 3, 2, 2), 3, False),
 ]
 
 
@@ -282,9 +290,9 @@ def check_lrn_train(ck, dev) -> list[dict]:
             numel, elt = x.numel(), x.element_size()
             base = {"case": label, "shape": list(shape), "size": size,
                     "relu": relu, "dtype": str(dtype).split(".")[-1]}
-            plan = ck.lrn_plan(shape[0], shape[1], shape[2] * shape[3])
+            nch = (shape[0], shape[1], shape[2] * shape[3])
             fwd = {**base, "kernel": "lrn_across_channels_fwd",
-                   "plan": plan._asdict(),
+                   "plan": ck.lrn_plan(*nch)._asdict(),
                    "max_abs_err": max(errs["y"], errs["scale"]),
                    "ms": timings["fwd_ms"],
                    "plain_ms": timings["fwd_plain_ms"],
@@ -292,16 +300,66 @@ def check_lrn_train(ck, dev) -> list[dict]:
                    # read x; write y and scale
                    **bound(3 * numel * elt, numel * (2 * size + 4 + relu))}
             bwd = {**base, "kernel": "lrn_across_channels_bwd",
+                   "plan": ck.lrn_bwd_plan(*nch)._asdict(),
                    "max_abs_err": errs["dx"], "planted_outside_tol": planted,
                    "ms": timings["bwd_ms"],
                    "plain_ms": timings["bwd_plain_ms"],
                    "library_ms": timings["bwd_library_ms"],
-                   # read x, scale, dy; write dx
-                   **bound(4 * numel * elt, numel * (6 * size + 6 + relu))}
+                   # read x, scale, dy; write dx.  The function's own work
+                   # per element: a window sum of `size` adds, one powf,
+                   # one division, five multiplies and a subtraction, and
+                   # with relu the max and the mask
+                   **bound(4 * numel * elt,
+                           numel * (size + 8 + 2 * relu))}
             for row in (fwd, bwd):
                 rows.append(row)
                 print("lrn_train_check " + json.dumps(row), flush=True)
     return rows
+
+
+def sweep_lrn_bwd_warps(ck, dev) -> None:
+    """The LRN backward at CaffeNet's norms (f32, batch 64) with 1, 2, 4
+    and 8 warps a block, each checked against the plain version (rtol
+    1e-4) and timed twice, in turns.  One warp is each thread loading and
+    computing its own halo; more warps pass their edge channels' terms
+    to each other, and only the block's outer halo is loaded twice.  The
+    plan's warps are those of ``lrn_bwd_plan``."""
+    gen = np.random.default_rng(SEED + 12)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    out = {}
+    for label, shape, size, relu in LRN_TRAIN_CASES[:2]:
+        x, dy = (torch.from_numpy((LRN_INPUT_STD * gen.normal(size=shape))
+                                  .astype(np.float32)).to(dev)
+                 for _ in range(2))
+        _, scale = ck.lrn_across_channels_fwd(x, size, LRN_ALPHA, LRN_BETA,
+                                              LRN_K, relu)
+        want = ck.lrn_across_channels_bwd_reference(
+            x, scale, dy, size, LRN_ALPHA, LRN_BETA, relu)
+        n, c, hw = shape[0], shape[1], shape[2] * shape[3]
+        dx = torch.empty_like(x)
+
+        def run(warps):
+            ck._launch("lrn_across_channels_bwd", "lrn_bwd",
+                       "sparknet_lrn_across_channels_bwd", dev,
+                       x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                       dx.data_ptr(), n, c, hw, size,
+                       2.0 * LRN_ALPHA * LRN_BETA / size, LRN_BETA,
+                       int(relu), 0, warps)
+        times = {}
+        for warps in (1, 2, 4, 8, 8, 4, 2, 1):
+            if warps not in times:
+                dx.fill_(float("nan"))
+                run(warps)
+                torch.cuda.synchronize()
+                bad, tol = outside_tol(dx, want, 1e-4)
+                if bool(bad.any()):
+                    fail(f"lrn bwd {label} with {warps} warps: "
+                         f"{int(bad.sum())} elements outside {tol}")
+            times.setdefault(warps, []).append(
+                time_ms(lambda: run(warps), 50, flush))
+        out[label] = {"plan_warps": ck.lrn_bwd_plan(n, c, hw).threads
+                      // ck.LRN_BWD_LANES, "ms_by_warps": times}
+    print("lrn_bwd_warps " + json.dumps(out), flush=True)
 
 
 # (label, input shape, kernel, stride, pad): CaffeNet's three pools at the
@@ -830,6 +888,7 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     lrn_rows = check_lrn(ck, dev)
     lrn_train_rows = check_lrn_train(ck, dev)
+    sweep_lrn_bwd_warps(ck, dev)
     pool_rows = check_pool_bwd(ck, dev)
     print("plans " + json.dumps(
         [{"kernel": r.get("kernel", "lrn_across_channels"), "case": r["case"],

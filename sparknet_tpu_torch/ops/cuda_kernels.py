@@ -30,9 +30,10 @@ forward, also returning ``scale``.
 (:277-341) under ``max_pool_vmem_bwd`` (:379-405): the MAX-pool backward
 with Caffe's first-maximum tie-break, any stride and padding.
 
-The LRN forward and the pool backward take a launch plan chosen here by
-shape (:func:`lrn_plan`, :func:`max_pool_bwd_plan`): plain functions that
-the CPU tests check for coverage and limits without a card.
+The LRN kernels and the pool backward take a launch plan chosen here by
+shape (:func:`lrn_plan`, :func:`lrn_bwd_plan`, :func:`max_pool_bwd_plan`):
+plain functions that the CPU tests check for coverage and limits without
+a card.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ _SIGNATURES = {
     },
     "lrn_bwd": {
         "sparknet_lrn_across_channels_bwd":
-            [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+            [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P],
     },
     "maxpool_bwd": {
         "sparknet_max_pool_bwd":
@@ -218,8 +219,10 @@ GRID_X_MAX, GRID_Y_MAX = 2**31 - 1, 65535
 
 
 class LRNPlan(NamedTuple):
-    """The LRN forward's launch: ``chunk`` channels per thread over a grid
-    of ``blocks`` = (position blocks, channel chunks) of ``threads``."""
+    """An LRN kernel's launch: ``chunk`` channels per thread over a grid
+    of ``blocks`` = (position blocks, channel blocks) of ``threads``.  A
+    forward block is one chunk of ``threads`` positions; a backward block
+    is 32 positions by ``threads // 32`` consecutive chunks."""
     chunk: int
     blocks: tuple[int, int]
     threads: int
@@ -232,19 +235,25 @@ LRN_CHUNKS = (4, 8)             # the kernel's compile-time chunk lengths
 LRN_FILL_THREADS = SMS * 2048
 
 
-@functools.lru_cache(maxsize=512)
-def lrn_plan(n: int, c: int, hw: int) -> LRNPlan:
-    """The longer chunk where it still gives the card a full wave of
-    threads, else the shorter, and no longer than the channels need:
-    short chunks spread a small batch over the card, long ones cut the
-    halo's reloads at large batches.  Threads run over (n, p) flattened,
-    so any batch with ``n * hw < 2**31`` is taken."""
+def _lrn_positions(what: str, n: int, c: int, hw: int) -> int:
+    """n * hw, the positions an LRN kernel's threads run over, flattened
+    over (n, p), so any batch with ``n * hw < 2**31`` is taken."""
     positions = n * hw
     if n < 1 or c < 1 or hw < 1:
-        raise ValueError(f"lrn_plan: empty shape ({n}, {c}, {hw})")
+        raise ValueError(f"{what}: empty shape ({n}, {c}, {hw})")
     if positions > GRID_X_MAX:
-        raise ValueError(f"lrn_plan: n * hw = {positions} positions exceed "
+        raise ValueError(f"{what}: n * hw = {positions} positions exceed "
                          f"the kernel's int32 index")
+    return positions
+
+
+@functools.lru_cache(maxsize=512)
+def lrn_plan(n: int, c: int, hw: int) -> LRNPlan:
+    """The LRN forward's launch: the longer chunk where it still gives the
+    card a full wave of threads, else the shorter, and no longer than the
+    channels need: short chunks spread a small batch over the card, long
+    ones cut the halo's reloads at large batches."""
+    positions = _lrn_positions("lrn_plan", n, c, hw)
     chunk = LRN_CHUNKS[0]
     for cand in LRN_CHUNKS:
         if positions * -(-c // cand) >= LRN_FILL_THREADS:
@@ -256,6 +265,31 @@ def lrn_plan(n: int, c: int, hw: int) -> LRNPlan:
         raise ValueError(f"lrn_plan: {c} channels need {blocks[1]} chunks, "
                          f"over the grid's {GRID_Y_MAX}")
     return LRNPlan(chunk, blocks, LRN_THREADS)
+
+
+LRN_BWD_CHUNK = 4               # the backward kernel's chunk length
+LRN_BWD_LANES = 32              # positions of a block, one per lane
+LRN_BWD_MAX_WARPS = 8           # the most warps the kernel takes a block
+# the plan's warps: 4 and 8 measure within 2% of each other at CaffeNet's
+# norms, 4 ahead (chip_smoke.py's lrn_bwd_warps line)
+LRN_BWD_WARPS = 4
+
+
+@functools.lru_cache(maxsize=512)
+def lrn_bwd_plan(n: int, c: int, hw: int) -> LRNPlan:
+    """The LRN backward's launch: blocks of 32 positions by up to
+    ``LRN_BWD_WARPS`` warps, each warp a chunk of 4 consecutive channels,
+    as many warps as the channels fill.  The warps of a block pass each
+    other their edge channels' terms, so only the block's outer halo is
+    loaded twice: at size 5 and 4 warps, 4 halo channels to 16."""
+    positions = _lrn_positions("lrn_bwd_plan", n, c, hw)
+    warps = min(LRN_BWD_WARPS, -(-c // LRN_BWD_CHUNK))
+    blocks = (-(-positions // LRN_BWD_LANES),
+              -(-c // (LRN_BWD_CHUNK * warps)))
+    if blocks[1] > GRID_Y_MAX:
+        raise ValueError(f"lrn_bwd_plan: {c} channels need {blocks[1]} "
+                         f"blocks, over the grid's {GRID_Y_MAX}")
+    return LRNPlan(LRN_BWD_CHUNK, blocks, LRN_BWD_LANES * warps)
 
 
 class PoolBand(NamedTuple):
@@ -507,9 +541,6 @@ def lrn_across_channels_bwd(x: torch.Tensor, scale: torch.Tensor,
                                                  beta, relu)
     what = "lrn_across_channels_bwd"
     _check_lrn(what, x, size)
-    if x.shape[0] > 65535:
-        raise ValueError(f"{what}: batch {x.shape[0]} exceeds the kernel's "
-                         f"grid limit of 65535")
     _check_alike(what, x, scale=scale, dy=dy)
     if scale.shape != x.shape or dy.shape != x.shape:
         raise ValueError(f"{what}: x {tuple(x.shape)}, scale "
@@ -519,10 +550,11 @@ def lrn_across_channels_bwd(x: torch.Tensor, scale: torch.Tensor,
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
+    plan = lrn_bwd_plan(n, c, h * w)
     _launch(what, "lrn_bwd", "sparknet_lrn_across_channels_bwd", x.device,
             x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), n,
             c, h * w, size, 2.0 * alpha * beta / size, beta, int(relu),
-            int(x.dtype == torch.bfloat16))
+            int(x.dtype == torch.bfloat16), plan.threads // LRN_BWD_LANES)
     return dx
 
 

@@ -226,6 +226,72 @@ def test_cuda_lrn_forward_takes_a_batch_above_65535(dtype):
     torch.testing.assert_close(y, got, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_lrn_backward_takes_a_batch_above_65535(dtype):
+    """The backward's positions are flattened over (n, p) too: 70,000
+    images of a 3-channel 2x2 plane, in blocks of one warp."""
+    _need_cuda()
+    x = torch.from_numpy(_input((70_000, 3, 2, 2))).to("cuda", dtype)
+    dy = torch.from_numpy(_input((70_000, 3, 2, 2), seed=1)).to("cuda",
+                                                                dtype)
+    _, scale = ck.lrn_across_channels_fwd(x, 3, ALPHA, BETA, K)
+    got = ck.lrn_across_channels_bwd(x, scale, dy, 3, ALPHA, BETA)
+    want = ck.lrn_across_channels_bwd_reference(x, scale, dy, 3, ALPHA,
+                                                BETA)
+    torch.cuda.synchronize()
+    _assert_close_for(dtype, got, want, rtol=1e-4)
+
+
+# The backward at the edges of its chunks and blocks: one channel, fewer
+# channels than the window, 13 channels (four warps, the last with one
+# channel), 37 (three blocks, the last one warp with one channel), at
+# the sized windows and at 7, the generic form
+LRN_BWD_EDGE_CASES = [(shape, size, relu)
+                      for shape in ((2, 1, 5, 9), (2, 3, 5, 9),
+                                    (3, 13, 5, 9), (2, 37, 3, 11))
+                      for size in (3, 4, 5, 7) for relu in (False, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", LRN_BWD_EDGE_CASES, ids=_ids)
+def test_cuda_lrn_bwd_matches_plain_at_chunk_and_block_edges(case, dtype):
+    _need_cuda()
+    shape, size, relu = case
+    x = torch.from_numpy(50 * _input(shape)).to("cuda", dtype)
+    dy = torch.from_numpy(50 * _input(shape, seed=1)).to("cuda", dtype)
+    _, scale = ck.lrn_across_channels_fwd(x, size, ALPHA, BETA, K, relu)
+    got = ck.lrn_across_channels_bwd(x, scale, dy, size, ALPHA, BETA, relu)
+    want = ck.lrn_across_channels_bwd_reference(x, scale, dy, size, ALPHA,
+                                                BETA, relu)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got.float()).any()
+    _assert_close_for(dtype, got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("size", [3, 4, 5, 7])
+def test_cuda_lrn_bwd_any_warps_per_block_matches_plain(size):
+    """The entry point takes 1 to 8 warps a block, whatever the plan
+    picks: each gives the plain version's dx on 37 channels."""
+    _need_cuda()
+    shape = (3, 37, 5, 9)
+    x = torch.from_numpy(50 * _input(shape)).to("cuda")
+    dy = torch.from_numpy(50 * _input(shape, seed=1)).to("cuda")
+    _, scale = ck.lrn_across_channels_fwd(x, size, ALPHA, BETA, K)
+    want = ck.lrn_across_channels_bwd_reference(x, scale, dy, size, ALPHA,
+                                                BETA)
+    for warps in range(1, ck.LRN_BWD_MAX_WARPS + 1):
+        dx = torch.full_like(x, float("nan"))
+        ck._launch("lrn_across_channels_bwd", "lrn_bwd",
+                   "sparknet_lrn_across_channels_bwd", x.device,
+                   x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                   dx.data_ptr(), 3, 37, 45, size,
+                   2.0 * ALPHA * BETA / size, BETA, 0, 0, warps)
+        torch.cuda.synchronize()
+        _assert_close_for(torch.float32, dx, want, rtol=1e-4)
+
+
 def test_cuda_max_pool_bwd_refuses_a_plan_short_of_shared_memory():
     """The entry point recomputes the shared bytes a plan needs and
     refuses one that gives less, before launching."""

@@ -1,17 +1,21 @@
-"""The launch plans of the port's LRN forward and MAX-pool backward
-kernels, checked on the CPU without a card.
+"""The launch plans of the port's LRN and MAX-pool backward kernels,
+checked on the CPU without a card.
 
-``cuda_kernels.lrn_plan`` and ``cuda_kernels.max_pool_bwd_plan`` choose,
-by shape, how the CUDA kernels cut their work; ``pool_band`` is the pool
-kernel's band arithmetic (``csrc/maxpool_bwd.cu::band_of``) line for
-line.  These tests check, over the zoo's shapes and odd geometries, that
-every plane, dx row, window, (n, c, p) element and channel is covered
-exactly once, that every window a band needs reads only input rows the
-band stages, and that shared memory and grid dimensions stay within the
-card's limits.  A numpy model of the pool kernel's three steps (stage,
-argmax, gather), run block by block on a plan, must give the plain
-version's dx exactly, on tied inputs.  The kernels themselves run only on
-the card (tests/test_torch_cuda_kernels.py, ``chip_smoke.py``).
+``cuda_kernels.lrn_plan``, ``lrn_bwd_plan`` and ``max_pool_bwd_plan``
+choose, by shape, how the CUDA kernels cut their work; ``pool_band`` is
+the pool kernel's band arithmetic (``csrc/maxpool_bwd.cu::band_of``) line
+for line.  These tests check, over the zoo's shapes and odd geometries,
+that every plane, dx row, window, (n, c, p) element and channel is
+covered exactly once, that every window a band needs reads only input
+rows the band stages, and that shared memory and grid dimensions stay
+within the card's limits.  A numpy model of the pool kernel's three steps
+(stage, argmax, gather), run block by block on a plan, must give the
+plain version's dx exactly, on tied inputs; a numpy model of the LRN
+backward's warps (chunk loads, halo passed between warps, explicit zero
+terms outside the channels, ascending window sums) must give the plain
+version's dx exactly at the edges of its chunks and blocks.  The kernels
+themselves run only on the card (tests/test_torch_cuda_kernels.py,
+``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -192,6 +196,36 @@ def test_lrn_plan_refuses_positions_past_int32():
         ck.lrn_plan(2**16, 3, 2**15)
 
 
+@pytest.mark.parametrize("case", LRN_SHAPES, ids=lambda c: c[0])
+def test_lrn_bwd_plan_covers_every_element_and_channel_once(case):
+    """The backward's blocks of 32 positions by ``threads // 32`` warps of
+    4 channels: every (n, p) in one lane of one position block, every
+    channel in one warp's chunk, no block wholly past either end."""
+    _, (n, c, hw) = case
+    plan = ck.lrn_bwd_plan(n, c, hw)
+    positions = n * hw
+    lanes, chunk = ck.LRN_BWD_LANES, plan.chunk
+    warps = plan.threads // lanes
+    assert chunk == ck.LRN_BWD_CHUNK and plan.threads == warps * lanes
+    assert warps == min(ck.LRN_BWD_WARPS, -(-c // chunk))
+    assert ck.LRN_BWD_WARPS <= ck.LRN_BWD_MAX_WARPS
+    gx, gy = plan.blocks
+    assert gx <= ck.GRID_X_MAX and gy <= ck.GRID_Y_MAX
+    assert (gx - 1) * lanes < positions <= gx * lanes
+    assert (gy - 1) * chunk * warps < c <= gy * chunk * warps
+    chans = np.zeros(c, np.int64)
+    for by in range(gy):
+        for w in range(warps):
+            c0 = (by * warps + w) * chunk
+            chans[c0:min(c0 + chunk, c)] += 1
+    assert (chans == 1).all()
+
+
+def test_lrn_bwd_plan_refuses_positions_past_int32():
+    with pytest.raises(ValueError, match="positions"):
+        ck.lrn_bwd_plan(2**16, 3, 2**15)
+
+
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "int": ctypes.c_int, "float": ctypes.c_float,
             "long long": ctypes.c_longlong}
@@ -348,3 +382,138 @@ def test_pool_kernel_model_on_bands_matches_plain(geom_case, band_rows):
     want = ck.max_pool_bwd_reference(torch.from_numpy(x),
                                      torch.from_numpy(dy), *geom).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of the LRN backward kernel, block by block, on its plan
+# ---------------------------------------------------------------------------
+
+LRN_ALPHA, LRN_BETA, LRN_K = 1e-4, 0.75, 1.0    # CaffeNet's
+
+
+def _model_lrn_bwd(x, scale, dy, pw, size, relu, plan, zero_outside=True):
+    """What ``lrn_bwd_kernel`` computes, one block at a time, in f32: each
+    warp of the block loads its chunk (the first warp also the ``post``
+    channels below the block, the last the ``pre`` above), computes t
+    once per loaded channel, hands its edge channels' t to its neighbours
+    (the kernel's shared memory), then sums each window in ascending
+    channel order.  ``pw`` is scale**-beta from the plain version's own
+    ``pow`` over the whole tensor, so the model tests the walk and not
+    libm.  A channel outside [0, C) or a lane past the last position has
+    t = 0; with ``zero_outside=False`` it instead computes t from its
+    zero-filled loads, the trap the kernel avoids."""
+    n, c, h, w = x.shape
+    hw, positions = h * w, n * h * w
+    pre, post = ck._lrn_window(size)
+    chunk, lanes = plan.chunk, ck.LRN_BWD_LANES
+    warps, span = plan.threads // lanes, plan.chunk + size - 1
+    f32 = np.float32
+    coef = f32(2.0 * LRN_ALPHA * LRN_BETA / size)
+    # (c, n * hw): position q = n * hw + p, as the kernel flattens them
+    flat = [v.reshape(n, c, hw).transpose(1, 0, 2).reshape(c, positions)
+            for v in (x, scale, dy, pw)]
+    out = np.full((c, positions), np.nan, f32)
+    for bx in range(plan.blocks[0]):
+        q = bx * lanes + np.arange(lanes)
+        live = q < positions
+        qs = np.minimum(q, positions - 1)
+        for by in range(plan.blocks[1]):
+            ts, regs = [], []
+            for wp in range(warps):
+                c0 = (by * warps + wp) * chunk
+                lower, upper = wp == 0, wp == warps - 1
+                t = [None] * span
+                reg = {}
+                for j in range(span):
+                    ch = c0 - post + j
+                    if (not lower if j < post
+                            else j >= post + chunk and not upper):
+                        continue            # a neighbour's term
+                    ok = live & (0 <= ch < c)
+                    xv, sv, gv, pv = (np.where(ok, v[min(max(ch, 0), c - 1),
+                                                     qs], f32(0))
+                                      for v in flat)
+                    if not zero_outside:
+                        with np.errstate(divide="ignore"):
+                            pv = np.where(ok, pv, f32(0) ** f32(-LRN_BETA))
+                    a = np.where(xv < 0, f32(0), xv) if relu else xv
+                    with np.errstate(invalid="ignore"):
+                        tv = (gv * (a * pv)) / sv
+                    t[j] = tv if not zero_outside else np.where(ok, tv,
+                                                                f32(0))
+                    reg[j] = (xv, a, gv, pv)
+                ts.append(t)
+                regs.append((c0, reg))
+            for wp, (c0, reg) in enumerate(regs):
+                t = list(ts[wp])
+                if wp > 0:                  # the lower neighbour's last
+                    t[:post] = ts[wp - 1][chunk:chunk + post]
+                if wp < warps - 1:          # the upper neighbour's first
+                    t[post + chunk:] = ts[wp + 1][post:post + pre]
+                for i in range(min(chunk, c - c0)):
+                    ratio = t[i]
+                    for d in range(1, size):
+                        ratio = ratio + t[i + d]
+                    xv, a, gv, pv = reg[i + post]
+                    da = gv * pv - (coef * a) * ratio
+                    if relu:
+                        da = np.where(xv > 0, da, f32(0))
+                    out[c0 + i, q[live]] = da[live]
+    return out.reshape(c, n, hw).transpose(1, 0, 2).reshape(x.shape)
+
+
+# (shape, size, relu): one channel, fewer channels than the window, a
+# chunk and a block cut by C (13: four warps, the last with one channel;
+# 37: three blocks, the last one warp with one channel), at every sized
+# window and
+# size 7 (a generic size on the card, modelled with the same walk), then
+# CaffeNet's norms at batch 2
+LRN_BWD_MODEL_CASES = [
+    *((shape, size, relu) for shape in ((2, 1, 5, 9), (2, 3, 5, 9),
+                                        (3, 13, 5, 9), (2, 37, 3, 11))
+      for size in (3, 4, 5, 7) for relu in (False, True)),
+    *(((2, c, hw, hw), 5, relu) for c, hw in ((96, 27), (256, 13))
+      for relu in (False, True)),
+]
+
+
+def _lrn_bwd_inputs(shape, size, relu, seed=5):
+    rng = np.random.default_rng(seed)
+    x, dy = ((50.0 * rng.normal(size=shape)).astype(np.float32)
+             for _ in range(2))
+    _, scale = ck.lrn_across_channels_fwd_reference(
+        torch.from_numpy(x), size, LRN_ALPHA, LRN_BETA, LRN_K, relu)
+    return x, scale.numpy(), dy, scale.pow(-LRN_BETA).numpy()
+
+
+@pytest.mark.parametrize("case", LRN_BWD_MODEL_CASES,
+                         ids=lambda c: "x".join(map(str, c[0]))
+                         + f"-n{c[1]}-{'relu' if c[2] else 'lrn'}")
+def test_lrn_bwd_kernel_model_matches_plain_exactly(case):
+    """The kernel's walk, block by block on its plan, gives the plain
+    version's dx bit for bit on f32 inputs at std 50."""
+    shape, size, relu = case
+    x, scale, dy, pw = _lrn_bwd_inputs(shape, size, relu)
+    plan = ck.lrn_bwd_plan(shape[0], shape[1], shape[2] * shape[3])
+    got = _model_lrn_bwd(x, scale, dy, pw, size, relu, plan)
+    want = ck.lrn_across_channels_bwd_reference(
+        torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(dy),
+        size, LRN_ALPHA, LRN_BETA, relu).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("size", [3, 4, 5])
+def test_lrn_bwd_kernel_model_zero_filled_halo_gives_nan(size):
+    """The trap the kernel avoids: t computed from zero-filled loads at a
+    channel outside [0, C) is 0 * inf / 0, NaN, and the windows at both
+    edges of the channels carry it into dx."""
+    shape = (2, 13, 5, 9)
+    x, scale, dy, pw = _lrn_bwd_inputs(shape, size, False)
+    plan = ck.lrn_bwd_plan(2, 13, 45)
+    with np.errstate(invalid="ignore"):
+        got = _model_lrn_bwd(x, scale, dy, pw, size, False, plan,
+                             zero_outside=False)
+    nan_channels = np.isnan(got).any(axis=(0, 2, 3))
+    pre, post = ck._lrn_window(size)
+    assert nan_channels[:post].all() and nan_channels[13 - pre:].all()
+    assert not nan_channels[post:13 - pre].any()
