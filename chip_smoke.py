@@ -4,19 +4,23 @@
 
 Builds every hand-written CUDA kernel of ``sparknet_tpu_torch`` from the
 checkout's sources, holds each against its plain PyTorch version on the
-card (with planted faults the same checks must reject), then drives the
-port's two main paths at full width: it serves CaffeNet through the
-micro-batching engine (``ModelHouse`` -> ``InferenceEngine`` ->
-``run_closed_loop``) in bf16 and in f32, and it trains CaffeNet with
-τ-step local SGD through ``apps.imagenet_app.main`` (2 workers, batch 64,
-τ=5, 2 rounds, f32 with TF32 off), checking what comes out, how often
-each kernel launched, and one training round on the card against the
-same round on the CPU.  Prints the card, timings, a ``{"kernels": [...]}``
-line and, last, ``{"ok": true, "device": ...}``.  Every failed check
-exits non-zero.  Without a CUDA device it exits 2 and prints no result.
-``--profile PATH`` also writes per-kernel device-time tables of batch-64
-forwards and of one training round to PATH and prints the host-side
-split of one batch-64 dispatch.
+card at the shapes every main path gives it (with planted faults the same
+checks must reject), then drives the port's main paths at full width:
+it serves CaffeNet and GoogLeNet through the micro-batching engine
+(``ModelHouse`` -> ``InferenceEngine`` -> ``run_closed_loop``) in bf16 and
+in f32, and a few VGG-16 requests; it trains CaffeNet (2 workers, batch
+64), GoogLeNet (batch 32) and VGG-16 (batch 32, one short round) with
+τ-step local SGD through ``apps.imagenet_app.main``, and cifar10_full and
+cifar10_quick through ``apps.cifar_app.main`` (batch 100, τ=10), f32 with
+TF32 off.  It checks what comes out, how often each kernel launched on
+each path, and one training round of CaffeNet, GoogLeNet and each CIFAR
+net on the card against the same round on the CPU.  Prints the card,
+timings, a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+...}``.  Every failed check exits non-zero.  Without a CUDA device it
+exits 2 and prints no result.  ``--profile PATH`` also writes per-kernel
+device-time tables of batch-64 forwards and of one training round of
+CaffeNet and GoogLeNet to PATH and prints the host-side split of one
+batch-64 dispatch.
 
 Imports nothing of JAX and nothing of ``sparknet_tpu``.
 """
@@ -30,6 +34,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -81,12 +86,15 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
 # Phase 3: every kernel against its plain version
 # ---------------------------------------------------------------------------
 
-# (label, shape, local_size, relu); alpha, beta, k are CaffeNet's.  The
-# CaffeNet rows cover every batch shape the engine launches the kernel at.
+# (label, shape, local_size, relu); alpha, beta, k are CaffeNet's (and
+# GoogLeNet's).  The CaffeNet and GoogLeNet rows cover every batch shape
+# the engine launches the kernel at.
 LRN_CASES = [
     *((f"caffenet_{norm}_b{b}", (b, c, hw, hw), 5, False)
       for norm, c, hw in (("norm1", 96, 27), ("norm2", 256, 13))
       for b in (1, 4, 16, 64)),
+    *((f"googlenet_{norm}_b{b}", (b, c, 56, 56), 5, False)
+      for norm, c in (("norm1", 64), ("norm2", 192)) for b in (1, 4, 16, 64)),
     ("googlenet_conv2_norm2_b16", (16, 192, 56, 56), 5, True),
     ("odd_size3", (3, 7, 5, 9), 3, False),
     ("odd_size4_relu", (3, 7, 5, 9), 4, True),
@@ -176,16 +184,19 @@ def check_lrn(ck, dev) -> list[dict]:
     return rows
 
 
-# The training kernels.  The CaffeNet rows are the shapes the training
-# path launches them at (batch 64, f32 there); the others carry
-# GoogLeNet's relu face, odd and even window sizes, and the backward's
-# chunk and block edges: one channel, fewer channels than the window, 13
-# channels (the last warp with one), 37 (a partial last block), and a
-# batch above 65535.
+# The training kernels.  The CaffeNet and GoogLeNet rows are the shapes
+# their training paths launch them at (batch 64 and 32, f32 there); the
+# others carry GoogLeNet's relu face, odd and even window sizes, and the
+# backward's chunk and block edges: one channel, fewer channels than the
+# window, 13 channels (the last warp with one), 37 (a partial last
+# block), and a batch above 65535.
 TRAIN_BATCH = 64
+GN_BATCH = 32          # GoogLeNet's and VGG-16's per-worker batch
 LRN_TRAIN_CASES = [
     *((f"caffenet_{norm}_b{TRAIN_BATCH}", (TRAIN_BATCH, c, hw, hw), 5, False)
       for norm, c, hw in (("norm1", 96, 27), ("norm2", 256, 13))),
+    *((f"googlenet_{norm}_b{GN_BATCH}", (GN_BATCH, c, 56, 56), 5, False)
+      for norm, c in (("norm1", 64), ("norm2", 192))),
     ("googlenet_conv2_norm2_b16", (16, 192, 56, 56), 5, True),
     ("odd_size3", (3, 7, 5, 9), 3, False),
     ("odd_size4", (3, 7, 5, 9), 4, False),
@@ -362,16 +373,38 @@ def sweep_lrn_bwd_warps(ck, dev) -> None:
     print("lrn_bwd_warps " + json.dumps(out), flush=True)
 
 
-# (label, input shape, kernel, stride, pad): CaffeNet's three pools at the
-# training batch, GoogLeNet's stride-1 pad-1 pools, the padded and
-# remainder geometries of tests/test_pallas.py:120-156, two geometries
-# whose planes the kernel cuts into bands of rows (VGG's pool1 at batch 2,
-# and a 3x3 stride-2 pad-1 pool on 224x224 planes, banded in bf16 too),
-# and a plane count that is no multiple of the planes packed per block
+# (label, input shape, kernel, stride, pad): the pools of every training
+# path at its batch: CaffeNet's three, GoogLeNet's thirteen (four 3/2, the
+# first on 112x112 planes the kernel cuts into bands, and nine 3/1/1),
+# cifar10's pool1 and VGG-16's five 2/2; then GoogLeNet's stride-1
+# pad-1 pool at batch 16, the padded and remainder geometries of
+# tests/test_pallas.py:120-156, two geometries whose planes the kernel
+# cuts into bands of rows (VGG's pool1 at batch 2, and a 3x3 stride-2
+# pad-1 pool on 224x224 planes, banded in bf16 too), and a plane count
+# that is no multiple of the planes packed per block
+GN_POOLS = [
+    *((f"googlenet_{name}_b{GN_BATCH}", (GN_BATCH, c, hw, hw), 3, 2, 0)
+      for name, c, hw in (("pool1", 64, 112), ("pool2", 192, 56),
+                          ("pool3", 480, 28), ("pool4", 832, 14))),
+    *((f"googlenet_inception_{name}_pool_b{GN_BATCH}", (GN_BATCH, c, hw, hw),
+       3, 1, 1)
+      for name, c, hw in (("3a", 192, 28), ("3b", 256, 28), ("4a", 480, 14),
+                          ("4b", 512, 14), ("4c", 512, 14), ("4d", 512, 14),
+                          ("4e", 528, 14), ("5a", 832, 7), ("5b", 832, 7))),
+]
+CIFAR_BATCH = 100      # CifarApp.scala:111
+VGG_POOLS = [(f"vgg16_pool{i}_b{GN_BATCH}", (GN_BATCH, c, hw, hw), 2, 2, 0)
+             for i, c, hw in ((1, 64, 224), (2, 128, 112), (3, 256, 56),
+                              (4, 512, 28), (5, 512, 14))]
+BANDED = {"vgg_pool1_b2_banded", "k3s2p1_224_banded",
+          f"googlenet_pool1_b{GN_BATCH}"}
 POOL_CASES = [
     (f"caffenet_pool1_b{TRAIN_BATCH}", (TRAIN_BATCH, 96, 55, 55), 3, 2, 0),
     (f"caffenet_pool2_b{TRAIN_BATCH}", (TRAIN_BATCH, 256, 27, 27), 3, 2, 0),
     (f"caffenet_pool5_b{TRAIN_BATCH}", (TRAIN_BATCH, 256, 13, 13), 3, 2, 0),
+    *GN_POOLS,
+    (f"cifar_pool1_b{CIFAR_BATCH}", (CIFAR_BATCH, 32, 32, 32), 3, 2, 0),
+    *VGG_POOLS,
     ("googlenet_k3s1p1_b16", (16, 192, 28, 28), 3, 1, 1),
     ("padded_13_k3s2p1", (2, 4, 13, 13), 3, 2, 1),
     ("overlap_7_k5s3p2", (2, 4, 7, 7), 5, 3, 2),
@@ -413,7 +446,7 @@ def check_pool_bwd(ck, dev) -> list[dict]:
             x, dy = xf.to(dtype), dyf.to(dtype)
             plan = ck.max_pool_bwd_plan(shape[0] * shape[1], *shape[2:],
                                         *geom, x.element_size())
-            if label.endswith("_banded") and plan.bands == 1:
+            if label in BANDED and plan.bands == 1:
                 fail(f"pool bwd {label} {dtype}: plan {plan} is not banded")
             if (label.endswith("_not_multiple") and
                     (plan.planes_per_block == 1 or shape[0] * shape[1]
@@ -457,24 +490,28 @@ def check_pool_bwd(ck, dev) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the slice — full-width CaffeNet served through the engine
+# Phase 4: serving — full-width CaffeNet, GoogLeNet and VGG-16 through the
+# engine
 # ---------------------------------------------------------------------------
 
 # Spread of the served images: mean-subtracted 0-255 pixels.  At this
-# scale the two LRNs move f32 fc8 by ~1e-3 of its largest value (an
+# scale the LRNs move f32 logits by ~1e-3 of their largest value (an
 # identity LRN in place of the kernel fails check_against_cpu); at unit
-# scale they move it by ~1e-6 and no check downstream could see them.
+# scale they move CaffeNet's fc8 by ~1e-6 and no check downstream could
+# see them.
 IMAGE_STD = 58.0
 
 # batch shape -> (clients, window): concurrency that fills that shape
 LOAD_LEGS = {1: (1, 1), 4: (4, 1), 16: (4, 4), 64: (8, 16)}
 
 
-def serve(dtype: str, dev, *, duration_s: float, n_inputs: int,
-          legs=LOAD_LEGS, tag: str = "") -> tuple[dict, object]:
-    """Load caffenet, answer requests from several client threads at each
+def serve(dtype: str, dev, *, model: str = "caffenet", lrn_per_batch: int = 2,
+          duration_s: float, n_inputs: int, legs=LOAD_LEGS, tag: str = "",
+          min_completed: int = 256) -> tuple[dict, object]:
+    """Load ``model``, answer requests from several client threads at each
     load leg, audit every answer bit for bit against its solo padded run,
-    and check the LRN launch count.  Returns (report, loaded model)."""
+    and check the LRN launch count (``lrn_per_batch`` per dispatched
+    batch).  Returns (report, loaded model)."""
     from sparknet_tpu_torch.ops import cuda_kernels as ck
     from sparknet_tpu_torch.parallel.serving import (
         InferenceEngine, ModelHouse, ServeConfig, run_closed_loop,
@@ -484,7 +521,7 @@ def serve(dtype: str, dev, *, duration_s: float, n_inputs: int,
                       seed=SEED)
     house = ModelHouse(cfg, device=dev)
     t0 = time.perf_counter()
-    lm = house.load("caffenet")
+    lm = house.load(model)
     load_s = time.perf_counter() - t0
     gen = np.random.default_rng(SEED + 1)
     inputs = [(IMAGE_STD * gen.normal(size=lm.in_shape)).astype(np.float32)
@@ -494,42 +531,45 @@ def serve(dtype: str, dev, *, duration_s: float, n_inputs: int,
     for s, by_idx in refs.items():
         for i, row in by_idx.items():
             if row.shape != (lm.classes,) or not np.isfinite(row).all():
-                fail(f"{dtype}: solo run of input {i} at shape {s} is not "
-                     f"{lm.classes} finite probabilities")
+                fail(f"{model} {dtype}: solo run of input {i} at shape {s} "
+                     f"is not {lm.classes} finite probabilities")
             if abs(float(row.sum()) - 1.0) > sum_tol:
-                fail(f"{dtype}: solo probabilities sum to {row.sum()}")
+                fail(f"{model} {dtype}: solo probabilities sum to "
+                     f"{row.sum()}")
     ck.reset_launch_counts()
     runs = {}
     with InferenceEngine(house, cfg) as eng:
         for shape, (clients, window) in legs.items():
             runs[str(shape)] = run_closed_loop(
-                eng, "caffenet", inputs, clients=clients, window=window,
+                eng, model, inputs, clients=clients, window=window,
                 duration_s=duration_s, refs=refs)
         stats = eng.stats()
     launches = ck.launch_counts["lrn_across_channels"]
     completed = sum(r["completed"] for r in runs.values())
-    if completed < 256:
-        fail(f"{dtype}: only {completed} requests answered (< 256)")
+    if completed < min_completed:
+        fail(f"{model} {dtype}: only {completed} requests answered "
+             f"(< {min_completed})")
     for name, r in runs.items():
         if r["errors"] or r["exact_mismatches"]:
-            fail(f"{dtype} leg {name}: {r['errors']} errors, "
+            fail(f"{model} {dtype} leg {name}: {r['errors']} errors, "
                  f"{r['exact_mismatches']} answers differ from their solo "
                  f"padded run")
     if stats["failed"] or stats["completed"] != completed:
-        fail(f"{dtype}: engine failed {stats['failed']}, completed "
+        fail(f"{model} {dtype}: engine failed {stats['failed']}, completed "
              f"{stats['completed']} vs clients' {completed}")
-    if launches != 2 * stats["dispatches"]:
-        fail(f"{dtype}: {launches} LRN launches for {stats['dispatches']} "
-             f"dispatched batches (want 2 per batch)")
+    if launches != lrn_per_batch * stats["dispatches"]:
+        fail(f"{model} {dtype}: {launches} LRN launches for "
+             f"{stats['dispatches']} dispatched batches (want "
+             f"{lrn_per_batch} per batch)")
     others = {k: v for k, v in ck.launch_counts.items()
               if k != "lrn_across_channels" and v}
     if others:
-        fail(f"{dtype}: serving launched training kernels {others}")
-    report = {"dtype": dtype, "load_s": load_s, "completed": completed,
-              "dispatches": stats["dispatches"], "lrn_launches": launches,
-              "exact_mismatches": 0, "occupancy": stats["occupancy"],
-              "batch_ms": stats["batch_ms"], "legs": runs,
-              "flops_per_image": lm.flops_per_image}
+        fail(f"{model} {dtype}: serving launched training kernels {others}")
+    report = {"model": model, "dtype": dtype, "load_s": load_s,
+              "completed": completed, "dispatches": stats["dispatches"],
+              "lrn_launches": launches, "exact_mismatches": 0,
+              "occupancy": stats["occupancy"], "batch_ms": stats["batch_ms"],
+              "legs": runs, "flops_per_image": lm.flops_per_image}
     print(f"serve{tag} " + json.dumps(report), flush=True)
     return report, lm
 
@@ -552,32 +592,73 @@ def device_forward_ms(lm, batch: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_against_cpu(lm) -> tuple[float, float, tuple]:
-    """The card's f32 fc8 blob against the port's CPU forward (plain LRN)
-    on the same weights, and that CPU forward against one whose LRNs are
-    the identity (a planted fault): two max|diff| / max|ref|, and the
-    (cuDNN, matmul) TF32 flags the card's forward ran with."""
+def check_against_cpu(lm, blob: str) -> tuple[float, float, tuple]:
+    """The card's f32 logits (``blob``) against the port's CPU forward
+    (plain LRN) on the same weights, and that CPU forward against one
+    whose LRNs are the identity (a planted fault): two max|diff| /
+    max|ref|, and the (cuDNN, matmul) TF32 flags the card's forward ran
+    with."""
     from sparknet_tpu_torch.ops import vision
     gen = np.random.default_rng(SEED + 2)
     x = torch.from_numpy(
         (IMAGE_STD * gen.normal(size=(4,) + lm.in_shape)).astype(np.float32))
     cpu_params = {k: [b.cpu() for b in v] for k, v in lm.params.items()}
-    fc8 = lambda params, data: lm.net.apply(
-        params, {"data": data}, blobs=["fc8"])["fc8"]
+    logits = lambda params, data: lm.net.apply(
+        params, {"data": data}, blobs=[blob])[blob]
     with torch.inference_mode():
         with lm.precision():
-            got = fc8(lm.params, x.to(lm.device)).cpu()
+            got = logits(lm.params, x.to(lm.device)).cpu()
             tf32 = (torch.backends.cudnn.allow_tf32,
                     torch.backends.cuda.matmul.allow_tf32)
-        want = fc8(cpu_params, x)
-        lrn = vision.lrn_across_channels
-        vision.lrn_across_channels = lambda t, *args, **kw: t
-        try:
-            planted = fc8(cpu_params, x)
-        finally:
-            vision.lrn_across_channels = lrn
+        want = logits(cpu_params, x)
+        with mock.patch.object(vision, "lrn_across_channels",
+                               lambda t, *args, **kw: t):
+            planted = logits(cpu_params, x)
     rel = lambda a: float((a - want).abs().max() / want.abs().max())
     return rel(got), rel(planted), tf32
+
+
+def serve_both(dev, smi: str, model: str, blob: str) -> dict:
+    """``model`` served in bf16 and in f32 on the same weights: the f32
+    logits on the card within 1e-4 of the CPU forward (TF32 off), with
+    identity LRNs moving them by more; device forward and closed-loop
+    throughput at batch 64; p50/p99 per batch shape.  Returns the two
+    reports and their loaded models."""
+    tag = "" if model == "caffenet" else f"_{model}"
+    bf16, lm16 = serve("bf16", dev, model=model, duration_s=2.0,
+                       n_inputs=16, tag=tag)
+    f32, lm32 = serve("f32", dev, model=model, duration_s=1.0, n_inputs=8,
+                      tag=f"{tag}_f32")
+    for k, blobs in lm16.params.items():
+        if not all(torch.equal(a, b) for a, b in zip(blobs, lm32.params[k])):
+            fail(f"{model}: bf16 and f32 houses drew different weights "
+                 f"for {k!r}")
+    rel, planted, tf32 = check_against_cpu(lm32, blob)
+    print(f"{model} f32 {blob} card vs CPU: max|diff|/max|ref| = {rel:.3e} "
+          f"(limit 1e-4, TF32 allowed: cudnn {tf32[0]}, matmul {tf32[1]}); "
+          f"CPU with identity LRNs vs CPU: {planted:.3e}", flush=True)
+    if any(tf32):
+        fail(f"{model}: the f32 forward ran with TF32 allowed")
+    if not rel <= 1e-4:
+        fail(f"{model}: f32 {blob} differs from the CPU forward by "
+             f"{rel:.3e}")
+    if not planted > 1e-4:
+        fail(f"{model}: identity LRNs move f32 {blob} by only "
+             f"{planted:.3e}: the 1e-4 check cannot see the LRN kernel")
+    fwd = {d: {"b64_ms": device_forward_ms(lm, 64, 20)}
+           for d, lm in (("bf16", lm16), ("f32", lm32))}
+    for d, r in (("bf16", bf16), ("f32", f32)):
+        leg = r["legs"]["64"]
+        fwd[d]["img_s_b64_closed_loop"] = leg["achieved_qps"]
+        fwd[d]["img_s_b64_device"] = 64e3 / fwd[d]["b64_ms"]
+    print(f"throughput [{smi}] {model} " + json.dumps(fwd), flush=True)
+    for d, r in (("bf16", bf16), ("f32", f32)):
+        for shape, lat in r["batch_ms"].items():
+            print(f"latency [{smi}] {model} {d} batch {shape}: p50 "
+                  f"{lat['p50_ms']} ms, p99 {lat['p99_ms']} ms over "
+                  f"{lat['batches']} batches", flush=True)
+    return {"bf16": bf16, "f32": f32, "lm16": lm16, "lm32": lm32,
+            "card_vs_cpu": rel, "planted": planted, "forward": fwd}
 
 
 def dispatch_breakdown(lm, inputs, reps: int = 10) -> dict:
@@ -602,7 +683,7 @@ def dispatch_breakdown(lm, inputs, reps: int = 10) -> dict:
     return {k: float(np.median(v)) for k, v in split.items()}
 
 
-def profile_forward(lm, path: str) -> None:
+def profile_forward(lm, path: str, mode: str = "w") -> None:
     from torch.profiler import ProfilerActivity, profile
     x = torch.zeros((64,) + lm.in_shape, device=lm.device)
     with torch.inference_mode():
@@ -614,161 +695,237 @@ def profile_forward(lm, path: str) -> None:
                 lm.net.apply(lm._fwd_params, {"data": x})
             torch.cuda.synchronize()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "w") as f:
+    with open(path, mode) as f:
+        f.write(f"\n\n{lm.name} {lm.dtype}: five batch-64 forwards\n")
         f.write(prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40))
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the training slice — full-width CaffeNet, τ-step local SGD
+# Phase 5: training — full-width CaffeNet, GoogLeNet and VGG-16 through
+# imagenet_app, cifar10_full and cifar10_quick through cifar_app,
+# τ-step local SGD
 # ---------------------------------------------------------------------------
 
 TRAIN_WORKERS, TRAIN_TAU, TRAIN_ROUNDS = 2, 5, 2
 TRAIN_RESIZE, TRAIN_CROP = 256, 227     # bvlc_reference_caffenet's
+GN_CROP = 224                           # bvlc_googlenet's and VGG-16's
+CIFAR_TAU = 10                          # CifarApp.scala:111
+
+
+def eval_batches(workers: int, batch: int) -> int:
+    """Worker test batches of imagenet_app's one eval at the end: its
+    test set is max(2 x workers x batch, 64) images over the workers,
+    scored in whole per-worker batches."""
+    return workers * (max(2 * workers * batch, 64) // workers // batch)
+
+
+def train_app(ck, dev, smi: str, label: str, main_fn, argv: list[str], *,
+              workers: int, tau: int, rounds: int, batch: int,
+              want: dict, score_keys: set) -> dict:
+    """One app's ``main`` on the card, with the launch counts set to 0
+    just before it and read just after: checks the losses and scores,
+    that the counts are exactly ``want``, that the master params moved
+    and are the mean of the workers' last-round params; prints ms per
+    worker step, img/s per card and the feed's seconds for each round."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = main_fn(argv)
+    wall_s = time.perf_counter() - t0
+    launches = dict(ck.launch_counts)
+    tr = run.trainer
+    losses = [tr.round_losses[r] for r in range(rounds)]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: round losses {losses}")
+    if set(run.scores) != score_keys or not all(
+            math.isfinite(v) for v in run.scores.values()):
+        fail(f"{label}: eval scores {run.scores}")
+    if launches != want:
+        fail(f"{label}: launches {launches}, want {want}")
+    init = tr.train_net.init(torch.Generator().manual_seed(0), device=dev)
+    for k, blobs in tr.params.items():
+        for i, b in enumerate(blobs):
+            if torch.equal(b, init[k][i]):
+                fail(f"{label}: master param {k}[{i}] never moved")
+            mean = torch.stack([p[k][i] for p in tr.worker_params]).mean(0)
+            if not torch.equal(b, mean):
+                fail(f"{label}: master param {k}[{i}] is not the mean of "
+                     f"the workers' params")
+    report_rounds = []
+    for r in range(rounds):
+        sec = tr.round_seconds[r]
+        report_rounds.append({
+            "round": r, "loss": tr.round_losses[r], "seconds": sec,
+            "feed_seconds": run.feed.seconds[r],
+            "worker_step_ms": sec * 1e3 / (workers * tau),
+            "img_s": workers * tau * batch / sec})
+    report = {"argv": argv, "wall_s": wall_s, "rounds": report_rounds,
+              "scores": run.scores, "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    print(f"{label} " + json.dumps(report), flush=True)
+    for r in report_rounds:
+        print(f"{label} [{smi}] round {r['round']}"
+              f"{' (first, includes warm-up)' if r['round'] == 0 else ''}: "
+              f"{r['worker_step_ms']:.2f} ms per worker step of {batch} "
+              f"images, {r['img_s']:.1f} img/s per card, loss "
+              f"{r['loss']:.4f}, feed {r['feed_seconds']:.3f} s", flush=True)
+    del init
+    return {"report": report, "trainer": tr}
+
+
+def imagenet_argv(model: str, dev, *, batch: int, tau: int, rounds: int,
+                  workers: int = TRAIN_WORKERS) -> list[str]:
+    return ["--synthetic", "--model", model, "--workers", str(workers),
+            "--batch", str(batch), "--tau", str(tau), "--rounds", str(rounds),
+            "--test-interval", str(rounds), "--resize", str(TRAIN_RESIZE),
+            "--device", str(dev)]
 
 
 def train_slice(ck, dev, smi: str) -> dict:
     """``imagenet_app.main`` on the card: synthetic 256x256 images,
     CaffeNet at 227, 2 workers x batch 64, τ=5, 2 rounds, one eval at the
-    end.  Checks the losses and scores, the launch counts (per worker step
-    2 LRN forwards, 2 LRN backwards, 3 pool backwards; 2 inference LRNs
-    per worker test batch), that the master params moved and are the
-    mean of the workers' last-round params."""
+    end.  Per worker step 2 LRN forwards, 2 LRN backwards, 3 pool
+    backwards; 2 inference LRNs per worker test batch.  The first round's
+    loss and the test-mode loss at init sit near ln 1000."""
     from sparknet_tpu_torch.apps import imagenet_app
-    argv = ["--synthetic", "--model", "caffenet",
-            "--workers", str(TRAIN_WORKERS), "--batch", str(TRAIN_BATCH),
-            "--tau", str(TRAIN_TAU), "--rounds", str(TRAIN_ROUNDS),
-            "--test-interval", "2", "--resize", str(TRAIN_RESIZE),
-            "--crop", str(TRAIN_CROP), "--device", str(dev)]
-    torch.cuda.reset_peak_memory_stats(dev)
-    ck.reset_launch_counts()
-    t0 = time.perf_counter()
-    run = imagenet_app.main(argv)
-    wall_s = time.perf_counter() - t0
-    launches = dict(ck.launch_counts)
-    tr = run.trainer
-    losses = [tr.round_losses[r] for r in range(TRAIN_ROUNDS)]
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"train: round losses {losses}")
+    steps = TRAIN_WORKERS * TRAIN_TAU * TRAIN_ROUNDS
+    out = train_app(
+        ck, dev, smi, "train", imagenet_app.main,
+        imagenet_argv("caffenet", dev, batch=TRAIN_BATCH, tau=TRAIN_TAU,
+                      rounds=TRAIN_ROUNDS),
+        workers=TRAIN_WORKERS, tau=TRAIN_TAU, rounds=TRAIN_ROUNDS,
+        batch=TRAIN_BATCH, score_keys={"loss", "accuracy"},
+        want={"lrn_across_channels_fwd": 2 * steps,
+              "lrn_across_channels_bwd": 2 * steps,
+              "max_pool_bwd": 3 * steps,
+              "lrn_across_channels": 2 * eval_batches(TRAIN_WORKERS,
+                                                      TRAIN_BATCH)})
+    tr, first = out["trainer"], out["report"]["rounds"][0]["loss"]
     # the train-mode loss carries Dropout: at CaffeNet's init (fc6/fc7
     # biases 1) its doubled survivors widen fc8's logits, so the first
     # round's loss sits above ln 1000; the test-mode loss at init is
     # checked more tightly below
-    if abs(losses[0] - math.log(1000)) > 1.0:
-        fail(f"train: first round's loss {losses[0]:.4f} is not near "
+    if abs(first - math.log(1000)) > 1.0:
+        fail(f"train: first round's loss {first:.4f} is not near "
              f"ln 1000 = {math.log(1000):.4f}")
-    if set(run.scores) != {"loss", "accuracy"} or not all(
-            math.isfinite(v) for v in run.scores.values()):
-        fail(f"train: eval scores {run.scores}")
+    check_initial_test_loss("train", tr, dev, TRAIN_CROP, 0.5)
+    return out
+
+
+def train_googlenet(ck, dev, smi: str) -> dict:
+    """``imagenet_app.main --model googlenet`` on the card: synthetic
+    256x256 images, the default crop of 224, 2 workers x batch 32, τ=5,
+    2 rounds.  Per worker step 2 LRN forwards and backwards and 13 pool
+    backwards (4 strided, 9 stride-1); 2 inference LRNs per worker test
+    batch.  The TRAIN net's loss sums three heads (0.3, 0.3, 1); the
+    test-mode loss at init sits near ln 1000."""
+    from sparknet_tpu_torch.apps import imagenet_app
     steps = TRAIN_WORKERS * TRAIN_TAU * TRAIN_ROUNDS
-    # the app's test set: max(2 x workers x batch, 64) images over the
-    # workers, scored in whole per-worker batches, once at the end
-    test_batches = TRAIN_WORKERS * (max(2 * TRAIN_WORKERS * TRAIN_BATCH, 64)
-                                    // TRAIN_WORKERS // TRAIN_BATCH)
-    want = {"lrn_across_channels_fwd": 2 * steps,
-            "lrn_across_channels_bwd": 2 * steps,
-            "max_pool_bwd": 3 * steps,
-            "lrn_across_channels": 2 * test_batches}
-    if launches != want:
-        fail(f"train: launches {launches}, want {want}")
-    init = tr.train_net.init(torch.Generator().manual_seed(0), device=dev)
-    init_loss = initial_test_loss(tr, init, dev)
-    if abs(init_loss - math.log(1000)) > 0.5:
-        fail(f"train: the test-mode loss at init, {init_loss:.4f}, is not "
-             f"near ln 1000 = {math.log(1000):.4f}")
-    for k, blobs in tr.params.items():
-        for i, b in enumerate(blobs):
-            if torch.equal(b, init[k][i]):
-                fail(f"train: master param {k}[{i}] never moved")
-            mean = torch.stack([p[k][i] for p in tr.worker_params]).mean(0)
-            if not torch.equal(b, mean):
-                fail(f"train: master param {k}[{i}] is not the mean of the "
-                     f"workers' params")
-    rounds = []
-    for r in range(TRAIN_ROUNDS):
-        sec = tr.round_seconds[r]
-        rounds.append({"round": r, "loss": tr.round_losses[r],
-                       "seconds": sec,
-                       "worker_step_ms": sec * 1e3 / (TRAIN_WORKERS
-                                                      * TRAIN_TAU),
-                       "img_s": TRAIN_WORKERS * TRAIN_TAU * TRAIN_BATCH
-                       / sec})
-    report = {"argv": argv, "wall_s": wall_s, "init_test_loss": init_loss,
-              "rounds": rounds,
-              "scores": run.scores, "launches": launches,
-              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-    print("train " + json.dumps(report), flush=True)
-    for r in rounds:
-        print(f"train [{smi}] round {r['round']}"
-              f"{' (first, includes warm-up)' if r['round'] == 0 else ''}: "
-              f"{r['worker_step_ms']:.2f} ms per worker step of "
-              f"{TRAIN_BATCH} images, {r['img_s']:.1f} img/s per card, "
-              f"loss {r['loss']:.4f}", flush=True)
-    return {"report": report, "trainer": tr}
+    out = train_app(
+        ck, dev, smi, "train_googlenet", imagenet_app.main,
+        imagenet_argv("googlenet", dev, batch=GN_BATCH, tau=TRAIN_TAU,
+                      rounds=TRAIN_ROUNDS),
+        workers=TRAIN_WORKERS, tau=TRAIN_TAU, rounds=TRAIN_ROUNDS,
+        batch=GN_BATCH,
+        score_keys={"loss3/loss3", "loss3/top-1", "loss3/top-5"},
+        want={"lrn_across_channels_fwd": 2 * steps,
+              "lrn_across_channels_bwd": 2 * steps,
+              "max_pool_bwd": 13 * steps,
+              "lrn_across_channels": 2 * eval_batches(TRAIN_WORKERS,
+                                                      GN_BATCH)})
+    if out["trainer"].train_net.blob_shapes["data"][-1] != GN_CROP:
+        fail("train_googlenet: the app did not crop to 224")
+    check_initial_test_loss("train_googlenet", out["trainer"], dev, GN_CROP,
+                            1.0)
+    return out
 
 
-def initial_test_loss(tr, init, dev) -> float:
+def check_initial_test_loss(label: str, tr, dev, crop: int,
+                            tol: float) -> float:
     """The test-mode loss of the initial params on a batch made as the
     app makes its test batches (synthetic images, center crop, less
-    their mean), with random labels."""
+    their mean), with random labels: within ``tol`` of ln 1000."""
     from sparknet_tpu_torch.apps.imagenet_app import synthetic_imagenet
     from sparknet_tpu_torch.data import center_crop
     from sparknet_tpu_torch.utils.device import full_f32
-    x, y = synthetic_imagenet(TRAIN_BATCH, TRAIN_RESIZE, 1000, SEED + 6)
+    init = tr.train_net.init(torch.Generator().manual_seed(0), device=dev)
+    n = tr.test_net.blob_shapes["data"][0] // tr.n_workers
+    x, y = synthetic_imagenet(n, TRAIN_RESIZE, 1000, SEED + 6)
     batch = {"data": torch.from_numpy(center_crop(
-        x, TRAIN_CROP, mean=x.mean(axis=0))).to(dev),
+        x, crop, mean=x.mean(axis=0))).to(dev),
         "label": torch.from_numpy(y.astype(np.float32)).to(dev)}
     with torch.inference_mode(), full_f32():
-        return float(tr.test_net.forward(init, batch, train=False).loss)
+        loss = float(tr.test_net.forward(init, batch, train=False).loss)
+    print(f"{label}: test-mode loss at init {loss:.4f} "
+          f"(ln 1000 = {math.log(1000):.4f})", flush=True)
+    if abs(loss - math.log(1000)) > tol:
+        fail(f"{label}: the test-mode loss at init, {loss:.4f}, is not "
+             f"within {tol} of ln 1000")
+    return loss
 
 
-def profile_train_round(tr, path: str) -> None:
-    """Per-kernel device time of one more training round (same shapes,
-    random images at std 58), appended to ``path``."""
+def profile_train_round(tr, path: str, label: str) -> None:
+    """Per-kernel device time of one more training round at the trainer's
+    shapes (random images at std 58), appended to ``path``."""
     from torch.profiler import ProfilerActivity, profile
     gen = np.random.default_rng(SEED + 5)
-    n = TRAIN_WORKERS * TRAIN_BATCH
+    n, c, h, w = tr.train_net.blob_shapes["data"]
+    tau = tr.config.tau
     batches = {"data": (IMAGE_STD * gen.standard_normal(
-        (TRAIN_TAU, n, 3, TRAIN_CROP, TRAIN_CROP), np.float32)),
-        "label": gen.integers(0, 1000, (TRAIN_TAU, n)).astype(np.float32)}
+        (tau, n, c, h, w), np.float32)),
+        "label": gen.integers(0, 1000, (tau, n)).astype(np.float32)}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         tr.train_round(batches)
         torch.cuda.synchronize()
     with open(path, "a") as f:
-        f.write("\n\none training round (2 workers x 5 steps, batch 64)\n")
+        f.write(f"\n\n{label}: one training round ({tr.n_workers} workers x "
+                f"{tau} steps, batch {n // tr.n_workers})\n")
         f.write(prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40))
 
 
-def train_against_cpu(dev) -> dict:
-    """One round of full-width CaffeNet (2 workers x batch 8, τ=2) from
-    the same weights, batches and CPU-drawn Dropout masks on the card, on
-    the CPU in f32, and on the CPU in f64 (the port's same code: the
-    plain kernels compute in f64 for f64 tensors).  The round's loss on
-    the card must agree with the CPU's within 1e-4 relative.  Per blob,
-    max|Δ|/max|ref| of the averaged params against the f64 round must be
-    within 1e-3, or within 10x the CPU f32 round's own error: a
-    zero-initialised convolution bias holds only its first update, a sum
-    over ~10^5 positions with heavy cancellation, where f32 on either
-    device misses the f64 answer by more than 1e-3.  The same checks must
-    see a CPU round whose LRNs are the identity (a planted fault)."""
-    from sparknet_tpu_torch.apps.imagenet_app import SOLVER
-    from sparknet_tpu_torch.models import caffenet
+def identity_lrn():
+    """A planted fault for a CPU round: every LRN the identity."""
     from sparknet_tpu_torch.ops import vision
+    return mock.patch.object(vision, "relu_lrn", lambda x, *args, **kw: x)
+
+
+def kernel_area_ave_pool():
+    """A planted fault for a CPU round: AVE pooling divided by the kernel
+    area (torch's own convention) in place of Caffe's clipped window."""
+    from sparknet_tpu_torch.ops import vision
+
+    def ave(x, kh, kw, sh, sw, ph, pw, oh, ow):
+        pads = vision._pool_pads(x.shape[2], x.shape[3], kh, kw, sh, sw,
+                                 ph, pw, oh, ow)
+        x = F.pad(x, pads)[:, :, :(oh - 1) * sh + kh, :(ow - 1) * sw + kw]
+        return F.avg_pool2d(x, (kh, kw), (sh, sw))
+    return mock.patch.object(vision, "ave_pool", ave)
+
+
+def train_against_cpu(dev, label: str, sp, batches: dict, planted) -> dict:
+    """One round (2 workers, τ from the batches) from the same weights,
+    batches and
+    CPU-drawn Dropout masks on the card, on the CPU in f32, and on
+    the CPU in f64 (the port's same code: the plain kernels compute in f64 for
+    f64 tensors).  The round's loss on the card must agree with the CPU's
+    within 1e-4 relative.  Per blob, max|Δ|/max|ref| of the averaged
+    params against the f64 round must be within 1e-3, or within 10x the
+    CPU f32 round's own error: a zero-initialised convolution bias holds
+    only its first update, a sum over ~10^5 positions with heavy
+    cancellation, where f32 on either device misses the f64 answer by
+    more than 1e-3.  The same checks must see a CPU round run under
+    ``planted`` (a context that plants a fault)."""
     from sparknet_tpu_torch.parallel.trainer import (DistributedTrainer,
                                                      TrainerConfig)
-    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
-    sp = load_solver_prototxt_with_net(SOLVER, caffenet(16, 16,
-                                                        crop=TRAIN_CROP))
-    gen = np.random.default_rng(SEED + 4)
-    batches = {"data": (IMAGE_STD * gen.normal(
-        size=(2, 16, 3, TRAIN_CROP, TRAIN_CROP))).astype(np.float32),
-               "label": gen.integers(0, 1000, (2, 16)).astype(np.float32)}
+
+    tau = len(batches["label"])
 
     def one_round(device, f64=False):
-        tr = DistributedTrainer(sp, 2, TrainerConfig(tau=2), seed=SEED,
+        tr = DistributedTrainer(sp, 2, TrainerConfig(tau=tau), seed=SEED,
                                 device=device)
         feed = batches
         if f64:
@@ -783,12 +940,8 @@ def train_against_cpu(dev) -> dict:
     card_loss, card = one_round(dev)
     cpu_loss, cpu = one_round("cpu")
     _, exact = one_round("cpu", f64=True)
-    relu_lrn = vision.relu_lrn
-    vision.relu_lrn = lambda x, *args, **kw: x
-    try:
-        planted_loss, planted = one_round("cpu")
-    finally:
-        vision.relu_lrn = relu_lrn
+    with planted:
+        planted_loss, planted_params = one_round("cpu")
 
     def rel(params, ref):
         return {f"{k}[{i}]": float((a - b).abs().max() / b.abs().max())
@@ -797,7 +950,7 @@ def train_against_cpu(dev) -> dict:
 
     cpu_err = rel(cpu, exact)
     allowed = {b: max(1e-3, 10.0 * e) for b, e in cpu_err.items()}
-    card_err, planted_err = rel(card, exact), rel(planted, exact)
+    card_err, planted_err = rel(card, exact), rel(planted_params, exact)
     card_vs_cpu = rel(card, cpu)
     out = {"loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss),
            "planted_loss_rel": abs(planted_loss - cpu_loss) / abs(cpu_loss),
@@ -806,16 +959,103 @@ def train_against_cpu(dev) -> dict:
            "card_vs_cpu_over_1e-3": {b: e for b, e in card_vs_cpu.items()
                                      if e > 1e-3},
            "card_vs_f64": card_err, "cpu_f32_vs_f64": cpu_err,
-           "planted_vs_f64_max": max(planted_err.values())}
-    print("train card vs CPU " + json.dumps(out), flush=True)
+           "planted_vs_f64_max": max(planted_err.values()),
+           "planted_blobs_beyond_bound": sum(
+               e > allowed[b] for b, e in planted_err.items())}
+    print(f"{label} card vs CPU " + json.dumps(out), flush=True)
     over = {b: e for b, e in card_err.items() if e > allowed[b]}
     if over or not out["loss_rel"] <= 1e-4:
-        fail(f"train: the card's round differs from the CPU's: loss "
+        fail(f"{label}: the card's round differs from the CPU's: loss "
              f"{out['loss_rel']:.3e}, blobs beyond their bound {over}")
     if (out["planted_loss_rel"] <= 1e-4
             and all(e <= allowed[b] for b, e in planted_err.items())):
-        fail(f"train: identity LRNs pass the card-vs-CPU checks: {out}")
+        fail(f"{label}: the planted fault passes the card-vs-CPU checks: "
+             f"{out}")
     return out
+
+
+def image_batches(seed: int, global_batch: int, crop: int, classes: int,
+                  tau: int = 2):
+    """One round's batches of images at std 58 with random labels."""
+    gen = np.random.default_rng(seed)
+    return {"data": (IMAGE_STD * gen.normal(
+        size=(tau, global_batch, 3, crop, crop))).astype(np.float32),
+            "label": gen.integers(0, classes, (tau, global_batch)).astype(
+                np.float32)}
+
+
+def caffenet_against_cpu(dev) -> dict:
+    """Full-width CaffeNet, 2 workers x batch 8; identity LRNs planted."""
+    from sparknet_tpu_torch.apps.imagenet_app import SOLVER
+    from sparknet_tpu_torch.models import caffenet
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    sp = load_solver_prototxt_with_net(SOLVER, caffenet(16, 16,
+                                                        crop=TRAIN_CROP))
+    return train_against_cpu(dev, "train", sp,
+                             image_batches(SEED + 4, 16, TRAIN_CROP, 1000),
+                             identity_lrn())
+
+
+def googlenet_against_cpu(dev) -> dict:
+    """Full-width GoogLeNet with its auxiliary heads and Dropout, 2
+    workers x batch 2, one step each (τ=1); identity LRNs planted.  At
+    τ=2 the second step starts from weights the first moved far (the
+    three heads' loss is ~35 at init on std-58 images), and f32 on
+    either device drifts from the f64 round by up to 3e-3 in the weights
+    (measured on an H100), so a blob's bound, set by the CPU's own error
+    in that blob, no longer measures the card."""
+    from sparknet_tpu_torch.apps.imagenet_app import SOLVER
+    from sparknet_tpu_torch.models import googlenet
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    sp = load_solver_prototxt_with_net(SOLVER, googlenet(4, 4, crop=GN_CROP))
+    return train_against_cpu(dev, "train_googlenet", sp,
+                             image_batches(SEED + 7, 4, GN_CROP, 1000, tau=1),
+                             identity_lrn())
+
+
+def train_cifar(ck, dev, smi: str, model: str) -> dict:
+    """``cifar_app.main --synthetic --model <model>`` on the card at
+    CifarApp's batch 100 and τ=10, 2 workers, 2 rounds: one pool backward
+    per worker step (the AVE pools and WITHIN_CHANNEL LRNs are library
+    work), then one round on the card against the CPU's at the same
+    batch, with the AVE divisor of the kernel area planted."""
+    from sparknet_tpu_torch.apps import cifar_app
+    from sparknet_tpu_torch.models import cifar10_full, cifar10_quick
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    steps = TRAIN_WORKERS * CIFAR_TAU * TRAIN_ROUNDS
+    argv = ["--synthetic", "--model", model, "--workers", str(TRAIN_WORKERS),
+            "--batch", str(CIFAR_BATCH), "--tau", str(CIFAR_TAU),
+            "--rounds", str(TRAIN_ROUNDS), "--device", str(dev)]
+    out = train_app(
+        ck, dev, smi, f"train_cifar10_{model}", cifar_app.main, argv,
+        workers=TRAIN_WORKERS, tau=CIFAR_TAU, rounds=TRAIN_ROUNDS,
+        batch=CIFAR_BATCH, score_keys={"loss", "accuracy"},
+        want={"lrn_across_channels_fwd": 0, "lrn_across_channels_bwd": 0,
+              "max_pool_bwd": steps, "lrn_across_channels": 0})
+    net = (cifar10_full if model == "full" else cifar10_quick)(
+        2 * CIFAR_BATCH, 2 * CIFAR_BATCH)
+    sp = load_solver_prototxt_with_net(cifar_app.SOLVER, net)
+    x, y = cifar_app.synthetic_cifar(2 * 2 * CIFAR_BATCH, seed=SEED + 8)
+    x = x - x.mean(axis=0)
+    batches = {"data": x.reshape(2, 2 * CIFAR_BATCH, 3, 32, 32),
+               "label": y.astype(np.float32).reshape(2, 2 * CIFAR_BATCH)}
+    out["against_cpu"] = train_against_cpu(
+        dev, f"train_cifar10_{model}", sp, batches, kernel_area_ave_pool())
+    return out
+
+
+def train_vgg16(ck, dev, smi: str) -> dict:
+    """``imagenet_app.main --model vgg16``, one short round: 2 workers x
+    batch 32, τ=2; five pool backwards per worker step, no LRN."""
+    from sparknet_tpu_torch.apps import imagenet_app
+    steps = TRAIN_WORKERS * 2
+    return train_app(
+        ck, dev, smi, "train_vgg16", imagenet_app.main,
+        imagenet_argv("vgg16", dev, batch=GN_BATCH, tau=2, rounds=1),
+        workers=TRAIN_WORKERS, tau=2, rounds=1, batch=GN_BATCH,
+        score_keys={"loss", "accuracy", "accuracy_top5"},
+        want={"lrn_across_channels_fwd": 0, "lrn_across_channels_bwd": 0,
+              "max_pool_bwd": 5 * steps, "lrn_across_channels": 0})
 
 
 # ---------------------------------------------------------------------------
@@ -851,9 +1091,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="PATH",
                     help="write per-kernel device-time tables of batch-64 "
-                         "bf16 forwards and of one training round to PATH "
-                         "and print the host-side split of one batch-64 "
-                         "dispatch")
+                         "bf16 forwards and of one training round of "
+                         "CaffeNet and GoogLeNet to PATH and print the "
+                         "host-side split of one batch-64 dispatch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -896,93 +1136,97 @@ def main() -> int:
          for r in lrn_rows + lrn_train_rows + pool_rows if "plan" in r]),
         flush=True)
 
-    # phase 4: serving, bf16 then f32 on the same weights
-    bf16, lm16 = serve("bf16", dev, duration_s=2.0, n_inputs=16)
-    f32, lm32 = serve("f32", dev, duration_s=1.0, n_inputs=8,
-                      legs={1: (1, 1), 64: (8, 16)}, tag="_f32")
-    for k, blobs in lm16.params.items():
-        if not all(torch.equal(a, b) for a, b in zip(blobs, lm32.params[k])):
-            fail(f"bf16 and f32 houses drew different weights for {k!r}")
-    rel, planted, tf32 = check_against_cpu(lm32)
-    print(f"f32 fc8 card vs CPU: max|diff|/max|ref| = {rel:.3e} "
-          f"(limit 1e-4, TF32 allowed: cudnn {tf32[0]}, matmul {tf32[1]}); "
-          f"CPU with identity LRNs vs CPU: {planted:.3e}", flush=True)
-    if any(tf32):
-        fail("the f32 forward ran with TF32 allowed")
-    if not rel <= 1e-4:
-        fail(f"f32 fc8 differs from the CPU forward by {rel:.3e}")
-    if not planted > 1e-4:
-        fail(f"identity LRNs move f32 fc8 by only {planted:.3e}: the 1e-4 "
-             f"check cannot see the LRN kernel")
-    fwd = {d: {"b64_ms": device_forward_ms(lm, 64, 20)}
-           for d, lm in (("bf16", lm16), ("f32", lm32))}
-    for d, r in (("bf16", bf16), ("f32", f32)):
-        leg = r["legs"]["64"]
-        fwd[d]["img_s_b64_closed_loop"] = leg["achieved_qps"]
-        fwd[d]["img_s_b64_device"] = 64e3 / fwd[d]["b64_ms"]
-    print(f"throughput [{smi}] " + json.dumps(fwd), flush=True)
-    for d, r in (("bf16", bf16), ("f32", f32)):
-        for shape, lat in r["batch_ms"].items():
-            print(f"latency [{smi}] {d} batch {shape}: p50 "
-                  f"{lat['p50_ms']} ms, p99 {lat['p99_ms']} ms over "
-                  f"{lat['batches']} batches", flush=True)
+    # phase 4: serving, bf16 then f32 on the same weights: CaffeNet,
+    # GoogLeNet, then a few VGG-16 requests
+    served = {}
+    for model, blob in (("caffenet", "fc8"),
+                        ("googlenet", "loss3/classifier")):
+        served[model] = serve_both(dev, smi, model, blob)
     if args.profile:
-        profile_forward(lm16, args.profile)
         gen = np.random.default_rng(SEED + 3)
-        inputs = [(IMAGE_STD * gen.normal(size=lm16.in_shape))
-                  .astype(np.float32) for _ in range(8)]
-        for d, lm in (("bf16", lm16), ("f32", lm32)):
-            print(f"dispatch_breakdown [{smi}] {d} batch 64 "
-                  + json.dumps(dispatch_breakdown(lm, inputs)), flush=True)
-    del lm16, lm32
+        for i, model in enumerate(served):
+            lm16 = served[model]["lm16"]
+            profile_forward(lm16, args.profile, "w" if i == 0 else "a")
+            inputs = [(IMAGE_STD * gen.normal(size=lm16.in_shape))
+                      .astype(np.float32) for _ in range(8)]
+            for d in ("bf16", "f32"):
+                print(f"dispatch_breakdown [{smi}] {model} {d} batch 64 "
+                      + json.dumps(dispatch_breakdown(
+                          served[model][f"lm{d[-2:]}"], inputs)),
+                      flush=True)
+    for r in served.values():
+        del r["lm16"], r["lm32"]
+    _, lm = serve("bf16", dev, model="vgg16", lrn_per_batch=0,
+                    duration_s=0.5, n_inputs=4, legs={1: (1, 1), 4: (4, 1)},
+                    tag="_vgg16", min_completed=8)
+    del lm
+    torch.cuda.empty_cache()
 
-    # phase 5: training, then one round on the card against the CPU
-    train = train_slice(ck, dev, smi)
+    # phase 5: training through the apps, each with a round on the card
+    # against the CPU
+    trained = {"caffenet": train_slice(ck, dev, smi),
+               "googlenet": train_googlenet(ck, dev, smi)}
     if args.profile:
-        profile_train_round(train["trainer"], args.profile)
-    del train["trainer"]
-    train_against_cpu(dev)
+        for model, t in trained.items():
+            profile_train_round(t["trainer"], args.profile, model)
+    for t in trained.values():
+        del t["trainer"]
+    torch.cuda.empty_cache()
+    caffenet_against_cpu(dev)
+    googlenet_against_cpu(dev)
+    for model in ("full", "quick"):
+        trained[f"cifar10_{model}"] = train_cifar(ck, dev, smi, model)
+        del trained[f"cifar10_{model}"]["trainer"]
+    trained["vgg16"] = train_vgg16(ck, dev, smi)
+    del trained["vgg16"]["trainer"]
+    torch.cuda.empty_cache()
 
-    # phase 6: the kernels line.  Main-path rows: serving's norm1 + norm2
-    # at batch 64 in bf16 (its default) for the inference LRN; training's
-    # norm1 + norm2 and pool1 + pool2 + pool5 at batch 64 in f32
-    tl = train["report"]["launches"]
-    def rows_of(rows, kernel=None, dtype="float32", prefix="caffenet_"):
-        return [r for r in rows if r["case"].startswith(prefix)
-                and r["case"].endswith(f"_b{TRAIN_BATCH}")
+    # phase 6: the kernels line.  Launches per path, each path's counts set
+    # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
+    # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
+    # the inference LRN; norm1 + norm2 and its 13 pools at training batch
+    # 32 in f32 for the training kernels.  CaffeNet's rows stay in
+    # per_shape.
+    tl = {m: t["report"]["launches"] for m, t in trained.items()}
+    def rows_of(rows, kernel=None, dtype="float32", batch=GN_BATCH):
+        return [r for r in rows if r["case"].startswith("googlenet_")
+                and r["case"].endswith(f"_b{batch}")
                 and r["dtype"] == dtype
                 and (kernel is None or r["kernel"] == kernel)]
     fwd_rows = [r for r in lrn_train_rows
                 if r["kernel"] == "lrn_across_channels_fwd"]
     bwd_rows = [r for r in lrn_train_rows
                 if r["kernel"] == "lrn_across_channels_bwd"]
+    lrn_paths = ("caffenet", "googlenet")
     kernels = [
         kernel_entry(
             "lrn_across_channels", "sparknet_tpu_torch/ops/csrc/lrn.cu",
             "sparknet_tpu/ops/pallas_kernels.py:72",
-            {"serving_bf16": bf16["lrn_launches"],
-             "serving_f32": f32["lrn_launches"],
-             "training_eval": tl["lrn_across_channels"]},
-            lrn_rows, rows_of(lrn_rows, dtype="bfloat16")),
+            {**{f"{m}_serving_{d}": served[m][d]["lrn_launches"]
+                for m in lrn_paths for d in ("bf16", "f32")},
+             **{f"{m}_training_eval": tl[m]["lrn_across_channels"]
+                for m in lrn_paths}},
+            lrn_rows, rows_of(lrn_rows, dtype="bfloat16", batch=64)),
         kernel_entry(
             "lrn_across_channels_fwd", "sparknet_tpu_torch/ops/csrc/lrn.cu",
             "sparknet_tpu/ops/pallas_kernels.py:56",
-            {"training": tl["lrn_across_channels_fwd"]}, fwd_rows,
-            rows_of(fwd_rows)),
+            {f"{m}_training": tl[m]["lrn_across_channels_fwd"]
+             for m in lrn_paths}, fwd_rows, rows_of(fwd_rows)),
         kernel_entry(
             "lrn_across_channels_bwd",
             "sparknet_tpu_torch/ops/csrc/lrn_bwd.cu",
             "sparknet_tpu/ops/pallas_kernels.py:83",
-            {"training": tl["lrn_across_channels_bwd"]}, bwd_rows,
-            rows_of(bwd_rows)),
+            {f"{m}_training": tl[m]["lrn_across_channels_bwd"]
+             for m in lrn_paths}, bwd_rows, rows_of(bwd_rows)),
         kernel_entry(
             "max_pool_bwd", "sparknet_tpu_torch/ops/csrc/maxpool_bwd.cu",
             "sparknet_tpu/ops/pallas_kernels.py:203",
-            {"training": tl["max_pool_bwd"]}, pool_rows,
-            rows_of(pool_rows)),
+            {f"{m}_training": tl[m]["max_pool_bwd"] for m in tl},
+            pool_rows, rows_of(pool_rows)),
     ]
     for k in kernels:
-        if len(k["main_path_rows"]) != {"max_pool_bwd": 3}.get(k["name"], 2):
+        if len(k["main_path_rows"]) != {"max_pool_bwd": 13}.get(k["name"],
+                                                                2):
             fail(f"kernels line: main-path rows of {k['name']}: "
                  f"{k['main_path_rows']}")
     print(json.dumps({"kernels": kernels}), flush=True)

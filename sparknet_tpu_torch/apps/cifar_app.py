@@ -1,0 +1,130 @@
+"""CifarApp — end-to-end CIFAR-10 training (reference:
+src/main/scala/apps/CifarApp.scala).
+
+The port's counterpart of ``sparknet_tpu/apps/cifar_app.py``: load the
+CIFAR binaries (shuffled train set, CifarLoader.scala:34) or fabricate
+format-exact data with ``--synthetic``, subtract the mean image, shard
+into one partition per worker, and train ``cifar10_quick`` or
+``cifar10_full`` in rounds of τ=10 local steps per worker
+(CifarApp.scala:111) with an eval every 10 rounds (:93) aggregated across
+workers.  All workers share one card and run one after another.
+
+Not ported: ``--strategy sync`` (ROADMAP A5) and ``--snapshot`` (A4, A9);
+both raise.
+
+Run:  python -m sparknet_tpu_torch.apps.cifar_app --synthetic \\
+          --model full --workers 2 --batch 100 --tau 10 --rounds 2
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import time
+
+import numpy as np
+
+from ..data import compute_mean_image, load_cifar10_binary
+from ..data.partition import PartitionedDataset
+from ..models import cifar10_full, cifar10_quick
+from ..parallel.trainer import DistributedTrainer, TrainerConfig
+from ..proto import load_solver_prototxt_with_net
+from ..utils.timing import PhaseLogger
+from .common import RoundFeed, TrainingRun, eval_feed, run_training
+
+SOLVER = """
+base_lr: 0.001
+momentum: 0.9
+weight_decay: 0.004
+lr_policy: "fixed"
+"""
+
+
+def synthetic_cifar(n: int, seed: int = 0):
+    """``n`` CIFAR-shaped images (3, 32, 32) in [0, 255] with a
+    class-dependent band, and their labels."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n)
+    x = rng.normal(scale=20.0, size=(n, 3, 32, 32)).astype(np.float32) + 120
+    for k in range(10):
+        x[labels == k, k % 3, k:k + 3, :] += 60.0
+    return np.clip(x, 0, 255), labels.astype(np.int32)
+
+
+def main(argv=None) -> TrainingRun:
+    ap = argparse.ArgumentParser(
+        description="CIFAR-10 parameter-averaging app")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="logical workers, all on the one card")
+    ap.add_argument("--data-dir", default=None,
+                    help="dir with data_batch_*.bin/test_batch.bin")
+    ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--model", choices=["quick", "full"], default="quick")
+    ap.add_argument("--batch", type=int, default=100,
+                    help="per-worker minibatch size")
+    ap.add_argument("--tau", type=int, default=10,
+                    help="local steps per round (CifarApp.scala:111)")
+    ap.add_argument("--rounds", type=int, default=50)
+    ap.add_argument("--test-interval", type=int, default=10)
+    ap.add_argument("--strategy", choices=["local_sgd", "sync"],
+                    default="local_sgd")
+    ap.add_argument("--base-lr", type=float, default=None)
+    ap.add_argument("--snapshot", default=None)
+    ap.add_argument("--log-dir", default=None,
+                    help="also append the log to training_log_<ts>.txt here")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.strategy != "local_sgd":
+        raise NotImplementedError(
+            "--strategy sync is not ported yet (ROADMAP A5)")
+    if args.snapshot:
+        raise NotImplementedError(
+            "--snapshot is not ported yet (ROADMAP A4, A9)")
+
+    log = PhaseLogger(None if args.log_dir is None else os.path.join(
+        args.log_dir, f"training_log_{int(time.time())}.txt"))
+    if args.synthetic or args.data_dir is None:
+        log.log("using synthetic CIFAR data")
+        train_x, train_y = synthetic_cifar(4000, seed=1)
+        test_x, test_y = synthetic_cifar(1000, seed=2)
+    else:
+        train_files = sorted(glob.glob(
+            os.path.join(args.data_dir, "data_batch_*.bin")))
+        train_x, train_y = load_cifar10_binary(train_files, shuffle=True)
+        test_x, test_y = load_cifar10_binary(
+            os.path.join(args.data_dir, "test_batch.bin"))
+    log.log(f"loaded {len(train_y)} train / {len(test_y)} test images")
+
+    mean = compute_mean_image(train_x)
+    train_x = train_x - mean
+    test_x = test_x - mean
+    log.log("computed and subtracted mean image")
+
+    workers = args.workers
+    model_fn = cifar10_quick if args.model == "quick" else cifar10_full
+    net = model_fn(args.batch * workers, args.batch * workers)
+    sp = load_solver_prototxt_with_net(SOLVER, net)
+    if args.base_lr is not None:
+        sp.base_lr = args.base_lr
+    trainer = DistributedTrainer(
+        sp, workers, TrainerConfig(strategy=args.strategy, tau=args.tau),
+        seed=0, device=args.device)
+    log.log(f"built {args.model} net for {workers} workers on "
+            f"{trainer.device} ({args.strategy}, tau={args.tau})")
+
+    train_ds = PartitionedDataset.from_items(
+        list(zip(train_x, train_y)), workers)
+    test_ds = PartitionedDataset.from_items(
+        list(zip(test_x, test_y)), workers)
+    feed = RoundFeed(train_ds, args.batch, trainer.batches_per_round, seed=3)
+    test_factory, test_steps = eval_feed(test_ds, args.batch)
+    scores = run_training(trainer, feed, test_factory, test_steps,
+                          rounds=args.rounds,
+                          test_interval=args.test_interval, logger=log)
+    return TrainingRun(scores, trainer, feed)
+
+
+if __name__ == "__main__":
+    main()

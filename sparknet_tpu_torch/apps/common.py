@@ -13,6 +13,7 @@ signal handling are not ported.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable
 
@@ -23,6 +24,17 @@ from ..parallel.trainer import DistributedTrainer
 from ..utils.timing import PhaseLogger
 
 
+@dataclasses.dataclass
+class TrainingRun:
+    """What an app's ``main`` leaves: the last eval's scores, the trainer
+    (params, per-worker params of the last round, losses, timings) and
+    the round feed (its host seconds per round)."""
+
+    scores: dict[str, Any]
+    trainer: DistributedTrainer
+    feed: "RoundFeed"
+
+
 class RoundFeed:
     """Assembles [τ·iter_size, N·batch, ...] round feeds from a
     partitioned dataset: one partition per worker, a contiguous run of
@@ -31,7 +43,7 @@ class RoundFeed:
     src/main/scala/libs/MinibatchSampler.scala:18-19), each minibatch put
     through ``preprocess`` (the setTrainData closure, reference:
     src/main/scala/libs/Net.scala:79-84).  Only the sampled slice of each
-    partition is stacked."""
+    partition is stacked.  ``seconds`` holds each round's host time."""
 
     def __init__(self, dataset: PartitionedDataset, per_worker_batch: int,
                  batches_per_round: int,
@@ -42,6 +54,7 @@ class RoundFeed:
         self.preprocess = preprocess
         self._rng = np.random.default_rng(seed)
         self._parts = dataset.partitions
+        self.seconds: list[float] = []
         # drop-remainder batch counts (ScaleAndConvert.makeMinibatchRDD,
         # reference: ScaleAndConvert.scala:30-55)
         self._n_batches = [len(p) // per_worker_batch for p in self._parts]
@@ -62,6 +75,7 @@ class RoundFeed:
         return x, y
 
     def next_round(self) -> dict[str, np.ndarray]:
+        t0 = time.perf_counter()
         starts = [int(self._rng.integers(0, nb - self.batches_per_round + 1))
                   for nb in self._n_batches]
         data_steps, label_steps = [], []
@@ -73,8 +87,9 @@ class RoundFeed:
                 labs.append(y)
             data_steps.append(np.concatenate(imgs))
             label_steps.append(np.concatenate(labs))
-        return {"data": np.stack(data_steps),
-                "label": np.stack(label_steps)}
+        out = {"data": np.stack(data_steps), "label": np.stack(label_steps)}
+        self.seconds.append(time.perf_counter() - t0)
+        return out
 
 
 def eval_feed(dataset: PartitionedDataset, per_worker_batch: int,
@@ -142,7 +157,7 @@ def run_training(trainer: DistributedTrainer, feed: RoundFeed,
             log.log(f"round {r}: eval {last_scores}")
         t0 = time.perf_counter()
         batches = feed.next_round()
-        feed_s = time.perf_counter() - t0
+        feed_s = feed.seconds[-1]
         loss = trainer.train_round(batches)
         log.log(f"round {r}: tau={trainer.config.tau} loss={loss:.4f} "
                 f"({time.perf_counter() - t0:.2f}s, feed {feed_s:.2f}s)")

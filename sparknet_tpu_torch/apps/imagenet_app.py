@@ -1,14 +1,16 @@
-"""ImageNetApp: AlexNet/CaffeNet with τ-step local SGD (reference:
-src/main/scala/apps/ImageNetApp.scala).
+"""ImageNetApp: AlexNet, CaffeNet, GoogLeNet or VGG-16 with τ-step local
+SGD (reference: src/main/scala/apps/ImageNetApp.scala).
 
 The port's counterpart of ``sparknet_tpu/apps/imagenet_app.py``, with
 synthetic data only: ``--synthetic`` fabricates 256x256 images (the
 reference's force-resize, :84-95), their mean image is computed on the
 host (ComputeMean, :84), and the model trains in rounds of τ local steps
-per worker (:144) with random-crop-227 + mirror + mean-subtract train
+per worker (:144) with random-crop + mirror + mean-subtract train
 preprocessing (:155-169), center-crop test preprocessing (:117-131) and
 an eval every ``--test-interval`` rounds aggregated across workers
-(:106-141).  All workers share one card and run one after another.
+(:106-141).  The crop is 227 for AlexNet and CaffeNet and 224 for
+GoogLeNet and VGG-16, as their published nets take.  All workers share
+one card and run one after another.
 
 Run:  python -m sparknet_tpu_torch.apps.imagenet_app --synthetic \\
           --model caffenet --workers 2 --batch 64 --tau 5 --rounds 2
@@ -17,19 +19,17 @@ Run:  python -m sparknet_tpu_torch.apps.imagenet_app --synthetic \\
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import functools
-from typing import Any
 
 import numpy as np
 
 from ..data.partition import PartitionedDataset
 from ..data.transforms import center_crop, random_crop_mirror
-from ..models import alexnet, caffenet
+from ..models import alexnet, caffenet, googlenet, vgg16
 from ..parallel.trainer import DistributedTrainer, TrainerConfig
 from ..proto import load_solver_prototxt_with_net
 from ..utils.timing import PhaseLogger
-from .common import RoundFeed, eval_feed, run_training
+from .common import RoundFeed, TrainingRun, eval_feed, run_training
 
 # bvlc_reference_caffenet's solver, less its snapshot and display fields
 SOLVER = """
@@ -41,16 +41,8 @@ gamma: 0.1
 stepsize: 100000
 """
 
-MODELS = {"alexnet": alexnet, "caffenet": caffenet}
-
-
-@dataclasses.dataclass
-class TrainingRun:
-    """What ``main`` leaves: the last eval's scores and the trainer
-    (params, per-worker params of the last round, losses, timings)."""
-
-    scores: dict[str, Any]
-    trainer: DistributedTrainer
+MODELS = {"alexnet": alexnet, "caffenet": caffenet, "googlenet": googlenet,
+          "vgg16": vgg16}
 
 
 def synthetic_imagenet(n: int, size: int, classes: int, seed: int = 0):
@@ -94,7 +86,8 @@ def main(argv=None) -> TrainingRun:
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--test-interval", type=int, default=10)
     ap.add_argument("--resize", type=int, default=256)
-    ap.add_argument("--crop", type=int, default=227)
+    ap.add_argument("--crop", type=int, default=None,
+                    help="default 227 (alexnet, caffenet), else 224")
     ap.add_argument("--base-lr", type=float, default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -102,6 +95,8 @@ def main(argv=None) -> TrainingRun:
     if not args.synthetic:
         raise NotImplementedError(
             "only --synthetic data is ported (no tar or record loaders)")
+    crop = args.crop or (227 if args.model in ("alexnet", "caffenet")
+                         else 224)
 
     log = PhaseLogger()
     workers = args.workers
@@ -120,7 +115,7 @@ def main(argv=None) -> TrainingRun:
     log.log("computed mean image")
 
     net = MODELS[args.model](args.batch * workers, args.batch * workers,
-                             crop=args.crop)
+                             crop=crop)
     sp = load_solver_prototxt_with_net(SOLVER, net)
     if args.base_lr is not None:
         sp.base_lr = args.base_lr
@@ -129,18 +124,18 @@ def main(argv=None) -> TrainingRun:
                                                tau=args.tau),
                                  seed=0, device=args.device)
     log.log(f"built {args.model} for {workers} workers on "
-            f"{trainer.device} (local_sgd, tau={args.tau}, crop={args.crop})")
-    train_pre = functools.partial(random_crop_mirror, crop=args.crop,
+            f"{trainer.device} (local_sgd, tau={args.tau}, crop={crop})")
+    train_pre = functools.partial(random_crop_mirror, crop=crop,
                                   rng=np.random.default_rng(7), mean=mean)
     feed = RoundFeed(train_ds, args.batch, trainer.batches_per_round,
                      preprocess=train_pre, seed=3)
     test_factory, test_steps = eval_feed(
         test_ds, args.batch,
-        preprocess=functools.partial(center_crop, crop=args.crop, mean=mean))
+        preprocess=functools.partial(center_crop, crop=crop, mean=mean))
     scores = run_training(trainer, feed, test_factory, test_steps,
                           rounds=args.rounds,
                           test_interval=args.test_interval, logger=log)
-    return TrainingRun(scores, trainer)
+    return TrainingRun(scores, trainer, feed)
 
 
 if __name__ == "__main__":

@@ -18,16 +18,22 @@ from .utils.device import resolve_device
 
 
 def params_from_jax(params: Mapping[str, Sequence[np.ndarray]], net: Net,
-                    *, device: str | torch.device = "cuda") -> Params:
+                    *, device: str | torch.device = "cuda",
+                    drop_extra: bool = False) -> Params:
     """``{layer: [np.ndarray, ...]}`` (e.g. ``jax.device_get`` of a JAX
     ``Net.init`` result) -> the port's params for ``net``, f32 on
-    ``device``.  Raises on a missing, extra or mis-shaped blob."""
+    ``device``.  Raises on a missing or mis-shaped blob, and on a layer
+    ``net`` lacks unless ``drop_extra``: then such layers are dropped by
+    name, as ``Net::CopyTrainedLayersFrom`` ignores them — the way train
+    weights (GoogLeNet's TRAIN-only auxiliary heads) go into a TEST or
+    deploy net."""
     dev = resolve_device(device)
     want = net.param_shapes()
-    if set(params) != set(want):
-        raise ValueError(
-            f"layers differ: missing {sorted(set(want) - set(params))}, "
-            f"extra {sorted(set(params) - set(want))}")
+    missing = set(want) - set(params)
+    extra = set(params) - set(want)
+    if missing or (extra and not drop_extra):
+        raise ValueError(f"layers differ: missing {sorted(missing)}, "
+                         f"extra {sorted(extra)}")
     out: Params = {}
     for name, shapes in want.items():
         blobs = [np.asarray(b, np.float32) for b in params[name]]

@@ -7,6 +7,7 @@ from .dsl import (
     relu_layer,
     lrn_layer,
     dropout_layer,
+    concat_layer,
     softmax_layer,
     softmax_with_loss_layer,
     accuracy_layer,
@@ -14,4 +15,7 @@ from .dsl import (
     msg,
 )
 from .lenet import lenet
+from .cifar10 import cifar10_quick, cifar10_full
 from .alexnet import alexnet, caffenet
+from .googlenet import googlenet
+from .vgg import vgg16

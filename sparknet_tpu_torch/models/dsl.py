@@ -147,3 +147,8 @@ def accuracy_layer(name: str, bottoms: Sequence[str], top: str = "accuracy",
     ap = {"top_k": top_k} if top_k != 1 else {}
     return layer(name, "Accuracy", bottoms, [top], phase=phase,
                  accuracy_param=ap)
+
+
+def concat_layer(name: str, bottoms: Sequence[str], top: str,
+                 axis: int = 1) -> LayerParameter:
+    return layer(name, "Concat", bottoms, [top], concat_param={"axis": axis})

@@ -1,7 +1,8 @@
-"""InnerProduct, Softmax and Accuracy.
+"""InnerProduct, Softmax, Accuracy, Flatten, Concat and Split.
 
 Counterparts of the layers of ``sparknet_tpu/ops/common.py`` (reference:
-caffe/src/caffe/layers/{inner_product,softmax,accuracy}_layer.cpp).  The weight
+caffe/src/caffe/layers/{inner_product,softmax,accuracy,flatten,concat,
+split}_layer.cpp).  The weight
 keeps the JAX layout, (num_output, dim) or (dim, num_output) with
 ``transpose``.  The product goes to ``F.linear``/``torch.matmul``, as the
 JAX package left it to XLA.
@@ -108,3 +109,57 @@ class AccuracyLayer(LayerImpl):
             return [correct.mean()]
         mask = (lab != int(ignore)).float()
         return [(correct * mask).sum() / mask.sum().clamp_min(1.0)]
+
+
+@register_layer("Flatten")
+class FlattenLayer(LayerImpl):
+    """Flatten axes [axis, end_axis] (reference: flatten_layer.cpp)."""
+
+    def _axes(self, lp, ndim):
+        p = lp.sub("flatten_param")
+        axis = _canon_axis(int(p.get("axis", 1)), ndim)
+        end = _canon_axis(int(p.get("end_axis", -1)), ndim)
+        return axis, end
+
+    def out_shapes(self, lp, bottom_shapes):
+        s = tuple(bottom_shapes[0])
+        axis, end = self._axes(lp, len(s))
+        return [s[:axis] + (math.prod(s[axis:end + 1]),) + s[end + 1:]]
+
+    def apply(self, lp, params, bottoms, train, gen=None):
+        x = bottoms[0]
+        return [x.reshape(self.out_shapes(lp, [tuple(x.shape)])[0])]
+
+
+@register_layer("Concat")
+class ConcatLayer(LayerImpl):
+    """Concatenate along ``axis`` (default 1; the legacy ``concat_dim``
+    wins where given) — concat_layer.cpp."""
+
+    def _axis(self, lp, ndim):
+        p = lp.sub("concat_param")
+        if p.has("concat_dim"):
+            return int(p.get("concat_dim"))
+        return _canon_axis(int(p.get("axis", 1)), ndim)
+
+    def out_shapes(self, lp, bottom_shapes):
+        axis = self._axis(lp, len(bottom_shapes[0]))
+        s = list(bottom_shapes[0])
+        s[axis] = sum(bs[axis] for bs in bottom_shapes)
+        return [tuple(s)]
+
+    def apply(self, lp, params, bottoms, train, gen=None):
+        return [torch.cat(list(bottoms), dim=self._axis(lp, bottoms[0].dim()))]
+
+
+@register_layer("Split")
+class SplitLayer(LayerImpl):
+    """Fan-out: one bottom to N tops (split_layer.cpp).  The tops are the
+    bottom itself; autograd sums their gradients, as Caffe's backward
+    does."""
+
+    def out_shapes(self, lp, bottom_shapes):
+        return [tuple(bottom_shapes[0])] * max(len(lp.top), 1)
+
+    def apply(self, lp, params, bottoms, train, gen=None):
+        return [bottoms[0]] * max(len(lp.top), 1)

@@ -13,8 +13,10 @@ inference kernel without autograd, and under autograd a
 kernels (the JAX package's ``relu_lrn_across_channels`` custom VJP).  MAX
 pooling's forward is the library max pool over explicit -inf padding (the
 JAX primal ``reduce_window``); under autograd its backward is the port's
-first-maximum kernel (the JAX package's ``max_pool_vmem_bwd``).
-WITHIN_CHANNEL LRN and AVE/STOCHASTIC pooling are not ported yet.
+first-maximum kernel (the JAX package's ``max_pool_vmem_bwd``).  AVE
+pooling and WITHIN_CHANNEL LRN are library work, as the JAX package left
+them to XLA: a zero-padded window sum over Caffe's clipped divisor, under
+autograd.  STOCHASTIC pooling is not ported yet.
 """
 
 from __future__ import annotations
@@ -134,13 +136,46 @@ def max_pool(x: torch.Tensor, kh, kw, sh, sw, ph, pw, oh, ow) -> torch.Tensor:
     clip leaves rows uncovered), then an unpadded floor-mode max pool.  The
     padding is explicit rather than ``ceil_mode``, whose clip rule is not
     Caffe's."""
-    h, w = x.shape[2], x.shape[3]
-    pads = (pw, max((ow - 1) * sw + kw - w - pw, 0),
-            ph, max((oh - 1) * sh + kh - h - ph, 0))
+    pads = _pool_pads(x.shape[2], x.shape[3], kh, kw, sh, sw, ph, pw, oh, ow)
     if any(pads):
         x = F.pad(x, pads, value=-math.inf)
     x = x[:, :, :(oh - 1) * sh + kh, :(ow - 1) * sw + kw]
     return F.max_pool2d(x, (kh, kw), (sh, sw))
+
+
+def _pool_pads(h: int, w: int, kh, kw, sh, sw, ph, pw, oh, ow):
+    """``F.pad`` widths that extend an (h, w) plane to exactly what the
+    ceil-mode windows cover, ``(o-1)·s + k`` (a negative high side, where
+    the start-inside-padding clip leaves rows uncovered, is cropped by the
+    caller)."""
+    return (pw, max((ow - 1) * sw + kw - w - pw, 0),
+            ph, max((oh - 1) * sh + kh - h - ph, 0))
+
+
+def ave_pool(x: torch.Tensor, kh, kw, sh, sw, ph, pw, oh, ow) -> torch.Tensor:
+    """Caffe AVE pooling (pooling_layer.cpp Forward_cpu AVE branch;
+    sparknet_tpu/ops/vision.py:347-367): zero-pad, sum each window, divide
+    by the window clipped to the padded extent [0, dim + pad): neither the
+    kernel area nor the valid area.  The sum is the library's
+    ``avg_pool2d`` with a divisor of 1 over the explicit padding; the
+    divisor map is f32, so a bf16 sum comes out f32, as ``s / denom``
+    promotes it in the JAX package (the next layer's cast takes it back)."""
+    h, w = x.shape[2], x.shape[3]
+    pads = _pool_pads(h, w, kh, kw, sh, sw, ph, pw, oh, ow)
+    if any(pads):
+        x = F.pad(x, pads)
+    x = x[:, :, :(oh - 1) * sh + kh, :(ow - 1) * sw + kw]
+    s = F.avg_pool2d(x, (kh, kw), (sh, sw), divisor_override=1)
+
+    def counts(dim: int, k: int, stride: int, pad: int, out: int):
+        # made on the tensor's device: a copy up from the host would wait
+        # for the stream at every call
+        starts = torch.arange(out, device=s.device,
+                              dtype=torch.float32) * stride - pad
+        return (starts + k).clamp(max=dim + pad) - starts
+
+    return s / torch.outer(counts(h, kh, sh, ph, oh),
+                           counts(w, kw, sw, pw, ow))
 
 
 class MaxPool(torch.autograd.Function):
@@ -165,7 +200,8 @@ class MaxPool(torch.autograd.Function):
 
 @register_layer("Pooling")
 class PoolingLayer(LayerImpl):
-    """MAX pooling (reference: pooling_layer.cpp Forward_cpu MAX branch)."""
+    """MAX and AVE pooling (reference: pooling_layer.cpp Forward_cpu MAX
+    and AVE branches).  STOCHASTIC raises: no zoo model uses it."""
 
     def out_shapes(self, lp, bottom_shapes):
         n, c, h, w = bottom_shapes[0]
@@ -175,11 +211,13 @@ class PoolingLayer(LayerImpl):
     def apply(self, lp, params, bottoms, train, gen=None):
         x = bottoms[0]
         kh, kw, sh, sw, ph, pw, method = _pool_geometry(lp, tuple(x.shape))
+        oh, ow = pool_output_size(x.shape[2], x.shape[3], kh, kw, sh, sw,
+                                  ph, pw)
+        if method == "AVE":
+            return [ave_pool(x, kh, kw, sh, sw, ph, pw, oh, ow)]
         if method != "MAX":
             raise NotImplementedError(
                 f"layer {lp.name!r}: {method} pooling is not ported yet")
-        oh, ow = pool_output_size(x.shape[2], x.shape[3], kh, kw, sh, sw,
-                                  ph, pw)
         if torch.is_grad_enabled() and x.requires_grad:
             return [MaxPool.apply(x, kh, kw, sh, sw, ph, pw, oh, ow)]
         return [max_pool(x, kh, kw, sh, sw, ph, pw, oh, ow)]
@@ -226,14 +264,23 @@ def relu_lrn(x: torch.Tensor, size: int, alpha: float, beta: float,
 
 @register_layer("LRN")
 class LRNLayer(LayerImpl):
-    """Local response normalization (reference: lrn_layer.cpp):
-    scale = k + (alpha/n)·Σ x² over a size-n channel window,
-    out = x · scale^-beta — the hand-written kernels on a CUDA tensor, their
-    plain versions on a CPU tensor."""
+    """Local response normalization (reference: lrn_layer.cpp).
+    ACROSS_CHANNELS: scale = k + (alpha/n)·Σ x² over a size-n channel
+    window, out = x · scale^-beta — the hand-written kernels on a CUDA
+    tensor, their plain versions on a CPU tensor.  WITHIN_CHANNEL
+    (WithinChannelForward): x · (1 + alpha·avgpool(x²))^-beta over a
+    size x size window at stride 1, pad (size-1)/2, output forced to the
+    input's size; k is unused and alpha is not divided by size."""
 
     def apply(self, lp, params, bottoms, train, gen=None):
         size, alpha, beta, k, region = lrn_geometry(lp)
+        x = bottoms[0]
+        if region == "WITHIN_CHANNEL":
+            pre = (size - 1) // 2
+            h, w = x.shape[2], x.shape[3]
+            savg = ave_pool(x * x, size, size, 1, 1, pre, pre, h, w)
+            return [x * (1.0 + alpha * savg) ** (-beta)]
         if region != "ACROSS_CHANNELS":
-            raise NotImplementedError(
-                f"layer {lp.name!r}: {region} LRN is not ported yet")
-        return [relu_lrn(bottoms[0], size, alpha, beta, k, relu=False)]
+            raise ValueError(f"layer {lp.name!r}: unknown norm_region "
+                             f"{region!r}")
+        return [relu_lrn(x, size, alpha, beta, k, relu=False)]

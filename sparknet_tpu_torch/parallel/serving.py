@@ -53,7 +53,8 @@ import torch
 
 from ..convert import params_from_jax
 from ..graph.net import Net
-from ..models import alexnet, caffenet, lenet
+from ..models import (alexnet, caffenet, cifar10_full, cifar10_quick,
+                      googlenet, lenet, vgg16)
 from ..models.dsl import softmax_layer
 from ..proto.caffe_pb import BlobShape, NetParameter, NetState, Phase
 from ..utils import knobs
@@ -208,12 +209,15 @@ _DATA_TYPES = frozenset({
 
 
 def zoo_models() -> dict[str, Callable[[], NetParameter]]:
-    """Name -> NetParameter factory for every servable zoo model whose
-    layers the port implements."""
+    """Name -> NetParameter factory for every servable zoo model."""
     return {
         "lenet": lambda: lenet(1, 1),
+        "cifar10_quick": lambda: cifar10_quick(1, 1),
+        "cifar10_full": lambda: cifar10_full(1, 1),
         "alexnet": lambda: alexnet(1, 1),
         "caffenet": lambda: caffenet(1, 1),
+        "googlenet": lambda: googlenet(1, 1, crop=224),
+        "vgg16": lambda: vgg16(1, 1, crop=224),
     }
 
 
@@ -257,11 +261,15 @@ def deploy_from(net_param: NetParameter,
 class LoadedModel:
     """One servable model: deploy net + params on ``device``, with every
     serving batch shape run once at load as warm-up (the request path
-    never meets a first call)."""
+    never meets a first call).  ``params`` are weights to serve in place of
+    the seeded draw; ``drop_extra`` lets them carry layers the deploy net
+    lacks (train weights: GoogLeNet's auxiliary heads), dropped by name
+    (``convert.params_from_jax``)."""
 
     def __init__(self, name: str, net_param: NetParameter, cfg: ServeConfig,
                  *, device: str | torch.device = "cuda",
                  params: Mapping[str, Sequence[Any]] | None = None,
+                 drop_extra: bool = False,
                  max_param_mb: float | None = None):
         t0 = time.perf_counter()
         self.device = resolve_device(device)
@@ -276,7 +284,8 @@ class LoadedModel:
                 torch.Generator().manual_seed(cfg.seed), device=self.device)
         else:
             self.params = params_from_jax(params, self.net,
-                                          device=self.device)
+                                          device=self.device,
+                                          drop_extra=drop_extra)
         self.param_bytes = sum(b.numel() * b.element_size()
                                for blobs in self.params.values()
                                for b in blobs)

@@ -2,7 +2,8 @@
 against the JAX package's.
 
 ``imagenet_app.main`` runs end to end on the CPU (``--device cpu``) with
-CaffeNet's layers at a 67x67 crop of 72x72 synthetic images.  For the
+CaffeNet's layers at a 67x67 crop of 72x72 synthetic images, and with
+full-width GoogLeNet at batch 1 and its default 224 crop.  For the
 same seeds the port's synthetic data, partitions, mean image, train
 rounds (the ``RoundFeed`` with ``random_crop_mirror``) and test batches
 (``eval_feed`` with ``center_crop``) equal the JAX package's byte for
@@ -36,6 +37,20 @@ TINY = ["--synthetic", "--device", "cpu", "--workers", "2", "--batch", "2",
         "--resize", "72", "--crop", "67", "--classes", "10"]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: the suite runs in several worker
+    processes on the CPU, and torch's thread pools, one per process and
+    each as wide as the machine, oversubscribe it (full-width GoogLeNet's
+    app run took 183 s under six workers against 4 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def test_imagenet_app_runs_end_to_end_on_the_cpu():
     run = imagenet_app.main(TINY)
     tr = run.trainer
@@ -54,6 +69,34 @@ def test_imagenet_app_runs_end_to_end_on_the_cpu():
 def test_imagenet_app_refuses_to_leave_the_card_unasked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = [a for a in TINY if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        imagenet_app.main(argv)
+
+
+GOOGLENET_TINY = ["--synthetic", "--device", "cpu", "--model", "googlenet",
+                  "--workers", "2", "--batch", "1", "--tau", "1",
+                  "--rounds", "1", "--resize", "232", "--classes", "10"]
+
+
+def test_imagenet_app_trains_googlenet_at_224_on_the_cpu():
+    """GoogLeNet through the app: the crop defaults to 224 (227 only for
+    AlexNet and CaffeNet), the TRAIN net carries the two auxiliary heads,
+    and the eval scores are the TEST net's outputs."""
+    run = imagenet_app.main(GOOGLENET_TINY)
+    tr = run.trainer
+    assert tr.train_net.blob_shapes["data"] == (2, 3, 224, 224)
+    assert tr.train_net.output_blobs == ["loss1/loss1", "loss2/loss1",
+                                         "loss3/loss3"]
+    assert math.isfinite(tr.round_losses[0])
+    assert set(run.scores) == {"loss3/loss3", "loss3/top-1", "loss3/top-5"}
+    assert 0.0 <= run.scores["loss3/top-1"] <= run.scores["loss3/top-5"]
+    assert "loss1/classifier" in tr.params
+
+
+def test_imagenet_app_googlenet_refuses_to_leave_the_card_unasked(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a for a in GOOGLENET_TINY if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         imagenet_app.main(argv)
 

@@ -352,3 +352,83 @@ def test_cuda_training_step_goes_through_every_kernel():
                 "lrn_across_channels": 0, "lrn_across_channels_fwd": 8,
                 "lrn_across_channels_bwd": 8, "max_pool_bwd": 12}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The kernels at the shapes GoogLeNet's and the CIFAR nets' training paths
+# give them (batch 32 for GoogLeNet, CifarApp's 100 for CIFAR)
+# ---------------------------------------------------------------------------
+
+# GoogLeNet's nine 3/1/1 inception pools (B4), its 3/2 pool1 on 112x112
+# planes, which the kernel cuts into bands (B5), and cifar10's pool1
+ZOO_POOL_CASES = [
+    *(((32, c, hw, hw), 3, 1, 1)
+      for c, hw in ((192, 28), (256, 28), (480, 14), (512, 14), (512, 14),
+                    (512, 14), (528, 14), (832, 7), (832, 7))),
+    ((32, 64, 112, 112), 3, 2, 0),
+    ((100, 32, 32, 32), 3, 2, 0)]
+ZOO_LRN_CASES = [((32, 64, 56, 56), 5, False), ((32, 192, 56, 56), 5, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(set(ZOO_POOL_CASES)),
+                         ids=lambda c: "x".join(map(str, c[0]))
+                         + f"-k{c[1]}s{c[2]}p{c[3]}")
+def test_cuda_max_pool_bwd_matches_plain_at_zoo_shapes(case, dtype):
+    test_cuda_max_pool_bwd_matches_plain_on_ties(case, dtype)
+    shape, k, s, p = case
+    if shape[2] == 112:
+        from sparknet_tpu_torch.ops.vision import pool_output_size
+        oh, ow = pool_output_size(112, 112, k, k, s, s, p, p)
+        plan = ck.max_pool_bwd_plan(shape[0] * shape[1], 112, 112, k, k, s,
+                                    s, p, p, oh, ow, torch.tensor(
+                                        [], dtype=dtype).element_size())
+        assert plan.bands > 1, plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ZOO_LRN_CASES, ids=_ids)
+def test_cuda_lrn_kernels_match_plain_at_googlenet_norms(case, dtype):
+    test_cuda_train_lrn_kernels_match_plain(case, dtype)
+    test_cuda_kernel_matches_plain(case, dtype)
+
+
+@pytest.mark.parametrize("model", ["googlenet", "cifar10_full"])
+def test_cuda_zoo_training_step_launches_its_kernels(model):
+    """One local-SGD step of full-width GoogLeNet (batch 2) or
+    cifar10_full (batch 4) on the card: per worker step GoogLeNet launches
+    the LRN forward and backward twice each and the pool backward 13
+    times (4 strided, 9 stride-1); cifar10_full the pool backward once
+    (its AVE pools and WITHIN_CHANNEL LRNs are library work).  The loss
+    matches the CPU step from the same weights, batch and Dropout masks
+    (TF32 off) at rtol 1e-4."""
+    _need_cuda()
+    from sparknet_tpu_torch.models import cifar10_full, googlenet
+    from sparknet_tpu_torch.parallel.trainer import (DistributedTrainer,
+                                                     TrainerConfig)
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    if model == "googlenet":
+        net, shape, classes = googlenet(2, 2), (1, 2, 3, 224, 224), 1000
+        want = {"lrn_across_channels": 0, "lrn_across_channels_fwd": 2,
+                "lrn_across_channels_bwd": 2, "max_pool_bwd": 13}
+    else:
+        net, shape, classes = cifar10_full(4, 4), (1, 4, 3, 32, 32), 10
+        want = {"lrn_across_channels": 0, "lrn_across_channels_fwd": 0,
+                "lrn_across_channels_bwd": 0, "max_pool_bwd": 1}
+    sp = load_solver_prototxt_with_net(
+        'base_lr: 0.001\nmomentum: 0.9\nweight_decay: 0.004\n', net)
+    rng = np.random.default_rng(0)
+    batches = {"data": (50 * rng.normal(size=shape)).astype(np.float32),
+               "label": rng.integers(0, classes, shape[:2]).astype(
+                   np.float32)}
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        tr = DistributedTrainer(sp, 1, TrainerConfig(tau=1), seed=0,
+                                device=dev)
+        ck.reset_launch_counts()
+        losses[dev] = tr.train_round(batches)
+        if dev == "cuda":
+            assert ck.launch_counts == want
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -39,6 +39,11 @@ POOL_SHAPES = [
     ("googlenet_k3s1p1_112", (8, 64, 112, 112), 3, 1, 1),
     ("googlenet_k3s2_112", (8, 64, 112, 112), 3, 2, 0),
     ("googlenet_k3s1p1_28", (16, 192, 28, 28), 3, 1, 1),
+    # the training path's shapes at batch 32: GoogLeNet's pool1 (banded)
+    # and its smallest inception pool, and cifar10's pool1 at batch 100
+    ("googlenet_pool1_b32", (32, 64, 112, 112), 3, 2, 0),
+    ("googlenet_inception_5a_pool_b32", (32, 832, 7, 7), 3, 1, 1),
+    ("cifar_pool1_b100", (100, 32, 32, 32), 3, 2, 0),
     ("vgg_pool1_224", (2, 64, 224, 224), 2, 2, 0),
     ("vgg_pool2_112", (2, 128, 112, 112), 2, 2, 0),
     ("k3s2p1_224", (2, 8, 224, 224), 3, 2, 1),
@@ -55,6 +60,8 @@ LRN_SHAPES = [
       for name, c, hw in (("norm1", 96, 27 * 27), ("norm2", 256, 13 * 13))
       for b in (1, 2, 4, 8, 16, 32, 64)),
     ("googlenet_norm2_b16", (16, 192, 56 * 56)),
+    ("googlenet_norm1_b32", (32, 64, 56 * 56)),
+    ("googlenet_norm2_b32", (32, 192, 56 * 56)),
     ("odd", (3, 7, 45)),
     ("one_channel", (5, 1, 9)),
     ("batch_over_65535", (70_000, 3, 1)),

@@ -151,7 +151,8 @@ def test_deploy_from_matches_layer_names_and_head():
 
 
 def test_zoo_holds_only_models_whose_layers_are_ported():
-    assert set(zoo_models()) == {"lenet", "alexnet", "caffenet"}
+    assert set(zoo_models()) == {"lenet", "cifar10_quick", "cifar10_full",
+                                 "alexnet", "caffenet", "googlenet", "vgg16"}
     for factory in zoo_models().values():
         deploy, _ = deploy_from(factory(), 1)
         Net(deploy)       # every layer type resolves in the port
@@ -261,7 +262,7 @@ def test_unknown_model_and_wrong_shape_are_typed(lenet_house):
         with pytest.raises(ServingError, match="expects input"):
             eng.submit("lenet", np.zeros((3, 10, 10), np.float32))
     with pytest.raises(UnknownModel, match="not in the zoo"):
-        lenet_house.load("googlenet")
+        lenet_house.load("resnet50")
     assert "caffenet" not in lenet_house.loaded()
 
 
