@@ -8,19 +8,32 @@ card at the shapes every main path gives it (with planted faults the same
 checks must reject), then drives the port's main paths at full width:
 it serves CaffeNet and GoogLeNet through the micro-batching engine
 (``ModelHouse`` -> ``InferenceEngine`` -> ``run_closed_loop``) in bf16 and
-in f32, and a few VGG-16 requests; it trains CaffeNet (2 workers, batch
-64), GoogLeNet (batch 32) and VGG-16 (batch 32, one short round) with
-τ-step local SGD through ``apps.imagenet_app.main``, and cifar10_full and
+in f32, and a few VGG-16 requests; it checks the device crop
+(``crop_mirror_mean``) against the host crop bit for bit at CaffeNet's and
+GoogLeNet's shapes and the pinned, prefetched ``DeviceFeed`` (order,
+bytes, pinning, its own stream), with planted faults; it trains CaffeNet
+(2 workers, batch 64) and GoogLeNet (batch 32), τ=5, through
+``apps.imagenet_app.main`` with the crop on the feed's host thread and
+with ``--device-preprocess``, and through the synchronous loop the
+device feed replaced (the same-call baseline), CaffeNet also one
+``--strategy sync`` round whose ``--snapshot`` must restore bit for bit
+on the card and on the CPU, VGG-16 (batch 32, one short round), and cifar10_full and
 cifar10_quick through ``apps.cifar_app.main`` (batch 100, τ=10), f32 with
-TF32 off.  It checks what comes out, how often each kernel launched on
-each path, and one training round of CaffeNet, GoogLeNet and each CIFAR
-net on the card against the same round on the CPU.  Prints the card,
-timings, a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-...}``.  Every failed check exits non-zero.  Without a CUDA device it
-exits 2 and prints no result.  ``--profile PATH`` also writes per-kernel
-device-time tables of batch-64 forwards and of one training round of
-CaffeNet and GoogLeNet to PATH and prints the host-side split of one
-batch-64 dispatch.
+TF32 off.  Each training run prints per round the loop's seconds (the
+wait for the feed included), the round's own, the feed's host seconds,
+the wait, and img/s per card over the loop and over the round.  It checks
+what comes out, how often each kernel launched on each path, and one
+training round of CaffeNet (``local_sgd`` and ``sync``), GoogLeNet and
+each CIFAR net on the card against the same round on the CPU, and
+GoogLeNet's round at τ=2 with the hand kernels against their plain
+versions on the card.  Prints the card, timings, a ``{"kernels": [...]}``
+line and, last, ``{"ok": true, "device": ...}``.  Every failed check
+exits non-zero.  Without a CUDA device it exits 2 and prints no result.
+``--profile PATH`` also writes per-kernel device-time tables of batch-64
+forwards and of one steady round of each training run to PATH, prints
+the host-side split of one batch-64 dispatch, and prints for each of
+those rounds the device's busy share of its wall time and its
+host-to-device copies, pinned or pageable, by what they carry.
 
 Imports nothing of JAX and nothing of ``sparknet_tpu``.
 """
@@ -702,15 +715,150 @@ def profile_forward(lm, path: str, mode: str = "w") -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: the training feed on the card — the device crop against the
+# host crop, and the pinned, prefetched DeviceFeed
+# ---------------------------------------------------------------------------
+
+# (label, batch, crop): CaffeNet's global batch at 227, GoogLeNet's at 224
+CROP_CASES = [("caffenet", 2 * TRAIN_BATCH, 227), ("googlenet", 2 * GN_BATCH,
+                                                   224)]
+
+
+def host_draws(seed: int, n: int, size: int, crop: int):
+    """The host crop's draws, in its order (ys, xs, flips)."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, size - crop + 1, size=n),
+            rng.integers(0, size - crop + 1, size=n),
+            rng.integers(0, 2, size=n))
+
+
+def check_crop(dev) -> dict:
+    """``crop_mirror_mean`` on the card at CaffeNet's and GoogLeNet's
+    shapes (256x256 images, a full-size mean) against the port's numpy
+    host crop with the same offsets: equal bit for bit.  Two planted
+    faults must differ: every x offset one further, and the flips
+    dropped.  Times: the card's crop (device ms, CUDA events) and the
+    host crop it replaces (host clock)."""
+    from sparknet_tpu_torch.data import random_crop_mirror
+    from sparknet_tpu_torch.parallel.trainer import crop_mirror_mean
+    gen = np.random.default_rng(SEED + 20)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    out = {}
+    for label, n, crop in CROP_CASES:
+        x = gen.uniform(0, 255, (n, 3, TRAIN_RESIZE, TRAIN_RESIZE)).astype(
+            np.float32)
+        mean = x.mean(axis=0)
+        t0 = time.perf_counter()
+        want = random_crop_mirror(x, crop, np.random.default_rng(SEED + 21),
+                                  mean=mean)
+        host_s = time.perf_counter() - t0
+        ys, xs, flips = (torch.from_numpy(a).to(dev) for a in host_draws(
+            SEED + 21, n, TRAIN_RESIZE, crop))
+        xd, md = torch.from_numpy(x).to(dev), torch.from_numpy(mean).to(dev)
+        run = lambda xs_=xs, fl=flips: crop_mirror_mean(xd, ys, xs_, fl,
+                                                        crop, md)
+        got = run().cpu().numpy()
+        shifted = run(xs_=(xs + 1) % (TRAIN_RESIZE - crop + 1)).cpu().numpy()
+        unflipped = run(fl=torch.zeros_like(flips)).cpu().numpy()
+        if got.tobytes() != want.tobytes():
+            fail(f"crop {label}: the card's crop differs from the host's "
+                 f"(max |err| {float(np.abs(got - want).max()):.3e})")
+        for fault, v in (("x_offset_plus_1", shifted),
+                         ("flip_dropped", unflipped)):
+            if v.tobytes() == want.tobytes():
+                fail(f"crop {label}: the planted {fault} fault passes")
+        ms = time_ms(run, 20, flush)
+        # read each sample's window and the mean once, write the output
+        nbytes = 4 * (2 * got.size + mean.size)
+        out[label] = {"batch": n, "crop": crop, "equal": True, "ms": ms,
+                      "host_crop_s": host_s,
+                      "planted_differ": ["x_offset_plus_1", "flip_dropped"],
+                      **bound(nbytes, got.size)}
+    print("crop_check " + json.dumps(out), flush=True)
+    return out
+
+
+def check_feed(dev) -> dict:
+    """``DeviceFeed`` on the card: 2 x its ring size + 2 distinct rounds
+    (2 x 8 images of 3x256x256 each, labels), a consumer slower than the
+    feed (a 20 ms device spin and a 10 ms host sleep a round): every
+    round arrives in order and byte-equal to its source; the staging
+    buffers are pinned; and a round is delivered while a 1 s spin still
+    holds the consumer's (default) stream, so its copy ran on the feed's
+    stream.  Prints the pinned bytes and the feed's stats."""
+    import threading
+    from sparknet_tpu_torch.data.pipeline import FeedStats, ring_size
+    from sparknet_tpu_torch.data.prefetch import device_feed
+    gen = np.random.default_rng(SEED + 22)
+    depth, putters = 1, 2
+    n = 2 * ring_size(depth, putters + 1) + 2
+    src = [{"data": gen.normal(size=(2, 8, 3, 256, 256)).astype(np.float32),
+            "label": np.full((2, 8), i, np.float32)} for i in range(n)]
+    # the source releases round i when go[i] is set: the last round waits
+    # until the default stream is busy
+    go = [threading.Event() for _ in range(n)]
+    for e in go[:-1]:
+        e.set()
+
+    def rounds():
+        for i, r in enumerate(src):
+            go[i].wait()
+            yield r
+
+    stats = FeedStats()
+    t0 = time.perf_counter()
+    with device_feed(rounds(), dev, depth=depth, putters=putters,
+                     stats=stats) as feed:
+        if feed.stream == torch.cuda.default_stream(dev):
+            fail("feed: its stream is the default stream")
+        for i in range(n - 1):
+            batch = next(feed)
+            torch.cuda._sleep(40_000_000)        # ~20 ms of device work
+            time.sleep(0.01)
+            for k, v in src[i].items():
+                if batch[k].device != dev or \
+                        batch[k].cpu().numpy().tobytes() != v.tobytes():
+                    fail(f"feed: round {i} {k} differs from its source")
+        pinned = [b.is_pinned() for r in feed.rings.values()
+                  for b in r.buffers]
+        if not pinned or not all(pinned):
+            fail(f"feed: staging buffers pinned: {pinned}")
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)         # ~1 s on the default stream
+        go[-1].set()
+        last = next(feed)
+        busy = not torch.cuda.default_stream(dev).query()
+        torch.cuda.synchronize()
+        if not busy:
+            fail("feed: the last round waited for the default stream, so "
+                 "its copy did not run on the feed's stream")
+        if last["data"].cpu().numpy().tobytes() != src[-1]["data"].tobytes():
+            fail("feed: the last round differs from its source")
+        report = {"rounds": n, "ring_size": feed._ring_size,
+                  "pinned_bytes": feed.pinned_bytes,
+                  "delivered_while_default_stream_busy": busy,
+                  "wall_s": time.perf_counter() - t0,
+                  "stats": stats.snapshot(), "per_round": stats.per_batch()}
+    print("feed_check " + json.dumps(report), flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: training — full-width CaffeNet, GoogLeNet and VGG-16 through
 # imagenet_app, cifar10_full and cifar10_quick through cifar_app,
 # τ-step local SGD
 # ---------------------------------------------------------------------------
 
-TRAIN_WORKERS, TRAIN_TAU, TRAIN_ROUNDS = 2, 5, 2
+TRAIN_WORKERS, TRAIN_TAU = 2, 5
+# Round 0 warms up and rounds 1-7 are steady.  The feed builds rounds
+# ahead while round 0 runs, so the first steady rounds can take stock
+# the feed built then; by the later ones a feed-bound loop waits for
+# every round it takes.
+TRAIN_ROUNDS = 8
+PROFILE_ROUND = 7         # the steady round that --profile traces
 TRAIN_RESIZE, TRAIN_CROP = 256, 227     # bvlc_reference_caffenet's
 GN_CROP = 224                           # bvlc_googlenet's and VGG-16's
-CIFAR_TAU = 10                          # CifarApp.scala:111
+CIFAR_TAU, CIFAR_ROUNDS = 10, 2         # CifarApp.scala:111
 
 
 def eval_batches(workers: int, batch: int) -> int:
@@ -720,18 +868,185 @@ def eval_batches(workers: int, batch: int) -> int:
     return workers * (max(2 * workers * batch, 64) // workers // batch)
 
 
+def synchronous_loop(trainer, feed, test_factory, test_steps, *, rounds,
+                     test_interval=10, logger=None, snapshot_path=None,
+                     prefetch_depth=None, profiler=None):
+    """The port's training loop before the device feed, kept here as the
+    same-call baseline: each round built on the host (``feed.next_round``)
+    and then run (``train_round``, which copies each micro-batch from
+    pageable memory), one after the other; one eval at the end."""
+    from sparknet_tpu_torch.apps.common import TrainingRun, normalize_scores
+    run = TrainingRun({}, trainer, feed)
+    for r in range(rounds):
+        if profiler is not None and r == profiler.index:
+            profiler.start()
+        t0 = time.perf_counter()
+        batches = feed.next_round()
+        run.feed_wait_seconds.append(time.perf_counter() - t0)
+        trainer.train_round(batches)
+        run.loop_seconds.append(time.perf_counter() - t0)
+        if profiler is not None and r == profiler.index:
+            profiler.stop(trainer)
+    run.scores = normalize_scores(trainer.test(test_factory(), test_steps),
+                                  test_steps)
+    return run
+
+
+def device_busy_and_uploads(trace_path: str, wall_s: float,
+                            sizes: dict) -> dict:
+    """From a chrome trace of one round: the device's busy share of the
+    round's wall time (the union of kernel, memcpy and memset intervals
+    on every stream) and the host-to-device copies by source memory
+    (pinned or pageable) and by what they carry, told apart by size
+    (``sizes``: kind -> set of byte counts; the rest is "other")."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans, uploads = [], {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        name = e.get("name", "")
+        if e["cat"] == "gpu_memcpy" and "HtoD" in name:
+            src = ("pinned" if "Pinned" in name else
+                   "pageable" if "Pageable" in name else name)
+            nbytes = int(e.get("args", {}).get("bytes", -1))
+            kind = next((k for k, v in sizes.items() if nbytes in v),
+                        "other")
+            slot = uploads.setdefault(src, {}).setdefault(
+                kind, {"count": 0, "bytes": 0, "ms": 0.0})
+            slot["count"] += 1
+            slot["bytes"] += nbytes
+            slot["ms"] += float(e["dur"]) / 1e3
+    spans.sort()
+    busy, end = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return {"wall_s": wall_s, "device_busy_s": busy / 1e6,
+            "device_busy_share": busy / 1e6 / wall_s, "uploads": uploads}
+
+
+class RoundProfile:
+    """``torch.profiler`` over round ``index`` of a training run, from the
+    loop's request for the round's feed (``DeviceFeed.__next__``, or the
+    baseline's ``next_round``) to the end of its ``train_round``: the
+    device's busy share of that wall time and its host-to-device copies
+    (``device_busy_and_uploads``); the per-kernel table goes to
+    ``path``."""
+
+    def __init__(self, index: int, label: str, path: str,
+                 whole_rounds: bool):
+        self.index, self.label, self.path = index, label, path
+        self.whole_rounds = whole_rounds
+        self.prof, self.result, self._fed = None, None, 0
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def stop(self, tr) -> None:
+        import tempfile
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self.t0
+        self.prof.stop()
+        sizes = upload_sizes(tr, self.whole_rounds)
+        with tempfile.TemporaryDirectory() as d:
+            trace = os.path.join(d, "trace.json")
+            self.prof.export_chrome_trace(trace)
+            self.result = device_busy_and_uploads(trace, wall, sizes)
+        with open(self.path, "a") as f:
+            f.write(f"\n\n{self.label}: round {self.index} of the loop, "
+                    f"feed wait included\n")
+            f.write(self.prof.key_averages().table(
+                sort_by="cuda_time_total", row_limit=40))
+        self.prof = None
+
+    def hooks(self):
+        """Patches that open the window at the round's feed request and
+        close it after its ``train_round``."""
+        from contextlib import ExitStack
+        from sparknet_tpu_torch.data.prefetch import DeviceFeed
+        from sparknet_tpu_torch.parallel.trainer import DistributedTrainer
+        feed_next, train_round = DeviceFeed.__next__, \
+            DistributedTrainer.train_round
+        prof = self
+
+        def next_(feed):
+            if prof._fed == prof.index:
+                prof.start()
+            prof._fed += 1
+            return feed_next(feed)
+
+        def round_(tr, batches):
+            loss = train_round(tr, batches)
+            if prof.prof is not None and tr.round - 1 == prof.index:
+                prof.stop(tr)
+            return loss
+
+        stack = ExitStack()
+        stack.enter_context(mock.patch.object(DeviceFeed, "__next__", next_))
+        stack.enter_context(mock.patch.object(DistributedTrainer,
+                                              "train_round", round_))
+        return stack
+
+
+def upload_sizes(tr, whole_rounds: bool) -> dict:
+    """Byte counts of a training run's host-to-device copies by kind: the
+    minibatches (whole rounds through the feed, or one micro-batch at a
+    time in the baseline), their labels, the Dropout masks (one bool a
+    unit of each Dropout top, a worker's batch) and the crop offsets."""
+    net, n = tr.train_net, tr.n_workers
+    batch = net.blob_shapes["data"][0] // n
+    per_round = tr.batches_per_round
+    data = math.prod(net.blob_shapes["data"][1:]) * 4
+    if tr.config.device_preprocess is not None:
+        data = 3 * TRAIN_RESIZE ** 2 * 4
+    lead = per_round * n * batch if whole_rounds else batch * tr.sp.iter_size
+    masks = {batch * math.prod(net.blob_shapes[lp.top[0]][1:])
+             for lp in net.param.layer if lp.type == "Dropout"}
+    return {"minibatch": {lead * data}, "label": {lead * 4},
+            "dropout_mask": masks,
+            "crop_offsets": {3 * batch * tr.sp.iter_size * 8}}
+
+
 def train_app(ck, dev, smi: str, label: str, main_fn, argv: list[str], *,
               workers: int, tau: int, rounds: int, batch: int,
-              want: dict, score_keys: set) -> dict:
+              want: dict, score_keys: set, loop=None,
+              profile_path: str | None = None) -> dict:
     """One app's ``main`` on the card, with the launch counts set to 0
     just before it and read just after: checks the losses and scores,
     that the counts are exactly ``want``, that the master params moved
-    and are the mean of the workers' last-round params; prints ms per
-    worker step, img/s per card and the feed's seconds for each round."""
+    and (under ``local_sgd``) are the mean of the workers' last-round
+    params.  Prints per round: the loop's seconds (the wait for the feed
+    plus the round), the round's own seconds, the feed's host seconds
+    for that round, the wait, and img/s per card over the loop and over
+    the round; then their medians over the steady rounds (round 0 warms
+    up; a profiled round is left out).  ``loop="synchronous"`` runs the
+    app with ``synchronous_loop`` in place of its ``run_training``.
+    ``profile_path`` traces round ``PROFILE_ROUND``."""
+    from sparknet_tpu_torch.apps import imagenet_app
+    prof = (RoundProfile(PROFILE_ROUND, label, profile_path,
+                         whole_rounds=loop != "synchronous")
+            if profile_path else None)
+    from contextlib import ExitStack
     torch.cuda.reset_peak_memory_stats(dev)
     ck.reset_launch_counts()
     t0 = time.perf_counter()
-    run = main_fn(argv)
+    with ExitStack() as stack:
+        if loop == "synchronous":
+            stack.enter_context(mock.patch.object(
+                imagenet_app, "run_training",
+                lambda *a, **kw: synchronous_loop(*a, profiler=prof, **kw)))
+        elif prof is not None:
+            stack.enter_context(prof.hooks())
+        run = main_fn(argv)
     wall_s = time.perf_counter() - t0
     launches = dict(ck.launch_counts)
     tr = run.trainer
@@ -743,101 +1058,165 @@ def train_app(ck, dev, smi: str, label: str, main_fn, argv: list[str], *,
         fail(f"{label}: eval scores {run.scores}")
     if launches != want:
         fail(f"{label}: launches {launches}, want {want}")
+    if len(run.loop_seconds) != rounds:
+        fail(f"{label}: {len(run.loop_seconds)} loop rounds, want {rounds}")
     init = tr.train_net.init(torch.Generator().manual_seed(0), device=dev)
     for k, blobs in tr.params.items():
         for i, b in enumerate(blobs):
             if torch.equal(b, init[k][i]):
                 fail(f"{label}: master param {k}[{i}] never moved")
+            if tr.config.strategy != "local_sgd":
+                continue
             mean = torch.stack([p[k][i] for p in tr.worker_params]).mean(0)
             if not torch.equal(b, mean):
                 fail(f"{label}: master param {k}[{i}] is not the mean of "
                      f"the workers' params")
+    images = workers * tau * batch
     report_rounds = []
     for r in range(rounds):
-        sec = tr.round_seconds[r]
+        sec, loop_s = tr.round_seconds[r], run.loop_seconds[r]
         report_rounds.append({
-            "round": r, "loss": tr.round_losses[r], "seconds": sec,
-            "feed_seconds": run.feed.seconds[r],
+            "round": r, "loss": tr.round_losses[r], "loop_s": loop_s,
+            "round_s": sec, "feed_host_s": run.feed.seconds[r],
+            "feed_wait_s": run.feed_wait_seconds[r],
             "worker_step_ms": sec * 1e3 / (workers * tau),
-            "img_s": workers * tau * batch / sec})
-    report = {"argv": argv, "wall_s": wall_s, "rounds": report_rounds,
+            "img_s_loop": images / loop_s, "img_s_round": images / sec})
+    steady = [r for r in report_rounds[1:]
+              if prof is None or r["round"] != PROFILE_ROUND]
+    medians = ({k: float(np.median([r[k] for r in steady]))
+                for k in ("loop_s", "round_s", "feed_host_s", "feed_wait_s",
+                          "img_s_loop", "img_s_round", "worker_step_ms")}
+               if steady else None)
+    if prof is not None and medians is not None:
+        # the profiler slows the host; the unprofiled rounds' loop is the
+        # wall time the card's busy seconds are a share of
+        prof.result["busy_share_of_steady_loop"] = (
+            prof.result["device_busy_s"] / medians["loop_s"])
+    report = {"argv": argv, "loop": loop or "run_training",
+              "strategy": tr.config.strategy,
+              "preprocess": ("device" if tr.config.device_preprocess
+                             else "host"),
+              "wall_s": wall_s, "rounds": report_rounds,
+              "steady_medians": medians, "steady_rounds": len(steady),
+              "feed_stats": (tr.feed_stats.snapshot()
+                             if loop != "synchronous" else None),
               "scores": run.scores, "launches": launches,
-              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+              "profile": prof.result if prof is not None else None}
     print(f"{label} " + json.dumps(report), flush=True)
     for r in report_rounds:
         print(f"{label} [{smi}] round {r['round']}"
               f"{' (first, includes warm-up)' if r['round'] == 0 else ''}: "
-              f"{r['worker_step_ms']:.2f} ms per worker step of {batch} "
-              f"images, {r['img_s']:.1f} img/s per card, loss "
-              f"{r['loss']:.4f}, feed {r['feed_seconds']:.3f} s", flush=True)
+              f"loop {r['loop_s']:.3f} s, round {r['round_s']:.3f} s, feed "
+              f"host {r['feed_host_s']:.3f} s, feed wait "
+              f"{r['feed_wait_s']:.3f} s; {r['img_s_loop']:.1f} img/s per "
+              f"card over the loop, {r['img_s_round']:.1f} over the round; "
+              f"loss {r['loss']:.4f}", flush=True)
+    if prof is not None:
+        print(f"{label} profile [{smi}] round {PROFILE_ROUND}: "
+              + json.dumps(prof.result), flush=True)
     del init
     return {"report": report, "trainer": tr}
 
 
 def imagenet_argv(model: str, dev, *, batch: int, tau: int, rounds: int,
-                  workers: int = TRAIN_WORKERS) -> list[str]:
+                  workers: int = TRAIN_WORKERS, extra=()) -> list[str]:
     return ["--synthetic", "--model", model, "--workers", str(workers),
             "--batch", str(batch), "--tau", str(tau), "--rounds", str(rounds),
             "--test-interval", str(rounds), "--resize", str(TRAIN_RESIZE),
-            "--device", str(dev)]
+            "--device", str(dev), *extra]
 
 
-def train_slice(ck, dev, smi: str) -> dict:
-    """``imagenet_app.main`` on the card: synthetic 256x256 images,
-    CaffeNet at 227, 2 workers x batch 64, τ=5, 2 rounds, one eval at the
-    end.  Per worker step 2 LRN forwards, 2 LRN backwards, 3 pool
-    backwards; 2 inference LRNs per worker test batch.  The first round's
-    loss and the test-mode loss at init sit near ln 1000."""
+def train_imagenet(ck, dev, smi: str, label: str, model: str, *,
+                   mode: str, rounds: int = TRAIN_ROUNDS, extra=(),
+                   profile_path: str | None = None,
+                   initial_check: bool = False) -> dict:
+    """``imagenet_app.main`` on the card, 2 workers, τ=5, synthetic
+    256x256 images: CaffeNet at 227 (batch 64), GoogLeNet at 224 (batch
+    32).  ``mode``: "host" (the app's loop, the crop on the feed's host
+    thread), "device" (``--device-preprocess``) or "synchronous" (the
+    loop before the device feed, ``synchronous_loop``).  Per worker step
+    CaffeNet runs 2 LRN forwards, 2 LRN backwards and 3 pool backwards,
+    GoogLeNet 2, 2 and 13 (4 strided, 9 stride-1); 2 inference LRNs per
+    worker test batch; the crop launches no hand kernel.  The first round's loss sits near
+    ln 1000 (within 1, the train loss carries Dropout; GoogLeNet's sums
+    three heads and is not checked).  ``initial_check`` also checks the
+    test-mode loss at init (``check_initial_test_loss``)."""
     from sparknet_tpu_torch.apps import imagenet_app
-    steps = TRAIN_WORKERS * TRAIN_TAU * TRAIN_ROUNDS
+    batch = TRAIN_BATCH if model == "caffenet" else GN_BATCH
+    pools = 3 if model == "caffenet" else 13
+    steps = TRAIN_WORKERS * TRAIN_TAU * rounds
+    extra = list(extra) + (["--device-preprocess"] if mode == "device"
+                           else [])
+    score_keys = ({"loss", "accuracy"} if model == "caffenet" else
+                  {"loss3/loss3", "loss3/top-1", "loss3/top-5"})
     out = train_app(
-        ck, dev, smi, "train", imagenet_app.main,
-        imagenet_argv("caffenet", dev, batch=TRAIN_BATCH, tau=TRAIN_TAU,
-                      rounds=TRAIN_ROUNDS),
-        workers=TRAIN_WORKERS, tau=TRAIN_TAU, rounds=TRAIN_ROUNDS,
-        batch=TRAIN_BATCH, score_keys={"loss", "accuracy"},
+        ck, dev, smi, label, imagenet_app.main,
+        imagenet_argv(model, dev, batch=batch, tau=TRAIN_TAU, rounds=rounds,
+                      extra=extra),
+        workers=TRAIN_WORKERS, tau=TRAIN_TAU, rounds=rounds, batch=batch,
+        score_keys=score_keys,
+        loop="synchronous" if mode == "synchronous" else None,
+        profile_path=profile_path,
         want={"lrn_across_channels_fwd": 2 * steps,
               "lrn_across_channels_bwd": 2 * steps,
-              "max_pool_bwd": 3 * steps,
+              "max_pool_bwd": pools * steps,
               "lrn_across_channels": 2 * eval_batches(TRAIN_WORKERS,
-                                                      TRAIN_BATCH)})
-    tr, first = out["trainer"], out["report"]["rounds"][0]["loss"]
-    # the train-mode loss carries Dropout: at CaffeNet's init (fc6/fc7
-    # biases 1) its doubled survivors widen fc8's logits, so the first
-    # round's loss sits above ln 1000; the test-mode loss at init is
-    # checked more tightly below
-    if abs(first - math.log(1000)) > 1.0:
-        fail(f"train: first round's loss {first:.4f} is not near "
+                                                      batch)})
+    tr = out["trainer"]
+    crop = TRAIN_CROP if model == "caffenet" else GN_CROP
+    if tr.train_net.blob_shapes["data"][-1] != crop:
+        fail(f"{label}: the app did not crop to {crop}")
+    if (tr.config.device_preprocess is not None) != (mode == "device"):
+        fail(f"{label}: device_preprocess does not match mode {mode}")
+    first = out["report"]["rounds"][0]["loss"]
+    if model == "caffenet" and abs(first - math.log(1000)) > 1.0:
+        fail(f"{label}: first round's loss {first:.4f} is not near "
              f"ln 1000 = {math.log(1000):.4f}")
-    check_initial_test_loss("train", tr, dev, TRAIN_CROP, 0.5)
+    if initial_check:
+        check_initial_test_loss(label, tr, dev, crop,
+                                0.5 if model == "caffenet" else 1.0)
     return out
 
 
-def train_googlenet(ck, dev, smi: str) -> dict:
-    """``imagenet_app.main --model googlenet`` on the card: synthetic
-    256x256 images, the default crop of 224, 2 workers x batch 32, τ=5,
-    2 rounds.  Per worker step 2 LRN forwards and backwards and 13 pool
-    backwards (4 strided, 9 stride-1); 2 inference LRNs per worker test
-    batch.  The TRAIN net's loss sums three heads (0.3, 0.3, 1); the
-    test-mode loss at init sits near ln 1000."""
-    from sparknet_tpu_torch.apps import imagenet_app
-    steps = TRAIN_WORKERS * TRAIN_TAU * TRAIN_ROUNDS
-    out = train_app(
-        ck, dev, smi, "train_googlenet", imagenet_app.main,
-        imagenet_argv("googlenet", dev, batch=GN_BATCH, tau=TRAIN_TAU,
-                      rounds=TRAIN_ROUNDS),
-        workers=TRAIN_WORKERS, tau=TRAIN_TAU, rounds=TRAIN_ROUNDS,
-        batch=GN_BATCH,
-        score_keys={"loss3/loss3", "loss3/top-1", "loss3/top-5"},
-        want={"lrn_across_channels_fwd": 2 * steps,
-              "lrn_across_channels_bwd": 2 * steps,
-              "max_pool_bwd": 13 * steps,
-              "lrn_across_channels": 2 * eval_batches(TRAIN_WORKERS,
-                                                      GN_BATCH)})
-    if out["trainer"].train_net.blob_shapes["data"][-1] != GN_CROP:
-        fail("train_googlenet: the app did not crop to 224")
-    check_initial_test_loss("train_googlenet", out["trainer"], dev, GN_CROP,
-                            1.0)
+def train_sync_and_snapshot(ck, dev, smi: str) -> dict:
+    """One CaffeNet round with ``--strategy sync`` (2 x 64, τ=5, host
+    preprocess) and ``--snapshot``: the file restores into a fresh
+    trainer on the card and one on the CPU, each with params equal to
+    the run's bit for bit."""
+    import tempfile
+    from sparknet_tpu_torch.parallel.trainer import (DistributedTrainer,
+                                                     TrainerConfig)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "caffenet_sync.npz")
+        out = train_imagenet(ck, dev, smi, "train_sync", "caffenet",
+                             mode="host", rounds=1,
+                             extra=["--strategy", "sync",
+                                    "--snapshot", path])
+        tr = out["trainer"]
+        if tr.config.strategy != "sync" or tr.worker_params:
+            fail("train_sync: the run was not sync")
+        t0 = time.perf_counter()
+        checked = {}
+        for where in (dev, "cpu"):
+            back = DistributedTrainer(tr.sp, TRAIN_WORKERS,
+                                      TrainerConfig(strategy="sync"),
+                                      seed=SEED + 1, device=where)
+            back.restore(path)
+            for k, blobs in tr.params.items():
+                for i, b in enumerate(blobs):
+                    if not torch.equal(b.cpu(), back.params[k][i].cpu()):
+                        fail(f"snapshot: {k}[{i}] restored on {where} "
+                             f"differs")
+            if (back.iter, back.round) != (tr.iter, tr.round):
+                fail(f"snapshot: iter/round {back.iter}/{back.round}")
+            checked[str(where)] = True
+            del back
+        report = {"bytes": os.path.getsize(path),
+                  "restored_equal": checked,
+                  "restore_s": time.perf_counter() - t0}
+    print("snapshot " + json.dumps(report), flush=True)
+    out["snapshot"] = report
     return out
 
 
@@ -865,28 +1244,6 @@ def check_initial_test_loss(label: str, tr, dev, crop: int,
     return loss
 
 
-def profile_train_round(tr, path: str, label: str) -> None:
-    """Per-kernel device time of one more training round at the trainer's
-    shapes (random images at std 58), appended to ``path``."""
-    from torch.profiler import ProfilerActivity, profile
-    gen = np.random.default_rng(SEED + 5)
-    n, c, h, w = tr.train_net.blob_shapes["data"]
-    tau = tr.config.tau
-    batches = {"data": (IMAGE_STD * gen.standard_normal(
-        (tau, n, c, h, w), np.float32)),
-        "label": gen.integers(0, 1000, (tau, n)).astype(np.float32)}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tr.train_round(batches)
-        torch.cuda.synchronize()
-    with open(path, "a") as f:
-        f.write(f"\n\n{label}: one training round ({tr.n_workers} workers x "
-                f"{tau} steps, batch {n // tr.n_workers})\n")
-        f.write(prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=40))
-
-
 def identity_lrn():
     """A planted fault for a CPU round: every LRN the identity."""
     from sparknet_tpu_torch.ops import vision
@@ -906,53 +1263,74 @@ def kernel_area_ave_pool():
     return mock.patch.object(vision, "ave_pool", ave)
 
 
-def train_against_cpu(dev, label: str, sp, batches: dict, planted) -> dict:
-    """One round (2 workers, τ from the batches) from the same weights,
-    batches and
-    CPU-drawn Dropout masks on the card, on the CPU in f32, and on
-    the CPU in f64 (the port's same code: the plain kernels compute in f64 for
-    f64 tensors).  The round's loss on the card must agree with the CPU's
-    within 1e-4 relative.  Per blob, max|Δ|/max|ref| of the averaged
-    params against the f64 round must be within 1e-3, or within 10x the
-    CPU f32 round's own error: a zero-initialised convolution bias holds
-    only its first update, a sum over ~10^5 positions with heavy
-    cancellation, where f32 on either device misses the f64 answer by
-    more than 1e-3.  The same checks must see a CPU round run under
-    ``planted`` (a context that plants a fault)."""
+def one_round(sp, batches: dict, device, *, f64: bool = False,
+              strategy: str = "local_sgd") -> tuple[float, dict]:
+    """One round of a fresh 2-worker trainer (seed ``SEED``, τ from the
+    batches) on ``device``: its loss and its master params in f64 on the
+    host.  ``f64`` runs the port's same code in f64 (the plain kernels
+    compute in f64 for f64 tensors)."""
     from sparknet_tpu_torch.parallel.trainer import (DistributedTrainer,
                                                      TrainerConfig)
+    tr = DistributedTrainer(sp, 2, TrainerConfig(
+        strategy=strategy, tau=len(batches["label"])), seed=SEED,
+        device=device)
+    feed = batches
+    if f64:
+        tr.params = {k: [b.double() for b in v]
+                     for k, v in tr.params.items()}
+        tr.state = tr.init_state()
+        feed = {k: v.astype(np.float64) for k, v in batches.items()}
+    loss = tr.train_round(feed)
+    return loss, {k: [b.cpu().double() for b in v]
+                  for k, v in tr.params.items()}
 
-    tau = len(batches["label"])
 
-    def one_round(device, f64=False):
-        tr = DistributedTrainer(sp, 2, TrainerConfig(tau=tau), seed=SEED,
-                                device=device)
-        feed = batches
-        if f64:
-            tr.params = {k: [b.double() for b in v]
-                         for k, v in tr.params.items()}
-            tr.state = [tr.rule.init(tr.params) for _ in range(2)]
-            feed = {k: v.astype(np.float64) for k, v in batches.items()}
-        loss = tr.train_round(feed)
-        return loss, {k: [b.cpu().double() for b in v]
-                      for k, v in tr.params.items()}
+def rel_errors(params: dict, ref: dict) -> dict:
+    """max|Δ|/max|ref| per blob."""
+    return {f"{k}[{i}]": float((a - b).abs().max() / b.abs().max())
+            for k in ref for i, (a, b) in enumerate(zip(params[k], ref[k]))}
 
-    card_loss, card = one_round(dev)
-    cpu_loss, cpu = one_round("cpu")
-    _, exact = one_round("cpu", f64=True)
+
+def plain_kernels():
+    """The training path with every hand kernel swapped for its plain
+    PyTorch version, on any device (not a fault: the yardstick the
+    kernels are held to)."""
+    from contextlib import ExitStack
+    from sparknet_tpu_torch.ops import cuda_kernels as ck
+    from sparknet_tpu_torch.ops import vision
+    stack = ExitStack()
+    for name in ("lrn_across_channels_fwd", "lrn_across_channels_bwd",
+                 "max_pool_bwd"):
+        stack.enter_context(mock.patch.object(
+            vision, name, getattr(ck, f"{name}_reference")))
+    return stack
+
+
+def train_against_cpu(dev, label: str, sp, batches: dict, planted,
+                      strategy: str = "local_sgd") -> dict:
+    """One round (2 workers, τ from the batches) from the same weights,
+    batches and CPU-drawn Dropout masks on the card, on the CPU in f32,
+    and on the CPU in f64.  The round's loss on the card must agree with
+    the CPU's within 1e-4 relative.  Per blob, max|Δ|/max|ref| of the
+    averaged params against the f64 round must be within 1e-3, or within
+    10x the CPU f32 round's own error: a zero-initialised convolution
+    bias holds only its first update, a sum over ~10^5 positions with
+    heavy cancellation, where f32 on either device misses the f64 answer
+    by more than 1e-3.  The same checks must see a CPU round run under
+    ``planted`` (a context that plants a fault)."""
+    card_loss, card = one_round(sp, batches, dev, strategy=strategy)
+    cpu_loss, cpu = one_round(sp, batches, "cpu", strategy=strategy)
+    _, exact = one_round(sp, batches, "cpu", f64=True, strategy=strategy)
     with planted:
-        planted_loss, planted_params = one_round("cpu")
-
-    def rel(params, ref):
-        return {f"{k}[{i}]": float((a - b).abs().max() / b.abs().max())
-                for k in ref for i, (a, b) in enumerate(zip(params[k],
-                                                            ref[k]))}
-
-    cpu_err = rel(cpu, exact)
+        planted_loss, planted_params = one_round(sp, batches, "cpu",
+                                                 strategy=strategy)
+    cpu_err = rel_errors(cpu, exact)
     allowed = {b: max(1e-3, 10.0 * e) for b, e in cpu_err.items()}
-    card_err, planted_err = rel(card, exact), rel(planted_params, exact)
-    card_vs_cpu = rel(card, cpu)
-    out = {"loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss),
+    card_err = rel_errors(card, exact)
+    planted_err = rel_errors(planted_params, exact)
+    card_vs_cpu = rel_errors(card, cpu)
+    out = {"strategy": strategy,
+           "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss),
            "planted_loss_rel": abs(planted_loss - cpu_loss) / abs(cpu_loss),
            "card_loss": card_loss, "cpu_loss": cpu_loss,
            "card_vs_cpu_max": max(card_vs_cpu.values()),
@@ -984,16 +1362,18 @@ def image_batches(seed: int, global_batch: int, crop: int, classes: int,
                 np.float32)}
 
 
-def caffenet_against_cpu(dev) -> dict:
-    """Full-width CaffeNet, 2 workers x batch 8; identity LRNs planted."""
+def caffenet_against_cpu(dev, strategy: str = "local_sgd") -> dict:
+    """Full-width CaffeNet, 2 workers x batch 8; identity LRNs
+    planted."""
     from sparknet_tpu_torch.apps.imagenet_app import SOLVER
     from sparknet_tpu_torch.models import caffenet
     from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
     sp = load_solver_prototxt_with_net(SOLVER, caffenet(16, 16,
                                                         crop=TRAIN_CROP))
-    return train_against_cpu(dev, "train", sp,
-                             image_batches(SEED + 4, 16, TRAIN_CROP, 1000),
-                             identity_lrn())
+    return train_against_cpu(
+        dev, "train" if strategy == "local_sgd" else f"train_{strategy}", sp,
+        image_batches(SEED + 4, 16, TRAIN_CROP, 1000), identity_lrn(),
+        strategy=strategy)
 
 
 def googlenet_against_cpu(dev) -> dict:
@@ -1013,6 +1393,49 @@ def googlenet_against_cpu(dev) -> dict:
                              identity_lrn())
 
 
+def googlenet_tau2_kernels_vs_plain(dev) -> dict:
+    """GoogLeNet's round at τ=2 (2 workers x batch 2, the batches of
+    ``googlenet_against_cpu`` with a second step), on the card with the
+    hand kernels and on the card with their plain versions, each against
+    the f64 CPU round, beside the CPU's own f32 error.  Which blobs are
+    beyond 10x the CPU's error in each card round tells rounding (the
+    plain round shows them too) from a kernel fault (only the kernels'
+    round does).  The kernels' round must also stay within 1e-3 per blob
+    of the plain round on the same card: the two differ only in the
+    pool backward's order of summation."""
+    from sparknet_tpu_torch.apps.imagenet_app import SOLVER
+    from sparknet_tpu_torch.models import googlenet
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    sp = load_solver_prototxt_with_net(SOLVER, googlenet(4, 4, crop=GN_CROP))
+    batches = image_batches(SEED + 7, 4, GN_CROP, 1000, tau=2)
+    k_loss, kern = one_round(sp, batches, dev)
+    with plain_kernels():
+        p_loss, plain = one_round(sp, batches, dev)
+    c_loss, cpu = one_round(sp, batches, "cpu")
+    _, exact = one_round(sp, batches, "cpu", f64=True)
+    cpu_err = rel_errors(cpu, exact)
+    allowed = {b: max(1e-3, 10.0 * e) for b, e in cpu_err.items()}
+    kern_err, plain_err = rel_errors(kern, exact), rel_errors(plain, exact)
+    kern_vs_plain = rel_errors(kern, plain)
+    out = {"losses": {"kernels": k_loss, "plain": p_loss, "cpu": c_loss},
+           "kernels_beyond": {b: [e, cpu_err[b]] for b, e in kern_err.items()
+                              if e > allowed[b]},
+           "plain_beyond": {b: [e, cpu_err[b]] for b, e in plain_err.items()
+                            if e > allowed[b]},
+           "kernels_vs_f64_max": max(kern_err.values()),
+           "plain_vs_f64_max": max(plain_err.values()),
+           "cpu_vs_f64_max": max(cpu_err.values()),
+           "kernels_vs_plain_max": max(kern_vs_plain.values()),
+           "kernels_vs_plain_top": dict(sorted(
+               kern_vs_plain.items(), key=lambda kv: -kv[1])[:5])}
+    print("googlenet_tau2 " + json.dumps(out), flush=True)
+    if out["kernels_vs_plain_max"] > 1e-3:
+        fail(f"googlenet_tau2: the kernels' round is "
+             f"{out['kernels_vs_plain_max']:.3e} from the plain round on "
+             f"the card")
+    return out
+
+
 def train_cifar(ck, dev, smi: str, model: str) -> dict:
     """``cifar_app.main --synthetic --model <model>`` on the card at
     CifarApp's batch 100 and τ=10, 2 workers, 2 rounds: one pool backward
@@ -1022,13 +1445,13 @@ def train_cifar(ck, dev, smi: str, model: str) -> dict:
     from sparknet_tpu_torch.apps import cifar_app
     from sparknet_tpu_torch.models import cifar10_full, cifar10_quick
     from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
-    steps = TRAIN_WORKERS * CIFAR_TAU * TRAIN_ROUNDS
+    steps = TRAIN_WORKERS * CIFAR_TAU * CIFAR_ROUNDS
     argv = ["--synthetic", "--model", model, "--workers", str(TRAIN_WORKERS),
             "--batch", str(CIFAR_BATCH), "--tau", str(CIFAR_TAU),
-            "--rounds", str(TRAIN_ROUNDS), "--device", str(dev)]
+            "--rounds", str(CIFAR_ROUNDS), "--device", str(dev)]
     out = train_app(
         ck, dev, smi, f"train_cifar10_{model}", cifar_app.main, argv,
-        workers=TRAIN_WORKERS, tau=CIFAR_TAU, rounds=TRAIN_ROUNDS,
+        workers=TRAIN_WORKERS, tau=CIFAR_TAU, rounds=CIFAR_ROUNDS,
         batch=CIFAR_BATCH, score_keys={"loss", "accuracy"},
         want={"lrn_across_channels_fwd": 0, "lrn_across_channels_bwd": 0,
               "max_pool_bwd": steps, "lrn_across_channels": 0})
@@ -1091,9 +1514,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="PATH",
                     help="write per-kernel device-time tables of batch-64 "
-                         "bf16 forwards and of one training round of "
-                         "CaffeNet and GoogLeNet to PATH and print the "
-                         "host-side split of one batch-64 dispatch")
+                         "bf16 forwards and of one steady round of each "
+                         "CaffeNet and GoogLeNet training run to PATH; "
+                         "print the host-side split of one batch-64 "
+                         "dispatch and each profiled round's device busy "
+                         "share and host-to-device copies")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1162,24 +1587,56 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
 
-    # phase 5: training through the apps, each with a round on the card
-    # against the CPU
-    trained = {"caffenet": train_slice(ck, dev, smi),
-               "googlenet": train_googlenet(ck, dev, smi)}
-    if args.profile:
-        for model, t in trained.items():
-            profile_train_round(t["trainer"], args.profile, model)
+    # phase 4b: the crop and the feed on the card
+    check_crop(dev)
+    check_feed(dev)
+    torch.cuda.empty_cache()
+
+    # phase 5: training through the apps.  CaffeNet and GoogLeNet each
+    # with the crop on the feed's host thread and on the card, and
+    # through the synchronous loop the device feed replaced (the
+    # same-call baseline); CaffeNet also one sync round with a snapshot;
+    # each model with a round on the card against the CPU.
+    prof = args.profile
+    if prof:
+        open(prof, "a").close()
+    trained = {
+        "caffenet": train_imagenet(ck, dev, smi, "train", "caffenet",
+                                   mode="host", profile_path=prof,
+                                   initial_check=True),
+        "caffenet_device_pre": train_imagenet(
+            ck, dev, smi, "train_device_pre", "caffenet", mode="device",
+            profile_path=prof),
+        "caffenet_synchronous_loop": train_imagenet(
+            ck, dev, smi, "train_synchronous_loop", "caffenet",
+            mode="synchronous", profile_path=prof),
+        "googlenet": train_imagenet(ck, dev, smi, "train_googlenet",
+                                    "googlenet", mode="host",
+                                    profile_path=prof, initial_check=True),
+        "googlenet_device_pre": train_imagenet(
+            ck, dev, smi, "train_googlenet_device_pre", "googlenet",
+            mode="device", profile_path=prof),
+        "googlenet_synchronous_loop": train_imagenet(
+            ck, dev, smi, "train_googlenet_synchronous_loop", "googlenet",
+            mode="synchronous", profile_path=prof),
+        "caffenet_sync": train_sync_and_snapshot(ck, dev, smi),
+    }
     for t in trained.values():
         del t["trainer"]
     torch.cuda.empty_cache()
     caffenet_against_cpu(dev)
+    caffenet_against_cpu(dev, "sync")
     googlenet_against_cpu(dev)
+    googlenet_tau2_kernels_vs_plain(dev)
     for model in ("full", "quick"):
         trained[f"cifar10_{model}"] = train_cifar(ck, dev, smi, model)
         del trained[f"cifar10_{model}"]["trainer"]
     trained["vgg16"] = train_vgg16(ck, dev, smi)
     del trained["vgg16"]["trainer"]
     torch.cuda.empty_cache()
+    print("feed_summary [" + smi + "] " + json.dumps(
+        {m: t["report"]["steady_medians"] for m, t in trained.items()
+         if m.startswith(("caffenet", "googlenet"))}), flush=True)
 
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
@@ -1197,13 +1654,13 @@ def main() -> int:
                 if r["kernel"] == "lrn_across_channels_fwd"]
     bwd_rows = [r for r in lrn_train_rows
                 if r["kernel"] == "lrn_across_channels_bwd"]
-    lrn_paths = ("caffenet", "googlenet")
+    lrn_paths = [m for m in tl if m.startswith(("caffenet", "googlenet"))]
     kernels = [
         kernel_entry(
             "lrn_across_channels", "sparknet_tpu_torch/ops/csrc/lrn.cu",
             "sparknet_tpu/ops/pallas_kernels.py:72",
             {**{f"{m}_serving_{d}": served[m][d]["lrn_launches"]
-                for m in lrn_paths for d in ("bf16", "f32")},
+                for m in served for d in ("bf16", "f32")},
              **{f"{m}_training_eval": tl[m]["lrn_across_channels"]
                 for m in lrn_paths}},
             lrn_rows, rows_of(lrn_rows, dtype="bfloat16", batch=64)),

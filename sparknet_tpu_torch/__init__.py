@@ -3,8 +3,10 @@ H100.
 
 It imports ``torch``, never ``jax``, and nothing of ``sparknet_tpu``; it
 keeps its own copies of what it needs from that package.  Subpackages and
-modules mirror the JAX package's names.  So far it serves: zoo model ->
+modules mirror the JAX package's names.  It serves (zoo model ->
 ``parallel.serving.ModelHouse`` -> ``InferenceEngine`` micro-batched
-forward, with ACROSS_CHANNELS LRN as a hand-written CUDA kernel
-(``ops/csrc/lrn.cu``).
+forward) and trains (``apps.imagenet_app``, ``apps.cifar_app`` ->
+``apps.common.run_training`` -> the prefetching ``data.prefetch``
+feed -> ``parallel.trainer.DistributedTrainer``), with the JAX package's
+Pallas kernels as hand-written CUDA kernels (``ops/csrc/``).
 """

@@ -6,11 +6,10 @@ CIFAR binaries (shuffled train set, CifarLoader.scala:34) or fabricate
 format-exact data with ``--synthetic``, subtract the mean image, shard
 into one partition per worker, and train ``cifar10_quick`` or
 ``cifar10_full`` in rounds of τ=10 local steps per worker
-(CifarApp.scala:111) with an eval every 10 rounds (:93) aggregated across
-workers.  All workers share one card and run one after another.
-
-Not ported: ``--strategy sync`` (ROADMAP A5) and ``--snapshot`` (A4, A9);
-both raise.
+(CifarApp.scala:111), or synchronous SGD with ``--strategy sync``, with
+an eval every 10 rounds (:93) aggregated across workers.  All workers
+share one card and run one after another.  ``--snapshot PATH`` writes the
+trainer's state there at the end (and on SIGHUP, SIGINT or SIGTERM).
 
 Run:  python -m sparknet_tpu_torch.apps.cifar_app --synthetic \\
           --model full --workers 2 --batch 100 --tau 10 --rounds 2
@@ -76,12 +75,6 @@ def main(argv=None) -> TrainingRun:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.strategy != "local_sgd":
-        raise NotImplementedError(
-            "--strategy sync is not ported yet (ROADMAP A5)")
-    if args.snapshot:
-        raise NotImplementedError(
-            "--snapshot is not ported yet (ROADMAP A4, A9)")
 
     log = PhaseLogger(None if args.log_dir is None else os.path.join(
         args.log_dir, f"training_log_{int(time.time())}.txt"))
@@ -120,10 +113,13 @@ def main(argv=None) -> TrainingRun:
         list(zip(test_x, test_y)), workers)
     feed = RoundFeed(train_ds, args.batch, trainer.batches_per_round, seed=3)
     test_factory, test_steps = eval_feed(test_ds, args.batch)
-    scores = run_training(trainer, feed, test_factory, test_steps,
-                          rounds=args.rounds,
-                          test_interval=args.test_interval, logger=log)
-    return TrainingRun(scores, trainer, feed)
+    run = run_training(trainer, feed, test_factory, test_steps,
+                       rounds=args.rounds, test_interval=args.test_interval,
+                       logger=log, snapshot_path=args.snapshot)
+    if args.snapshot:
+        trainer.snapshot(args.snapshot)
+        log.log(f"snapshot -> {args.snapshot}")
+    return run
 
 
 if __name__ == "__main__":

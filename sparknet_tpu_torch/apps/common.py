@@ -6,33 +6,43 @@ Spark round loop (reference: src/main/scala/apps/ImageNetApp.scala:
 minibatches from its partition -> collect and average -> every
 ``test_interval`` rounds, a distributed eval whose per-worker scores are
 summed (:138-140).  The averaging lives in the trainer's round; the loop
-here assembles each round's feed, runs it and logs.  Rounds are built on
-the host one after another (no prefetch thread), and snapshots and
-signal handling are not ported.
+here takes each round from the trainer's device feed and logs.  Rounds
+are assembled lazily (only each round's sampled slice of every partition
+is stacked) on a prefetch thread and copied to the card ahead of use
+(``data/prefetch.py``), so the host's work on round r+1 overlaps round
+r on the card.  Signals snapshot and stop at round boundaries
+(``utils/signals.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
 import numpy as np
+import torch
 
 from ..data.partition import PartitionedDataset
 from ..parallel.trainer import DistributedTrainer
+from ..utils.signals import SignalGuard, SolverAction
 from ..utils.timing import PhaseLogger
 
 
 @dataclasses.dataclass
 class TrainingRun:
     """What an app's ``main`` leaves: the last eval's scores, the trainer
-    (params, per-worker params of the last round, losses, timings) and
-    the round feed (its host seconds per round)."""
+    (params, per-worker params of the last round, losses, timings), the
+    round feed (its host seconds per round), and per round of the loop,
+    on the host clock, its seconds (the wait for the feed plus
+    ``train_round``, the interval the loop logs) and the wait for the
+    feed alone."""
 
     scores: dict[str, Any]
     trainer: DistributedTrainer
     feed: "RoundFeed"
+    loop_seconds: list[float] = dataclasses.field(default_factory=list)
+    feed_wait_seconds: list[float] = dataclasses.field(default_factory=list)
 
 
 class RoundFeed:
@@ -43,7 +53,8 @@ class RoundFeed:
     src/main/scala/libs/MinibatchSampler.scala:18-19), each minibatch put
     through ``preprocess`` (the setTrainData closure, reference:
     src/main/scala/libs/Net.scala:79-84).  Only the sampled slice of each
-    partition is stacked.  ``seconds`` holds each round's host time."""
+    partition is stacked.  ``seconds`` holds each round's host time, in
+    the order the rounds were built."""
 
     def __init__(self, dataset: PartitionedDataset, per_worker_batch: int,
                  batches_per_round: int,
@@ -64,32 +75,49 @@ class RoundFeed:
                     f"partition has {nb} minibatches < batches_per_round="
                     f"{batches_per_round}")
 
-    def _minibatch(self, part, batch_idx: int
-                   ) -> tuple[np.ndarray, np.ndarray]:
-        lo = batch_idx * self.batch
-        recs = part[lo:lo + self.batch]
-        x = np.stack([r[0] for r in recs])
-        y = np.asarray([r[1] for r in recs], np.float32)
-        if self.preprocess is not None:
-            x = self.preprocess(x)
-        return x, y
-
     def next_round(self) -> dict[str, np.ndarray]:
+        """The next round, as numpy arrays.  Each minibatch's images are
+        written straight into their slot of the round (one copy, by
+        torch, which releases the interpreter lock while it copies: the
+        round is built on the feed's thread while the main thread
+        launches the card's work); a ``preprocess`` output is copied in
+        the same way."""
         t0 = time.perf_counter()
         starts = [int(self._rng.integers(0, nb - self.batches_per_round + 1))
                   for nb in self._n_batches]
-        data_steps, label_steps = [], []
-        for t in range(self.batches_per_round):
-            imgs, labs = [], []
-            for part, start in zip(self._parts, starts):
-                x, y = self._minibatch(part, start + t)
-                imgs.append(x)
-                labs.append(y)
-            data_steps.append(np.concatenate(imgs))
-            label_steps.append(np.concatenate(labs))
-        out = {"data": np.stack(data_steps), "label": np.stack(label_steps)}
+        b, steps = self.batch, self.batches_per_round
+        data = labels = None
+        for t in range(steps):
+            for w, (part, start) in enumerate(zip(self._parts, starts)):
+                lo = (start + t) * b
+                recs = part[lo:lo + b]
+                if self.preprocess is None:
+                    imgs = [torch.as_tensor(np.asarray(r[0])) for r in recs]
+                    shape, dtype = imgs[0].shape, imgs[0].dtype
+                else:
+                    x = torch.as_tensor(np.ascontiguousarray(
+                        self.preprocess(np.stack([r[0] for r in recs]))))
+                    shape, dtype = x.shape[1:], x.dtype
+                if data is None:
+                    data = torch.empty((steps, len(self._parts) * b)
+                                       + tuple(shape), dtype=dtype)
+                    labels = np.empty((steps, len(self._parts) * b),
+                                      np.float32)
+                slot = data[t, w * b:(w + 1) * b]
+                if self.preprocess is None:
+                    torch.stack(imgs, out=slot)
+                else:
+                    slot.copy_(x)
+                labels[t, w * b:(w + 1) * b] = [r[1] for r in recs]
+        out = {"data": data.numpy(), "label": labels}
         self.seconds.append(time.perf_counter() - t0)
         return out
+
+    def rounds(self) -> Iterator[dict[str, np.ndarray]]:
+        """An endless round stream, for ``DistributedTrainer.input_feed``
+        (the JAX package's ``RoundFeed.rounds``, apps/common.py:91-95)."""
+        while True:
+            yield self.next_round()
 
 
 def eval_feed(dataset: PartitionedDataset, per_worker_batch: int,
@@ -143,25 +171,57 @@ def normalize_scores(totals: dict, test_steps: int) -> dict:
 def run_training(trainer: DistributedTrainer, feed: RoundFeed,
                  test_factory, test_steps: int, *, rounds: int,
                  test_interval: int = 10,
-                 logger: PhaseLogger | None = None) -> dict[str, Any]:
-    """The outer loop (reference: CifarApp.scala:87-128), bounded by
-    ``rounds``: an eval before every ``test_interval``-th round after the
-    first, and one at the end.  Returns the last eval's scores."""
+                 logger: PhaseLogger | None = None,
+                 snapshot_path: str | None = None,
+                 prefetch_depth: int | None = None) -> TrainingRun:
+    """The outer loop (reference: CifarApp.scala:87-128; the JAX
+    package's apps/common.py:152-211), bounded by ``rounds``: an eval
+    before every ``test_interval``-th round after the first, and one at
+    the end.  Rounds come through ``trainer.input_feed`` (prefetched
+    ``prefetch_depth`` rounds ahead, default ``SPARKNET_FEED_DEPTH`` when
+    set, else 1).  SIGHUP snapshots to ``snapshot_path`` and goes on;
+    SIGINT and SIGTERM stop at the next round boundary after a snapshot
+    (the SignalHandler to Solver::Step contract, reference:
+    caffe/src/caffe/util/signal_handler.cpp, solver.cpp:270-281).  Must
+    run on the main thread, where signal handlers are installed."""
     log = logger or PhaseLogger()
-    last_scores: dict[str, Any] = {}
-    for r in range(rounds):
-        if test_interval and r % test_interval == 0 and r > 0:
-            log.log("testing")
-            last_scores = normalize_scores(
-                trainer.test(test_factory(), test_steps), test_steps)
-            log.log(f"round {r}: eval {last_scores}")
-        t0 = time.perf_counter()
-        batches = feed.next_round()
-        feed_s = feed.seconds[-1]
-        loss = trainer.train_round(batches)
-        log.log(f"round {r}: tau={trainer.config.tau} loss={loss:.4f} "
-                f"({time.perf_counter() - t0:.2f}s, feed {feed_s:.2f}s)")
-    last_scores = normalize_scores(trainer.test(test_factory(), test_steps),
-                                   test_steps)
-    log.log(f"final eval: {last_scores}")
-    return last_scores
+    run = TrainingRun({}, trainer, feed)
+
+    def maybe_snapshot(reason: str) -> None:
+        if snapshot_path:
+            trainer.snapshot(snapshot_path)
+            log.log(f"snapshot ({reason}) -> {snapshot_path}")
+
+    # the handlers go in before the feed's threads start, so a signal
+    # raised while the first round is built already meets them
+    with SignalGuard() as guard, trainer.input_feed(
+            feed.rounds(), depth=prefetch_depth) as round_iter:
+        for r in range(rounds):
+            action = guard.check()
+            if action == SolverAction.SNAPSHOT:
+                maybe_snapshot("SIGHUP")
+            elif action in (SolverAction.STOP, SolverAction.SNAPSHOT_STOP):
+                why = ("SIGTERM/preemption"
+                       if action == SolverAction.SNAPSHOT_STOP else "SIGINT")
+                log.log(f"stop requested ({why}); halting at round boundary")
+                maybe_snapshot("stop")
+                return run
+            if test_interval and r % test_interval == 0 and r > 0:
+                log.log("testing")
+                run.scores = normalize_scores(
+                    trainer.test(test_factory(), test_steps), test_steps)
+                log.log(f"round {r}: eval {run.scores}")
+            t0 = time.perf_counter()
+            batches = next(round_iter)
+            run.feed_wait_seconds.append(time.perf_counter() - t0)
+            loss = trainer.train_round(batches)
+            run.loop_seconds.append(time.perf_counter() - t0)
+            log.log(f"round {r}: tau={trainer.config.tau} loss={loss:.4f} "
+                    f"({run.loop_seconds[-1]:.2f}s, feed wait "
+                    f"{run.feed_wait_seconds[-1]:.2f}s)")
+        log.log(f"feed: {round_iter.pinned_bytes} pinned staging bytes, "
+                f"{trainer.feed_stats.snapshot()}")
+    run.scores = normalize_scores(trainer.test(test_factory(), test_steps),
+                                  test_steps)
+    log.log(f"final eval: {run.scores}")
+    return run

@@ -5,28 +5,36 @@ The port's counterpart of ``sparknet_tpu/apps/imagenet_app.py``, with
 synthetic data only: ``--synthetic`` fabricates 256x256 images (the
 reference's force-resize, :84-95), their mean image is computed on the
 host (ComputeMean, :84), and the model trains in rounds of τ local steps
-per worker (:144) with random-crop + mirror + mean-subtract train
-preprocessing (:155-169), center-crop test preprocessing (:117-131) and
-an eval every ``--test-interval`` rounds aggregated across workers
+per worker (:144), or synchronous SGD with ``--strategy sync``, with
+random-crop + mirror + mean-subtract train preprocessing (:155-169) on the
+host or, with ``--device-preprocess``, on the card (the host then ships
+raw full-size images), center-crop test preprocessing (:117-131) and an
+eval every ``--test-interval`` rounds aggregated across workers
 (:106-141).  The crop is 227 for AlexNet and CaffeNet and 224 for
 GoogLeNet and VGG-16, as their published nets take.  All workers share
-one card and run one after another.
+one card and run one after another.  ``--snapshot PATH`` writes the
+trainer's state there at the end (and on SIGHUP, SIGINT or SIGTERM);
+``--log-dir`` also appends the log to ``training_log_<ts>.txt`` there.
 
 Run:  python -m sparknet_tpu_torch.apps.imagenet_app --synthetic \\
-          --model caffenet --workers 2 --batch 64 --tau 5 --rounds 2
+          --model caffenet --workers 2 --batch 64 --tau 5 --rounds 2 \\
+          --device-preprocess
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import os
+import time
 
 import numpy as np
 
 from ..data.partition import PartitionedDataset
 from ..data.transforms import center_crop, random_crop_mirror
 from ..models import alexnet, caffenet, googlenet, vgg16
-from ..parallel.trainer import DistributedTrainer, TrainerConfig
+from ..parallel.trainer import (DistributedTrainer, TrainerConfig,
+                                device_crop_mirror_mean)
 from ..proto import load_solver_prototxt_with_net
 from ..utils.timing import PhaseLogger
 from .common import RoundFeed, TrainingRun, eval_feed, run_training
@@ -85,10 +93,18 @@ def main(argv=None) -> TrainingRun:
                     help="local steps per round (ImageNetApp.scala:144)")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--test-interval", type=int, default=10)
+    ap.add_argument("--strategy", choices=["local_sgd", "sync"],
+                    default="local_sgd")
     ap.add_argument("--resize", type=int, default=256)
     ap.add_argument("--crop", type=int, default=None,
                     help="default 227 (alexnet, caffenet), else 224")
     ap.add_argument("--base-lr", type=float, default=None)
+    ap.add_argument("--device-preprocess", action="store_true",
+                    help="random crop, mirror and mean on the device (the "
+                         "host ships raw full-size images)")
+    ap.add_argument("--snapshot", default=None)
+    ap.add_argument("--log-dir", default=None,
+                    help="also append the log to training_log_<ts>.txt here")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -98,7 +114,8 @@ def main(argv=None) -> TrainingRun:
     crop = args.crop or (227 if args.model in ("alexnet", "caffenet")
                          else 224)
 
-    log = PhaseLogger()
+    log = PhaseLogger(None if args.log_dir is None else os.path.join(
+        args.log_dir, f"training_log_{int(time.time())}.txt"))
     workers = args.workers
     log.log("using synthetic ImageNet-like data")
     need = args.batch * workers * (args.tau + 2)
@@ -119,23 +136,34 @@ def main(argv=None) -> TrainingRun:
     sp = load_solver_prototxt_with_net(SOLVER, net)
     if args.base_lr is not None:
         sp.base_lr = args.base_lr
-    trainer = DistributedTrainer(sp, workers,
-                                 TrainerConfig(strategy="local_sgd",
-                                               tau=args.tau),
-                                 seed=0, device=args.device)
+    if args.device_preprocess:
+        train_pre = None    # the host ships raw images; the card crops
+        device_pre = device_crop_mirror_mean(crop, mirror=True, mean=mean)
+    else:
+        train_pre = functools.partial(random_crop_mirror, crop=crop,
+                                      rng=np.random.default_rng(7),
+                                      mean=mean)
+        device_pre = None
+    trainer = DistributedTrainer(
+        sp, workers, TrainerConfig(strategy=args.strategy, tau=args.tau,
+                                   device_preprocess=device_pre),
+        seed=0, device=args.device)
     log.log(f"built {args.model} for {workers} workers on "
-            f"{trainer.device} (local_sgd, tau={args.tau}, crop={crop})")
-    train_pre = functools.partial(random_crop_mirror, crop=crop,
-                                  rng=np.random.default_rng(7), mean=mean)
+            f"{trainer.device} ({args.strategy}, tau={args.tau}, "
+            f"crop={crop}, {'device' if device_pre else 'host'} "
+            f"preprocess)")
     feed = RoundFeed(train_ds, args.batch, trainer.batches_per_round,
                      preprocess=train_pre, seed=3)
     test_factory, test_steps = eval_feed(
         test_ds, args.batch,
         preprocess=functools.partial(center_crop, crop=crop, mean=mean))
-    scores = run_training(trainer, feed, test_factory, test_steps,
-                          rounds=args.rounds,
-                          test_interval=args.test_interval, logger=log)
-    return TrainingRun(scores, trainer, feed)
+    run = run_training(trainer, feed, test_factory, test_steps,
+                       rounds=args.rounds, test_interval=args.test_interval,
+                       logger=log, snapshot_path=args.snapshot)
+    if args.snapshot:
+        trainer.snapshot(args.snapshot)
+        log.log(f"snapshot -> {args.snapshot}")
+    return run
 
 
 if __name__ == "__main__":

@@ -236,7 +236,9 @@ class SolverParameter:
     """Training config (reference: caffe.proto:102), the fields that
     SGDSolver and the port's trainer read, with the proto defaults
     (reference: caffe/src/caffe/solvers/sgd_solver.cpp, solver.cpp).
-    Snapshot and test-net fields are not ported."""
+    ``snapshot`` (an interval in iterations, 0 for none) and
+    ``snapshot_prefix`` drive the trainer's snapshots on schedule; the
+    test-net fields are not ported."""
 
     net_param: NetParameter | None = None
     train_net_param: NetParameter | None = None
@@ -253,6 +255,8 @@ class SolverParameter:
     stepvalue: list[int] = dataclasses.field(default_factory=list)
     clip_gradients: float = -1.0
     solver_type: str = "SGD"  # SGD|NESTEROV|ADAGRAD|RMSPROP|ADADELTA|ADAM
+    snapshot: int = 0
+    snapshot_prefix: str = ""
 
     @classmethod
     def from_pmsg(cls, m: PMessage) -> "SolverParameter":
@@ -278,6 +282,8 @@ class SolverParameter:
             clip_gradients=float(m.get("clip_gradients", -1.0)),
             solver_type=str(m.get("type", m.get("solver_type", "SGD"))
                             ).upper(),
+            snapshot=int(m.get("snapshot", 0)),
+            snapshot_prefix=str(m.get("snapshot_prefix", "")),
         )
 
 
@@ -301,11 +307,18 @@ def load_solver_prototxt(path_or_text: str) -> SolverParameter:
 
 
 def load_solver_prototxt_with_net(solver_path_or_text: str,
-                                  net: NetParameter) -> SolverParameter:
-    """A solver config with ``net`` embedded as its net
-    (ProtoLoader.loadSolverPrototxtWithNet, reference:
-    ProtoLoader.scala:31-43; snapshotting is not ported)."""
+                                  net: NetParameter,
+                                  snapshot_prefix: str | None = None
+                                  ) -> SolverParameter:
+    """A solver config with ``net`` embedded as its net, snapshotting
+    cleared unless a prefix is given (ProtoLoader.loadSolverPrototxtWithNet,
+    reference: ProtoLoader.scala:31-43)."""
     sp = load_solver_prototxt(solver_path_or_text)
     sp.net_param = net
     sp.train_net_param = None
+    if snapshot_prefix is None:
+        sp.snapshot = 0
+        sp.snapshot_prefix = ""
+    else:
+        sp.snapshot_prefix = snapshot_prefix
     return sp

@@ -23,15 +23,22 @@ from .update_rules import SolverUpdate, preprocess_grads
 
 def make_step_fns(sp: SolverParameter, net: Net, rule: SolverUpdate,
                   lr_mults, decay_mults):
-    """Returns ``(loss_and_grads, local_update)``:
+    """Returns ``(loss_and_grads, local_update, accum_loss_and_grads)``,
+    in the JAX package's order:
 
     - ``loss_and_grads(params, batch, gen) -> (loss, grads)``: one
       train-mode forward and backward; ``gen`` is the CPU generator that
       Dropout draws from;
-    - ``local_update(params, state, it, batches, gen) -> (params, state,
-      loss)``: one full solver step over ``batches``, whose blobs carry a
-      leading ``iter_size`` axis; the loss is the micro-batches' mean, a
-      0-d tensor.  Params and state are updated in place.
+    - ``local_update(params, state, it, batches, gen, lr_scale=1.0) ->
+      (params, state, loss)``: one full solver step over ``batches``,
+      whose blobs carry a leading ``iter_size`` axis; the loss is the
+      micro-batches' mean, a 0-d tensor; ``lr_scale`` multiplies the
+      policy's rate.  Params and state are updated in place;
+    - ``accum_loss_and_grads(params, batches, gen) -> (loss, grads)``:
+      the ``iter_size`` accumulation of ``Solver::Step`` (reference:
+      solver.cpp:221-224), raw summed gradients (``preprocess_grads``
+      divides by ``iter_size``).  ``sync`` averages these over workers
+      before its one update.
     """
 
     def loss_and_grads(params: Params, batch: Mapping[str, torch.Tensor],
@@ -48,9 +55,9 @@ def make_step_fns(sp: SolverParameter, net: Net, rule: SolverUpdate,
         return loss.detach(), {k: [next(it) for _ in blobs]
                                for k, blobs in params.items()}
 
-    def local_update(params: Params, state, it: int,
-                     batches: Mapping[str, torch.Tensor],
-                     gen: torch.Generator | None):
+    def accum_loss_and_grads(params: Params,
+                             batches: Mapping[str, torch.Tensor],
+                             gen: torch.Generator | None):
         losses, grads = [], None
         for j in range(sp.iter_size):
             loss, g = loss_and_grads(params, {k: v[j]
@@ -59,10 +66,16 @@ def make_step_fns(sp: SolverParameter, net: Net, rule: SolverUpdate,
             losses.append(loss)
             grads = g if grads is None else {
                 k: [a + b for a, b in zip(grads[k], g[k])] for k in g}
+        return torch.stack(losses).mean(), grads
+
+    def local_update(params: Params, state, it: int,
+                     batches: Mapping[str, torch.Tensor],
+                     gen: torch.Generator | None, lr_scale: float = 1.0):
+        loss, grads = accum_loss_and_grads(params, batches, gen)
         grads = preprocess_grads(sp, params, grads, lr_mults, decay_mults)
         params, state = rule.apply(params, grads, state,
-                                   learning_rate(sp, it), it,
+                                   learning_rate(sp, it) * lr_scale, it,
                                    lr_mults=lr_mults)
-        return params, state, torch.stack(losses).mean()
+        return params, state, loss
 
-    return loss_and_grads, local_update
+    return loss_and_grads, local_update, accum_loss_and_grads

@@ -1,7 +1,7 @@
 """The ``SPARKNET_*`` environment knobs the port reads.
 
 The port's own copy of the read half of ``sparknet_tpu/utils/knobs.py``,
-for the knobs of the serving path.  Reading a name that is not declared
+for the knobs of the serving path and the training feed.  Reading a name that is not declared
 here raises :class:`UnknownKnob`, so a typo'd knob fails loudly instead of
 silently meaning "default".  Values are read live from ``os.environ``.
 """
@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import os
 
-# name -> one-line doc (defaults live with the readers, in ServeConfig)
+# name -> one-line doc (defaults live with the readers: ServeConfig,
+# data/pipeline.py)
 KNOBS: dict[str, str] = {
     "SPARKNET_SERVE_SHAPES": "serving batch shapes, comma-separated",
     "SPARKNET_SERVE_MAX_DELAY_MS": "coalesce deadline in milliseconds",
@@ -20,6 +21,8 @@ KNOBS: dict[str, str] = {
     "SPARKNET_SERVE_DTYPE": "serving compute dtype, bf16 or f32",
     "SPARKNET_SERVE_QUOTAS": "tenant=qps[,tenant=qps...] caps",
     "SPARKNET_SERVE_FORCE_ADMIT": "1 admits models larger than the budget",
+    "SPARKNET_FEED_DEPTH": "host batches the device feed stages ahead",
+    "SPARKNET_FEED_PUTTERS": "device feed's host-to-device copy threads",
 }
 
 

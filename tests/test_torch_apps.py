@@ -2,18 +2,23 @@
 against the JAX package's.
 
 ``imagenet_app.main`` runs end to end on the CPU (``--device cpu``) with
-CaffeNet's layers at a 67x67 crop of 72x72 synthetic images, and with
-full-width GoogLeNet at batch 1 and its default 224 crop.  For the
-same seeds the port's synthetic data, partitions, mean image, train
-rounds (the ``RoundFeed`` with ``random_crop_mirror``) and test batches
-(``eval_feed`` with ``center_crop``) equal the JAX package's byte for
-byte.
+CaffeNet's layers at a 67x67 crop of 72x72 synthetic images, with and
+without ``--device-preprocess``, ``--strategy sync``, ``--snapshot`` and
+``--log-dir``, and with full-width GoogLeNet at batch 1 and its default
+224 crop.  For the same seeds the port's synthetic data, partitions, mean
+image, train rounds (the ``RoundFeed`` with ``random_crop_mirror``) and
+test batches (``eval_feed`` with ``center_crop``) equal the JAX
+package's byte for byte.  ``run_training``'s signals: a SIGHUP raised
+while a round is built snapshots and the run goes on; a SIGINT stops it
+at the next round boundary after a snapshot.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import os
+import signal
 
 import numpy as np
 import pytest
@@ -28,7 +33,7 @@ from sparknet_tpu.data.partition import (
     PartitionedDataset as JaxPartitionedDataset)
 from sparknet_tpu.data import transforms as jax_transforms
 from sparknet_tpu_torch.apps import imagenet_app
-from sparknet_tpu_torch.apps.common import RoundFeed, eval_feed
+from sparknet_tpu_torch.apps.common import RoundFeed, eval_feed, run_training
 from sparknet_tpu_torch.data import (PartitionedDataset, center_crop,
                                      compute_mean_image, random_crop_mirror)
 
@@ -172,3 +177,112 @@ def test_partitions_and_mean_image_match_jax():
         np.float32)
     np.testing.assert_array_equal(compute_mean_image(imgs),
                                   jax_transforms.compute_mean_image(imgs))
+
+
+@pytest.mark.parametrize("strategy", ["local_sgd", "sync"])
+def test_imagenet_app_device_preprocess_snapshot_and_log(strategy, tmp_path):
+    """``--device-preprocess``: the host ships raw 72x72 images, the
+    trainer crops them to 67 on the device; ``--strategy``,
+    ``--snapshot`` (a file the next trainer restores) and ``--log-dir``
+    (the log file) through the same run."""
+    snap = str(tmp_path / "caffenet.npz")
+    run = imagenet_app.main(TINY + [
+        "--device-preprocess", "--strategy", strategy, "--snapshot", snap,
+        "--log-dir", str(tmp_path), "--rounds", "3"])
+    tr = run.trainer
+    assert tr.round == 3 and tr.config.strategy == strategy
+    assert tr.config.device_preprocess is not None
+    assert tr.train_net.blob_shapes["data"][-1] == 67
+    assert all(math.isfinite(v) for v in tr.round_losses.values())
+    assert math.isfinite(run.scores["loss"])
+    assert len(run.loop_seconds) == len(run.feed_wait_seconds) == 3
+    assert all(w <= t for w, t in zip(run.feed_wait_seconds,
+                                      run.loop_seconds))
+    assert tr.feed_stats.snapshot()["batches"] == 3
+    # the host built raw rounds: no crop ran there
+    assert run.feed.preprocess is None
+    back = imagenet_app.DistributedTrainer(
+        tr.sp, 2, imagenet_app.TrainerConfig(strategy=strategy),
+        device="cpu")
+    back.restore(snap)
+    assert back.iter == tr.iter == 6
+    for k, blobs in tr.params.items():
+        for i, b in enumerate(blobs):
+            assert torch.equal(b, back.params[k][i]), f"{k}[{i}]"
+    (log,) = [f for f in os.listdir(tmp_path) if f.startswith("training_log")]
+    text = (tmp_path / log).read_text()
+    assert "device preprocess" in text and f"snapshot -> {snap}" in text
+
+
+def _signal_run(tmp_path, sig, rounds):
+    """A lenet run_training whose feed raises ``sig`` while it builds the
+    first round (on the feed's thread)."""
+    from sparknet_tpu_torch.models import lenet
+    from sparknet_tpu_torch.parallel.trainer import (DistributedTrainer,
+                                                     TrainerConfig)
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    sp = load_solver_prototxt_with_net(
+        'base_lr: 0.01\nmomentum: 0.9\nlr_policy: "fixed"\n', lenet(8, 8))
+    tr = DistributedTrainer(sp, 2, TrainerConfig(tau=1), device="cpu")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(40, 1, 28, 28)).astype(np.float32)
+    ds = PartitionedDataset.from_items(
+        list(zip(x, rng.integers(0, 10, 40))), 2)
+    raised = []
+
+    def hook(batch):
+        if not raised:
+            raised.append(True)
+            os.kill(os.getpid(), sig)
+        return batch
+
+    feed = RoundFeed(ds, 4, tr.batches_per_round, preprocess=hook)
+    test_factory, test_steps = eval_feed(ds, 4)
+    snap = str(tmp_path / "sig.npz")
+    run = run_training(tr, feed, test_factory, test_steps, rounds=rounds,
+                       test_interval=0, snapshot_path=snap)
+    return run, snap
+
+
+def test_sighup_while_a_round_is_built_snapshots_and_runs_on(tmp_path):
+    run, snap = _signal_run(tmp_path, signal.SIGHUP, rounds=4)
+    assert run.trainer.round == 4 and len(run.loop_seconds) == 4
+    assert os.path.exists(snap)
+    assert set(run.scores) == {"loss", "accuracy"}
+    assert signal.getsignal(signal.SIGHUP) == signal.SIG_DFL
+
+
+def test_sigint_stops_at_the_next_round_boundary_with_a_snapshot(tmp_path):
+    previous = signal.getsignal(signal.SIGINT)
+    run, snap = _signal_run(tmp_path, signal.SIGINT, rounds=6)
+    tr = run.trainer
+    # the first round is built on the feed's thread while the loop starts:
+    # the handler has run by the boundary before round 1 at the latest
+    assert tr.round <= 1 and run.scores == {}
+    from sparknet_tpu_torch.utils.checkpoint import load_checkpoint
+    assert int(load_checkpoint(snap)["round"]) == tr.round
+    assert signal.getsignal(signal.SIGINT) is previous
+
+
+def test_signal_guard_maps_signals_as_the_jax_guard_does():
+    """``SignalGuard`` and ``preemption_guard`` map the three signals to
+    the JAX package's actions, queue them for ``check`` and restore the
+    previous handlers on exit."""
+    import time
+
+    from sparknet_tpu.utils import signals as jax_signals
+    from sparknet_tpu_torch.utils.signals import (SignalGuard, SolverAction,
+                                                  preemption_guard)
+    assert SignalGuard()._actions == jax_signals.SignalGuard()._actions
+    assert preemption_guard()._actions == \
+        jax_signals.preemption_guard()._actions
+    before = signal.getsignal(signal.SIGHUP)
+    with SignalGuard() as guard:
+        assert guard.check() == SolverAction.NONE
+        os.kill(os.getpid(), signal.SIGHUP)
+        deadline = time.monotonic() + 5.0
+        while not guard._pending and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert guard.check() == SolverAction.SNAPSHOT
+        assert guard.check() == SolverAction.NONE
+    assert signal.getsignal(signal.SIGHUP) == before

@@ -8,7 +8,8 @@ CPU.
   mean-subtracted pixel batches: round losses and averaged params at rtol
   2e-4, atol 2e-5, the bound of tests/test_parallel.py:128-129.
 - ``cifar_app.main`` end to end at a tiny size with ``--device cpu``, its
-  refusal to leave the card unasked, and the options it does not port.
+  refusal to leave the card unasked, and ``--strategy sync`` and
+  ``--snapshot``.
 - The app's data: ``synthetic_cifar``, ``load_cifar10_binary`` on a
   written fixture, the mean image, the round feed and the eval feed equal
   the JAX package's byte for byte.
@@ -156,11 +157,26 @@ def test_cifar_app_refuses_to_leave_the_card_unasked(monkeypatch):
         cifar_app.main(argv)
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--strategy", "sync"], "A5"), (["--snapshot", "s.npz"], "A4")])
-def test_cifar_app_options_not_ported_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cifar_app.main(TINY + extra)
+@pytest.mark.parametrize("extra", [["--strategy", "sync"],
+                                   ["--snapshot", "cifar.npz"]],
+                         ids=["sync", "snapshot"])
+def test_cifar_app_runs_sync_and_snapshots(extra, tmp_path):
+    """``--strategy sync``: one shared solver state, no per-worker params;
+    ``--snapshot``: the file holds the trainer's params, iter and round."""
+    extra = [str(tmp_path / a) if a.endswith(".npz") else a for a in extra]
+    run = cifar_app.main(TINY + ["--model", "quick"] + extra)
+    tr = run.trainer
+    assert tr.round == 2 and tr.iter == 4
+    assert all(math.isfinite(v) for v in tr.round_losses.values())
+    if "sync" in extra:
+        assert tr.config.strategy == "sync" and isinstance(tr.state, dict)
+        assert tr.worker_params == []
+    else:
+        from sparknet_tpu_torch.utils.checkpoint import load_checkpoint
+        blob = load_checkpoint(extra[1])
+        assert int(blob["iter"]) == 4 and int(blob["round"]) == 2
+        np.testing.assert_array_equal(blob["params"]["conv1"][0],
+                                      tr.params["conv1"][0].numpy())
 
 
 def test_cifar_data_equals_the_jax_apps_byte_for_byte(tmp_path):

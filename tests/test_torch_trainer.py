@@ -1,8 +1,8 @@
-"""The port's local-SGD trainer against the JAX package's, on the CPU.
+"""The port's trainer against the JAX package's, on the CPU.
 
-Both trainers run ``local_sgd`` with 2 workers from the same weights (the
-JAX trainer draws them, ``convert.params_from_jax`` carries them across)
-on the same numpy batches.  Round losses and the averaged params agree at
+Both trainers run ``local_sgd`` or ``sync`` with 2 workers from the same
+weights (the JAX trainer draws them, ``convert.params_from_jax`` carries
+them across) on the same numpy batches.  Round losses and the params agree at
 rtol 2e-4, atol 2e-5, the bound of tests/test_parallel.py:128-129: the
 two frameworks sum convolutions and products in other orders, and the
 differences grow over the steps.  The nets have no stochastic layer, or
@@ -197,14 +197,67 @@ def test_distributed_test_sums_worker_batches():
 
 
 @pytest.mark.parametrize("config", [
-    TrainerConfig(strategy="sync"), TrainerConfig(comm_codec="int8"),
+    TrainerConfig(strategy="hierarchical"), TrainerConfig(comm_codec="int8"),
     TrainerConfig(shard="auto"), TrainerConfig(checkpoint_dir="ckpt"),
     TrainerConfig(guard_numerics=True), TrainerConfig(audit_every=1)],
-    ids=["sync", "codec", "shard", "checkpoint", "guard", "audit"])
+    ids=["hierarchical", "codec", "shard", "checkpoint", "guard", "audit"])
 def test_unported_settings_raise(config):
     sp = load_solver_prototxt_with_net(SOLVER_TXT, lenet(4, 4))
     with pytest.raises(NotImplementedError):
         DistributedTrainer(sp, 1, config, device="cpu")
+
+
+def _sync_pair(jax_sp, sp, tau, n_workers=2):
+    jtr = JaxTrainer(jax_sp, make_mesh(n_workers),
+                     JaxConfig(strategy="sync", tau=tau), seed=0)
+    tr = DistributedTrainer(sp, n_workers,
+                            TrainerConfig(strategy="sync", tau=tau), seed=0,
+                            device="cpu")
+    tr.params = params_from_jax(jax.device_get(jtr.params), tr.train_net,
+                                device="cpu")
+    return jtr, tr
+
+
+@pytest.mark.parametrize("iter_size", [1, 2])
+def test_sync_lenet_tracks_jax(iter_size):
+    """``sync`` (JAX make_psum_step/sync_body, trainer.py:577-617): per
+    step the workers' accumulated gradients and losses are averaged,
+    ``preprocess_grads`` runs on the average and one update moves one
+    shared state.  Per-round losses and the params against the JAX
+    trainer on a 2-device mesh, τ=2, with weight decay acting."""
+    txt = SOLVER_TXT + f"iter_size: {iter_size}\nweight_decay: 0.001\n"
+    jtr, tr = _sync_pair(jax_solver(txt, jax_lenet(8, 8)),
+                         load_solver_prototxt_with_net(txt, lenet(8, 8)),
+                         tau=2)
+    first = tr.params["conv1"][0].clone()
+    _train_both(jtr, tr, _lenet_rounds(6, rounds=3, steps=2 * iter_size,
+                                       global_batch=8))
+    assert tr.iter == jtr.iter == 6
+    assert isinstance(tr.state, dict) and tr.worker_params == []
+    assert not torch.equal(first, tr.params["conv1"][0])
+
+
+def test_sync_step_is_one_update_with_the_workers_mean_gradient():
+    """One sync step of 2 workers equals one step of 1 worker whose
+    gradient is the mean of the two halves' gradients, which for a
+    mean-reduced loss is one worker over the whole batch (up to the
+    order of the sums): the same state moves once."""
+    sp = load_solver_prototxt_with_net(SOLVER_TXT, lenet(8, 8))
+    two = DistributedTrainer(sp, 2, TrainerConfig(strategy="sync", tau=1),
+                             seed=0, device="cpu")
+    one = DistributedTrainer(sp, 1, TrainerConfig(strategy="sync", tau=1),
+                             seed=0, device="cpu")
+    (batches,) = _lenet_rounds(7, rounds=1, steps=1, global_batch=8)
+    loss2, loss1 = two.train_round(batches), one.train_round(batches)
+    np.testing.assert_allclose(loss2, loss1, rtol=1e-5)
+    for k, blobs in two.params.items():
+        for i, b in enumerate(blobs):
+            np.testing.assert_allclose(b.numpy(), one.params[k][i].numpy(),
+                                       rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{k}[{i}]")
+            np.testing.assert_allclose(
+                two.state["history"][k][i].numpy(),
+                one.state["history"][k][i].numpy(), rtol=1e-4, atol=1e-6)
 
 
 def test_trainer_refuses_to_leave_the_card_unasked(monkeypatch):
