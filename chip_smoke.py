@@ -47,6 +47,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Iterator
 from unittest import mock
 
 import numpy as np
@@ -87,6 +88,22 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
         times.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in times]))
+
+
+class cudnn_deterministic:
+    """cuDNN's deterministic algorithms for a scope: two runs of the same
+    steps from the same bits give the same bits.  The default algorithms
+    vary from run to run, and some round a sum with heavy cancellation
+    far from f64: a card-vs-CPU cifar10_full round at init put the conv
+    biases 2.0e-3 from the f64 round in 2 of 12 repeats on an H100 with
+    them, 1e-7 in the others, and 4.3e-7 in all 12 with this scope."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.saved
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -520,11 +537,13 @@ LOAD_LEGS = {1: (1, 1), 4: (4, 1), 16: (4, 4), 64: (8, 16)}
 
 def serve(dtype: str, dev, *, model: str = "caffenet", lrn_per_batch: int = 2,
           duration_s: float, n_inputs: int, legs=LOAD_LEGS, tag: str = "",
-          min_completed: int = 256) -> tuple[dict, object]:
-    """Load ``model``, answer requests from several client threads at each
-    load leg, audit every answer bit for bit against its solo padded run,
-    and check the LRN launch count (``lrn_per_batch`` per dispatched
-    batch).  Returns (report, loaded model)."""
+          min_completed: int = 256,
+          weights: str | None = None) -> tuple[dict, object]:
+    """Load ``model`` (with the weight file ``weights``, else seeded),
+    answer requests from several client threads at each load leg, audit
+    every answer bit for bit against its solo padded run, and check the
+    LRN launch count (``lrn_per_batch`` per dispatched batch).  Returns
+    (report, loaded model)."""
     from sparknet_tpu_torch.ops import cuda_kernels as ck
     from sparknet_tpu_torch.parallel.serving import (
         InferenceEngine, ModelHouse, ServeConfig, run_closed_loop,
@@ -534,7 +553,7 @@ def serve(dtype: str, dev, *, model: str = "caffenet", lrn_per_batch: int = 2,
                       seed=SEED)
     house = ModelHouse(cfg, device=dev)
     t0 = time.perf_counter()
-    lm = house.load(model)
+    lm = house.load(model, weights=weights)
     load_s = time.perf_counter() - t0
     gen = np.random.default_rng(SEED + 1)
     inputs = [(IMAGE_STD * gen.normal(size=lm.in_shape)).astype(np.float32)
@@ -1316,9 +1335,12 @@ def train_against_cpu(dev, label: str, sp, batches: dict, planted,
     10x the CPU f32 round's own error: a zero-initialised convolution
     bias holds only its first update, a sum over ~10^5 positions with
     heavy cancellation, where f32 on either device misses the f64 answer
-    by more than 1e-3.  The same checks must see a CPU round run under
+    by more than 1e-3.  The card's round runs on cuDNN's deterministic
+    algorithms (``cudnn_deterministic``), so the comparison is the same on
+    every call.  The same checks must see a CPU round run under
     ``planted`` (a context that plants a fault)."""
-    card_loss, card = one_round(sp, batches, dev, strategy=strategy)
+    with cudnn_deterministic():
+        card_loss, card = one_round(sp, batches, dev, strategy=strategy)
     cpu_loss, cpu = one_round(sp, batches, "cpu", strategy=strategy)
     _, exact = one_round(sp, batches, "cpu", f64=True, strategy=strategy)
     with planted:
@@ -1482,6 +1504,627 @@ def train_vgg16(ck, dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: the Solver, weights and solver state on disk
+# ---------------------------------------------------------------------------
+
+# bvlc_reference_caffenet's published solver (base_lr, the step policy,
+# gamma, momentum, weight_decay, display) with its schedule cut to the
+# smoke's depth: stepsize 100000 -> 10 (so the policy acts), max_iter
+# 450000 -> 20, test_interval 1000 -> 10, test_iter 1000 -> 2, snapshot
+# 10000 -> 20.  average_loss 20 keeps every iteration's loss in the
+# Solver's window, so the first one can be checked.
+CAFFENET_SOLVER = """
+base_lr: 0.01
+lr_policy: "step"
+gamma: 0.1
+stepsize: 10
+momentum: 0.9
+weight_decay: 0.0005
+display: 20
+max_iter: 20
+test_interval: 10
+test_iter: 2
+snapshot: 20
+average_loss: 20
+"""
+SOLVER_ITERS, SOLVER_TESTS, SOLVER_TEST_ITER = 20, 3, 2
+SOLVER_TRAIN_BATCH, SOLVER_TEST_BATCH = 256, 50   # the published batches
+SOLVER_FEED = 4          # train batches made on the card once, then cycled
+RESUME_ITERS = 5
+# Caffe's six rules on cifar10_quick, the cifar app's settings (base_lr
+# 0.001, momentum 0.9, weight_decay 0.004) with each rule's own fields
+CIFAR_RULES = {
+    "SGD": 'type: "SGD"\nbase_lr: 0.001\nmomentum: 0.9\n',
+    "Nesterov": 'type: "Nesterov"\nbase_lr: 0.001\nmomentum: 0.9\n',
+    "AdaGrad": 'type: "AdaGrad"\nbase_lr: 0.01\ndelta: 1e-8\n',
+    "RMSProp": ('type: "RMSProp"\nbase_lr: 0.001\nrms_decay: 0.98\n'
+                'delta: 1e-8\n'),
+    "Adam": ('type: "Adam"\nbase_lr: 0.001\nmomentum: 0.9\n'
+             'momentum2: 0.999\ndelta: 1e-8\n'),
+    "AdaDelta": ('type: "AdaDelta"\nbase_lr: 1.0\nmomentum: 0.95\n'
+                 'delta: 1e-6\n'),
+}
+RULE_ITERS, RULE_RESUME_ITERS = 10, 3
+
+
+def card_batches(dev, n: int, batch: int, crop: int, seed: int) -> list:
+    """``n`` batches of std-58 images with random labels, drawn on the
+    card from a seeded generator."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [{"data": IMAGE_STD * torch.randn((batch, 3, crop, crop),
+                                             generator=gen, device=dev),
+             "label": torch.randint(0, 1000, (batch,), generator=gen,
+                                    device=dev).float()}
+            for _ in range(n)]
+
+
+def differing(a: dict, b: dict) -> list[str]:
+    """Blobs of two {layer: [tensor or array]} trees that are not equal
+    bit for bit (a missing layer counts)."""
+    host = lambda t: (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                      else np.asarray(t))
+    out = [k for k in set(a) ^ set(b)]
+    for k in set(a) & set(b):
+        out += [f"{k}[{i}]" for i, (x, y) in enumerate(zip(a[k], b[k]))
+                if host(x).tobytes() != host(y).tobytes()]
+        if len(a[k]) != len(b[k]):
+            out.append(f"{k} count")
+    return out
+
+
+def state_differs(a, b) -> list[str]:
+    if set(a) != set(b):
+        return [f"slots {sorted(a)} != {sorted(b)}"]
+    return [f"{s}:{x}" for s in a for x in differing(a[s], b[s])]
+
+
+def max_rel(a: dict, b: dict) -> float:
+    """max over blobs of max|a - b| / max|b|."""
+    return max(float((x.double() - y.double()).abs().max()
+                     / y.double().abs().max().clamp_min(1e-30))
+               for k in b for x, y in zip(a[k], b[k]))
+
+
+def clone_tree(t: dict) -> dict:
+    return {k: [b.detach().clone() for b in v] for k, v in t.items()}
+
+
+def timed_writes(times: dict):
+    """Time ``save_caffemodel``/``save_solverstate`` wherever the Solver
+    calls them (its snapshot on schedule)."""
+    from contextlib import ExitStack
+    from sparknet_tpu_torch.proto import caffemodel
+    stack = ExitStack()
+    for name in ("save_caffemodel", "save_solverstate"):
+        real = getattr(caffemodel, name)
+
+        def wrapper(*args, real=real, name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real(*args, **kw)
+            times[name] = time.perf_counter() - t0
+        stack.enter_context(mock.patch.object(caffemodel, name, wrapper))
+    return stack
+
+
+def solver_caffenet(ck, dev, smi: str, d: str) -> dict:
+    """Full-width CaffeNet (batch 256 train, 50 test) through the Solver on
+    the published solver at the smoke's depth: ``solve()`` with its test
+    passes and its snapshot on schedule, exact launches; the snapshot's
+    ``.caffemodel`` read on the CPU equal to the card's params, the pair
+    restored into a fresh card Solver bit for bit, and both solvers' next
+    5 iterations (Dropout generator state copied) within rtol 2e-4, atol
+    2e-5; a transposed fc6 weight refused; the Solver's ms per iteration
+    against the trainer's worker step at the same batch, same call."""
+    import itertools
+    from sparknet_tpu_torch.models import caffenet
+    from sparknet_tpu_torch.parallel.trainer import (DistributedTrainer,
+                                                     TrainerConfig)
+    from sparknet_tpu_torch.proto import (load_caffemodel, load_solverstate,
+                                          load_solver_prototxt_with_net,
+                                          save_caffemodel)
+    from sparknet_tpu_torch.solvers import Solver
+    prefix = os.path.join(d, "caffenet")
+    sp = load_solver_prototxt_with_net(
+        CAFFENET_SOLVER, caffenet(SOLVER_TRAIN_BATCH, SOLVER_TEST_BATCH,
+                                  crop=TRAIN_CROP), snapshot_prefix=prefix)
+    if (sp.snapshot, sp.max_iter, sp.test_interval) != (20, 20, 10):
+        fail(f"solver: schedule {sp.snapshot} {sp.max_iter} "
+             f"{sp.test_interval}")
+    t0 = time.perf_counter()
+    a = Solver(sp, seed=SEED, device=dev)
+    build_s = time.perf_counter() - t0
+    train = card_batches(dev, SOLVER_FEED, SOLVER_TRAIN_BATCH, TRAIN_CROP,
+                         SEED + 30)
+    test = card_batches(dev, SOLVER_TEST_ITER, SOLVER_TEST_BATCH, TRAIN_CROP,
+                        SEED + 31)
+    a.set_train_data(itertools.cycle(train))
+    a.set_test_data(lambda: iter(test))
+    # the test-mode loss at init, what solve()'s pass at iteration 0 logs,
+    # against the CPU's forward of the same params on the same batches.
+    # It sits above ln 1000 by about s^2 / 2: at init every sample's fc8
+    # is nearly the same vector, spread by the fc7 biases (1) through fc8
+    # (std 0.01 over 4096 inputs), s^2 ~ 0.4; the apps' check allows 0.5
+    init_loss = a.test(SOLVER_TEST_ITER)["loss"] / SOLVER_TEST_ITER
+    cpu_params = {k: [b.cpu() for b in v] for k, v in a.params.items()}
+    with torch.no_grad():
+        cpu_loss = sum(float(a.test_net.forward(
+            cpu_params, {k: v.cpu() for k, v in b.items()},
+            train=False).loss) for b in test) / SOLVER_TEST_ITER
+    del cpu_params
+    if abs(init_loss - cpu_loss) > 1e-4 * abs(cpu_loss) or \
+            abs(init_loss - math.log(1000)) > 0.5:
+        fail(f"solver_caffenet: test loss at init {init_loss:.6f}, the "
+             f"CPU's {cpu_loss:.6f} (ln 1000 = {math.log(1000):.4f})")
+    writes: dict = {}
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed_writes(writes):
+        final = a.solve()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    training = dict(ck.launch_counts)
+    want = {"lrn_across_channels_fwd": 2 * SOLVER_ITERS,
+            "lrn_across_channels_bwd": 2 * SOLVER_ITERS,
+            "max_pool_bwd": 3 * SOLVER_ITERS,
+            "lrn_across_channels": 2 * SOLVER_TESTS * SOLVER_TEST_ITER}
+    if training != want:
+        fail(f"solver_caffenet: launches {training}, want {want}")
+    losses = [float(v) for v in a._smoothed]
+    if a.iter != SOLVER_ITERS or len(losses) != SOLVER_ITERS or not all(
+            math.isfinite(v) for v in losses + [final]):
+        fail(f"solver_caffenet: iter {a.iter}, losses {losses}")
+    # in train mode Dropout (fc6 and fc7, biases 1 at init) gives the
+    # logits a per-sample variance of about 1, so the first training loss
+    # sits about 0.5 above ln 1000 (the apps' check allows 1)
+    if abs(losses[0] - math.log(1000)) > 1.0:
+        fail(f"solver_caffenet: first loss {losses[0]:.4f} is not within "
+             f"1 of ln 1000")
+    model = f"{prefix}_iter_{SOLVER_ITERS}.caffemodel"
+    state = f"{prefix}_iter_{SOLVER_ITERS}.solverstate"
+    if not (os.path.exists(model) and os.path.exists(state)) or \
+            set(writes) != {"save_caffemodel", "save_solverstate"}:
+        fail(f"solver_caffenet: snapshot on schedule wrote {os.listdir(d)}")
+    saved_params, saved_state = clone_tree(a.params), {
+        s: clone_tree(t) for s, t in a.state.items()}
+    sizes = {"caffemodel": os.path.getsize(model),
+             "solverstate": os.path.getsize(state)}
+    t0 = time.perf_counter()
+    on_cpu = load_caffemodel(model)
+    reads = {"load_caffemodel": time.perf_counter() - t0}
+    bad = differing(on_cpu, a.params)
+    if bad:
+        fail(f"solver_caffenet: the .caffemodel read on the CPU differs "
+             f"from the card's params in {bad[:5]}")
+    t0 = time.perf_counter()
+    st = load_solverstate(state)
+    reads["load_solverstate"] = time.perf_counter() - t0
+    if st["iter"] != SOLVER_ITERS or st["learned_net"] != model:
+        fail(f"solver_caffenet: solverstate iter {st['iter']}, learned_net "
+             f"{st['learned_net']}")
+    del st
+    # the test pass alone: the inference kernel, 2 a forward
+    ck.reset_launch_counts()
+    scores = a.test(SOLVER_TEST_ITER)
+    test_launches = dict(ck.launch_counts)
+    want_test = {k: 0 for k in want}
+    want_test["lrn_across_channels"] = 2 * SOLVER_TEST_ITER
+    if test_launches != want_test or set(scores) != {"loss", "accuracy"} \
+            or not all(math.isfinite(v) for v in scores.values()):
+        fail(f"solver_caffenet test: launches {test_launches}, scores "
+             f"{scores}")
+    # restore into a fresh card Solver: bit for bit
+    b = Solver(sp, seed=SEED + 1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.restore_caffe(state)
+    torch.cuda.synchronize()
+    reads["restore_caffe"] = time.perf_counter() - t0
+    bad = differing(b.params, saved_params) + state_differs(b.state,
+                                                            saved_state)
+    if bad or b.iter != SOLVER_ITERS:
+        fail(f"solver_caffenet: restore_caffe differs in {bad[:5]}, iter "
+             f"{b.iter}")
+    # both run on from iteration 20 on the same batches, the Dropout
+    # generator's state copied across
+    b.generator.set_state(a.generator.get_state())
+    nxt = [train[i % SOLVER_FEED]
+           for i in range(SOLVER_ITERS, SOLVER_ITERS + RESUME_ITERS)]
+    runs = []
+    with cudnn_deterministic():
+        for s in (a, b):
+            s.set_train_data(iter(nxt))
+            s.step(RESUME_ITERS)
+            runs.append([float(v) for v in list(s._smoothed)[-RESUME_ITERS:]])
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(*runs))
+    param_fail = [f"{k}[{i}]" for k in a.params
+                  for i, (x, y) in enumerate(zip(b.params[k], a.params[k]))
+                  if not torch.allclose(x, y, rtol=2e-4, atol=2e-5)]
+    resumed = {"loss_rel": loss_rel, "params_max_rel": max_rel(b.params,
+                                                               a.params),
+               "bit_equal": not differing(b.params, a.params)}
+    if param_fail or not np.allclose(runs[1], runs[0], rtol=2e-4,
+                                     atol=2e-5):
+        fail(f"solver_caffenet: the resumed run differs: losses {runs}, "
+             f"blobs {param_fail[:5]}")
+    # planted: fc6's weight transposed must be refused
+    fc6 = os.path.join(d, "fc6_transposed.caffemodel")
+    save_caffemodel(fc6, {"fc6": [on_cpu["fc6"][0].T.copy(),
+                                  on_cpu["fc6"][1]]})
+    try:
+        b.load_weights(fc6)
+        fail("solver_caffenet: a transposed fc6 weight was loaded")
+    except ValueError as e:
+        refused = str(e)
+    os.remove(fc6)
+    del b, on_cpu
+    # ms per iteration, warm, against the trainer's worker step at the
+    # same batch in the same call
+    a.set_train_data(itertools.cycle(train))
+    a.step(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.step(10)
+    torch.cuda.synchronize()
+    solver_ms = (time.perf_counter() - t0) * 1e3 / 10
+    del a, saved_params, saved_state
+    torch.cuda.empty_cache()
+    tr = DistributedTrainer(sp, 1, TrainerConfig(tau=5), seed=SEED,
+                            device=dev)
+    rnd = {k: torch.stack([train[i % SOLVER_FEED][k] for i in range(5)])
+           for k in ("data", "label")}
+    for _ in range(3):
+        tr.train_round(rnd)
+    trainer_ms = min(tr.round_seconds[r] for r in (1, 2)) * 1e3 / 5
+    del tr, rnd
+    mb = lambda n: n / 1e6
+    report = {
+        "iters": SOLVER_ITERS, "test_loss_at_init": init_loss,
+        "test_loss_at_init_cpu": cpu_loss,
+        "first_loss": losses[0],
+        "last_loss": losses[-1], "solve_s": solve_s, "build_s": build_s,
+        "launches_training": training, "launches_test": test_launches,
+        "test_scores": scores, "resumed": resumed,
+        "planted_transposed_fc6": refused[:120],
+        "sizes_mb": {k: mb(v) for k, v in sizes.items()},
+        "write_s": writes, "read_s": reads,
+        "write_mb_s": {"caffemodel": mb(sizes["caffemodel"])
+                       / writes["save_caffemodel"],
+                       "solverstate": mb(sizes["solverstate"])
+                       / writes["save_solverstate"]},
+        "read_mb_s": {"caffemodel": mb(sizes["caffemodel"])
+                      / reads["load_caffemodel"],
+                      "solverstate": mb(sizes["solverstate"])
+                      / reads["load_solverstate"]},
+        "solver_ms_per_iter_b256": solver_ms,
+        "trainer_worker_step_ms_b256": trainer_ms}
+    print(f"solver_caffenet [{smi}] " + json.dumps(report), flush=True)
+    return {"report": report, "model": model, "state": state}
+
+
+def serve_weights(dev, smi: str, model: str) -> dict:
+    """``ModelHouse.load("caffenet", weights=model)`` through the engine in
+    bf16 and f32: the served params are the file's bit for bit, the f32
+    fc8 within the serving check's bound (1e-4) of the CPU forward on
+    the same params (identity LRNs planted), and its fc8 differs from a
+    seeded load's."""
+    from sparknet_tpu_torch.parallel.serving import ModelHouse, ServeConfig
+    from sparknet_tpu_torch.proto import load_caffemodel
+    want = load_caffemodel(model)
+    out = {}
+    for dtype in ("bf16", "f32"):
+        rep, lm = serve(dtype, dev, weights=model, duration_s=0.5,
+                        n_inputs=8, legs={1: (1, 1), 4: (4, 1), 16: (4, 4)},
+                        tag=f"_weights_{dtype}", min_completed=32)
+        bad = differing(lm.params, {k: want[k] for k in lm.params})
+        if bad or lm.info()["weights"] != model:
+            fail(f"serving weights {dtype}: params differ from the file in "
+                 f"{bad[:5]}")
+        if dtype == "f32":
+            rel, planted, tf32 = check_against_cpu(lm, "fc8")
+            seeded = ModelHouse(ServeConfig(dtype="f32", seed=SEED),
+                                device=dev).load("caffenet")
+            gen = np.random.default_rng(SEED + 32)
+            x = torch.from_numpy((IMAGE_STD * gen.normal(
+                size=(4,) + lm.in_shape)).astype(np.float32)).to(dev)
+            with torch.inference_mode(), lm.precision():
+                fc8 = [m.net.apply(m.params, {"data": x}, blobs=["fc8"])
+                       ["fc8"] for m in (lm, seeded)]
+            moved = float((fc8[0] - fc8[1]).abs().max()
+                          / fc8[1].abs().max())
+            rep.update(card_vs_cpu=rel, planted=planted,
+                       fc8_vs_seeded=moved)
+            print(f"caffenet from {os.path.basename(model)} f32 fc8 card vs "
+                  f"CPU: {rel:.3e} (limit 1e-4; identity LRNs {planted:.3e}); "
+                  f"vs a seeded load {moved:.3e}", flush=True)
+            if any(tf32) or not rel <= 1e-4 or not planted > 1e-4:
+                fail(f"serving weights: f32 fc8 card vs CPU {rel:.3e}, "
+                     f"planted {planted:.3e}, TF32 {tf32}")
+            if not moved > 1e-2:
+                fail(f"serving weights: fc8 is within {moved:.3e} of a "
+                     f"seeded load's: the file was not used")
+            del seeded
+        out[dtype] = rep
+        del lm
+    print(f"serving_weights [{smi}] " + json.dumps(
+        {d: {"load_s": r["load_s"], "dispatches": r["dispatches"],
+             "lrn_launches": r["lrn_launches"], "batch_ms": r["batch_ms"]}
+         for d, r in out.items()}), flush=True)
+    return out
+
+
+def adadelta_reads_new_sq_update(sp):
+    """A planted fault: AdaDelta in place computing its update from the
+    sq_update it has just written, not the old one."""
+    from sparknet_tpu_torch.solvers import update_rules as ur
+
+    def init(params):
+        return {"sq_grad": ur._zeros(params), "sq_update": ur._zeros(params)}
+
+    @torch.no_grad()
+    def apply(params, grads, state, rate, step, lr_mults=None):
+        mu = sp.momentum
+        for k, i, p, r in ur._blobs(params, rate, lr_mults):
+            g = grads[k][i]
+            sq_g, sq_u = state["sq_grad"][k][i], state["sq_update"][k][i]
+            sq_g.mul_(mu).addcmul_(g, g, value=1.0 - mu)
+            first = (sq_u + sp.delta).div_(sq_g + sp.delta).sqrt_().mul_(g)
+            sq_u.mul_(mu).addcmul_(first, first, value=1.0 - mu)
+            upd = (sq_u + sp.delta).div_(sq_g + sp.delta).sqrt_().mul_(g)
+            p.sub_(upd, alpha=r)
+        return params, state
+    return ur.SolverUpdate("ADADELTA", init, apply)
+
+
+def cpu_solver(sp, dtype, rule=None):
+    """A fresh CPU Solver in ``dtype`` (f64: the same code in f64), with
+    ``rule`` (a planted update rule) in place of the solver's."""
+    from sparknet_tpu_torch.solvers import Solver
+    from sparknet_tpu_torch.solvers.step import make_step_fns
+    s = Solver(sp, seed=SEED + 1, device="cpu")
+    if rule is not None:
+        s.rule = rule(sp)
+        _, s._local_update, _ = make_step_fns(sp, s.train_net, s.rule,
+                                              s._lr_mults, s._decay_mults)
+    s.params = {k: [b.to(dtype) for b in v] for k, v in s.params.items()}
+    s.state = s.rule.init(s.params)
+    return s
+
+
+def feed_of(batches: list, dtype) -> Iterator:
+    return iter({k: torch.from_numpy(v).to(dtype) for k, v in b.items()}
+                for b in batches)
+
+
+def free_run(sp, weights: str, batches: list, dtype) -> list[float]:
+    """Per-iteration losses of a CPU Solver from the ``weights`` file."""
+    s = cpu_solver(sp, dtype)
+    s.load_weights(weights)
+    s.params = {k: [b.to(dtype) for b in v] for k, v in s.params.items()}
+    s.set_train_data(feed_of(batches, dtype))
+    return [s.step(1) for _ in batches]
+
+
+def host_f64(tree: dict) -> dict:
+    return {k: [b.detach().cpu().double() for b in v] for k, v in tree.items()}
+
+
+def replay(sp, traj: list, batches: list, dtype, rule=None):
+    """Each iteration ``t`` of the card's run again on the CPU from the
+    card's params and state before it (``traj[t]``): the losses and each
+    iteration's update of the params, in f64."""
+    s = cpu_solver(sp, dtype, rule)
+    losses, updates = [], []
+    for t, b in enumerate(batches):
+        params, state = traj[t]
+        # copies: the update writes them in place
+        s.params = {k: [x.to(dtype, copy=True) for x in v]
+                    for k, v in params.items()}
+        s.state = {slot: {k: [x.to(dtype, copy=True) for x in v]
+                          for k, v in tr.items()}
+                   for slot, tr in state.items()}
+        s.iter = t
+        s.set_train_data(feed_of([b], dtype))
+        losses.append(s.step(1))
+        updates.append({k: [n.double() - p for n, p in zip(s.params[k], v)]
+                        for k, v in params.items()})
+    return losses, updates
+
+
+def update_err(got: list, ref: list) -> float:
+    """max over iterations of ||got - ref|| / ||ref||, over every blob."""
+    def one(g, r):
+        num = sum(float((x - y).pow(2).sum()) for k in r
+                  for x, y in zip(g[k], r[k]))
+        den = sum(float(y.pow(2).sum()) for k in r for y in r[k])
+        return math.sqrt(num / den)
+    return max(one(g, r) for g, r in zip(got, ref))
+
+
+def solver_rules_cifar(ck, dev, smi: str, d: str) -> dict:
+    """Each of Caffe's six rules through the Solver on cifar10_quick at
+    the app's batch 100 and data (pool1, a 3/2 MAX pool: one pool
+    backward an iteration), 10 iterations on the card from a
+    ``.caffemodel``, checked two ways against the CPU:
+
+    - free-running: the same 10 iterations on the CPU from the same file,
+      in f32 and in f64.  The card's per-iteration losses must be within
+      max(1e-3, 10x the CPU f32 run's own error) of the f64 run's:
+      ``train_against_cpu``'s rule for a blob after a round (within 1e-3,
+      or 10x the CPU's own error).  AdaGrad, RMSProp, Adam and AdaDelta step by about
+      base_lr x sign(g) at first (RMSProp by 7x that), so gradient
+      elements that are rounding noise around zero take full steps and
+      every f32 run wanders from the f64 one by a draw of its own.
+    - lockstep: each card iteration again on the CPU, in f32 and in f64,
+      from the card's params and state before it: one iteration's
+      rounding, not ten compounded.  The card's loss must be within 1e-4
+      of the f64 one (``train_against_cpu``'s loss bound), and its update
+      of the params within max(1e-3, 10x the CPU f32 update's error) of
+      the f64 update (L2 over every blob).
+
+    The card's iterations run on cuDNN's deterministic algorithms: the
+    default ones vary from run to run (AdaGrad's free-running error on an
+    H100 was 4.1e-4 in one run and 9.3e-4 in another), and the rules
+    amplify that.  Adam and AdaDelta: snapshot_caffe at 10, restore_caffe into a fresh
+    card Solver (bit for bit), 3 more iterations equal to the
+    uninterrupted run.  Planted: AdaDelta reading its new sq_update (the
+    lockstep update check), Adam resumed at iter 0, swapped history
+    slots, a history one blob short."""
+    from sparknet_tpu_torch.apps.cifar_app import synthetic_cifar
+    from sparknet_tpu_torch.models import cifar10_quick
+    from sparknet_tpu_torch.proto import (load_solver_prototxt_with_net,
+                                          load_solverstate, save_solverstate)
+    from sparknet_tpu_torch.solvers import Solver
+    n = RULE_ITERS + RULE_RESUME_ITERS
+    x, y = synthetic_cifar(n * CIFAR_BATCH, seed=SEED + 40)
+    x = x - x.mean(axis=0)
+    batches = [{"data": x[i * CIFAR_BATCH:(i + 1) * CIFAR_BATCH],
+                "label": y[i * CIFAR_BATCH:(i + 1) * CIFAR_BATCH].astype(
+                    np.float32)} for i in range(n)]
+    head, tail = batches[:RULE_ITERS], batches[RULE_ITERS:]
+    rel = lambda a, b: max(abs(p - q) / abs(q) for p, q in zip(a, b))
+    f32, f64 = torch.float32, torch.float64
+    out, launches = {}, {}
+    for rule, txt in CIFAR_RULES.items():
+        sp = load_solver_prototxt_with_net(
+            txt + 'weight_decay: 0.004\nlr_policy: "fixed"\n',
+            cifar10_quick(CIFAR_BATCH, CIFAR_BATCH))
+        card = Solver(sp, seed=SEED, device=dev)
+        init, _ = card.snapshot_caffe(os.path.join(d, f"quick_{rule}_init"))
+        card.set_train_data(iter(head))
+        traj = [(host_f64(card.params),
+                 {s: host_f64(t) for s, t in card.state.items()})]
+        card_losses = []
+        ck.reset_launch_counts()
+        with cudnn_deterministic():    # the same card run on every call
+            for _ in head:
+                card_losses.append(card.step(1))
+                traj.append((host_f64(card.params),
+                             {s: host_f64(t)
+                              for s, t in card.state.items()}))
+        launches[rule] = dict(ck.launch_counts)
+        want = {"lrn_across_channels_fwd": 0, "lrn_across_channels_bwd": 0,
+                "max_pool_bwd": RULE_ITERS, "lrn_across_channels": 0}
+        if launches[rule] != want:
+            fail(f"solver_cifar10_quick_{rule}: launches {launches[rule]}")
+        cpu, exact = (free_run(sp, init, head, dt) for dt in (f32, f64))
+        cpu_err = rel(cpu, exact)
+        allowed = max(1e-3, 10.0 * cpu_err)
+        card_updates = [{k: [b - a for a, b in zip(traj[t][0][k],
+                                                   traj[t + 1][0][k])]
+                         for k in traj[t][0]} for t in range(RULE_ITERS)]
+        (l32, u32), (l64, u64) = (replay(sp, traj, head, dt)
+                                  for dt in (f32, f64))
+        upd_allowed = max(1e-3, 10.0 * update_err(u32, u64))
+        r = {"card_losses": card_losses, "cpu_losses": cpu,
+             "card_vs_f64": rel(card_losses, exact), "cpu_vs_f64": cpu_err,
+             "card_vs_cpu": rel(card_losses, cpu), "allowed": allowed,
+             "lockstep_loss_vs_f64": rel(card_losses, l64),
+             "lockstep_cpu_loss_vs_f64": rel(l32, l64),
+             "lockstep_update_vs_f64": update_err(card_updates, u64),
+             "lockstep_cpu_update_vs_f64": update_err(u32, u64),
+             "lockstep_update_allowed": upd_allowed}
+        if not all(math.isfinite(v) for v in card_losses) or not (
+                r["card_vs_f64"] <= allowed
+                and r["lockstep_loss_vs_f64"] <= 1e-4
+                and r["lockstep_update_vs_f64"] <= upd_allowed):
+            fail(f"solver_cifar10_quick_{rule}: the card differs from the "
+                 f"CPU: {r}")
+        if rule == "AdaDelta":
+            _, planted = replay(sp, traj, head, f32,
+                                rule=adadelta_reads_new_sq_update)
+            r["planted_new_sq_update_vs_f64"] = update_err(planted, u64)
+            if not r["planted_new_sq_update_vs_f64"] > upd_allowed:
+                fail("AdaDelta reading its new sq_update passes the check")
+        if rule in ("Adam", "AdaDelta"):
+            model, state = card.snapshot_caffe(os.path.join(d, f"q_{rule}"))
+            saved = {s: clone_tree(t) for s, t in card.state.items()}
+            saved_params = clone_tree(card.params)
+            fork = card.generator.get_state()
+            with cudnn_deterministic():
+                card.set_train_data(iter(tail))
+                straight = [card.step(1) for _ in tail]
+                back = Solver(sp, seed=SEED + 2, device=dev)
+                back.restore_caffe(state)
+                bad = (differing(back.params, saved_params)
+                       + state_differs(back.state, saved))
+                if bad or back.iter != RULE_ITERS:
+                    fail(f"solver_cifar10_quick_{rule}: restore_caffe "
+                         f"differs in {bad[:5]}, iter {back.iter}")
+                back.generator.set_state(fork)
+                back.set_train_data(iter(tail))
+                resumed = [back.step(1) for _ in tail]
+                r["resumed_vs_straight"] = rel(resumed, straight)
+                r["resumed_params_max_rel"] = max_rel(back.params,
+                                                      card.params)
+                if not r["resumed_vs_straight"] <= 1e-4 or any(
+                        not torch.allclose(p, q, rtol=2e-4, atol=2e-5)
+                        for k in card.params
+                        for p, q in zip(back.params[k], card.params[k])):
+                    fail(f"solver_cifar10_quick_{rule}: the resumed run "
+                         f"differs: {r}")
+                if rule == "Adam":
+                    # planted: the bias correction restarted at t = 1
+                    again = Solver(sp, seed=SEED + 3, device=dev)
+                    again.restore_caffe(state)
+                    again.iter = 0
+                    again.set_train_data(iter(tail))
+                    restarted = [again.step(1) for _ in tail]
+                    r["planted_iter_0_vs_straight"] = rel(restarted,
+                                                          straight)
+                    if not r["planted_iter_0_vs_straight"] > 1e-4:
+                        fail("Adam resumed at iter 0 passes the check")
+                    del again
+            # planted: the two history slots swapped
+            st = load_solverstate(state)
+            half = len(st["history"]) // 2
+            swapped = os.path.join(d, f"q_{rule}_swapped.solverstate")
+            save_solverstate(swapped, st["iter"], st["history"][half:]
+                             + st["history"][:half], learned_net=model)
+            back.restore_caffe(swapped)
+            r["planted_swapped_slots_differ"] = len(
+                state_differs(back.state, saved))
+            if not r["planted_swapped_slots_differ"]:
+                fail(f"{rule}: swapped history slots restore as the saved "
+                     f"state")
+            if rule == "AdaDelta":
+                short = os.path.join(d, "q_short.solverstate")
+                save_solverstate(short, st["iter"], st["history"][:-1],
+                                 learned_net=model)
+                try:
+                    back.restore_caffe(short)
+                    fail("a history one blob short was restored")
+                except ValueError as e:
+                    r["planted_short_history"] = str(e)[:100]
+            del back
+        out[rule] = r
+        del card
+    print(f"solver_rules [{smi}] " + json.dumps(
+        {k: {m: v for m, v in r.items() if not m.endswith("_losses")}
+         for k, r in out.items()}), flush=True)
+    return {"rules": out, "launches": launches}
+
+
+def solver_and_weights(ck, dev, smi: str) -> dict:
+    """Phase 5b: the Solver on CaffeNet, its weights served, the six rules
+    on cifar10_quick; the files in a temporary directory."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="solver_smoke_") as d:
+        caffenet_out = solver_caffenet(ck, dev, smi, d)
+        torch.cuda.empty_cache()
+        served = serve_weights(dev, smi, caffenet_out["model"])
+        torch.cuda.empty_cache()
+        rules = solver_rules_cifar(ck, dev, smi, d)
+    torch.cuda.empty_cache()
+    print(f"solver_and_weights: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"caffenet": caffenet_out["report"], "served": served,
+            "rules": rules}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the kernels line
 # ---------------------------------------------------------------------------
 
@@ -1638,6 +2281,10 @@ def main() -> int:
         {m: t["report"]["steady_medians"] for m, t in trained.items()
          if m.startswith(("caffenet", "googlenet"))}), flush=True)
 
+    # phase 5b: the Solver at full width, its snapshot on disk and served,
+    # and Caffe's six rules
+    solved = solver_and_weights(ck, dev, smi)
+
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
     # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
@@ -1645,6 +2292,21 @@ def main() -> int:
     # 32 in f32 for the training kernels.  CaffeNet's rows stay in
     # per_shape.
     tl = {m: t["report"]["launches"] for m, t in trained.items()}
+    # this slice's paths, by their own names: the Solver's training run
+    # (with its test passes), its test pass alone, the served weight file,
+    # and each rule's run on cifar10_quick
+    sc = solved["caffenet"]
+    solver_paths = {
+        "solver_caffenet_training": sc["launches_training"],
+        "solver_caffenet_test": sc["launches_test"],
+        **{f"caffenet_serving_weights_{d}": {
+            "lrn_across_channels": r["lrn_launches"]}
+           for d, r in solved["served"].items()},
+        **{f"solver_cifar10_quick_{r.lower()}": n
+           for r, n in solved["rules"]["launches"].items()}}
+    def solver_launches(kernel):   # the paths that run ``kernel``
+        return {m: c[kernel] for m, c in solver_paths.items()
+                if c.get(kernel)}
     def rows_of(rows, kernel=None, dtype="float32", batch=GN_BATCH):
         return [r for r in rows if r["case"].startswith("googlenet_")
                 and r["case"].endswith(f"_b{batch}")
@@ -1662,23 +2324,29 @@ def main() -> int:
             {**{f"{m}_serving_{d}": served[m][d]["lrn_launches"]
                 for m in served for d in ("bf16", "f32")},
              **{f"{m}_training_eval": tl[m]["lrn_across_channels"]
-                for m in lrn_paths}},
+                for m in lrn_paths},
+             **solver_launches("lrn_across_channels")},
             lrn_rows, rows_of(lrn_rows, dtype="bfloat16", batch=64)),
         kernel_entry(
             "lrn_across_channels_fwd", "sparknet_tpu_torch/ops/csrc/lrn.cu",
             "sparknet_tpu/ops/pallas_kernels.py:56",
-            {f"{m}_training": tl[m]["lrn_across_channels_fwd"]
-             for m in lrn_paths}, fwd_rows, rows_of(fwd_rows)),
+            {**{f"{m}_training": tl[m]["lrn_across_channels_fwd"]
+                for m in lrn_paths},
+             **solver_launches("lrn_across_channels_fwd")},
+            fwd_rows, rows_of(fwd_rows)),
         kernel_entry(
             "lrn_across_channels_bwd",
             "sparknet_tpu_torch/ops/csrc/lrn_bwd.cu",
             "sparknet_tpu/ops/pallas_kernels.py:83",
-            {f"{m}_training": tl[m]["lrn_across_channels_bwd"]
-             for m in lrn_paths}, bwd_rows, rows_of(bwd_rows)),
+            {**{f"{m}_training": tl[m]["lrn_across_channels_bwd"]
+                for m in lrn_paths},
+             **solver_launches("lrn_across_channels_bwd")},
+            bwd_rows, rows_of(bwd_rows)),
         kernel_entry(
             "max_pool_bwd", "sparknet_tpu_torch/ops/csrc/maxpool_bwd.cu",
             "sparknet_tpu/ops/pallas_kernels.py:203",
-            {f"{m}_training": tl[m]["max_pool_bwd"] for m in tl},
+            {**{f"{m}_training": tl[m]["max_pool_bwd"] for m in tl},
+             **solver_launches("max_pool_bwd")},
             pool_rows, rows_of(pool_rows)),
     ]
     for k in kernels:

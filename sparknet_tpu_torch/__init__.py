@@ -7,6 +7,8 @@ modules mirror the JAX package's names.  It serves (zoo model ->
 ``parallel.serving.ModelHouse`` -> ``InferenceEngine`` micro-batched
 forward) and trains (``apps.imagenet_app``, ``apps.cifar_app`` ->
 ``apps.common.run_training`` -> the prefetching ``data.prefetch``
-feed -> ``parallel.trainer.DistributedTrainer``), with the JAX package's
+feed -> ``parallel.trainer.DistributedTrainer``; or Caffe's
+``solvers.Solver``), reads and writes Caffe's ``.caffemodel`` and
+``.solverstate`` files (``proto.caffemodel``), with the JAX package's
 Pallas kernels as hand-written CUDA kernels (``ops/csrc/``).
 """

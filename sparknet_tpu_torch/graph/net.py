@@ -86,7 +86,7 @@ class Net:
             if any(ps.name for ps in lp.param):
                 raise NotImplementedError(
                     f"layer {lp.name!r}: shared params (ParamSpec.name) are "
-                    f"not ported yet")
+                    f"not ported yet (ROADMAP A3)")
             impl = get_layer_impl(lp.type)
             for b in lp.bottom:
                 if b not in self.blob_shapes:

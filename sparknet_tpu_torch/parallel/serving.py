@@ -33,9 +33,10 @@ f32 serving means full f32: an f32 model's forwards run inside
 convolutions and of matmuls for the length of the forward's enqueue and
 then restores them (bf16 models leave the flags alone).
 
-Not ported yet: the SLO monitor, health beacons, the telemetry registry,
-fault injection, registry versions and weight files, and the HTTP shell
-(``tools/serve.py``).
+``ModelHouse.load(name, weights=path)`` serves a ``.caffemodel`` (or npz)
+in place of the seeded weights.  Not ported yet: the SLO monitor, health
+beacons, the telemetry registry, fault injection, registry versions, and
+the HTTP shell (``tools/serve.py``).
 """
 
 from __future__ import annotations
@@ -261,16 +262,23 @@ def deploy_from(net_param: NetParameter,
 class LoadedModel:
     """One servable model: deploy net + params on ``device``, with every
     serving batch shape run once at load as warm-up (the request path
-    never meets a first call).  ``params`` are weights to serve in place of
-    the seeded draw; ``drop_extra`` lets them carry layers the deploy net
-    lacks (train weights: GoogLeNet's auxiliary heads), dropped by name
-    (``convert.params_from_jax``)."""
+    never meets a first call).  ``weights`` is a weight file to serve in
+    place of the seeded draw (a ``.caffemodel``, V1 zoo files included, or
+    an npz; ``solvers.solver.load_weights_into``): its layers that the
+    deploy net lacks (train weights: GoogLeNet's auxiliary heads, the
+    loss) are ignored by name, as Net::CopyTrainedLayersFrom does, and a
+    layer it shares must match in blob count and shape.  ``params`` are
+    in-memory weights (``convert.params_from_jax``; ``drop_extra`` lets
+    them carry layers the deploy net lacks)."""
 
     def __init__(self, name: str, net_param: NetParameter, cfg: ServeConfig,
                  *, device: str | torch.device = "cuda",
+                 weights: str | None = None,
                  params: Mapping[str, Sequence[Any]] | None = None,
                  drop_extra: bool = False,
                  max_param_mb: float | None = None):
+        if weights and params is not None:
+            raise ValueError("pass weights (a file) or params, not both")
         t0 = time.perf_counter()
         self.device = resolve_device(device)
         deploy, self.in_shape = deploy_from(net_param, cfg.batch_shapes[-1])
@@ -282,10 +290,15 @@ class LoadedModel:
         if params is None:
             self.params = self.net.init(
                 torch.Generator().manual_seed(cfg.seed), device=self.device)
+            if weights:
+                from ..solvers.solver import load_weights_into
+                self.params = load_weights_into(self.net, self.params,
+                                                weights)
         else:
             self.params = params_from_jax(params, self.net,
                                           device=self.device,
                                           drop_extra=drop_extra)
+        self.weights = weights
         self.param_bytes = sum(b.numel() * b.element_size()
                                for blobs in self.params.values()
                                for b in blobs)
@@ -362,7 +375,7 @@ class LoadedModel:
                 "param_mb": round(self.param_bytes / 2**20, 3),
                 "batch_shapes": list(self.batch_shapes),
                 "flops_per_image": self.flops_per_image,
-                "warmup_s": self.warmup_s}
+                "warmup_s": self.warmup_s, "weights": self.weights}
 
 
 class ModelHouse:
@@ -382,10 +395,14 @@ class ModelHouse:
         self._models: "OrderedDict[str, LoadedModel]" = OrderedDict()
         self.evictions = 0
 
-    def load(self, name: str, force: bool | None = None) -> LoadedModel:
+    def load(self, name: str, weights: str | None = None,
+             force: bool | None = None) -> LoadedModel:
+        """Load zoo model ``name`` (with the weights of file ``weights``,
+        else the seeded draw), or return it if it is loaded with the same
+        ``weights``; another ``weights`` reloads it."""
         with self._lock:
             hit = self._models.get(name)
-            if hit is not None:
+            if hit is not None and hit.weights == weights:
                 self._models.move_to_end(name)
                 return hit
         zoo = zoo_models()
@@ -395,7 +412,7 @@ class ModelHouse:
         if force is None:
             force = knobs.raw("SPARKNET_SERVE_FORCE_ADMIT") == "1"
         lm = LoadedModel(name, zoo[name](), self.cfg, device=self.device,
-                         max_param_mb=None if force
+                         weights=weights, max_param_mb=None if force
                          else self.cfg.hbm_budget_mb)
         with self._lock:
             self._models[name] = lm

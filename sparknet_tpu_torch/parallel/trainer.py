@@ -28,8 +28,10 @@ micro-batch) or, through :meth:`DistributedTrainer.input_feed`, already
 on the device, staged by ``data/prefetch.py::DeviceFeed``.
 :func:`device_crop_mirror_mean` moves the random crop, the mirror and the
 mean into the round (``TrainerConfig.device_preprocess``), so the host
-ships raw images.  ``snapshot``/``restore`` write and read the JAX
-package's checkpoint layout.
+ships raw images.  Every one of Caffe's six update rules trains here
+(``solvers/update_rules.py``); ``snapshot``/``restore`` write and read the
+JAX package's checkpoint layout, each rule's state slots under their JAX
+names.
 
 Not ported: the ``hierarchical`` strategy, compressed exchange codecs,
 sharding, round checkpoints with resume (``checkpoint_dir``), and the

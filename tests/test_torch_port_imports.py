@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: every module of ``sparknet_tpu_torch``
-imports with ``jax`` blocked, and neither the package nor ``chip_smoke.py``
-names ``jax`` or ``sparknet_tpu`` in an import."""
+imports with ``jax``, ``google.protobuf`` and ``h5py`` blocked, and
+neither the package nor ``chip_smoke.py`` names ``jax`` or
+``sparknet_tpu`` in an import, nor ``google.protobuf`` or ``h5py`` (the
+card's machine has neither: the wire codec is the port's own)."""
 
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ def test_every_module_imports_with_jax_blocked():
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['sparknet_tpu'] = None\n"
+        "sys.modules['google.protobuf'] = None\n"
+        "sys.modules['h5py'] = None\n"
         f"for name in {_module_names()!r}:\n"
         "    importlib.import_module(name)\n"
         "leaked = sorted(m for m in sys.modules if m == 'jax' or "
@@ -56,7 +60,9 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "sparknet_tpu")
+    return (top in ("jax", "jaxlib", "sparknet_tpu", "h5py")
+            or name == "google.protobuf"
+            or name.startswith("google.protobuf."))
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -72,3 +78,9 @@ def test_forbidden_matches_exact_module_names():
     assert _forbidden("jax.numpy")
     assert not _forbidden("sparknet_tpu_torch.ops")
     assert not _forbidden("jaxtyping_like")
+
+
+def test_forbidden_covers_protobuf_and_h5py():
+    assert _forbidden("google.protobuf") and _forbidden("h5py")
+    assert _forbidden("google.protobuf.text_format")
+    assert not _forbidden("google") and not _forbidden("h5pyx")

@@ -201,3 +201,51 @@ def test_snapshots_restore_across_the_two_packages(strategy, tmp_path):
                                    for s in tr.state]))
     np.testing.assert_array_equal(np.asarray(want_state), got_state.numpy())
     _assert_tracks(tr, jback, tr.train_round(r2), jback.train_round(r2))
+
+
+RULE_TXT = {
+    "Adam": ('type: "Adam"\nbase_lr: 0.001\nmomentum: 0.9\n'
+             'momentum2: 0.999\ndelta: 1e-8\nlr_policy: "fixed"\n'),
+    "AdaDelta": ('type: "AdaDelta"\nbase_lr: 1.0\nmomentum: 0.95\n'
+                 'delta: 1e-6\nlr_policy: "fixed"\n'),
+}
+
+
+@pytest.mark.parametrize("rule", sorted(RULE_TXT))
+def test_two_slot_rules_restore_across_the_two_packages(rule, tmp_path):
+    """``local_sgd`` with Adam (``m``, ``v``) and AdaDelta (``sq_grad``,
+    ``sq_update``): each slot stacked per worker in the JAX layout.  A
+    JAX snapshot restores into the port with every slot bit for bit, and
+    the next round tracks the JAX trainer's; the port's snapshot restores
+    into a fresh JAX trainer with every slot bit for bit."""
+    txt = RULE_TXT[rule]
+    r0, r1 = _rounds(6, rounds=2, steps=2, global_batch=8)
+    jtr = JaxTrainer(jax_solver(txt, jax_lenet(8, 8)), make_mesh(2),
+                     JaxConfig(strategy="local_sgd", tau=2), seed=0)
+    jtr.train_round(r0)
+    jpath = str(tmp_path / "from_jax.npz")
+    jtr.snapshot(jpath)
+    tr = _trainer("local_sgd", seed=5, txt=txt)
+    tr.restore(jpath)
+    slots = sorted(tr.state[0])
+    assert slots == sorted(jax.device_get(jtr.state))
+    assert len(slots) == 2
+    want = jax.device_get(jtr.state)
+    for s in slots:
+        for k, blobs in tr.state[0][s].items():
+            for i in range(len(blobs)):
+                got = torch.stack([st[s][k][i] for st in tr.state]).numpy()
+                assert got.tobytes() == np.asarray(want[s][k][i]).tobytes()
+    _assert_tracks(tr, jtr, tr.train_round(r1), jtr.train_round(r1))
+
+    ppath = str(tmp_path / "from_port.npz")
+    tr.snapshot(ppath)
+    jback = JaxTrainer(jax_solver(txt, jax_lenet(8, 8)), make_mesh(2),
+                       JaxConfig(strategy="local_sgd", tau=2), seed=7)
+    jback.restore(ppath)
+    back = jax.device_get(jback.state)
+    for s in slots:
+        for k, blobs in tr.state[0][s].items():
+            for i in range(len(blobs)):
+                got = torch.stack([st[s][k][i] for st in tr.state]).numpy()
+                assert got.tobytes() == np.asarray(back[s][k][i]).tobytes()

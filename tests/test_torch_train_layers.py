@@ -207,5 +207,45 @@ def test_sgd_with_preprocess_tracks_jax_for_20_steps(extra):
 @pytest.mark.parametrize("solver", ["NESTEROV", "ADAGRAD", "RMSPROP",
                                     "ADADELTA", "ADAM"])
 def test_unported_rules_raise(solver):
-    with pytest.raises(NotImplementedError):
-        make_update_rule(SolverParameter(solver_type=solver))
+    """The five rules once refused here are ported: each, updating params
+    and state in place, tracks the JAX rule for 20 steps (params and
+    every state slot, rtol 1e-5, atol 1e-7, with lr_mults, weight decay
+    and the step policy acting); an unknown solver type still raises."""
+    fields = dict(base_lr=0.05 if solver != "ADADELTA" else 1.0,
+                  momentum=0.9, lr_policy="step", gamma=0.5, stepsize=6,
+                  weight_decay=5e-3, solver_type=solver, delta=1e-6,
+                  momentum2=0.99, rms_decay=0.9)
+    sp, jsp = SolverParameter(**fields), JaxSolverParameter(**fields)
+    rng = np.random.default_rng(1)
+    p0 = {"w": [rng.normal(size=(5, 4)).astype(np.float32),
+                rng.normal(size=(5,)).astype(np.float32)]}
+    lr_mults = {"w": [1.0, 2.0]}
+    decay_mults = {"w": [1.0, 0.0]}
+    params = {"w": [torch.from_numpy(b.copy()) for b in p0["w"]]}
+    jparams = {"w": [jnp.asarray(b) for b in p0["w"]]}
+    rule, jrule = make_update_rule(sp), jax_rule(jsp)
+    assert rule.name == jrule.name == solver
+    state, jstate = rule.init(params), jrule.init(jparams)
+    assert sorted(state) == sorted(jstate)
+    jl = {"w": [jnp.asarray(m) for m in lr_mults["w"]]}
+    jd = {"w": [jnp.asarray(m) for m in decay_mults["w"]]}
+    for it in range(20):
+        g = [rng.normal(size=b.shape).astype(np.float32) for b in p0["w"]]
+        grads = preprocess_grads(sp, params, {"w": [torch.from_numpy(a)
+                                                    for a in g]},
+                                 lr_mults, decay_mults)
+        params, state = rule.apply(params, grads, state,
+                                   learning_rate(sp, it), it,
+                                   lr_mults=lr_mults)
+        jgrads = jax_preprocess(jsp, jparams, {"w": [jnp.asarray(a)
+                                                     for a in g]}, jl, jd)
+        jparams, jstate = jrule.apply(jparams, jgrads, jstate,
+                                      jax_rate(jsp, it), it, lr_mults=jl)
+        pairs = list(zip(params["w"], jparams["w"])) + [
+            (a, b) for slot in state
+            for a, b in zip(state[slot]["w"], jstate[slot]["w"])]
+        for a, b in pairs:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-7, err_msg=f"step {it}")
+    with pytest.raises(ValueError, match="unknown solver type"):
+        make_update_rule(SolverParameter(solver_type=solver + "_X"))
