@@ -26,7 +26,15 @@ what comes out, how often each kernel launched on each path, and one
 training round of CaffeNet (``local_sgd`` and ``sync``), GoogLeNet and
 each CIFAR net on the card against the same round on the CPU, and
 GoogLeNet's round at τ=2 with the hand kernels against their plain
-versions on the card.  Prints the card, timings, a ``{"kernels": [...]}``
+versions on the card.  Phase 5c writes a 1,024-record LMDB of raw
+256x256 Datums (and a test LMDB and a LevelDB, read back equal) and its
+mean through ``tools/compute_image_mean``, checks the training feed on the
+card against ``db_feed`` bit for bit and planted feed faults, trains
+full-width CaffeNet through ``tools/caffe_cli.main(["train", ...])`` from
+it (batch 256, crop 227, mirror, ``mean_file``; test batch 50) with exact
+launch counts, scores the snapshot with ``caffe_cli test`` against the last
+test pass, checks ``extract_features``' fc7 records against the net's
+fc7, and times the net with ``caffe_cli time``.  Prints the card, timings, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": ...}``.  Every failed check
 exits non-zero.  Without a CUDA device it exits 2 and prints no result.
 ``--profile PATH`` also writes per-kernel device-time tables of batch-64
@@ -2125,6 +2133,416 @@ def solver_and_weights(ck, dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5c: Caffe's data path — LMDB/LevelDB, the DataTransformer, the
+# device feed and caffe_cli train/test/time with compute_image_mean and
+# extract_features
+# ---------------------------------------------------------------------------
+
+# The fixture: 1,024 raw 3x256x256 Datums (uint8 pixels uniform in
+# [60, 180]: std 35 after the mean, between the apps' 30 and phase 5b's
+# 58) for training, 100 for the test net, from seed 0.  At batch 256 the
+# feed cycles the training LMDB five times in 20 iterations.
+DB_TRAIN, DB_TEST, DB_LEVELDB = 1024, 100, 64
+DB_SIZE = 256
+# phase 5b's solver schedule with display 1: every iteration's loss is
+# logged, with its glog timestamp, so the first one can be checked and
+# the ms per iteration read from the CLI's own log
+DATA_PATH_SOLVER = CAFFENET_SOLVER.replace("display: 20", "display: 1")
+DATA_PATH_WANT = {"lrn_across_channels_fwd": 2 * SOLVER_ITERS,
+                  "lrn_across_channels_bwd": 2 * SOLVER_ITERS,
+                  "max_pool_bwd": 3 * SOLVER_ITERS,
+                  "lrn_across_channels": 2 * SOLVER_TESTS * SOLVER_TEST_ITER}
+
+
+def pmsg_text(m) -> str:
+    """A PMessage as prototxt text (strings quoted, nested messages in
+    braces)."""
+    from sparknet_tpu_torch.proto.textformat import PMessage
+    parts = []
+    for key, v in m.items():
+        if isinstance(v, PMessage):
+            parts.append(f"{key} {{ {pmsg_text(v)} }}")
+        elif isinstance(v, bool):
+            parts.append(f"{key}: {'true' if v else 'false'}")
+        elif isinstance(v, str):
+            parts.append(f"{key}: {json.dumps(v)}")
+        else:
+            parts.append(f"{key}: {v!r}")
+    return " ".join(parts)
+
+
+def layer_text(lp) -> str:
+    """A LayerParameter built by the port's model DSL as prototxt text."""
+    parts = [f'name: "{lp.name}"', f'type: "{lp.type}"']
+    parts += [f'bottom: "{b}"' for b in lp.bottom]
+    parts += [f'top: "{t}"' for t in lp.top]
+    if lp.phase is not None:
+        parts.append(f"phase: {lp.phase.name}")
+    parts += [f"param {{ lr_mult: {p.lr_mult!r} decay_mult: "
+              f"{p.decay_mult!r} }}" for p in lp.param]
+    parts += [f"loss_weight: {w!r}" for w in lp.loss_weight]
+    parts += [f"{k} {{ {pmsg_text(v)} }}" for k, v in lp.params.items()]
+    return "layer { " + " ".join(parts) + " }"
+
+
+def caffenet_train_val(train_db: str, test_db: str, mean_file: str) -> str:
+    """bvlc_reference_caffenet's train_val.prototxt: the port's CaffeNet
+    backbone (``models/alexnet.py``) under two ``Data`` layers (TRAIN:
+    batch 256, crop 227, mirror; TEST: batch 50, centre crop; both less
+    ``mean_file``), as text."""
+    from sparknet_tpu_torch.models import caffenet
+    ref = caffenet(SOLVER_TRAIN_BATCH, SOLVER_TEST_BATCH, crop=TRAIN_CROP)
+    data = [
+        f'layer {{ name: "data" type: "Data" top: "data" top: "label" '
+        f'include {{ phase: {phase} }} transform_param {{ mirror: '
+        f'{"true" if phase == "TRAIN" else "false"} crop_size: {TRAIN_CROP} '
+        f'mean_file: "{mean_file}" }} data_param {{ source: "{src}" '
+        f'batch_size: {batch} backend: LMDB }} }}'
+        for phase, src, batch in (("TRAIN", train_db, SOLVER_TRAIN_BATCH),
+                                  ("TEST", test_db, SOLVER_TEST_BATCH))]
+    return "\n".join(['name: "CaffeNet"'] + data + [
+        layer_text(lp) for lp in ref.layer if lp.type != "JavaData"]) + "\n"
+
+
+def check_train_val(text: str) -> None:
+    """The text parses back to CaffeNet: blob, input and param shapes and
+    lr/decay multipliers equal the DSL net's, in both phases."""
+    from sparknet_tpu_torch.graph.net import Net
+    from sparknet_tpu_torch.models import caffenet
+    from sparknet_tpu_torch.proto import NetState, Phase, load_net_prototxt
+    ref = caffenet(SOLVER_TRAIN_BATCH, SOLVER_TEST_BATCH, crop=TRAIN_CROP)
+    for phase in (Phase.TRAIN, Phase.TEST):
+        a = Net(load_net_prototxt(text), NetState(phase))
+        b = Net(ref, NetState(phase))
+        fake = {k: [torch.empty(0)] * len(v)
+                for k, v in b.param_shapes().items()}
+        if (a.blob_shapes != b.blob_shapes
+                or a.input_blobs != b.input_blobs
+                or a.param_shapes() != b.param_shapes()
+                or a.lr_mult_tree(fake) != b.lr_mult_tree(fake)
+                or a.decay_mult_tree(fake) != b.decay_mult_tree(fake)
+                or [n.lp for n in a.nodes if not n.impl.is_input()]
+                != [n.lp for n in b.nodes if not n.impl.is_input()]):
+            fail(f"data_path: the train_val text is not CaffeNet in "
+                 f"{phase.name}")
+
+
+def glog_seconds(line: str) -> float:
+    """Seconds of the day of a glog line (``I1017 13:44:28.011901 ...``)."""
+    hms = line.split()[1]
+    h, m, s = hms.split(":")
+    return int(h) * 3600 + int(m) * 60 + float(s)
+
+
+def run_cli(main_fn, argv: list[str]) -> tuple[str, float]:
+    """``main_fn(argv)`` with its standard output captured; exits 0 or
+    the phase fails.  Returns the output and the wall seconds."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        print(buf.getvalue()[-4000:])
+        fail(f"data_path: {argv[:2]} exited {rc}")
+    return buf.getvalue(), wall
+
+
+def write_fixture(d: str) -> dict:
+    """The train and test LMDBs and the LevelDB, each read back equal;
+    write and read MB/s of the training LMDB."""
+    from sparknet_tpu_torch.data.db import array_to_datum
+    from sparknet_tpu_torch.data.leveldb_io import LeveldbReader, \
+        write_leveldb
+    from sparknet_tpu_torch.data.lmdb_io import LmdbReader, write_lmdb
+    rng = np.random.default_rng(SEED)
+    train = rng.integers(60, 181, size=(DB_TRAIN, 3, DB_SIZE, DB_SIZE),
+                         dtype=np.uint8)
+    test = rng.integers(60, 181, size=(DB_TEST, 3, DB_SIZE, DB_SIZE),
+                        dtype=np.uint8)
+    labels = rng.integers(0, 1000, size=DB_TRAIN + DB_TEST)
+    out = {"train_db": os.path.join(d, "train_lmdb"),
+           "test_db": os.path.join(d, "test_lmdb"),
+           "leveldb": os.path.join(d, "train_leveldb"), "train": train}
+    items = [(b"%08d" % i, array_to_datum(train[i], int(labels[i])))
+             for i in range(DB_TRAIN)]
+    nbytes = sum(len(k) + len(v) for k, v in items)
+    t0 = time.perf_counter()
+    write_lmdb(out["train_db"], items)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with LmdbReader(out["train_db"]) as r:
+        got = list(r.items())
+    read_s = time.perf_counter() - t0
+    if got != items:
+        fail("data_path: the training LMDB read back differs from what "
+             "was written")
+    write_lmdb(out["test_db"], [
+        (b"%08d" % i, array_to_datum(test[i], int(labels[DB_TRAIN + i])))
+        for i in range(DB_TEST)])
+    write_leveldb(out["leveldb"], items[:DB_LEVELDB])
+    if list(LeveldbReader(out["leveldb"]).items()) != items[:DB_LEVELDB]:
+        fail("data_path: the LevelDB read back differs from what was "
+             "written")
+    out["lmdb_mb"] = nbytes / 1e6
+    out["lmdb_write_mb_s"] = nbytes / 1e6 / write_s
+    out["lmdb_read_mb_s"] = nbytes / 1e6 / read_s
+    return out
+
+
+def check_feed_on_card(dev, lp, seed: int) -> None:
+    """The training feed's first batches through ``device_feed`` equal the
+    CPU's ``db_feed`` batches bit for bit."""
+    from sparknet_tpu_torch.data.db import db_feed
+    from sparknet_tpu_torch.data.prefetch import device_feed
+    from sparknet_tpu_torch.proto import Phase
+    host = db_feed(lp, Phase.TRAIN, seed=seed)
+    want = [{k: v.copy() for k, v in next(host).items()} for _ in range(3)]
+    host.close()
+    with device_feed(db_feed(lp, Phase.TRAIN, seed=seed), dev) as feed:
+        got = [next(feed) for _ in range(3)]
+        for i, (g, w) in enumerate(zip(got, want)):
+            for k in w:
+                if g[k].device.type != dev.type or \
+                        g[k].cpu().numpy().tobytes() != w[k].tobytes():
+                    fail(f"data_path: batch {i} {k} on the card differs "
+                         f"from the host feed's")
+
+
+def planted_data_faults(d: str, datum: bytes) -> dict:
+    """Each planted fault must raise: a truncated Datum and one whose byte
+    count disagrees with its geometry (``DataCorruptionError`` naming the
+    key), an LMDB with both meta pages torn, a mean file of the wrong
+    shape."""
+    from sparknet_tpu_torch.data.db import db_feed
+    from sparknet_tpu_torch.data.integrity import DataCorruptionError
+    from sparknet_tpu_torch.data.lmdb_io import LmdbError, write_lmdb
+    from sparknet_tpu_torch.proto import (Phase, load_net_prototxt,
+                                          save_mean_binaryproto)
+    from sparknet_tpu_torch.proto.textformat import PMessage
+    from sparknet_tpu_torch.proto.wireformat import encode
+    wrong = PMessage()
+    for k, v in (("channels", 3), ("height", DB_SIZE),
+                 ("width", DB_SIZE - 1), ("data", bytes(3 * DB_SIZE ** 2)),
+                 ("label", 1)):
+        wrong.add(k, v)
+    mean = os.path.join(d, "bad_mean.binaryproto")
+    save_mean_binaryproto(mean, np.zeros((3, TRAIN_CROP, TRAIN_CROP),
+                                         np.float32))
+    cases = {"truncated": ([datum] * 5 + [datum[:-7]] * 3, None),
+             "geometry": ([datum] * 5 + [encode(wrong, "Datum")] * 3, None),
+             "meta_pages": ([datum] * 8, "torn"),
+             "mean_shape": ([datum] * 8, mean)}
+    out = {}
+    for name, (values, extra) in cases.items():
+        path = os.path.join(d, f"planted_{name}")
+        write_lmdb(path, [(b"%08d" % i, v) for i, v in enumerate(values)])
+        if extra == "torn":
+            with open(os.path.join(path, "data.mdb"), "r+b") as f:
+                for page in (0, 4096):
+                    f.seek(page + 16)
+                    f.write(b"\0\0\0\0")
+        tf = f'mean_file: "{extra}"' if name == "mean_shape" else ""
+        lp = load_net_prototxt(
+            f'layer {{ name: "d" type: "Data" top: "data" top: "label" '
+            f'transform_param {{ crop_size: {TRAIN_CROP} {tf} }} '
+            f'data_param {{ source: "{path}" batch_size: 8 backend: LMDB '
+            f'}} }}').layer[0]
+        feed = db_feed(lp, Phase.TRAIN, workers=2)
+        try:
+            next(feed)
+            fail(f"data_path: planted {name} fault went through the feed")
+        except DataCorruptionError as e:
+            if name not in ("truncated", "geometry") or \
+                    "key=b'00000005'" not in str(e):
+                fail(f"data_path: planted {name}: {e}")
+            out[name] = str(e)[-150:]
+        except (LmdbError, ValueError) as e:
+            if name not in ("meta_pages", "mean_shape"):
+                fail(f"data_path: planted {name}: {type(e).__name__} {e}")
+            out[name] = f"{type(e).__name__}: {e}"[:120]
+        finally:
+            feed.close()
+    return out
+
+
+def caffe_data_path(ck, dev, smi: str, solver_ms_b256: float) -> dict:
+    """Phase 5c: full-width CaffeNet trained by ``caffe_cli train`` from
+    an LMDB (batch 256, crop 227, mirror, ``mean_file``; test batch 50),
+    exact launches; ``caffe_cli test`` on the snapshot against the last
+    test pass; ``extract_features`` fc7 against the net's; ``caffe_cli
+    time`` at batch 256; ``compute_image_mean`` against numpy; the feed
+    on the card against the CPU's; planted faults."""
+    import tempfile
+    from sparknet_tpu_torch.data.db import datum_to_array
+    from sparknet_tpu_torch.data.lmdb_io import LmdbReader
+    from sparknet_tpu_torch.graph.net import Net
+    from sparknet_tpu_torch.proto import (NetState, Phase,
+                                          load_mean_binaryproto,
+                                          load_net_prototxt)
+    from sparknet_tpu_torch.solvers.solver import load_weights_into
+    from sparknet_tpu_torch.tools import (caffe_cli, compute_image_mean,
+                                          extract_features)
+    from sparknet_tpu_torch.utils.device import full_f32
+    t_phase = time.perf_counter()
+    report: dict = {}
+    with tempfile.TemporaryDirectory(prefix="data_path_smoke_") as d:
+        t0 = time.perf_counter()
+        fx = write_fixture(d)
+        report["fixture_s"] = time.perf_counter() - t0
+        report.update({k: fx[k] for k in ("lmdb_mb", "lmdb_write_mb_s",
+                                          "lmdb_read_mb_s")})
+        # compute_image_mean against numpy's f64 mean, rounded to f32
+        mean_file = os.path.join(d, "mean.binaryproto")
+        _, report["compute_image_mean_s"] = run_cli(
+            compute_image_mean.main, [fx["train_db"], mean_file])
+        acc = np.zeros((3, DB_SIZE, DB_SIZE), np.float64)
+        for i in range(0, DB_TRAIN, 128):
+            acc += fx["train"][i:i + 128].sum(0, dtype=np.float64)
+        want_mean = (acc / DB_TRAIN).astype(np.float32)
+        if load_mean_binaryproto(mean_file).tobytes() != want_mean.tobytes():
+            fail("data_path: compute_image_mean differs from numpy's mean")
+        del fx["train"], acc
+        # the train_val and the solver
+        text = caffenet_train_val(fx["train_db"], fx["test_db"], mean_file)
+        check_train_val(text)
+        model = os.path.join(d, "train_val.prototxt")
+        with open(model, "w") as f:
+            f.write(text)
+        prefix = os.path.join(d, "caffenet")
+        solver = os.path.join(d, "solver.prototxt")
+        with open(solver, "w") as f:
+            f.write(f'net: "{model}"\nsnapshot_prefix: "{prefix}"\n'
+                    + DATA_PATH_SOLVER)
+        train_lp = load_net_prototxt(text).layer[0]
+        check_feed_on_card(dev, train_lp, seed=SEED)
+        with LmdbReader(fx["train_db"]) as r:
+            datum = r.first()[1]
+        report["planted"] = planted_data_faults(d, datum)
+        torch.cuda.empty_cache()
+        # caffe_cli train
+        torch.cuda.reset_peak_memory_stats(dev)
+        ck.reset_launch_counts()
+        log, train_s = run_cli(caffe_cli.main, ["train", "--solver", solver])
+        launches = dict(ck.launch_counts)
+        if launches != DATA_PATH_WANT:
+            fail(f"data_path: caffe_cli train launches {launches}, want "
+                 f"{DATA_PATH_WANT}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        lines = log.splitlines()
+        loss_at, loss_line = {}, {}
+        for ln in lines:
+            if "] Iteration " in ln and ", loss = " in ln:
+                it = int(ln.split("Iteration ")[1].split(",")[0])
+                if it not in loss_at:
+                    loss_at[it] = float(ln.rsplit("= ", 1)[1])
+                    loss_line[it] = glog_seconds(ln)
+        tests = [(ln.split("output: ")[1].split(" = ")[0],
+                  float(ln.rsplit("= ", 1)[1]))
+                 for ln in lines if "Test net output:" in ln]
+        feed_line = [ln for ln in lines if "] Train feed: " in ln]
+        if sorted(loss_at) != list(range(1, SOLVER_ITERS + 1)) or \
+                len(tests) != 2 * SOLVER_TESTS or len(feed_line) != 1 or \
+                "Optimization Done." not in log:
+            print(log[-4000:])
+            fail("data_path: caffe_cli train's log lacks its iterations, "
+                 "test outputs or feed line")
+        feed = json.loads(feed_line[0].split("] Train feed: ")[1])
+        test_loss0 = dict(tests[:2])["loss"]
+        last_scores = dict(tests[-2:])
+        if abs(test_loss0 - math.log(1000)) > 0.5 or \
+                abs(loss_at[1] - math.log(1000)) > 1.0 or not all(
+                    math.isfinite(v) for v in loss_at.values()):
+            fail(f"data_path: test loss at init {test_loss0}, first loss "
+                 f"{loss_at[1]} (ln 1000 = {math.log(1000):.4f})")
+        # the CLI's own log: the interval between consecutive iterations'
+        # loss lines (each fetched from the card, so the card has finished
+        # that iteration), steady iterations 2-10 and 12-20 (11 follows
+        # the test pass at 10)
+        steady = [(loss_line[i] - loss_line[i - 1]) * 1e3
+                  for i in range(3, SOLVER_ITERS + 1) if i != 11]
+        iter_ms = float(np.median(steady))
+        snapshot = f"{prefix}_iter_{SOLVER_ITERS}.caffemodel"
+        if not os.path.exists(snapshot):
+            fail(f"data_path: no snapshot {snapshot}")
+        # caffe_cli test on the snapshot: the last test pass's scores
+        with cudnn_deterministic():
+            tlog, test_s = run_cli(caffe_cli.main, [
+                "test", "--model", model, "--weights", snapshot,
+                "--iterations", str(SOLVER_TEST_ITER)])
+        scores = {ln.split(" = ")[0]: float(ln.split(" = ")[1])
+                  for ln in tlog.splitlines()
+                  if not ln.startswith("Batch") and " = " in ln}
+        test_rel = max(abs(scores[k] - v) / max(abs(v), 1e-12)
+                       for k, v in last_scores.items())
+        if set(scores) != set(last_scores) or test_rel > 1e-5:
+            fail(f"data_path: caffe_cli test {scores} != the last test "
+                 f"pass {last_scores}")
+        # extract_features fc7 against the net's fc7 on the same batches
+        feat_db = os.path.join(d, "fc7_lmdb")
+        ck.reset_launch_counts()
+        with cudnn_deterministic():
+            _, extract_s = run_cli(extract_features.main, [
+                snapshot, model, "fc7", feat_db, str(SOLVER_TEST_ITER)])
+            extract_launches = dict(ck.launch_counts)
+            from sparknet_tpu_torch.data.db import db_feed
+            net = Net(load_net_prototxt(text), NetState(Phase.TEST))
+            params = load_weights_into(net, net.init(
+                torch.Generator().manual_seed(0), device=dev), snapshot)
+            test_lp = [lp for lp in load_net_prototxt(text).layer
+                       if lp.type == "Data"][1]
+            tfeed = db_feed(test_lp, Phase.TEST)
+            want = []
+            with torch.no_grad(), full_f32():
+                for _ in range(SOLVER_TEST_ITER):
+                    b = {k: torch.from_numpy(v).to(dev)
+                         for k, v in next(tfeed).items()}
+                    want.append(net.apply(params, b, blobs=["fc7"])["fc7"]
+                                .cpu().numpy())
+            tfeed.close()
+            del net, params
+        want = np.concatenate(want)
+        with LmdbReader(feat_db) as r:
+            got = np.stack([datum_to_array(v)[0].reshape(-1)
+                            for _, v in r.items()])
+        fc7_err = float(np.abs(got - want).max()) if got.shape == \
+            want.shape else math.inf
+        if fc7_err > 1e-5 * float(np.abs(want).max()):
+            fail(f"data_path: extract_features fc7 differs from the net's "
+                 f"by {fc7_err} (shape {got.shape} vs {want.shape})")
+        # caffe_cli time at batch 256
+        torch.cuda.empty_cache()
+        tm, _ = run_cli(caffe_cli.main, ["time", "--model", model,
+                                         "--iterations", "10"])
+        time_ms = {k: float(ln.split(":")[1].split()[0])
+                   for ln in tm.splitlines()
+                   for k, tag in (("forward_ms", "Average Forward pass"),
+                                  ("forward_backward_ms",
+                                   "Average Forward-Backward"))
+                   if ln.startswith(tag)}
+        if len(time_ms) != 2:
+            fail(f"data_path: caffe_cli time printed {tm[-500:]}")
+    torch.cuda.empty_cache()
+    report.update({
+        "train_s": train_s, "iters": SOLVER_ITERS,
+        "first_loss": loss_at[1], "last_loss": loss_at[SOLVER_ITERS],
+        "test_loss_at_init": test_loss0, "last_test_scores": last_scores,
+        "launches": launches, "cli_test_scores": scores,
+        "cli_test_max_rel": test_rel, "cli_test_s": test_s,
+        "extract_fc7_max_abs_err": fc7_err, "extract_s": extract_s,
+        "extract_launches": extract_launches,
+        "iter_ms_median": iter_ms, "iter_ms_steady": steady,
+        "img_s": SOLVER_TRAIN_BATCH / iter_ms * 1e3,
+        "solver_on_card_batches_ms_b256 (phase 5b)": solver_ms_b256,
+        "feed": feed, "time_b256": time_ms, "peak_mem_gb": peak / 1e9,
+        "phase_s": time.perf_counter() - t_phase})
+    print(f"data_path [{smi}] " + json.dumps(report), flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the kernels line
 # ---------------------------------------------------------------------------
 
@@ -2285,6 +2703,11 @@ def main() -> int:
     # and Caffe's six rules
     solved = solver_and_weights(ck, dev, smi)
 
+    # phase 5c: Caffe's data path, CaffeNet trained from an LMDB through
+    # caffe_cli train, tested and timed, its features extracted
+    data_path = caffe_data_path(ck, dev, smi,
+                                solved["caffenet"]["solver_ms_per_iter_b256"])
+
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
     # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
@@ -2292,9 +2715,10 @@ def main() -> int:
     # 32 in f32 for the training kernels.  CaffeNet's rows stay in
     # per_shape.
     tl = {m: t["report"]["launches"] for m, t in trained.items()}
-    # this slice's paths, by their own names: the Solver's training run
-    # (with its test passes), its test pass alone, the served weight file,
-    # and each rule's run on cifar10_quick
+    # the Solver's paths, by their own names: its training run (with its
+    # test passes), its test pass alone, the served weight file, each
+    # rule's run on cifar10_quick, and caffe_cli's training run from an
+    # LMDB and its feature extraction
     sc = solved["caffenet"]
     solver_paths = {
         "solver_caffenet_training": sc["launches_training"],
@@ -2303,7 +2727,9 @@ def main() -> int:
             "lrn_across_channels": r["lrn_launches"]}
            for d, r in solved["served"].items()},
         **{f"solver_cifar10_quick_{r.lower()}": n
-           for r, n in solved["rules"]["launches"].items()}}
+           for r, n in solved["rules"]["launches"].items()},
+        "caffe_cli_train_lmdb": data_path["launches"],
+        "caffe_cli_extract_features": data_path["extract_launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}

@@ -3,12 +3,14 @@
 The port's own copy of the part of ``sparknet_tpu/data/pipeline.py`` that
 ``data/prefetch.py::DeviceFeed`` needs:
 
-- :func:`feed_depth` (:80), the ``SPARKNET_FEED_DEPTH`` knob;
+- :func:`feed_workers` (:69) and :func:`feed_depth` (:80), the
+  ``SPARKNET_FEED_WORKERS`` and ``SPARKNET_FEED_DEPTH`` knobs (a width of
+  0 takes one thread);
 - :class:`FeedStats` (:88), per-stage wall-time accounting, without the
   JAX package's telemetry hooks (the port has no telemetry yet);
 - :class:`DecodePool` (:198), the order-preserving thread pool, with
-  threads only (the JAX package's ``workers=0`` serial path has no caller
-  here);
+  threads only (the JAX package's ``workers=0`` serial path is not
+  ported);
 - :class:`BufferRing` (:395), preallocated rotating buffers, as torch
   tensors, pinned when the feed's target is a CUDA device, the whole
   rotation allocated at once.
@@ -16,6 +18,7 @@ The port's own copy of the part of ``sparknet_tpu/data/pipeline.py`` that
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -34,6 +37,16 @@ def _env_int(name: str, default: int) -> int:
         return int(raw)
     except ValueError:
         raise ValueError(f"{name} must be an integer, got {raw!r}") from None
+
+
+def feed_workers() -> int:
+    """Decode-pool width: ``SPARKNET_FEED_WORKERS``, else the CPU count
+    capped at 8.  The port's pool has threads only; 0, the JAX package's
+    serial path, takes one thread, which gives the same ordered stream."""
+    n = _env_int("SPARKNET_FEED_WORKERS", min(os.cpu_count() or 1, 8))
+    if n < 0:
+        raise ValueError(f"SPARKNET_FEED_WORKERS must be >= 0, got {n}")
+    return max(n, 1)
 
 
 def feed_depth(default: int = 4) -> int:

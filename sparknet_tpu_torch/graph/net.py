@@ -190,33 +190,51 @@ class Net:
     def apply(self, params: Mapping[str, Sequence[torch.Tensor]],
               inputs: Mapping[str, torch.Tensor], *, train: bool = False,
               blobs: Sequence[str] | None = None,
-              generator: torch.Generator | None = None
+              generator: torch.Generator | None = None,
+              device: str | torch.device | None = None
               ) -> dict[str, torch.Tensor]:
         """One forward pass.  ``inputs`` binds every input blob.  Returns
         the named ``blobs`` (the net's output blobs by default) at their
         final values: an in-place top holds what its last writer wrote.
-        ``generator`` is the CPU generator that train-mode Dropout draws
-        its masks from."""
-        values, _ = self._run(params, inputs, train, generator)
+        ``generator`` is the CPU generator that train-mode Dropout and
+        DummyData draw from.  ``device`` is where source layers
+        (DummyData) put their tops; by default the device of the inputs,
+        else of the params, else the CPU."""
+        values, _ = self._run(params, inputs, train, generator, device)
         return {b: values[b] for b in (self.output_blobs if blobs is None
                                        else blobs)}
 
     def forward(self, params: Mapping[str, Sequence[torch.Tensor]],
                 inputs: Mapping[str, torch.Tensor], *,
                 train: bool | None = None,
-                generator: torch.Generator | None = None) -> NetOutputs:
+                generator: torch.Generator | None = None,
+                device: str | torch.device | None = None) -> NetOutputs:
         """One forward pass with the loss: the net's output blobs and the
         sum of every loss top times its weight, in f32.  ``train``
-        defaults to whether the net's phase is TRAIN."""
+        defaults to whether the net's phase is TRAIN; ``generator`` and
+        ``device`` as in :meth:`apply`."""
         if train is None:
             train = self.state.phase == Phase.TRAIN
-        values, loss = self._run(params, inputs, train, generator)
+        values, loss = self._run(params, inputs, train, generator, device)
         return NetOutputs({b: values[b] for b in self.output_blobs}, loss)
 
-    def _run(self, params, inputs, train, generator):
+    @staticmethod
+    def _device_of(params, inputs) -> torch.device:
+        """The device of the first input, else of the first param blob,
+        else the CPU."""
+        for t in inputs.values():
+            return t.device
+        for blobs in params.values():
+            for b in blobs:
+                return b.device
+        return torch.device("cpu")
+
+    def _run(self, params, inputs, train, generator, device=None):
         for name in self.input_blobs:
             if name not in inputs:
                 raise ValueError(f"missing input blob {name!r}")
+        dev = (torch.device(device) if device is not None
+               else self._device_of(params, inputs))
         values: dict[str, torch.Tensor] = dict(inputs)
         loss = None
         cd = self.compute_dtype
@@ -232,6 +250,9 @@ class Net:
                 bots = self._cast(bots, dtype)
                 p = self._cast(p, dtype)
             tops = node.impl.apply(node.lp, p, bots, train, generator)
+            if not node.bottoms:
+                # a source layer (DummyData) draws its tops on the CPU
+                tops = [t.to(dev) for t in tops]
             for t, v in zip(node.tops, tops):
                 values[t] = v
             for w, v in zip(node.loss_weights(), tops):
@@ -239,5 +260,5 @@ class Net:
                     term = w * v.float().sum()
                     loss = term if loss is None else loss + term
         if loss is None:
-            loss = torch.zeros((), dtype=torch.float32)
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
         return values, loss

@@ -94,6 +94,8 @@ class FillerParameter:
 
     type: str = "constant"
     value: float = 0.0
+    min: float = 0.0
+    max: float = 1.0
     mean: float = 0.0
     std: float = 1.0
     variance_norm: str = "FAN_IN"  # FAN_IN | FAN_OUT | AVERAGE
@@ -105,6 +107,8 @@ class FillerParameter:
         return cls(
             type=str(m.get("type", "constant")),
             value=float(m.get("value", 0.0)),
+            min=float(m.get("min", 0.0)),
+            max=float(m.get("max", 1.0)),
             mean=float(m.get("mean", 0.0)),
             std=float(m.get("std", 1.0)),
             variance_norm=str(m.get("variance_norm", "FAN_IN")),

@@ -131,6 +131,9 @@ class Solver:
         # the CPU generator train-mode Dropout draws from (the trainer's
         # worker 0 draws from the same seed)
         self.generator = torch.Generator().manual_seed(seed * 7919 + 1)
+        # the one test passes' random DummyData tops draw from (Dropout
+        # draws nothing at test)
+        self.test_generator = torch.Generator().manual_seed(seed * 7919 + 2)
         self._lr_mults = self.train_net.lr_mult_tree(self.params)
         self._decay_mults = self.train_net.decay_mult_tree(self.params)
         _, self._local_update, _ = make_step_fns(
@@ -319,7 +322,9 @@ class Solver:
             for _ in range(num_steps):
                 batch = {k: self._to_device(v)
                          for k, v in dict(next(it)).items()}
-                out = tn.forward(params, batch, train=False)
+                out = tn.forward(params, batch, train=False,
+                                 generator=self.test_generator,
+                                 device=self.device)
                 for k, v in out.blobs.items():
                     v = v.float()
                     totals[k] = v if k not in totals else totals[k] + v

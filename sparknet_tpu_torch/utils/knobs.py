@@ -1,7 +1,8 @@
 """The ``SPARKNET_*`` environment knobs the port reads.
 
 The port's own copy of the read half of ``sparknet_tpu/utils/knobs.py``,
-for the knobs of the serving path and the training feed.  Reading a name that is not declared
+for the knobs of the serving path, the training feed and the DB
+readers.  Reading a name that is not declared
 here raises :class:`UnknownKnob`, so a typo'd knob fails loudly instead of
 silently meaning "default".  Values are read live from ``os.environ``.
 """
@@ -23,6 +24,12 @@ KNOBS: dict[str, str] = {
     "SPARKNET_SERVE_FORCE_ADMIT": "1 admits models larger than the budget",
     "SPARKNET_FEED_DEPTH": "host batches the device feed stages ahead",
     "SPARKNET_FEED_PUTTERS": "device feed's host-to-device copy threads",
+    "SPARKNET_FEED_WORKERS": "DB feed's decode threads",
+    "SPARKNET_IO_RETRIES": "attempts for data-plane file and DB opens",
+    "SPARKNET_IO_BACKOFF": "base backoff in seconds between those attempts",
+    "SPARKNET_QUARANTINE_FRACTION": "bad records an epoch may skip, as a "
+                                    "fraction of the epoch",
+    "SPARKNET_QUARANTINE_RECORDS": "bad records an epoch may skip, a count",
 }
 
 

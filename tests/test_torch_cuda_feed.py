@@ -110,3 +110,40 @@ def test_trainer_takes_device_rounds_as_they_are(dev):
     loss = host.train_round(batches)
     on_card = {k: torch.from_numpy(v).to(dev) for k, v in batches.items()}
     assert staged.train_round(on_card) == pytest.approx(loss, rel=1e-6)
+
+
+DUMMY_ONLY = """
+layer { name: "d" type: "DummyData" top: "x" top: "label"
+  dummy_data_param { shape { dim: 4 dim: 3 } shape { dim: 4 }
+    data_filler { type: "gaussian" std: 2 } data_filler { type: "constant" } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "x" bottom: "label" }
+"""
+
+
+def test_dummy_data_net_runs_on_the_card(dev):
+    """A net of DummyData and a loss only, with no input and no param to
+    take a device from: its tops are drawn on the CPU and land on the
+    card, and so does its loss; a Solver on a DummyData train net steps
+    and tests there."""
+    from sparknet_tpu_torch.graph.net import Net
+    from sparknet_tpu_torch.proto import NetState, Phase, load_net_prototxt
+    from sparknet_tpu_torch.solvers import Solver
+    net = Net(load_net_prototxt(DUMMY_ONLY), NetState(Phase.TRAIN))
+    gen = torch.Generator().manual_seed(0)
+    out = net.forward({}, {}, generator=gen, device=dev)
+    assert out.loss.device.type == "cuda"
+    cpu = net.forward({}, {}, generator=torch.Generator().manual_seed(0))
+    assert cpu.loss.device.type == "cpu"
+    torch.testing.assert_close(out.loss.cpu(), cpu.loss)
+    txt = DUMMY_ONLY.replace(
+        'layer { name: "loss"',
+        'layer { name: "ip" type: "InnerProduct" bottom: "x" top: "ip"\n'
+        '  inner_product_param { num_output: 3 } }\n'
+        'layer { name: "loss"').replace('bottom: "x" bottom: "label"',
+                                        'bottom: "ip" bottom: "label"')
+    sp = load_solver_prototxt_with_net(
+        'base_lr: 0.1\nlr_policy: "fixed"\ntest_iter: 1\n',
+        load_net_prototxt(txt))
+    solver = Solver(sp, device=dev)
+    assert np.isfinite(solver.step(2))
+    assert np.isfinite(solver.test(1)["loss"])

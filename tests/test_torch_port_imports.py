@@ -84,3 +84,40 @@ def test_forbidden_covers_protobuf_and_h5py():
     assert _forbidden("google.protobuf") and _forbidden("h5py")
     assert _forbidden("google.protobuf.text_format")
     assert not _forbidden("google") and not _forbidden("h5pyx")
+
+
+def test_tools_are_scanned_and_caffe_cli_runs_with_jax_blocked(tmp_path):
+    """The ``tools`` package is among the files the scans above cover,
+    and ``caffe_cli`` trains and times a DummyData net on the CPU with
+    ``jax`` and ``sparknet_tpu`` blocked (its imports are lazy, inside
+    the actions, so importing the module alone would not show them)."""
+    assert PKG / "tools" / "caffe_cli.py" in SOURCES
+    assert "sparknet_tpu_torch.tools.caffe_cli" in _module_names()
+    net = tmp_path / "net.prototxt"
+    net.write_text(
+        'layer { name: "d" type: "DummyData" top: "data" top: "label"\n'
+        '  dummy_data_param { shape { dim: 4 dim: 3 } shape { dim: 4 }\n'
+        '    data_filler { type: "gaussian" } } }\n'
+        'layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip"\n'
+        '  inner_product_param { num_output: 2 } }\n'
+        'layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip"\n'
+        '  bottom: "label" }\n')
+    solver = tmp_path / "solver.prototxt"
+    solver.write_text(f'net: "{net}"\nbase_lr: 0.1\nmax_iter: 2\n'
+                      'display: 1\n')
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sparknet_tpu'] = None\n"
+        "from sparknet_tpu_torch.tools import caffe_cli\n"
+        f"assert caffe_cli.main(['train', '--solver', {str(solver)!r}, "
+        "'--device', 'cpu']) == 0\n"
+        f"assert caffe_cli.main(['time', '--model', {str(net)!r}, "
+        "'--iterations', '1', '--device', 'cpu']) == 0\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.')) for m in sys.modules if sys.modules[m])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "Iteration 2, loss" in out.stdout
+    assert "Average Forward-Backward" in out.stdout
