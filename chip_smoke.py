@@ -34,8 +34,17 @@ full-width CaffeNet through ``tools/caffe_cli.main(["train", ...])`` from
 it (batch 256, crop 227, mirror, ``mean_file``; test batch 50) with exact
 launch counts, scores the snapshot with ``caffe_cli test`` against the last
 test pass, checks ``extract_features``' fc7 records against the net's
-fc7, and times the net with ``caffe_cli time``.  Prints the card, timings, a ``{"kernels": [...]}``
-line and, last, ``{"ok": true, "device": ...}``.  Every failed check
+fc7, and times the net with ``caffe_cli time``.  Phase 5d decodes real
+JPEGs on the card: the two image kernels (``ycc_to_rgb``,
+``resize_bilinear``) against their plain versions bit for bit at the
+shapes the image paths give them, with planted faults; nvJPEG's pixels
+against libjpeg's on the committed fixtures; full-width CaffeNet trained
+from tars of JPEGs through ``imagenet_app.main(["--tar-dir", ...])``
+with undecodable entries planted; ``convert_imageset --encoded``,
+``compute_image_mean`` and ``caffe_cli train`` over encoded Datums and
+over an ``ImageData`` list; one ``WindowData`` batch against its plain
+path.  Prints the card, timings, a ``{"kernels": [...]}`` line and,
+last, ``{"ok": true, "device": ...}``.  Every failed check
 exits non-zero.  Without a CUDA device it exits 2 and prints no result.
 ``--profile PATH`` also writes per-kernel device-time tables of batch-64
 forwards and of one steady round of each training run to PATH, prints
@@ -70,6 +79,8 @@ HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
 
 SEED = 0
 L2_FLUSH_BYTES = 128 * 2**20     # > the card's 50 MB L2
+# the image kernels' counts on a path that decodes no JPEG
+IMAGE_KERNELS_IDLE = {"ycc_to_rgb": 0, "resize_bilinear": 0}
 
 
 def fail(msg: str) -> None:
@@ -1049,7 +1060,9 @@ def train_app(ck, dev, smi: str, label: str, main_fn, argv: list[str], *,
               profile_path: str | None = None) -> dict:
     """One app's ``main`` on the card, with the launch counts set to 0
     just before it and read just after: checks the losses and scores,
-    that the counts are exactly ``want``, that the master params moved
+    that the counts are exactly ``want`` (a dict, or a function that
+    makes one after the run; the image kernels 0 unless it names them),
+    that the master params moved
     and (under ``local_sgd``) are the mean of the workers' last-round
     params.  Prints per round: the loop's seconds (the wait for the feed
     plus the round), the round's own seconds, the feed's host seconds
@@ -1083,6 +1096,7 @@ def train_app(ck, dev, smi: str, label: str, main_fn, argv: list[str], *,
     if set(run.scores) != score_keys or not all(
             math.isfinite(v) for v in run.scores.values()):
         fail(f"{label}: eval scores {run.scores}")
+    want = {**IMAGE_KERNELS_IDLE, **(want() if callable(want) else want)}
     if launches != want:
         fail(f"{label}: launches {launches}, want {want}")
     if len(run.loop_seconds) != rounds:
@@ -1248,19 +1262,21 @@ def train_sync_and_snapshot(ck, dev, smi: str) -> dict:
 
 
 def check_initial_test_loss(label: str, tr, dev, crop: int,
-                            tol: float) -> float:
+                            tol: float, batch=None) -> float:
     """The test-mode loss of the initial params on a batch made as the
     app makes its test batches (synthetic images, center crop, less
-    their mean), with random labels: within ``tol`` of ln 1000."""
+    their mean), with random labels, or on ``batch`` (cropped images,
+    labels): within ``tol`` of ln 1000."""
     from sparknet_tpu_torch.apps.imagenet_app import synthetic_imagenet
     from sparknet_tpu_torch.data import center_crop
     from sparknet_tpu_torch.utils.device import full_f32
     init = tr.train_net.init(torch.Generator().manual_seed(0), device=dev)
-    n = tr.test_net.blob_shapes["data"][0] // tr.n_workers
-    x, y = synthetic_imagenet(n, TRAIN_RESIZE, 1000, SEED + 6)
-    batch = {"data": torch.from_numpy(center_crop(
-        x, crop, mean=x.mean(axis=0))).to(dev),
-        "label": torch.from_numpy(y.astype(np.float32)).to(dev)}
+    if batch is None:
+        n = tr.test_net.blob_shapes["data"][0] // tr.n_workers
+        x, y = synthetic_imagenet(n, TRAIN_RESIZE, 1000, SEED + 6)
+        batch = (center_crop(x, crop, mean=x.mean(axis=0)), y)
+    batch = {"data": torch.from_numpy(batch[0]).to(dev),
+             "label": torch.from_numpy(batch[1].astype(np.float32)).to(dev)}
     with torch.inference_mode(), full_f32():
         loss = float(tr.test_net.forward(init, batch, train=False).loss)
     print(f"{label}: test-mode loss at init {loss:.4f} "
@@ -1676,7 +1692,8 @@ def solver_caffenet(ck, dev, smi: str, d: str) -> dict:
     want = {"lrn_across_channels_fwd": 2 * SOLVER_ITERS,
             "lrn_across_channels_bwd": 2 * SOLVER_ITERS,
             "max_pool_bwd": 3 * SOLVER_ITERS,
-            "lrn_across_channels": 2 * SOLVER_TESTS * SOLVER_TEST_ITER}
+            "lrn_across_channels": 2 * SOLVER_TESTS * SOLVER_TEST_ITER,
+            **IMAGE_KERNELS_IDLE}
     if training != want:
         fail(f"solver_caffenet: launches {training}, want {want}")
     losses = [float(v) for v in a._smoothed]
@@ -2013,7 +2030,8 @@ def solver_rules_cifar(ck, dev, smi: str, d: str) -> dict:
                               for s, t in card.state.items()}))
         launches[rule] = dict(ck.launch_counts)
         want = {"lrn_across_channels_fwd": 0, "lrn_across_channels_bwd": 0,
-                "max_pool_bwd": RULE_ITERS, "lrn_across_channels": 0}
+                "max_pool_bwd": RULE_ITERS, "lrn_across_channels": 0,
+                **IMAGE_KERNELS_IDLE}
         if launches[rule] != want:
             fail(f"solver_cifar10_quick_{rule}: launches {launches[rule]}")
         cpu, exact = (free_run(sp, init, head, dt) for dt in (f32, f64))
@@ -2151,7 +2169,8 @@ DATA_PATH_SOLVER = CAFFENET_SOLVER.replace("display: 20", "display: 1")
 DATA_PATH_WANT = {"lrn_across_channels_fwd": 2 * SOLVER_ITERS,
                   "lrn_across_channels_bwd": 2 * SOLVER_ITERS,
                   "max_pool_bwd": 3 * SOLVER_ITERS,
-                  "lrn_across_channels": 2 * SOLVER_TESTS * SOLVER_TEST_ITER}
+                  "lrn_across_channels": 2 * SOLVER_TESTS * SOLVER_TEST_ITER,
+                  **IMAGE_KERNELS_IDLE}
 
 
 def pmsg_text(m) -> str:
@@ -2543,6 +2562,607 @@ def caffe_data_path(ck, dev, smi: str, solver_ms_b256: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: real images — nvJPEG and the two image kernels against their
+# plain versions and libjpeg's pixels, full-width CaffeNet from tars of
+# JPEGs through imagenet_app --tar-dir, encoded Datums and ImageData
+# through caffe_cli, one WindowData batch
+# ---------------------------------------------------------------------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "sparknet_tpu_torch", "data", "jpeg_fixtures")
+# nvJPEG against libjpeg: where only the IDCTs' rounding differs (4:4:4,
+# gray) a pixel moves by at most 2 (a rounding of 1 in a component,
+# through the colour conversion), and on average by far less everywhere:
+# the chroma is upsampled and converted by ycc_to_rgb, as libjpeg does
+NVJPEG_MAX_DIFF = {"s444": 2, "gray": 2}
+NVJPEG_MEAN_DIFF = 1.0
+# phase 5d's cell: 1,280 train and 256 test JPEGs (the eight ImageNet-
+# sized fixtures copied under distinct names) in 4 + 1 tars, one
+# undecodable entry planted in a train tar and one in the test tar
+IMG_TRAIN, IMG_TEST, IMG_TRAIN_TARS, IMG_ROUNDS = 1280, 256, 4, 4
+PLANTED = b"\xff\xd8\xff\xe0 planted: no JPEG past its start marker"
+# (label, source: a fixture or a random (h, w) image, output (h, w) or
+# None for the source's own, gray); the first is the main path's shape,
+# ImageNet's commonest, 375x500 to the apps' 256x256
+RESIZE_CASES = [
+    ("imagenet_375x500_to_256", "imagenet_0.jpg", (256, 256), False),
+    ("imagenet_500x375_to_256", "imagenet_1.jpg", (256, 256), False),
+    ("upscale_64x48_to_256", (64, 48), (256, 256), False),
+    ("natural_37x53", "s420.jpg", None, False),
+    ("one_row_1x40", (1, 40), (9, 7), False),
+    ("one_column_40x1", (40, 1), (9, 7), False),
+    ("to_1x1", (33, 47), (1, 1), False),
+    ("gray_500x375_to_256", "imagenet_1.jpg", (256, 256), True),
+]
+YCC_FIXTURES = ["imagenet_0.jpg", "imagenet_1.jpg", "imagenet_6.jpg",
+                "s420.jpg", "s422.jpg", "s444.jpg", "progressive.jpg",
+                "restart.jpg"]
+# bvlc_reference_caffenet's solver (phase 5b's) cut to 5 iterations, a
+# test pass of 2 batches at 0 and at 5, every loss logged
+IMAGE_SOLVER_ITERS, IMAGE_SOLVER_TESTS = 5, 2
+IMAGE_SOLVER = (CAFFENET_SOLVER.replace("display: 20", "display: 1")
+                .replace("max_iter: 20", f"max_iter: {IMAGE_SOLVER_ITERS}")
+                .replace("test_interval: 10",
+                         f"test_interval: {IMAGE_SOLVER_ITERS}")
+                .replace("snapshot: 20\n", ""))
+
+
+def fixture(name: str) -> bytes:
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        return f.read()
+
+
+def planted_resize(src: torch.Tensor, oh: int, ow: int,
+                   fault: str) -> torch.Tensor:
+    """The plain resize with a fault planted: ``f64`` forms the scale and
+    sample points in float64, ``swap`` exchanges x and y."""
+    from sparknet_tpu_torch.ops import cuda_kernels as ck
+    if fault == "swap":
+        return ck.resize_bilinear_reference(
+            src.transpose(0, 1).contiguous(), ow, oh).transpose(1, 2)
+    h, w = src.shape[:2]
+    dev = src.device
+    ys = torch.arange(oh, dtype=torch.float64, device=dev) * (
+        (h - 1) / (oh - 1))
+    xs = torch.arange(ow, dtype=torch.float64, device=dev) * (
+        (w - 1) / (ow - 1))
+    y0, x0 = ys.long(), xs.long()
+    y1, x1 = (y0 + 1).clamp(max=h - 1), (x0 + 1).clamp(max=w - 1)
+    wy, wx = (ys - y0).float()[:, None], (xs - x0).float()[None, :]
+    p = src.permute(2, 0, 1).float()
+    return ((1 - wy) * ((1 - wx) * p[:, y0][:, :, x0]
+                        + wx * p[:, y0][:, :, x1])
+            + wy * ((1 - wx) * p[:, y1][:, :, x0] + wx * p[:, y1][:, :, x1]))
+
+
+def planted_ycc(y, cb, cr, fault: str) -> torch.Tensor:
+    """The plain conversion with a fault planted: ``box`` upsamples the
+    chroma by replication, ``swap`` exchanges Cb and Cr."""
+    from sparknet_tpu_torch.ops import cuda_kernels as ck
+    if fault == "swap":
+        return ck.ycc_to_rgb_reference(y, cr, cb)
+    h, w = y.shape
+    up = [c.repeat_interleave(2 if c.shape[0] < h else 1, 0)
+          .repeat_interleave(2 if c.shape[1] < w else 1, 1)[:h, :w]
+          .contiguous() for c in (cb, cr)]
+    return ck.ycc_to_rgb_reference(y, *up)
+
+
+def check_image_kernels(ck, dev, smi: str) -> dict:
+    """The resize kernel and the colour conversion against their plain
+    versions on the card, bit for bit, and on the CPU (the JAX package's
+    path), with planted faults; nvJPEG's pixels against libjpeg's on
+    the small fixtures; drops; the decode's time on one thread."""
+    from sparknet_tpu_torch.data import jpeg
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    gen = np.random.default_rng(SEED + 20)
+    resize_rows, ycc_rows = [], []
+    for label, spec, out, gray in RESIZE_CASES:
+        if isinstance(spec, str):
+            src = jpeg.decode_rgb(fixture(spec), dev)
+        else:
+            src = torch.from_numpy(gen.integers(0, 256, spec + (3,),
+                                                dtype=np.uint8)).to(dev)
+        h, w = src.shape[:2]
+        oh, ow = out or (h, w)
+        got = ck.resize_bilinear(src, oh, ow, gray)
+        torch.cuda.synchronize()
+        want = ck.resize_bilinear_reference(src, oh, ow, gray)
+        if not torch.equal(got, want) or not torch.equal(
+                got.cpu(), ck.resize_bilinear_reference(src.cpu(), oh, ow,
+                                                        gray)):
+            fail(f"resize_bilinear {label}: differs from its plain version "
+                 f"(max |err| {float((got - want).abs().max())})")
+        if out is None and not torch.equal(got, src.permute(2, 0, 1)
+                                           .float()):
+            fail(f"resize_bilinear {label}: the natural size is no copy")
+        planted = {}
+        if label in ("imagenet_375x500_to_256", "upscale_64x48_to_256"):
+            for fault in ("f64", "swap"):
+                bad = planted_resize(src, oh, ow, fault)
+                planted[fault] = int((bad != got).sum())
+                if planted[fault] == 0:
+                    fail(f"resize_bilinear {label}: the planted {fault} "
+                         f"fault went unseen")
+        c = 1 if gray else 3
+        row = {"case": label, "kernel": "resize_bilinear", "dtype": "uint8",
+               "shape": [h, w, oh, ow], "max_abs_err": 0.0,
+               "planted_elements_differing": planted,
+               **bound(h * w * 3 + 4 * c * oh * ow,
+                       oh * ow * (2 + 9 * 3 + (3 if gray else 0)))}
+        row["ms"] = time_ms(lambda: ck.resize_bilinear(src, oh, ow, gray),
+                            50, flush)
+        row["plain_ms"] = time_ms(
+            lambda: ck.resize_bilinear_reference(src, oh, ow, gray), 10,
+            flush)
+        row["library_ms"] = None
+        if not gray and oh > 1 and ow > 1:
+            planar = src.permute(2, 0, 1)[None].float().contiguous()
+            row["library_ms"] = time_ms(lambda: F.interpolate(
+                planar, size=(oh, ow), mode="bilinear", align_corners=True),
+                50, flush)
+        resize_rows.append(row)
+    for name in YCC_FIXTURES:
+        y, cb, cr = jpeg.decode_planes(fixture(name), dev)
+        got = ck.ycc_to_rgb(y, cb, cr)
+        torch.cuda.synchronize()
+        want = ck.ycc_to_rgb_reference(y, cb, cr)
+        if not torch.equal(got, want) or not torch.equal(
+                got.cpu(), ck.ycc_to_rgb_reference(y.cpu(), cb.cpu(),
+                                                   cr.cpu())):
+            fail(f"ycc_to_rgb {name}: differs from its plain version")
+        h, w = y.shape
+        planted = {}
+        if cb.shape != y.shape:
+            for fault in ("box", "swap"):
+                planted[fault] = int((planted_ycc(y, cb, cr, fault)
+                                      != got).sum())
+                if planted[fault] == 0:
+                    fail(f"ycc_to_rgb {name}: the planted {fault} fault "
+                         f"went unseen")
+        # integer operations counted at the f32 rate: ~20 a pixel
+        row = {"case": name.split(".")[0], "kernel": "ycc_to_rgb",
+               "dtype": "uint8", "shape": [h, w, *cb.shape],
+               "max_abs_err": 0.0, "planted_elements_differing": planted,
+               **bound(h * w * 4 + 2 * cb.numel(), 20 * h * w)}
+        row["ms"] = time_ms(lambda: ck.ycc_to_rgb(y, cb, cr), 50, flush)
+        row["plain_ms"] = time_ms(
+            lambda: ck.ycc_to_rgb_reference(y, cb, cr), 10, flush)
+        row["library_ms"] = None      # no one PyTorch call does this
+        ycc_rows.append(row)
+    # nvJPEG (+ ycc_to_rgb) against libjpeg's pixels
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    vs_libjpeg = {}
+    for name, e in manifest["small"].items():
+        rgb = jpeg.decode_rgb(fixture(e["file"]), dev)
+        if e["pixels"] is None:
+            if rgb is not None:
+                fail(f"nvjpeg: {name} decoded; libjpeg refuses it")
+            vs_libjpeg[name] = "dropped"
+            continue
+        if rgb is None:
+            fail(f"nvjpeg: {name} dropped; libjpeg decodes it")
+        px = np.load(os.path.join(FIXTURES, e["pixels"])).astype(np.int32)
+        diff = np.abs(rgb.cpu().numpy().astype(np.int32) - px)
+        vs_libjpeg[name] = {"max": int(diff.max()),
+                            "mean": float(diff.mean())}
+        if name == "truncated":
+            continue     # nvJPEG fills a cut scan otherwise (ROADMAP §C)
+        if diff.mean() > NVJPEG_MEAN_DIFF or diff.max() > \
+                NVJPEG_MAX_DIFF.get(name, 255):
+            fail(f"nvjpeg: {name} differs from libjpeg by {vs_libjpeg[name]}"
+                 f" (bounds: mean {NVJPEG_MEAN_DIFF}, max "
+                 f"{NVJPEG_MAX_DIFF.get(name, 'none')})")
+    channel_means = {}
+    for name, e in manifest["imagenet"].items():
+        rgb = jpeg.decode_rgb(fixture(e["file"]), dev).cpu().numpy()
+        channel_means[name] = float(np.abs(
+            rgb.reshape(-1, 3).mean(0) - e["channel_mean"]).max())
+    # the yardstick: nvJPEG's own upsampling and colour conversion
+    # (NVJPEG_OUTPUT_RGBI), which ycc_to_rgb replaces for these samplings
+    rgbi = ck._function("jpeg", "sparknet_jpeg_decode_rgbi")
+    nvjpeg_own = {}
+    for name, e in {**manifest["small"], **manifest["imagenet"]}.items():
+        if "height" not in e or name in ("cmyk", "truncated"):
+            continue
+        data = fixture(e["file"])
+        h, w = e["height"], e["width"]
+        rgb = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+        if rgbi(data, len(data), rgb.data_ptr(), 3 * w,
+                torch.cuda.current_stream(dev).cuda_stream):
+            fail(f"nvjpeg: its own RGB decode of {name} failed")
+        got = rgb.cpu().numpy().astype(np.int32)
+        if e.get("pixels"):
+            diff = np.abs(got - np.load(os.path.join(FIXTURES,
+                                                     e["pixels"])))
+            nvjpeg_own[name] = {"max": int(diff.max()),
+                                "mean": float(diff.mean())}
+        else:
+            nvjpeg_own[name] = {"channel_mean_minus_libjpeg": [
+                float(v) for v in got.reshape(-1, 3).mean(0)
+                - e["channel_mean"]]}
+    # one thread decoding the main path's image, copied back as the lazy
+    # partitions take it
+    data = fixture("imagenet_0.jpg")
+    times = {}
+    for what, fn in (("decode_resize_copy_ms", lambda: jpeg.decode_jpeg_resize(
+            data, TRAIN_RESIZE, TRAIN_RESIZE, dev).cpu()),
+                     ("decode_only_ms", lambda: jpeg.decode_rgb(data, dev))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        times[what] = (time.perf_counter() - t0) / 50 * 1e3
+    report = {"nvjpeg_vs_libjpeg": vs_libjpeg,
+              "imagenet_channel_mean_max_diff": channel_means,
+              "nvjpeg_own_rgb_vs_libjpeg": nvjpeg_own, **times}
+    print(f"images [{smi}] " + json.dumps(report), flush=True)
+    print("image_kernels " + json.dumps(resize_rows + ycc_rows), flush=True)
+    del flush
+    return {"resize_rows": resize_rows, "ycc_rows": ycc_rows, **report}
+
+
+def write_image_tars(d: str) -> dict:
+    """Phase 5d's cell on disk: the train tars, the test tar, their label
+    files (1000 classes from seed ``SEED``) and the planted entries."""
+    import io
+    import tarfile
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        files = [e["file"] for e in json.load(f)["imagenet"].values()]
+    jpegs = [fixture(n) for n in files]
+    rng = np.random.default_rng(SEED + 21)
+    out = {}
+    for split, n, tars in (("train", IMG_TRAIN, IMG_TRAIN_TARS),
+                           ("test", IMG_TEST, 1)):
+        root = os.path.join(d, split)
+        os.makedirs(root)
+        planted = int(rng.integers(n))
+        lines = []
+        per = n // tars
+        for t in range(tars):
+            with tarfile.open(os.path.join(root, f"{split}{t:02d}.tar"),
+                              "w") as tf:
+                for k in range(t * per, (t + 1) * per):
+                    data = PLANTED if k == planted else jpegs[k % len(jpegs)]
+                    info = tarfile.TarInfo(f"{split}/img{k:05d}.JPEG")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+                    lines.append(f"img{k:05d}.JPEG {int(rng.integers(1000))}")
+        labels = os.path.join(d, f"{split}.txt")
+        with open(labels, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        out[split] = (root, labels)
+    return out
+
+
+def train_from_tars(ck, dev, smi: str, synthetic_loop: dict) -> dict:
+    """Full-width CaffeNet through ``imagenet_app.main(["--tar-dir", ...])``
+    (2 workers, batch 64, τ=5, 4 rounds, resize 256, crop 227, the crop on
+    the card): exact launches of every kernel a round runs, the image
+    kernels once for each image decoded (counted at the decoder); every
+    drop a read of a planted entry; the test-mode loss at init on a batch
+    of the test tar within 0.5 of ln 1000."""
+    import tempfile
+    import threading
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.data import center_crop, imagenet
+    decode_image = imagenet.decode_image
+    counts = {"decoded": 0, "planted": 0, "other_drops": 0, "seconds": 0.0}
+    lock = threading.Lock()
+
+    def counted(data, size, device):
+        t0 = time.perf_counter()
+        img = decode_image(data, size, device)
+        dt = time.perf_counter() - t0
+        with lock:
+            counts["seconds"] += dt
+            if img is not None:
+                counts["decoded"] += 1
+            elif data == PLANTED:
+                counts["planted"] += 1
+            else:
+                counts["other_drops"] += 1
+        return img
+
+    loaded = []
+    load = imagenet_app.load_imagenet
+
+    def capture(*a, **kw):
+        loaded.append(load(*a, **kw))
+        return loaded[-1]
+
+    per_round = []     # (decode seconds, images read) of each round built
+
+    class TimedRoundFeed(imagenet_app.RoundFeed):
+        def next_round(self):
+            with lock:
+                s0, n0 = counts["seconds"], counts["decoded"] + counts[
+                    "planted"]
+            out = super().next_round()
+            with lock:
+                per_round.append((counts["seconds"] - s0, counts["decoded"]
+                                  + counts["planted"] - n0))
+            return out
+
+    steps = TRAIN_WORKERS * TRAIN_TAU * IMG_ROUNDS
+    test_batches = TRAIN_WORKERS * (IMG_TEST // TRAIN_WORKERS // TRAIN_BATCH)
+    with tempfile.TemporaryDirectory(prefix="tars_smoke_") as d:
+        t0 = time.perf_counter()
+        cell = write_image_tars(d)
+        write_s = time.perf_counter() - t0
+        argv = ["--tar-dir", cell["train"][0], "--label-file",
+                cell["train"][1], "--test-tar-dir", cell["test"][0],
+                "--test-label-file", cell["test"][1], "--model", "caffenet",
+                "--workers", str(TRAIN_WORKERS), "--batch", str(TRAIN_BATCH),
+                "--tau", str(TRAIN_TAU), "--rounds", str(IMG_ROUNDS),
+                "--test-interval", str(IMG_ROUNDS), "--device", str(dev),
+                "--device-preprocess"]
+        with mock.patch.object(imagenet, "decode_image", counted), \
+                mock.patch.object(imagenet_app, "load_imagenet", capture), \
+                mock.patch.object(imagenet_app, "RoundFeed", TimedRoundFeed):
+            out = train_app(
+                ck, dev, smi, "train_tar_dir", imagenet_app.main, argv,
+                workers=TRAIN_WORKERS, tau=TRAIN_TAU, rounds=IMG_ROUNDS,
+                batch=TRAIN_BATCH, score_keys={"loss", "accuracy"},
+                want=lambda: {"lrn_across_channels_fwd": 2 * steps,
+                              "lrn_across_channels_bwd": 2 * steps,
+                              "max_pool_bwd": 3 * steps,
+                              "lrn_across_channels": 2 * test_batches,
+                              "ycc_to_rgb": counts["decoded"],
+                              "resize_bilinear": counts["decoded"]})
+        train_ds, test_ds = loaded
+        dropped = sum(p.dropped for ds in loaded for p in ds.partitions)
+        if counts["other_drops"] or dropped != counts["planted"] or \
+                counts["planted"] < 2:
+            fail(f"train_tar_dir: {dropped} drops counted, {counts} at the "
+                 f"decoder (want every drop a read of the 2 planted "
+                 f"entries, each read at least once)")
+        if train_ds.count() != IMG_TRAIN or test_ds.count() != IMG_TEST:
+            fail(f"train_tar_dir: {train_ds.count()} / {test_ds.count()} "
+                 f"images indexed")
+        tr = out["trainer"]
+        first = out["report"]["rounds"][0]["loss"]
+        if abs(first - math.log(1000)) > 1.0:
+            fail(f"train_tar_dir: first round's loss {first:.4f}")
+        n = tr.test_net.blob_shapes["data"][0] // tr.n_workers
+        recs = test_ds.partitions[0][:n]
+        x = np.stack([r[0] for r in recs])
+        y = np.asarray([r[1] for r in recs], np.float32)
+        init_loss = check_initial_test_loss(
+            "train_tar_dir", tr, dev, TRAIN_CROP, 0.5,
+            batch=(center_crop(x, TRAIN_CROP, mean=x.mean(axis=0)), y))
+    med = out["report"]["steady_medians"]
+    decode_rounds = [dt / max(n, 1) * 1e3 for dt, n in per_round]
+    for r in out["report"]["rounds"]:
+        print(f"train_tar_dir [{smi}] round {r['round']}: decode "
+              f"{decode_rounds[r['round']]:.3f} ms an image on the feed "
+              f"thread ({per_round[r['round']][1]} images)", flush=True)
+    report = {
+        "write_tars_s": write_s, "decode_counts": counts,
+        "decode_ms_per_image_by_round": decode_rounds,
+        "decode_ms_per_image": counts["seconds"] / max(
+            counts["decoded"] + counts["planted"], 1) * 1e3,
+        "dropped": dropped, "test_loss_at_init": init_loss,
+        "steady_medians": med,
+        "synthetic_device_crop_steady_medians (phase 5)": synthetic_loop,
+        "peak_mem_gb": out["report"]["peak_mem_gb"]}
+    print(f"train_tar_dir [{smi}] " + json.dumps(report), flush=True)
+    syn = synthetic_loop
+    print(f"train_tar_dir [{smi}]: loop {med['loop_s']:.3f} s a round "
+          f"({med['img_s_loop']:.1f} img/s per card) from tars against "
+          f"{syn['loop_s']:.3f} s ({syn['img_s_loop']:.1f} img/s) on "
+          f"synthetic images, same call; decode "
+          f"{report['decode_ms_per_image']:.3f} ms an image", flush=True)
+    del out["trainer"]
+    return {"report": report, "launches": out["report"]["launches"]}
+
+
+def image_train_val(layer: str, train_src: str, test_src: str,
+                    mean_file: str | None, root: str = "") -> str:
+    """bvlc_reference_caffenet's train_val over encoded Datums
+    (``layer="Data"``, ``mean_file``) or over lists of JPEGs under
+    ``root`` (``layer="ImageData"``, new size 256, bvlc's mean values)."""
+    text = caffenet_train_val(train_src, test_src, mean_file or "")
+    if layer == "Data":
+        return text
+    for src, batch in ((train_src, SOLVER_TRAIN_BATCH),
+                       (test_src, SOLVER_TEST_BATCH)):
+        text = text.replace(
+            f'data_param {{ source: "{src}" batch_size: {batch} '
+            f'backend: LMDB }}',
+            f'image_data_param {{ source: "{src}" root_folder: "{root}" '
+            f'batch_size: {batch} new_height: {TRAIN_RESIZE} '
+            f'new_width: {TRAIN_RESIZE} }}')
+    return (text.replace('type: "Data"', 'type: "ImageData"')
+            .replace('mean_file: ""', "mean_value: 104 mean_value: 117 "
+                     "mean_value: 123"))
+
+
+def cli_image_paths(ck, dev, smi: str) -> dict:
+    """``convert_imageset --encoded`` of 256 JPEGs (ImageNet's commonest
+    size, 375x500, under distinct names) to an LMDB, its mean through
+    ``compute_image_mean``, then ``caffe_cli train`` for 5 iterations of
+    bvlc_reference_caffenet's train_val over the encoded Datums and over
+    an ImageData list of the same files (new size 256): exact launches,
+    the image kernels once for each image decoded, finite losses."""
+    import tempfile
+    from sparknet_tpu_torch.data import jpeg
+    from sparknet_tpu_torch.data.lmdb_io import LmdbReader
+    from sparknet_tpu_torch.proto import load_mean_binaryproto
+    from sparknet_tpu_torch.tools import (caffe_cli, compute_image_mean,
+                                          convert_imageset)
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        e = json.load(f)["imagenet"]["imagenet_0"]
+    data = fixture(e["file"])
+    import threading
+    rgb_cuda = jpeg._rgb_cuda
+    decoded = {"n": 0}
+    lock = threading.Lock()
+
+    def counted(raw, dev_):   # runs on the feed's decode threads too
+        out = rgb_cuda(raw, dev_)
+        with lock:
+            decoded["n"] += out is not None
+        return out
+
+    report: dict = {"launches": {}}
+    with tempfile.TemporaryDirectory(prefix="cli_images_") as d, \
+            mock.patch.object(jpeg, "_rgb_cuda", counted):
+        os.makedirs(os.path.join(d, "img"))
+        lines = []
+        for i in range(256):
+            with open(os.path.join(d, "img", f"{i:04d}.jpg"), "wb") as f:
+                f.write(data)
+            lines.append(f"{i:04d}.jpg {i % 1000}")
+        listfile = os.path.join(d, "list.txt")
+        with open(listfile, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        db_path = os.path.join(d, "encoded_lmdb")
+        _, report["convert_s"] = run_cli(convert_imageset.main, [
+            os.path.join(d, "img") + "/", listfile, db_path, "--encoded"])
+        with LmdbReader(db_path) as r:
+            if len(r) != 256:
+                fail(f"convert_imageset: {len(r)} records, want 256")
+        mean_file = os.path.join(d, "mean.binaryproto")
+        ck.reset_launch_counts()
+        decoded["n"] = 0
+        _, report["compute_image_mean_s"] = run_cli(
+            compute_image_mean.main, [db_path, mean_file])
+        report["launches"]["compute_image_mean"] = dict(ck.launch_counts)
+        mean = load_mean_binaryproto(mean_file)
+        err = float(np.abs(mean.reshape(3, -1).mean(1)
+                           - e["channel_mean"]).max())
+        if mean.shape != (3, e["height"], e["width"]) or err > 0.01 or \
+                decoded["n"] != 256:
+            fail(f"compute_image_mean of encoded Datums: shape "
+                 f"{mean.shape}, channel means {err} from libjpeg's, "
+                 f"{decoded['n']} decodes")
+        report["mean_channel_max_diff_vs_libjpeg"] = err
+        for layer, train_src, test_src, mf in (
+                ("Data", db_path, db_path, mean_file),
+                ("ImageData", listfile, listfile, None)):
+            model = os.path.join(d, f"{layer}.prototxt")
+            with open(model, "w") as f:
+                f.write(image_train_val(layer, train_src, test_src, mf,
+                                        os.path.join(d, "img") + "/"))
+            solver = os.path.join(d, f"{layer}_solver.prototxt")
+            with open(solver, "w") as f:
+                f.write(f'net: "{model}"\n' + IMAGE_SOLVER)
+            torch.cuda.empty_cache()
+            ck.reset_launch_counts()
+            decoded["n"] = 0
+            log, wall = run_cli(caffe_cli.main, ["train", "--solver",
+                                                 solver])
+            launches = dict(ck.launch_counts)
+            want = {"lrn_across_channels_fwd": 2 * IMAGE_SOLVER_ITERS,
+                    "lrn_across_channels_bwd": 2 * IMAGE_SOLVER_ITERS,
+                    "max_pool_bwd": 3 * IMAGE_SOLVER_ITERS,
+                    "lrn_across_channels":
+                        2 * IMAGE_SOLVER_TESTS * SOLVER_TEST_ITER,
+                    "ycc_to_rgb": decoded["n"],
+                    "resize_bilinear": decoded["n"]}
+            losses = [float(ln.rsplit("= ", 1)[1]) for ln in log.splitlines()
+                      if "] Iteration " in ln and ", loss = " in ln]
+            feed = [json.loads(ln.split("] Train feed: ")[1])
+                    for ln in log.splitlines() if "] Train feed: " in ln]
+            if launches != want or decoded["n"] < SOLVER_TRAIN_BATCH * \
+                    IMAGE_SOLVER_ITERS or len(losses) < IMAGE_SOLVER_ITERS \
+                    or not all(math.isfinite(v) for v in losses):
+                print(log[-3000:])
+                fail(f"caffe_cli train ({layer} over JPEGs): launches "
+                     f"{launches}, want {want}; losses {losses}")
+            key = "caffe_cli_train_" + ("encoded" if layer == "Data"
+                                        else "image_data")
+            report["launches"][key] = launches
+            report[key] = {"wall_s": wall, "losses": losses,
+                           "decoded": decoded["n"],
+                           "feed": feed[0] if feed else None}
+    print(f"cli_images [{smi}] " + json.dumps(report), flush=True)
+    return report
+
+
+def window_batch(ck, dev, smi: str) -> dict:
+    """One WindowData batch (R-CNN's window file over three ImageNet-sized
+    fixtures: crop 227, context_pad 16, mirror, bvlc's mean values, batch
+    128) built on the card, against the same batch with the image
+    kernels swapped for their plain versions on the card: equal bytes."""
+    import tempfile
+    from sparknet_tpu_torch.data import db
+    from sparknet_tpu_torch.proto import Phase, load_net_prototxt
+    rng = np.random.default_rng(SEED + 22)
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        ims = json.load(f)["imagenet"]
+    with tempfile.TemporaryDirectory(prefix="windows_") as d:
+        blocks = []
+        for i, name in enumerate(("imagenet_0", "imagenet_1", "imagenet_4")):
+            e = ims[name]
+            path = os.path.join(d, e["file"])
+            with open(path, "wb") as f:
+                f.write(fixture(e["file"]))
+            h, w = e["height"], e["width"]
+            wins = []
+            for _ in range(20):
+                x1 = int(rng.integers(0, w - 20))
+                y1 = int(rng.integers(0, h - 20))
+                x2 = int(min(x1 + rng.integers(16, w), w - 1))
+                y2 = int(min(y1 + rng.integers(16, h), h - 1))
+                wins.append(f"{int(rng.integers(1, 21))} "
+                            f"{rng.uniform(0, 1):.3f} {x1} {y1} {x2} {y2}")
+            blocks.append(f"# {i}\n{path}\n3 {h} {w}\n{len(wins)}\n"
+                          + "\n".join(wins))
+        source = os.path.join(d, "windows.txt")
+        with open(source, "w") as f:
+            f.write("\n".join(blocks) + "\n")
+        lp = load_net_prototxt(
+            'layer { name: "data" type: "WindowData" top: "data" '
+            'top: "label" transform_param { crop_size: 227 mirror: true '
+            'mean_value: 104 mean_value: 117 mean_value: 123 } '
+            f'window_data_param {{ source: "{source}" batch_size: 128 '
+            'fg_threshold: 0.5 bg_threshold: 0.5 fg_fraction: 0.25 '
+            'context_pad: 16 } }').layer[0]
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = next(db.window_data_feed(lp, Phase.TRAIN, seed=SEED,
+                                       device=dev))
+        wall = time.perf_counter() - t0
+        launches = dict(ck.launch_counts)
+        with mock.patch.object(ck, "resize_bilinear",
+                               ck.resize_bilinear_reference), \
+                mock.patch.object(ck, "ycc_to_rgb",
+                                  ck.ycc_to_rgb_reference):
+            ck.reset_launch_counts()
+            want = next(db.window_data_feed(lp, Phase.TRAIN, seed=SEED,
+                                            device=dev))
+            plain_launches = dict(ck.launch_counts)
+    if got.keys() != want.keys() or any(
+            got[k].tobytes() != want[k].tobytes() for k in want) or \
+            got["data"].shape != (128, 3, 227, 227) or \
+            not launches["resize_bilinear"] or any(plain_launches.values()):
+        fail(f"window_data: the batch on the card differs from the plain "
+             f"path's (launches {launches}, plain {plain_launches})")
+    report = {"wall_s": wall, "launches": launches,
+              "windows_fg_share": float((got["label"] > 0).mean())}
+    print(f"window_data [{smi}] " + json.dumps(report), flush=True)
+    return report
+
+
+def real_images(ck, dev, smi: str, synthetic_loop: dict) -> dict:
+    """Phase 5d."""
+    t0 = time.perf_counter()
+    out = {"kernels": check_image_kernels(ck, dev, smi)}
+    torch.cuda.empty_cache()
+    out["tar_dir"] = train_from_tars(ck, dev, smi, synthetic_loop)
+    torch.cuda.empty_cache()
+    out["cli"] = cli_image_paths(ck, dev, smi)
+    out["window"] = window_batch(ck, dev, smi)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"images phase [{smi}]: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the kernels line
 # ---------------------------------------------------------------------------
 
@@ -2708,6 +3328,14 @@ def main() -> int:
     data_path = caffe_data_path(ck, dev, smi,
                                 solved["caffenet"]["solver_ms_per_iter_b256"])
 
+    # phase 5d: real images, decoded on the card: the image kernels and
+    # nvJPEG against their plain versions and libjpeg, CaffeNet from tars
+    # of JPEGs through imagenet_app --tar-dir, encoded Datums and
+    # ImageData through caffe_cli, a WindowData batch
+    images = real_images(
+        ck, dev, smi, trained["caffenet_device_pre"]["report"]
+        ["steady_medians"])
+
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
     # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
@@ -2729,7 +3357,10 @@ def main() -> int:
         **{f"solver_cifar10_quick_{r.lower()}": n
            for r, n in solved["rules"]["launches"].items()},
         "caffe_cli_train_lmdb": data_path["launches"],
-        "caffe_cli_extract_features": data_path["extract_launches"]}
+        "caffe_cli_extract_features": data_path["extract_launches"],
+        "caffenet_training_tar_dir": images["tar_dir"]["launches"],
+        **images["cli"]["launches"],
+        "window_data_batch": images["window"]["launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}
@@ -2774,10 +3405,25 @@ def main() -> int:
             {**{f"{m}_training": tl[m]["max_pool_bwd"] for m in tl},
              **solver_launches("max_pool_bwd")},
             pool_rows, rows_of(pool_rows)),
+        # no TPU counterpart: they take the place of the JAX package's
+        # native libjpeg decode and its resize.  Main path: CaffeNet from
+        # tars, each image 375x500 4:2:0 (ImageNet's commonest) to 256.
+        kernel_entry(
+            "ycc_to_rgb", "sparknet_tpu_torch/ops/csrc/jpeg.cu",
+            "sparknet_tpu/native/data_pipeline.cpp:217",
+            solver_launches("ycc_to_rgb"), images["kernels"]["ycc_rows"],
+            images["kernels"]["ycc_rows"][:1]),
+        kernel_entry(
+            "resize_bilinear", "sparknet_tpu_torch/ops/csrc/jpeg.cu",
+            "sparknet_tpu/native/data_pipeline.cpp:248",
+            solver_launches("resize_bilinear"),
+            images["kernels"]["resize_rows"],
+            images["kernels"]["resize_rows"][:1]),
     ]
     for k in kernels:
-        if len(k["main_path_rows"]) != {"max_pool_bwd": 13}.get(k["name"],
-                                                                2):
+        if len(k["main_path_rows"]) != {"max_pool_bwd": 13, "ycc_to_rgb": 1,
+                                        "resize_bilinear": 1}.get(
+                                            k["name"], 2):
             fail(f"kernels line: main-path rows of {k['name']}: "
                  f"{k['main_path_rows']}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,17 +1,22 @@
 """ImageNetApp: AlexNet, CaffeNet, GoogLeNet or VGG-16 with τ-step local
 SGD (reference: src/main/scala/apps/ImageNetApp.scala).
 
-The port's counterpart of ``sparknet_tpu/apps/imagenet_app.py``, with
-synthetic data only: ``--synthetic`` fabricates 256x256 images (the
-reference's force-resize, :84-95), their mean image is computed on the
-host (ComputeMean, :84), and the model trains in rounds of τ local steps
-per worker (:144), or synchronous SGD with ``--strategy sync``, with
-random-crop + mirror + mean-subtract train preprocessing (:155-169) on the
-host or, with ``--device-preprocess``, on the card (the host then ships
-raw full-size images), center-crop test preprocessing (:117-131) and an
-eval every ``--test-interval`` rounds aggregated across workers
-(:106-141).  The crop is 227 for AlexNet and CaffeNet and 224 for
-GoogLeNet and VGG-16, as their published nets take.  All workers share
+The port's counterpart of ``sparknet_tpu/apps/imagenet_app.py``.
+``--tar-dir`` reads tar archives of JPEGs with a ``--label-file`` map
+(ImageNetLoader, :84-95), decoded and force-resized to ``--resize`` on
+access, on the run's device (nvJPEG and the resize kernel on the card:
+``data/imagenet.py``, ``data/jpeg.py``); ``--synthetic``, or no
+``--tar-dir``, fabricates resized-looking images instead.  The mean
+image is computed on the host (ComputeMean, :84), in float64 chunk by
+chunk over the train partitions, and the model trains in rounds of τ
+local steps per worker (:144), or synchronous SGD with ``--strategy
+sync``, with random-crop + mirror + mean-subtract train preprocessing
+(:155-169) on the host or, with ``--device-preprocess``, on the card
+(the host then ships raw full-size images), center-crop test
+preprocessing (:117-131) and an eval every ``--test-interval`` rounds
+aggregated across workers (:106-141).  The crop is 227 for AlexNet and
+CaffeNet and 224 for GoogLeNet and VGG-16, as their published nets
+take.  All workers share
 one card and run one after another.  ``--snapshot PATH`` writes the
 trainer's state there at the end (and on SIGHUP, SIGINT or SIGTERM);
 ``--log-dir`` also appends the log to ``training_log_<ts>.txt`` there.
@@ -19,6 +24,9 @@ trainer's state there at the end (and on SIGHUP, SIGINT or SIGTERM);
 Run:  python -m sparknet_tpu_torch.apps.imagenet_app --synthetic \\
           --model caffenet --workers 2 --batch 64 --tau 5 --rounds 2 \\
           --device-preprocess
+      python -m sparknet_tpu_torch.apps.imagenet_app --tar-dir TARS \\
+          --label-file train.txt --test-tar-dir VAL --test-label-file \\
+          val.txt --workers 2 --batch 64 --tau 5 --device-preprocess
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import time
 
 import numpy as np
 
+from ..data.imagenet import load_imagenet
 from ..data.partition import PartitionedDataset
 from ..data.transforms import center_crop, random_crop_mirror
 from ..models import alexnet, caffenet, googlenet, vgg16
@@ -67,23 +76,33 @@ def synthetic_imagenet(n: int, size: int, classes: int, seed: int = 0):
 
 
 def mean_image(dataset: PartitionedDataset, chunk: int = 64) -> np.ndarray:
-    """Per-pixel mean over every partition, summed in float64 chunk by
-    chunk (the distributed ComputeMean, one partition at a time)."""
+    """Per-pixel mean over every partition (the distributed ComputeMean,
+    one partition at a time), read ``chunk`` records at a time so a lazy
+    partition never decodes whole, each image added in turn to a float64
+    sum, as the JAX package's native ``accumulate_mean`` adds them."""
     acc, count = None, 0
     for p in dataset.partitions:
         for i in range(0, len(p), chunk):
-            imgs = np.stack([x for x, _ in p[i:i + chunk]])
-            part = imgs.sum(axis=0, dtype=np.float64)
-            acc = part if acc is None else acc + part
+            for x, _ in p[i:i + chunk]:
+                if acc is None:
+                    acc = np.zeros(np.shape(x), np.float64)
+                acc += x
         count += len(p)
     return (acc / max(count, 1)).astype(np.float32)
 
 
 def main(argv=None) -> TrainingRun:
     ap = argparse.ArgumentParser(
-        description="ImageNet parameter-averaging app (synthetic data)")
+        description="ImageNet parameter-averaging app")
+    ap.add_argument("--tar-dir", default=None,
+                    help="directory of .tar archives of JPEGs")
+    ap.add_argument("--label-file", default=None, help="train.txt label map")
+    ap.add_argument("--test-tar-dir", default=None,
+                    help="the test tars (default: --tar-dir)")
+    ap.add_argument("--test-label-file", default=None,
+                    help="the test label map (default: --label-file)")
     ap.add_argument("--synthetic", action="store_true",
-                    help="fabricate the data (the only source ported)")
+                    help="fabricate the data (also without --tar-dir)")
     ap.add_argument("--model", choices=sorted(MODELS), default="caffenet")
     ap.add_argument("--workers", type=int, default=1)
     ap.add_argument("--classes", type=int, default=1000)
@@ -108,24 +127,33 @@ def main(argv=None) -> TrainingRun:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "only --synthetic data is ported (no tar or record loaders)")
     crop = args.crop or (227 if args.model in ("alexnet", "caffenet")
                          else 224)
 
     log = PhaseLogger(None if args.log_dir is None else os.path.join(
         args.log_dir, f"training_log_{int(time.time())}.txt"))
     workers = args.workers
-    log.log("using synthetic ImageNet-like data")
-    need = args.batch * workers * (args.tau + 2)
-    train_x, train_y = synthetic_imagenet(need, args.resize, args.classes, 1)
-    test_x, test_y = synthetic_imagenet(
-        max(args.batch * workers * 2, 64), args.resize, args.classes, 2)
-    train_ds = PartitionedDataset.from_items(list(zip(train_x, train_y)),
-                                             workers)
-    test_ds = PartitionedDataset.from_items(list(zip(test_x, test_y)),
-                                            workers)
+    if args.synthetic or args.tar_dir is None:
+        log.log("using synthetic ImageNet-like data")
+        need = args.batch * workers * (args.tau + 2)
+        train_x, train_y = synthetic_imagenet(need, args.resize,
+                                              args.classes, 1)
+        test_x, test_y = synthetic_imagenet(
+            max(args.batch * workers * 2, 64), args.resize, args.classes, 2)
+        train_ds = PartitionedDataset.from_items(
+            list(zip(train_x, train_y)), workers)
+        test_ds = PartitionedDataset.from_items(list(zip(test_x, test_y)),
+                                                workers)
+    else:
+        if args.label_file is None:
+            raise SystemExit("--tar-dir needs --label-file")
+        log.log(f"loading tars from {args.tar_dir}")
+        train_ds = load_imagenet(args.tar_dir, args.label_file, workers,
+                                 size=args.resize, device=args.device)
+        test_ds = load_imagenet(args.test_tar_dir or args.tar_dir,
+                                args.test_label_file or args.label_file,
+                                workers, size=args.resize,
+                                device=args.device)
     log.log(f"train/test partitions: {train_ds.partition_sizes()} / "
             f"{test_ds.partition_sizes()}")
     mean = mean_image(train_ds)

@@ -1,29 +1,38 @@
-"""Database-backed host feeds: the ``Data`` layer's LMDB and LevelDB path.
+"""Database- and file-backed host feeds: the ``Data``, ``ImageData`` and
+``WindowData`` layers' data path.
 
-The port's own copy of the database half of ``sparknet_tpu/data/db.py``:
-``open_db`` (:34), ``datum_to_array`` (:46), ``array_to_datum`` (:111),
-``DataTransformer`` (:145-257; its batch transform, as the per-image
-``__call__`` serves only the image feeds of ROADMAP A15), ``_cycle_items``
-(:260), ``db_feed`` (:278-445), ``feed_for_layer`` (:601) and
-``feed_for_net`` (:622).  A reader pulls serialized ``Datum`` records
-from the DB cursor (reference: caffe/src/caffe/data_reader.cpp:62-109), a
+The port's own copy of ``sparknet_tpu/data/db.py``: ``open_db`` (:34),
+``datum_to_array`` (:46, encoded Datums too), ``array_to_datum`` (:111),
+``DataTransformer`` (:145-257), ``_cycle_items`` (:260), ``db_feed``
+(:278-445), ``image_data_feed`` (:448-482), ``window_data_feed``
+(:485-541) with ``_crop_warp_window`` (:544-598), ``feed_for_layer``
+(:601), ``feed_for_net`` (:622), ``read_image_list`` (:647),
+``load_image`` (:663-693), ``_warp`` (:695) and ``read_window_file``
+(:716).  A reader pulls serialized ``Datum`` records from the DB cursor
+(reference: caffe/src/caffe/data_reader.cpp:62-109), a
 ``pipeline.DecodePool`` decodes them, ``DataTransformer`` applies scale,
 crop, mirror and mean to the whole batch (reference:
 caffe/src/caffe/data_transformer.cpp), and the batches go to the card
 through ``data/prefetch.py::device_feed``.
 
-The JAX package parses a clean batch in one call of its native library
-when that library is built, and falls back to numpy otherwise
-(sparknet_tpu/native/__init__.py:114, :196-215).  The port has no native
-library: every record takes the numpy path, and the batches equal the
-JAX feed's byte for byte (the crop only copies, the mean is one f32
-subtract).
+JPEGs (encoded Datums, ``ImageData`` lists, ``WindowData`` images) are
+decoded by ``data/jpeg.py`` on the feed's ``device``: nvJPEG and the
+resize kernel on the card by default, PIL and the plain resize on the
+CPU when asked; the pixels come back to the host as float32, the JAX
+package's arrays.  The JAX package's PIL paths (a natural-size encoded
+Datum, an image libjpeg refuses, a file that is no JPEG) run on the CPU
+only; on the card an image that is no JPEG, or one libjpeg refuses,
+raises naming its ROADMAP A15 item.
 
-Refused by name: encoded (JPEG/PNG) Datums, ``ImageData`` and
-``WindowData`` (ROADMAP A15, image decoding: the card's machine has
-neither PIL nor libjpeg's headers), ``HDF5Data`` (ROADMAP A6, HDF5: no
-``h5py`` there) and record shards, ``backend: RECORDS`` or ``*.rec``
-(ROADMAP A6, records).
+The JAX package parses a clean batch of raw Datums in one call of its
+native library when that library is built, and falls back to numpy
+otherwise (sparknet_tpu/native/__init__.py:114, :196-215).  The port has
+no native library: every record takes the numpy path, and the batches
+equal the JAX feed's byte for byte (the crop only copies, the mean is one
+f32 subtract).
+
+Refused by name: ``HDF5Data`` (ROADMAP A6, HDF5: no ``h5py`` there) and
+record shards, ``backend: RECORDS`` or ``*.rec`` (ROADMAP A6, records).
 """
 
 from __future__ import annotations
@@ -33,13 +42,17 @@ import time
 from typing import Any, Iterator
 
 import numpy as np
+import torch
 
 from ..proto.caffe_pb import Phase
 from ..proto.wireformat import WireError, decode
+from ..utils.device import resolve_device
+from ..utils.retry import io_retry
+from . import jpeg
 from .integrity import DataCorruptionError, Quarantine, QuarantinePolicy
 
-IMAGE_DECODING = ("ROADMAP A15, image decoding: the port decodes no "
-                  "JPEG or PNG yet")
+REFUSED_JPEG_ITEM = "ROADMAP A15, images libjpeg refuses"
+NOT_JPEG_ITEM = "ROADMAP A15, non-JPEG images on the card"
 HDF5_ITEM = "ROADMAP A6, HDF5: the port reads no HDF5 yet"
 RECORDS_ITEM = "ROADMAP A6, records: record shards are not ported yet"
 SHARD_SUFFIX = ".rec"
@@ -65,15 +78,19 @@ def open_db(source: str, backend: str = "LMDB"):
 
 
 def datum_to_array(datum_bytes: bytes, *, key: Any = None,
-                   source: str | None = None) -> tuple[np.ndarray, int]:
+                   source: str | None = None,
+                   device: str | torch.device = "cuda",
+                   ) -> tuple[np.ndarray, int]:
     """Serialized Datum -> ((C,H,W) float32, label) (reference:
     data_transformer.cpp Transform(Datum) input handling).
 
-    Every malformed input (truncated protobuf, a payload whose byte count
-    contradicts channels×height×width, impossible geometry) raises
+    An encoded Datum is decoded on ``device`` (``data/jpeg.py``):
+    force-resized to its height x width when both are set, at its own
+    size otherwise.  Every malformed input (truncated protobuf, a payload
+    whose byte count contradicts channels×height×width, impossible
+    geometry, an undecodable encoded image) raises
     :class:`~.integrity.DataCorruptionError` carrying ``key``/``source``
-    attribution.  An encoded Datum raises ``NotImplementedError`` naming
-    the image-decoding item."""
+    attribution."""
     try:
         m = decode(datum_bytes, "Datum")
     except WireError as e:
@@ -86,9 +103,14 @@ def datum_to_array(datum_bytes: bytes, *, key: Any = None,
     label = int(m.get("label", 0))
     data = m.get("data")
     if m.get("encoded"):
-        raise NotImplementedError(
-            f"encoded Datum [source={source!r}, key={key!r}] "
-            f"({IMAGE_DECODING})")
+        raw = bytes(data)
+        if h and w:
+            img = jpeg.decode_jpeg_resize(raw, h, w, device)
+            if img is None:
+                raise DataCorruptionError(
+                    "undecodable encoded Datum", source=source, key=key)
+            return img.cpu().numpy(), label
+        return _decode_natural(raw, device, key, source), label
     if c <= 0 or h <= 0 or w <= 0:
         raise DataCorruptionError(
             f"impossible Datum geometry channels={c} height={h} width={w}",
@@ -110,24 +132,96 @@ def datum_to_array(datum_bytes: bytes, *, key: Any = None,
     return np.asarray(floats, np.float32).reshape(c, h, w), label
 
 
-def array_to_datum(img: np.ndarray, label: int = 0) -> bytes:
+def _decode_natural(raw: bytes, device, key, source) -> np.ndarray:
+    """An encoded Datum's image at its own size, RGB: PIL on the CPU, as
+    the JAX package decodes it (``sparknet_tpu/data/db.py:78-88``); nvJPEG
+    on the card."""
+    if resolve_device(device).type == "cpu":
+        try:
+            return jpeg.pil_image(raw, "RGB")
+        except jpeg.UndecodableImage as e:
+            raise DataCorruptionError(
+                f"undecodable encoded Datum: {e}",
+                source=source, key=key) from e
+    img = jpeg.decode_jpeg(raw, device)
+    if img is None:
+        if _other_format(raw):
+            raise NotImplementedError(
+                f"encoded Datum [source={source!r}, key={key!r}] is no "
+                f"JPEG ({NOT_JPEG_ITEM})")
+        raise DataCorruptionError("undecodable encoded Datum",
+                                  source=source, key=key)
+    return img.cpu().numpy()
+
+
+def _other_format(raw: bytes) -> bool:
+    """True for the image formats Caffe's OpenCV reads besides JPEG:
+    PNG, GIF, BMP, TIFF."""
+    return raw.startswith((b"\x89PNG", b"GIF8", b"BM", b"II*\x00",
+                           b"MM\x00*"))
+
+
+def datum_shape(datum_bytes: bytes, *,
+                source: str | None = None) -> tuple[int, int, int]:
+    """(C, H, W) of the image ``datum_to_array`` makes of a Datum, read
+    without decoding an encoded one: its height x width when set, else
+    the JPEG's frame header (3 channels, as the decode converts to
+    RGB)."""
+    try:
+        m = decode(datum_bytes, "Datum")
+    except WireError as e:
+        raise DataCorruptionError(
+            f"undecodable Datum bytes ({len(datum_bytes)} bytes): {e}",
+            source=source) from e
+    if not m.get("encoded"):
+        return datum_to_array(datum_bytes, source=source)[0].shape
+    h, w = int(m.get("height", 1)), int(m.get("width", 1))
+    if h and w:
+        return 3, h, w
+    return (3,) + _image_size(bytes(m.get("data")), source)
+
+
+def _image_size(raw: bytes, what) -> tuple[int, int]:
+    """(height, width) of an encoded image: a JPEG's from its frame
+    header; any other's decoded by PIL on the CPU, as the JAX package
+    takes it."""
+    size = jpeg.jpeg_size(raw)
+    if size is None:
+        try:
+            size = jpeg.pil_image(raw, "RGB").shape[1:]
+        except jpeg.UndecodableImage as e:
+            raise DataCorruptionError(f"undecodable image: {e}",
+                                      source=what) from e
+    return size
+
+
+def array_to_datum(img: np.ndarray | None, label: int = 0,
+                   encoded: bytes | None = None) -> bytes:
     """(C,H,W) array -> serialized Datum (reference: util/io.cpp
     CVMatToDatum): raw uint8 ``data`` when every value is a byte, else
-    ``float_data``."""
+    ``float_data``.  With ``encoded``, the file's compressed bytes
+    instead, as channels 3 and height and width 0 (ReadFileToDatum)."""
     from ..proto.textformat import PMessage
     from ..proto.wireformat import encode
     m = PMessage()
-    c, h, w = img.shape
-    m.add("channels", c)
-    m.add("height", h)
-    m.add("width", w)
-    if img.dtype == np.uint8 or (
-            img.min() >= 0 and img.max() <= 255
-            and np.allclose(img, np.round(img))):
-        m.add("data", np.ascontiguousarray(img, np.uint8).tobytes())
+    if encoded is not None:
+        m.add("channels", 3)
+        m.add("height", 0)
+        m.add("width", 0)
+        m.add("data", encoded)
+        m.add("encoded", True)
     else:
-        for v in img.reshape(-1):
-            m.add("float_data", float(v))
+        c, h, w = img.shape
+        m.add("channels", c)
+        m.add("height", h)
+        m.add("width", w)
+        if img.dtype == np.uint8 or (
+                img.min() >= 0 and img.max() <= 255
+                and np.allclose(img, np.round(img))):
+            m.add("data", np.ascontiguousarray(img, np.uint8).tobytes())
+        else:
+            for v in img.reshape(-1):
+                m.add("float_data", float(v))
     m.add("label", int(label))
     return encode(m, "Datum")
 
@@ -163,6 +257,25 @@ class DataTransformer:
         # (consumed within batch(), never escapes).  Not thread-safe:
         # batch() runs on the one feed thread
         self._scratch: np.ndarray | None = None
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        """Transform one (C, H, W) image: the image feeds' transform."""
+        out = img.astype(np.float32)
+        if self.mean is not None:
+            out = out - self.mean   # full-size subtract == window subtract
+        if self.crop:
+            c, h, w = out.shape
+            if self.phase == Phase.TRAIN:
+                y = int(self.rng.integers(0, h - self.crop + 1))
+                x = int(self.rng.integers(0, w - self.crop + 1))
+            else:
+                y, x = (h - self.crop) // 2, (w - self.crop) // 2
+            out = out[:, y:y + self.crop, x:x + self.crop]
+        if self.mirror and self.phase == Phase.TRAIN and self.rng.integers(2):
+            out = out[:, :, ::-1]
+        if self.scale != 1.0:
+            out = out * self.scale
+        return np.ascontiguousarray(out)
 
     def check_mean(self, shape: tuple[int, int, int],
                    source: str | None = None) -> None:
@@ -260,6 +373,7 @@ def corrupt_record(seq: int, value: bytes) -> bytes | None:
 def db_feed(lp, phase: Phase, seed: int = 0,
             quarantine: Quarantine | None = None,
             workers: int | None = None, stats=None,
+            device: str | torch.device = "cuda",
             ) -> Iterator[dict[str, np.ndarray]]:
     """Batch stream for a ``Data`` layer (LMDB/LevelDB backed).  Decode
     and the integrity checks fan out over a ``pipeline.DecodePool`` of
@@ -281,7 +395,9 @@ def db_feed(lp, phase: Phase, seed: int = 0,
     tolerance, so the first bad record raises).
 
     ``stats``: an optional ``pipeline.FeedStats`` receiving per-stage
-    decode and transform seconds."""
+    decode and transform seconds.  ``device``: where encoded Datums are
+    decoded (each pool thread with its own nvJPEG state and stream on
+    the card)."""
     from .pipeline import DecodePool, feed_workers
     p = lp.sub("data_param")
     source = str(p.get("source"))
@@ -299,7 +415,8 @@ def db_feed(lp, phase: Phase, seed: int = 0,
         quarantine = Quarantine(QuarantinePolicy.from_env(),
                                 epoch_size=epoch_size, source=source)
     # peek the first record for the source's geometry
-    first_img, _ = datum_to_array(reader.first()[1], source=source)
+    first_img, _ = datum_to_array(reader.first()[1], source=source,
+                                  device=device)
     c, h, w = first_img.shape
     tf.check_mean((c, h, w), source)
     state = {"seq": 0}   # feed-lifetime record counter
@@ -319,7 +436,8 @@ def db_feed(lp, phase: Phase, seed: int = 0,
         """Decode and geometry-check one record (on a pool thread); the
         pool re-raises its DataCorruptionError at this record's place."""
         key, val = kv
-        img, label = datum_to_array(val, key=key, source=source)
+        img, label = datum_to_array(val, key=key, source=source,
+                                    device=device)
         if img.shape != (c, h, w):
             raise DataCorruptionError(
                 f"record shape {img.shape} != source geometry "
@@ -371,15 +489,175 @@ def db_feed(lp, phase: Phase, seed: int = 0,
         reader.close()
 
 
-def feed_for_layer(lp, phase: Phase, seed: int = 0, **kw):
+def image_data_feed(lp, phase: Phase, seed: int = 0,
+                    device: str | torch.device = "cuda",
+                    ) -> Iterator[dict[str, np.ndarray]]:
+    """Batch stream for an ``ImageData`` layer (reference:
+    caffe/src/caffe/layers/image_data_layer.cpp): a ``source`` list file
+    of "path label" lines, optional force-resize to new_height×new_width,
+    shuffle, then the DataTransformer, image by image; images decoded on
+    ``device``."""
+    p = lp.sub("image_data_param")
+    entries = read_image_list(str(p.get("source")),
+                              str(p.get("root_folder", "")))
+    batch = int(p.get("batch_size", 1))
+    new_h = int(p.get("new_height", 0))
+    new_w = int(p.get("new_width", 0))
+    color = bool(p.get("is_color", True))
+    shuffle = bool(p.get("shuffle", False))
+    tf = DataTransformer(lp.sub("transform_param"), phase, seed)
+    rng = np.random.default_rng(seed)
+    tops = list(lp.top) or ["data", "label"]
+    order = np.arange(len(entries))
+    if shuffle:
+        rng.shuffle(order)
+    pos = 0
+    while True:
+        imgs, labels = [], []
+        for _ in range(batch):
+            # wrap mid-batch like lines_id_ in image_data_layer.cpp
+            # (re-shuffling at each epoch boundary when shuffle is set)
+            if pos >= len(order):
+                pos = 0
+                if shuffle:
+                    rng.shuffle(order)
+            path, label = entries[order[pos]]
+            pos += 1
+            imgs.append(tf(load_image(path, new_h, new_w, color, device)))
+            labels.append(label)
+        yield _pack(tops, imgs, labels)
+
+
+def window_data_feed(lp, phase: Phase, seed: int = 0,
+                     device: str | torch.device = "cuda",
+                     ) -> Iterator[dict[str, np.ndarray]]:
+    """Batch stream for a ``WindowData`` layer (reference:
+    caffe/src/caffe/layers/window_data_layer.cpp): foreground/background
+    window sampling at fg_fraction, crop + warp each window to crop_size,
+    context padding, mean subtraction at the window; images decoded on
+    ``device`` at their own size."""
+    p = lp.sub("window_data_param")
+    fg_threshold = float(p.get("fg_threshold", 0.5))
+    bg_threshold = float(p.get("bg_threshold", 0.5))
+    images, fg, bg = read_window_file(str(p.get("source")),
+                                      fg_threshold, bg_threshold)
+    if not fg and not bg:
+        raise ValueError(
+            f"WindowData layer {lp.name!r}: no sampleable windows — every "
+            f"window overlap falls in [{bg_threshold}, {fg_threshold}) "
+            f"(fg_threshold={fg_threshold}, bg_threshold={bg_threshold})")
+    batch = int(p.get("batch_size", 1))
+    fg_frac = float(p.get("fg_fraction", 0.25))
+    context_pad = int(p.get("context_pad", 0))
+    tf_param = lp.sub("transform_param")
+    crop = int(tf_param.get("crop_size", 0)) or 227
+    mirror = bool(tf_param.get("mirror", False))
+    scale = float(tf_param.get("scale", 1.0))
+    mean_values = [float(v) for v in tf_param.get_all("mean_value")]
+    mean = (np.asarray(mean_values, np.float32).reshape(-1, 1, 1)
+            if mean_values else None)
+    use_square = str(p.get("crop_mode", "warp")) == "square"
+    rng = np.random.default_rng(seed)
+    tops = list(lp.top) or ["data", "label"]
+    n_fg = int(round(batch * fg_frac))
+    cache: dict[int, np.ndarray] = {}
+
+    def get_image(img_idx: int) -> np.ndarray:
+        if img_idx not in cache:
+            if len(cache) > 32:
+                cache.clear()
+            path = images[img_idx][0]
+            cache[img_idx] = load_image(path, 0, 0, True, device)
+        return cache[img_idx]
+
+    def sample(pool):
+        return pool[int(rng.integers(0, len(pool)))]
+
+    while True:
+        imgs, labels = [], []
+        for i in range(batch):
+            use_fg = bool(fg) and (i < n_fg or not bg)
+            win = sample(fg if use_fg else bg)
+            img_idx, label, _ov, x1, y1, x2, y2 = win
+            img = get_image(img_idx)
+            do_mirror = bool(mirror and phase == Phase.TRAIN
+                             and rng.integers(2))
+            imgs.append(_crop_warp_window(
+                img, x1, y1, x2, y2, crop, context_pad, use_square,
+                do_mirror, mean, scale))
+            labels.append(0 if not use_fg else label)
+        yield _pack(tops, imgs, labels)
+
+
+def _crop_warp_window(img: np.ndarray, x1: int, y1: int, x2: int, y2: int,
+                      crop: int, context_pad: int, use_square: bool,
+                      do_mirror: bool, mean: np.ndarray | None,
+                      scale: float) -> np.ndarray:
+    """The window crop of window_data_layer.cpp:300-420: expand the
+    region by context_scale = crop/(crop - 2·context_pad) around its
+    center (squared first in "square" crop_mode), clip to the image, warp
+    the clipped part by the *unclipped* scale factors, and paste it at
+    the pad offset into a zeroed crop×crop buffer (out-of-image context
+    stays 0 after mean subtraction).  Rounds half to even, as Python's
+    ``round`` and the JAX package do."""
+    c, rows, cols = img.shape
+    pad_w = pad_h = 0
+    crop_w = crop_h = crop
+    if context_pad > 0 or use_square:
+        if 2 * context_pad >= crop:
+            raise ValueError(
+                f"context_pad {context_pad} must be less than half the "
+                f"net input size {crop} (window_data_layer.cpp context "
+                f"scale would invert)")
+        context_scale = crop / (crop - 2.0 * context_pad)
+        half_h = (y2 - y1 + 1) / 2.0
+        half_w = (x2 - x1 + 1) / 2.0
+        cx, cy = x1 + half_w, y1 + half_h
+        if use_square:
+            half_h = half_w = max(half_h, half_w)
+        x1 = int(round(cx - half_w * context_scale))
+        x2 = int(round(cx + half_w * context_scale))
+        y1 = int(round(cy - half_h * context_scale))
+        y2 = int(round(cy + half_h * context_scale))
+        unclipped_h, unclipped_w = y2 - y1 + 1, x2 - x1 + 1
+        pad_x1, pad_y1 = max(0, -x1), max(0, -y1)
+        pad_x2 = max(0, x2 - cols + 1)
+        pad_y2 = max(0, y2 - rows + 1)
+        x1, x2 = x1 + pad_x1, x2 - pad_x2
+        y1, y2 = y1 + pad_y1, y2 - pad_y2
+        clipped_h, clipped_w = y2 - y1 + 1, x2 - x1 + 1
+        scale_x, scale_y = crop / unclipped_w, crop / unclipped_h
+        crop_w = int(round(clipped_w * scale_x))
+        crop_h = int(round(clipped_h * scale_y))
+        pad_x1 = int(round(pad_x1 * scale_x))
+        pad_x2 = int(round(pad_x2 * scale_x))
+        pad_y1 = int(round(pad_y1 * scale_y))
+        pad_h = pad_y1
+        pad_w = pad_x2 if do_mirror else pad_x1  # mirrored padding
+        crop_h = min(crop_h, crop - pad_h)
+        crop_w = min(crop_w, crop - pad_w)
+    window = img[:, y1:y2 + 1, x1:x2 + 1]
+    warped = _warp(window, crop_h, crop_w)
+    if do_mirror:
+        warped = warped[:, :, ::-1]
+    if mean is not None:
+        warped = warped - mean
+    out = np.zeros((c, crop, crop), np.float32)
+    out[:, pad_h:pad_h + crop_h, pad_w:pad_w + crop_w] = warped * scale
+    return out
+
+
+def feed_for_layer(lp, phase: Phase, seed: int = 0,
+                   device: str | torch.device = "cuda", **kw):
     """The host feed of a data layer, the analog of LayerRegistry creating
-    the right data layer (layer_factory.hpp).  ``kw`` goes to
-    :func:`db_feed`."""
+    the right data layer (layer_factory.hpp).  Images decode on
+    ``device``; ``kw`` goes to :func:`db_feed`."""
     if lp.type == "Data":
-        return db_feed(lp, phase, seed=seed, **kw)
-    if lp.type in ("ImageData", "WindowData"):
-        raise NotImplementedError(
-            f"layer {lp.name!r} ({lp.type}) ({IMAGE_DECODING})")
+        return db_feed(lp, phase, seed=seed, device=device, **kw)
+    if lp.type == "ImageData":
+        return image_data_feed(lp, phase, seed=seed, device=device)
+    if lp.type == "WindowData":
+        return window_data_feed(lp, phase, seed=seed, device=device)
     if lp.type == "HDF5Data":
         raise NotImplementedError(
             f"layer {lp.name!r} (HDF5Data) ({HDF5_ITEM})")
@@ -399,3 +677,133 @@ def feed_for_net(net_param, phase: Phase, seed: int = 0, **kw):
     raise ValueError(
         f"net has no DB/file-backed data layer for phase {phase}; feed it "
         "explicitly (set_train_data/set_test_data)")
+
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
+
+def _pack(tops, imgs, labels) -> dict[str, np.ndarray]:
+    out = {tops[0]: np.asarray(np.stack(imgs), np.float32)}
+    if len(tops) > 1:
+        out[tops[1]] = np.asarray(labels, np.float32)
+    return out
+
+
+def read_image_list(source: str, root: str = "") -> list[tuple[str, int]]:
+    """"path label" lines (any whitespace between, as Caffe's
+    istringstream reads them) -> [(root/path, label)]."""
+    entries = []
+    with open(source) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            path, label = line.rsplit(None, 1)
+            entries.append((os.path.join(root, path), int(label)))
+    if not entries:
+        raise ValueError(f"{source}: empty image list")
+    return entries
+
+
+def load_image(path: str, new_h: int, new_w: int, color: bool,
+               device: str | torch.device = "cuda") -> np.ndarray:
+    """An image file -> (C,H,W) float32 0-255, decoded on ``device``.
+
+    A JPEG with a new size goes through the JPEG decoder and its
+    force-resize (ScaleAndConvert semantics; gray: the mean of the three
+    resized channels); at its own size, RGB or, gray, integer ITU-R 601
+    luma.  On the CPU everything else takes the JAX package's PIL path
+    (PIL's own BILINEAR resize); on the card a file that is no JPEG, or
+    one libjpeg refuses, raises naming its ROADMAP A15 item.  The read
+    retries transient I/O errors (SPARKNET_IO_RETRIES/_BACKOFF)."""
+
+    def read() -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    raw = io_retry(read, describe=f"read {path}")
+    sized = bool(new_h and new_w)
+    if raw[:2] == jpeg.SOI and sized:
+        img = jpeg.decode_jpeg_resize(raw, new_h, new_w, device,
+                                      gray=not color)
+        if img is not None:
+            return img.cpu().numpy()
+    if resolve_device(device).type == "cpu":
+        return jpeg.pil_image(raw, "RGB" if color else "L",
+                              (new_h, new_w) if sized else None)
+    if raw[:2] == jpeg.SOI and not sized:
+        if color:
+            img = jpeg.decode_jpeg(raw, device)
+        else:
+            rgb = jpeg.decode_rgb(raw, device)
+            img = None if rgb is None else jpeg.luma601(rgb)
+        if img is not None:
+            return img.cpu().numpy()
+    if raw[:2] != jpeg.SOI:
+        raise NotImplementedError(f"{path} is no JPEG ({NOT_JPEG_ITEM})")
+    raise NotImplementedError(
+        f"{path}: a JPEG the native decoder refuses, which the JAX package "
+        f"reads with PIL ({REFUSED_JPEG_ITEM})")
+
+
+def _warp(window: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Bilinear force-resize in float64 (the warp of
+    window_data_layer.cpp): ``np.linspace`` sample points, float64
+    weights, one cast to float32 at the end."""
+    c, h, w = window.shape
+    if h == out_h and w == out_w:
+        return window.astype(np.float32)
+    ys = np.linspace(0, h - 1, out_h)
+    xs = np.linspace(0, w - 1, out_w)
+    y0 = np.floor(ys).astype(int)
+    x0 = np.floor(xs).astype(int)
+    y1 = np.minimum(y0 + 1, h - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    wy = (ys - y0)[None, :, None]
+    wx = (xs - x0)[None, None, :]
+    p00 = window[:, y0][:, :, x0]
+    p01 = window[:, y0][:, :, x1]
+    p10 = window[:, y1][:, :, x0]
+    p11 = window[:, y1][:, :, x1]
+    return ((1 - wy) * ((1 - wx) * p00 + wx * p01)
+            + wy * ((1 - wx) * p10 + wx * p11)).astype(np.float32)
+
+
+def read_window_file(source: str, fg_threshold: float, bg_threshold: float):
+    """Parse the R-CNN window file format (window_data_layer.cpp:71-132):
+    repeated blocks of::
+
+        # <image_index>
+        <image_path>
+        <channels> <height> <width>
+        <num_windows>
+        <label> <overlap> <x1> <y1> <x2> <y2>   (× num_windows)
+
+    Returns (images, fg_windows, bg_windows) with windows as
+    (image_idx, label, overlap, x1, y1, x2, y2)."""
+    images: list[tuple[str, tuple[int, int, int]]] = []
+    fg, bg = [], []
+    with open(source) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    i = 0
+    while i < len(lines):
+        if not lines[i].startswith("#"):
+            raise ValueError(f"{source}: expected '# index' at line {i}")
+        path = lines[i + 1]
+        c, h, w = (int(v) for v in lines[i + 2].split())
+        num = int(lines[i + 3])
+        img_idx = len(images)
+        images.append((path, (c, h, w)))
+        i += 4
+        for _ in range(num):
+            parts = lines[i].split()
+            i += 1
+            label, overlap = int(parts[0]), float(parts[1])
+            x1, y1, x2, y2 = (int(v) for v in parts[2:6])
+            win = (img_idx, label, overlap, x1, y1, x2, y2)
+            if overlap >= fg_threshold:
+                fg.append(win)
+            elif overlap < bg_threshold:
+                bg.append(win)
+    return images, fg, bg

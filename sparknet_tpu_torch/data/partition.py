@@ -5,7 +5,8 @@ The port's copy of the part of ``sparknet_tpu/data/partition.py``
 data as Spark RDDs (reference: src/main/scala/loaders/ImageNetLoader.scala:91;
 coalesce and per-partition sizes at src/main/scala/apps/ImageNetApp.scala:
 89-95); this class keeps the same partition semantics on one host: one
-partition per worker.
+partition per worker.  A partition may be a list or a lazy sequence such
+as ``imagenet.LazyTarPartition``, which decodes its records on access.
 """
 
 from __future__ import annotations

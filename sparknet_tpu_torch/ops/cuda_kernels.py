@@ -30,6 +30,16 @@ forward, also returning ``scale``.
 (:277-341) under ``max_pool_vmem_bwd`` (:379-405): the MAX-pool backward
 with Caffe's first-maximum tie-break, any stride and padding.
 
+Two kernels have no TPU counterpart; they take the place of the libjpeg
+decode and resize of the JAX package's native pipeline
+(``sparknet_tpu/native/data_pipeline.cpp:202-276``).  ``ycc_to_rgb``
+(``csrc/jpeg.cu``) upsamples the chroma planes nvJPEG decodes and converts
+them to interleaved RGB with libjpeg-turbo's integer arithmetic;
+``resize_bilinear`` (``csrc/jpeg.cu``) force-resizes interleaved RGB into
+planar float32 with the native pipeline's float32 arithmetic
+(:248-272), bit for bit.  The same library binds nvJPEG itself, which
+``data/jpeg.py`` drives.
+
 The LRN kernels and the pool backward take a launch plan chosen here by
 shape (:func:`lrn_plan`, :func:`lrn_bwd_plan`, :func:`max_pool_bwd_plan`):
 plain functions that the CPU tests check for coverage and limits without
@@ -50,6 +60,7 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,9 +69,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 # kernel library name -> its source under csrc/ (each includes common.cuh)
 SOURCES = {"lrn": "lrn.cu", "lrn_bwd": "lrn_bwd.cu",
-           "maxpool_bwd": "maxpool_bwd.cu"}
+           "maxpool_bwd": "maxpool_bwd.cu", "jpeg": "jpeg.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v"]
+# library name -> the libraries it links beyond the CUDA runtime
+LINK_FLAGS = {"jpeg": ["-lnvjpeg"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library name -> {C function: argtypes}; every function returns the
@@ -81,12 +94,22 @@ _SIGNATURES = {
             [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I, _I,
              _I, _I, _I, _I, _I, _I, _P],
     },
+    "jpeg": {
+        "sparknet_jpeg_info": [_P, ctypes.c_longlong, _P],
+        "sparknet_jpeg_decode_rgbi": [_P, ctypes.c_longlong, _P, _I, _P],
+        "sparknet_jpeg_decode_planes":
+            [_P, ctypes.c_longlong, _P, _I, _P, _P, _I, _P],
+        "sparknet_ycc_to_rgb":
+            [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+        "sparknet_resize_bilinear": [_P, _I, _I, _I, _P, _I, _I, _I, _P],
+    },
 }
 
 # wrapper name -> kernel launches since the last reset
 launch_counts: dict[str, int] = {
     "lrn_across_channels": 0, "lrn_across_channels_fwd": 0,
-    "lrn_across_channels_bwd": 0, "max_pool_bwd": 0}
+    "lrn_across_channels_bwd": 0, "max_pool_bwd": 0, "ycc_to_rgb": 0,
+    "resize_bilinear": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
@@ -112,11 +135,12 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     """Build output, named by the hash of the source, the shared headers
-    and the flags, so an edited source never loads a stale library."""
+    and the compile and link flags, so an edited source or flag never
+    loads a stale library."""
     digest = hashlib.sha256((_CSRC / SOURCES[name]).read_bytes())
     for header in sorted(_CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, [])).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -136,7 +160,8 @@ def build(names=None) -> dict[str, dict]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (out, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])],
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name]),
+             *LINK_FLAGS.get(name, [])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     report = {}
     failed = []
@@ -638,3 +663,170 @@ def max_pool_bwd(x: torch.Tensor, dy: torch.Tensor, kh: int, kw: int,
             sh, sw, ph, pw, oh, ow, plan.planes_per_block, plan.band_rows,
             plan.smem_bytes, int(x.dtype == torch.bfloat16))
     return dx
+
+
+# ---------------------------------------------------------------------------
+# Decoded JPEGs: libjpeg's chroma upsampling and colour conversion, and the
+# bilinear force-resize (csrc/jpeg.cu)
+# ---------------------------------------------------------------------------
+
+def _sampling(plane: torch.Tensor, h: int, w: int) -> tuple[int, int]:
+    """(sub_h, sub_v) of a chroma plane of an h x w image: 1, or 2 when
+    the plane holds every other column (row), ceil(w / 2) of them."""
+    ch, cw = plane.shape
+    sub_h = 1 if cw == w else 2
+    sub_v = 1 if ch == h else 2
+    if cw != -(-w // sub_h) or ch != -(-h // sub_v):
+        raise ValueError(f"a {ch}x{cw} chroma plane fits no 4:4:4, 4:2:2 "
+                         f"or 4:2:0 sampling of a {h}x{w} image")
+    if (sub_h, sub_v) == (1, 2):
+        raise ValueError("4:4:0 chroma (every other row only) is not "
+                         "upsampled here")
+    return sub_h, sub_v
+
+
+def _upsample_reference(c: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """libjpeg-turbo's chroma upsampling of an (ch, cw) uint8 plane to (h,
+    w) int32: none for 4:4:4; for chroma at most 2 wide, replication
+    (jdsample.c h2v1_upsample, h2v2_upsample); else the fancy triangle
+    filters (h2v1_fancy_upsample, h2v2_fancy_upsample), edges replicated."""
+    sub_h, sub_v = _sampling(c, h, w)
+    c = c.to(torch.int32)
+    if sub_h == 1:
+        return c
+    if c.shape[1] <= 2:
+        return c.repeat_interleave(sub_v, 0).repeat_interleave(2, 1)[:h, :w]
+
+    def along_x(s, lo: int, hi: int, edge_scale: int):
+        """Even and odd outputs of each input column: (3 s[i] + s[i-1] +
+        lo) and (3 s[i] + s[i+1] + hi), the edge columns with
+        edge_scale * s alone."""
+        left = torch.cat([s[:, :1], s[:, :-1]], 1)
+        right = torch.cat([s[:, 1:], s[:, -1:]], 1)
+        even, odd = 3 * s + left + lo, 3 * s + right + hi
+        even[:, 0] = edge_scale * s[:, 0] + lo
+        odd[:, -1] = edge_scale * s[:, -1] + hi
+        return torch.stack([even, odd], 2).reshape(s.shape[0], -1)
+
+    if sub_v == 1:
+        out = along_x(c, 1, 2, 4) >> 2
+    else:
+        up = torch.cat([c[:1], c[:-1]], 0)
+        down = torch.cat([c[1:], c[-1:]], 0)
+        rows = [along_x(3 * c + far, lo, lo - 1, 4) >> 4
+                for far, lo in ((up, 8), (down, 8))]
+        out = torch.stack(rows, 1).reshape(2 * c.shape[0], -1)
+    return out[:h, :w]
+
+
+def ycc_to_rgb_reference(y: torch.Tensor, cb: torch.Tensor,
+                         cr: torch.Tensor) -> torch.Tensor:
+    """Plain version of the colour conversion: Y (H, W) and Cb, Cr planes
+    at their sampling, uint8, to (H, W, 3) uint8 RGB as libjpeg-turbo
+    decodes (jdcolor.c ycc_rgb_convert: Cr=>R nearest 1.40200 Cr, Cb=>B
+    nearest 1.77200 Cb, G = Y + floor((-22554 Cb - 46802 Cr + 2^15) /
+    2^16), clamped)."""
+    h, w = y.shape
+    luma = y.to(torch.int32)
+    b_ = _upsample_reference(cb, h, w) - 128
+    r_ = _upsample_reference(cr, h, w) - 128
+    rgb = torch.stack([luma + ((91881 * r_ + 32768) >> 16),
+                       luma + ((-22554 * b_ + 32768 - 46802 * r_) >> 16),
+                       luma + ((116130 * b_ + 32768) >> 16)], -1)
+    return rgb.clamp(0, 255).to(torch.uint8)
+
+
+def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor,
+               cr: torch.Tensor) -> torch.Tensor:
+    """Y (H, W) and Cb, Cr (sampled 4:4:4, 4:2:2 or 4:2:0) uint8 planes
+    to (H, W, 3) uint8 RGB, chroma upsampled and converted as libjpeg-turbo
+    does: the CUDA kernel on CUDA tensors, the plain version on CPU
+    tensors, equal bit for bit."""
+    if y.device.type == "cpu":
+        return ycc_to_rgb_reference(y, cb, cr)
+    what = "ycc_to_rgb"
+    for name, t in (("y", y), ("cb", cb), ("cr", cr)):
+        if t.device != y.device or t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}, y on "
+                             f"{y.device}")
+        if t.dtype != torch.uint8 or t.dim() != 2 or not t.is_contiguous():
+            raise TypeError(f"{what}: {name} must be a contiguous 2-D "
+                            f"uint8 plane, got {t.dtype} {tuple(t.shape)}")
+    if cb.shape != cr.shape:
+        raise ValueError(f"{what}: Cb {tuple(cb.shape)} != Cr "
+                         f"{tuple(cr.shape)}")
+    h, w = y.shape
+    if not 1 <= h <= 65535 or w < 1:
+        raise ValueError(f"{what}: a {h}x{w} image")
+    sub_h, sub_v = _sampling(cb, h, w)
+    out = torch.empty((h, w, 3), dtype=torch.uint8, device=y.device)
+    _launch(what, "jpeg", "sparknet_ycc_to_rgb", y.device, y.data_ptr(), w,
+            cb.data_ptr(), cr.data_ptr(), cb.shape[1], h, w, cb.shape[0],
+            cb.shape[1], sub_h, sub_v, out.data_ptr(), 3 * w)
+    return out
+
+def _resize_taps(n_in: int, n_out: int):
+    """Source indices (lower, upper) and the upper tap's weight of each
+    output index along one axis, in float32 as the native pipeline forms
+    them: the scale (n_in - 1) / (n_out - 1) divided in float32, its
+    product with the index truncated."""
+    f32 = torch.float32
+    scale = (np.float32(n_in - 1) / np.float32(n_out - 1)
+             if n_in > 1 and n_out > 1 else np.float32(0))
+    f = torch.arange(n_out, dtype=f32) * torch.tensor(scale, dtype=f32)
+    i0 = f.to(torch.int64)
+    i1 = torch.where(i0 + 1 < n_in, i0 + 1, i0)
+    return i0, i1, f - i0.to(f32)
+
+
+def resize_bilinear_reference(src: torch.Tensor, out_h: int, out_w: int,
+                              gray: bool = False) -> torch.Tensor:
+    """Plain version of the resize: ``src`` (H, W, 3) uint8, interleaved
+    RGB, to planar float32 (3, out_h, out_w), aligned corners, each value
+    ``(1-wy)*((1-wx)*p00 + wx*p01) + wy*((1-wx)*p10 + wx*p11)`` in float32
+    in that order (sparknet_tpu/native/data_pipeline.cpp:248-272).  With
+    ``gray``, (1, out_h, out_w): ((R + G) + B) / 3 of those, numpy's
+    float32 mean over the channel axis."""
+    y0, y1, wy = (t.to(src.device) for t in _resize_taps(src.shape[0],
+                                                           out_h))
+    x0, x1, wx = (t.to(src.device) for t in _resize_taps(src.shape[1],
+                                                           out_w))
+    p = src.permute(2, 0, 1).to(torch.float32)
+    r0, r1 = p[:, y0], p[:, y1]
+    wy, wx = wy[:, None], wx[None, :]
+    v = ((1 - wy) * ((1 - wx) * r0[:, :, x0] + wx * r0[:, :, x1])
+         + wy * ((1 - wx) * r1[:, :, x0] + wx * r1[:, :, x1]))
+    if gray:
+        # divided by a tensor: a CUDA tensor divided by a Python number is
+        # multiplied by its reciprocal, which rounds otherwise
+        return ((v[0] + v[1] + v[2]) / torch.full_like(v[0], 3.0))[None]
+    return v
+
+
+def resize_bilinear(src: torch.Tensor, out_h: int, out_w: int,
+                    gray: bool = False) -> torch.Tensor:
+    """Force-resize an interleaved RGB image, (H, W, 3) uint8 with rows
+    ``src.stride(0)`` bytes apart, to planar float32 (3, out_h, out_w),
+    or (1, out_h, out_w) gray: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors, equal bit for bit."""
+    if src.device.type == "cpu":
+        return resize_bilinear_reference(src, out_h, out_w, gray)
+    what = "resize_bilinear"
+    if src.device.type != "cuda":
+        raise ValueError(f"{what}: wants a CPU or CUDA tensor, got one on "
+                         f"{src.device}")
+    if src.dtype != torch.uint8 or src.dim() != 3 or src.shape[2] != 3:
+        raise TypeError(f"{what}: wants an (H, W, 3) uint8 image, got "
+                        f"{src.dtype} {tuple(src.shape)}")
+    if src.stride(2) != 1 or src.stride(1) != 3:
+        raise ValueError(f"{what}: wants interleaved rows (strides (pitch, "
+                         f"3, 1)), got {src.stride()}")
+    h, w = src.shape[0], src.shape[1]
+    if min(h, w, out_h, out_w) < 1 or out_h > 65535:
+        raise ValueError(f"{what}: a {h}x{w} image to {out_h}x{out_w}")
+    out = torch.empty((1 if gray else 3, out_h, out_w), dtype=torch.float32,
+                      device=src.device)
+    _launch(what, "jpeg", "sparknet_resize_bilinear", src.device,
+            src.data_ptr(), h, w, src.stride(0), out.data_ptr(), out_h,
+            out_w, int(gray))
+    return out

@@ -2,17 +2,17 @@
 
 Counterparts of ``sparknet_tpu/ops/data.py`` (reference:
 java_data_layer.cpp, caffe InputLayer, memory_data_layer.cpp,
-data_layer.cpp, dummy_data_layer.cpp).  ``JavaData``, ``Input``,
-``MemoryData`` and ``Data`` are graph inputs: their tops are bound by the
-caller of ``Net.apply`` (for ``Data``, from ``data/db.py::db_feed``), and
-they compute nothing.  ``DummyData`` computes its tops from fillers.
-``ImageData``, ``WindowData``, ``HDF5Data`` and ``HDF5Output`` are
+data_layer.cpp, image_data_layer.cpp, window_data_layer.cpp,
+dummy_data_layer.cpp).  ``JavaData``, ``Input``, ``MemoryData``,
+``Data``, ``ImageData`` and ``WindowData`` are graph inputs: their tops
+are bound by the caller of ``Net.apply`` (for the last three, from
+``data/db.py``'s feeds), and they compute nothing.  ``DummyData``
+computes its tops from fillers.  ``HDF5Data`` and ``HDF5Output`` are
 registered so that a net naming them fails with its ROADMAP item.
 """
 
 from __future__ import annotations
 
-from ..data.db import HDF5_ITEM, IMAGE_DECODING
 from ..proto.caffe_pb import BlobShape, FillerParameter
 from .fillers import fill
 from .registry import LayerImpl, register_layer
@@ -68,19 +68,19 @@ class MemoryDataLayer(InputLikeLayer):
 @register_layer("Data")
 class DataLayer(InputLikeLayer):
     """LMDB/LevelDB-backed data layer (data_layer.cpp).  Shape inference
-    peeks the first Datum, as DataLayer::DataLayerSetUp does, and applies
-    ``crop_size``; the host feed is ``data/db.py::db_feed``."""
+    peeks the first Datum, as DataLayer::DataLayerSetUp does (an encoded
+    one's shape read from its fields or its JPEG header, not decoded),
+    and applies ``crop_size``; the host feed is ``data/db.py::db_feed``."""
 
     def out_shapes(self, lp, bottom_shapes):
-        from ..data.db import datum_to_array, open_db
+        from ..data.db import datum_shape, open_db
         p = lp.sub("data_param")
         source = p.get("source")
         if source is None:
             raise ValueError(f"Data layer {lp.name!r} missing source")
         batch = int(p.get("batch_size", 1))
         with open_db(str(source), str(p.get("backend", "LEVELDB"))) as db:
-            img, _label = datum_to_array(db.first()[1], source=str(source))
-        c, h, w = img.shape
+            c, h, w = datum_shape(db.first()[1], source=str(source))
         crop = int(lp.sub("transform_param").get("crop_size", 0))
         if crop:
             h = w = crop
@@ -90,35 +90,76 @@ class DataLayer(InputLikeLayer):
         return shapes
 
 
-class NotPortedDataLayer(InputLikeLayer):
-    """A data layer the port refuses by name: building a net with it
-    raises ``NotImplementedError`` naming its ROADMAP item."""
-
-    item = ""
+@register_layer("ImageData")
+class ImageDataLayer(InputLikeLayer):
+    """File-list image data layer (image_data_layer.cpp): ``source`` is a
+    text file of "path label" lines; the host feed is
+    ``data/db.py::image_data_feed``.  Without a new size the first
+    image's own size, read from its header, as ImageDataLayer reads the
+    first image for its shape."""
 
     def out_shapes(self, lp, bottom_shapes):
-        raise NotImplementedError(
-            f"layer {lp.name!r} ({lp.type}) ({self.item})")
-
-
-@register_layer("ImageData")
-class ImageDataLayer(NotPortedDataLayer):
-    item = IMAGE_DECODING
+        from ..data.db import _image_size, read_image_list
+        p = lp.sub("image_data_param")
+        source = p.get("source")
+        if source is None:
+            raise ValueError(f"ImageData layer {lp.name!r} missing source")
+        batch = int(p.get("batch_size", 1))
+        new_h = int(p.get("new_height", 0))
+        new_w = int(p.get("new_width", 0))
+        c = 3 if bool(p.get("is_color", True)) else 1
+        if new_h and new_w:
+            h, w = new_h, new_w
+        else:
+            path, _ = read_image_list(str(source),
+                                      str(p.get("root_folder", "")))[0]
+            with open(path, "rb") as f:
+                h, w = _image_size(f.read(), path)
+        crop = int(lp.sub("transform_param").get("crop_size", 0))
+        if crop:
+            h = w = crop
+        shapes = [(batch, c, h, w)]
+        if len(lp.top) > 1:
+            shapes.append((batch,))
+        return shapes
 
 
 @register_layer("WindowData")
-class WindowDataLayer(NotPortedDataLayer):
-    item = IMAGE_DECODING
+class WindowDataLayer(InputLikeLayer):
+    """R-CNN window sampling data layer (window_data_layer.cpp): fg/bg
+    windows cropped, context-padded and warped to ``crop_size`` (227 by
+    default); the host feed is ``data/db.py::window_data_feed``."""
+
+    def out_shapes(self, lp, bottom_shapes):
+        p = lp.sub("window_data_param")
+        if p.get("source") is None:
+            raise ValueError(f"WindowData layer {lp.name!r} missing source")
+        batch = int(p.get("batch_size", 1))
+        crop = int(lp.sub("transform_param").get("crop_size", 0)) or 227
+        shapes = [(batch, 3, crop, crop)]
+        if len(lp.top) > 1:
+            shapes.append((batch,))
+        return shapes
+
+
+class HDF5NotPortedLayer(InputLikeLayer):
+    """An HDF5 layer, refused by name: building a net with it raises
+    ``NotImplementedError`` naming ROADMAP A6."""
+
+    def out_shapes(self, lp, bottom_shapes):
+        from ..data.db import HDF5_ITEM
+        raise NotImplementedError(
+            f"layer {lp.name!r} ({lp.type}) ({HDF5_ITEM})")
 
 
 @register_layer("HDF5Data")
-class HDF5DataLayer(NotPortedDataLayer):
-    item = HDF5_ITEM
+class HDF5DataLayer(HDF5NotPortedLayer):
+    pass
 
 
 @register_layer("HDF5Output")
-class HDF5OutputLayer(NotPortedDataLayer):
-    item = HDF5_ITEM
+class HDF5OutputLayer(HDF5NotPortedLayer):
+    pass
 
 
 @register_layer("DummyData")

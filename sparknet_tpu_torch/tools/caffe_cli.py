@@ -15,8 +15,10 @@ Usage:
   python -m sparknet_tpu_torch.tools.caffe_cli device_query
 
 Every action runs on the card (``--device cuda``, the default) and raises
-without one; ``--device cpu`` runs on the CPU when asked.  ``Data`` layers
-feed themselves from their LMDB or LevelDB (``data/db.py::feed_for_net``)
+without one; ``--device cpu`` runs on the CPU when asked.  ``Data``
+layers feed themselves from their LMDB or LevelDB, ``ImageData`` from
+its list of image files and ``WindowData`` from its window file
+(``data/db.py::feed_for_net``), JPEGs decoded on the run's device,
 through the prefetching ``data/prefetch.py::device_feed``.  ``--devices
 N`` trains N workers on the one card through ``DistributedTrainer``;
 ``--strategy hierarchical`` (ROADMAP A5) and ``--hosts`` (ROADMAP A12)
@@ -97,19 +99,21 @@ def _train(args) -> int:
         if not solver.test_nets[i].input_blobs:
             continue
         try:
-            feed_for_net(ts, Phase.TEST).close()   # finds the data layer
+            # finds the data layer
+            feed_for_net(ts, Phase.TEST, device=dev).close()
         except ValueError as e:
             print(f"WARNING: test net #{i} feed unavailable, skipping "
                   f"eval for it: {e}", file=sys.stderr)
             continue
-        solver.set_test_data(lambda ts=ts: feed_for_net(ts, Phase.TEST),
+        solver.set_test_data(lambda ts=ts: feed_for_net(ts, Phase.TEST,
+                                                         device=dev),
                              net_id=i)
 
     host_stats, put_stats = FeedStats(), FeedStats()
     feed = None
     if solver.train_net.input_blobs:
         feed = device_feed(feed_for_net(net_param, Phase.TRAIN,
-                                        stats=host_stats), dev,
+                                        stats=host_stats, device=dev), dev,
                            stats=put_stats)
     timed = TimedFeed(feed) if feed is not None else None
     try:
@@ -202,7 +206,7 @@ def _train_multi(args, sp, dev) -> int:
         print(f"Resuming from {args.snapshot} (iter {trainer.iter})")
 
     net_param = sp.net_param or sp.train_net_param
-    feed = feed_for_net(net_param, Phase.TRAIN)
+    feed = feed_for_net(net_param, Phase.TRAIN, device=dev)
     bpr = trainer.batches_per_round
 
     def host_rounds():
@@ -225,8 +229,9 @@ def _train_multi(args, sp, dev) -> int:
                   "on the shared net's definition in --devices mode",
                   file=sys.stderr)
         try:
-            feed_for_net(net_param, Phase.TEST).close()
-            test_feed_src = lambda: feed_for_net(net_param, Phase.TEST)
+            feed_for_net(net_param, Phase.TEST, device=dev).close()
+            test_feed_src = lambda: feed_for_net(net_param, Phase.TEST,
+                                                 device=dev)
         except ValueError as e:
             print(f"WARNING: test feed unavailable, skipping eval: {e}",
                   file=sys.stderr)
@@ -306,7 +311,8 @@ def run_test_net(model: str, weights: str | None, iterations: int,
     if weights:
         params = load_weights_into(net, params, weights)
     gen = torch.Generator().manual_seed(2)
-    feed = feed_for_net(net_param, Phase.TEST) if net.input_blobs else None
+    feed = (feed_for_net(net_param, Phase.TEST, device=dev)
+            if net.input_blobs else None)
     try:
         for _ in range(iterations):
             with torch.no_grad(), full_f32():

@@ -3,11 +3,12 @@
 The port's counterpart of ``sparknet_tpu/tools/compute_image_mean.py``
 (:16-55; reference: caffe/tools/compute_image_mean.cpp): the per-pixel
 mean accumulated in float64 and written as f32 through
-``proto/caffemodel.py::save_mean_binaryproto``.
+``proto/caffemodel.py::save_mean_binaryproto``.  Encoded Datums are
+decoded on ``--device`` (the card by default).
 
 Usage:
   python -m sparknet_tpu_torch.tools.compute_image_mean INPUT_DB \\
-      [OUTPUT_FILE] [--backend lmdb|leveldb]
+      [OUTPUT_FILE] [--backend lmdb|leveldb] [--device cpu]
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import argparse
 import numpy as np
 
 
-def compute_mean(input_db: str, backend: str = "lmdb") -> np.ndarray:
+def compute_mean(input_db: str, backend: str = "lmdb",
+                 device: str = "cuda") -> np.ndarray:
     """The (C, H, W) f32 mean of every Datum of ``input_db``, summed in
     float64; raises on an empty DB or records of differing shapes."""
     from ..data.db import datum_to_array, open_db
@@ -25,7 +27,8 @@ def compute_mean(input_db: str, backend: str = "lmdb") -> np.ndarray:
     n = 0
     with open_db(input_db, backend.upper()) as db:
         for key, val in db.items():
-            img, _label = datum_to_array(val, key=key, source=input_db)
+            img, _label = datum_to_array(val, key=key, source=input_db,
+                                         device=device)
             if acc is None:
                 acc = np.zeros(img.shape, np.float64)
             elif acc.shape != img.shape:
@@ -47,8 +50,10 @@ def main(argv=None) -> int:
     ap.add_argument("input_db")
     ap.add_argument("output_file", nargs="?", default=None)
     ap.add_argument("--backend", choices=["lmdb", "leveldb"], default="lmdb")
+    ap.add_argument("--device", default="cuda",
+                    help="where encoded Datums decode: cuda (default) or cpu")
     args = ap.parse_args(argv)
-    mean = compute_mean(args.input_db, args.backend)
+    mean = compute_mean(args.input_db, args.backend, args.device)
     if args.output_file:
         from ..proto.caffemodel import save_mean_binaryproto
         save_mean_binaryproto(args.output_file, mean)

@@ -8,9 +8,12 @@ without ``--device-preprocess``, ``--strategy sync``, ``--snapshot`` and
 224 crop.  For the same seeds the port's synthetic data, partitions, mean
 image, train rounds (the ``RoundFeed`` with ``random_crop_mirror``) and
 test batches (``eval_feed`` with ``center_crop``) equal the JAX
-package's byte for byte.  ``run_training``'s signals: a SIGHUP raised
-while a round is built snapshots and the run goes on; a SIGINT stops it
-at the next round boundary after a snapshot.
+package's byte for byte.  Without ``--synthetic`` and without
+``--tar-dir`` the app trains on synthetic data, as the JAX app does
+(``--tar-dir`` itself: tests/test_torch_imagenet.py).
+``run_training``'s signals: a SIGHUP raised while a round is built
+snapshots and the run goes on; a SIGINT stops it at the next round
+boundary after a snapshot.
 """
 
 from __future__ import annotations
@@ -106,9 +109,15 @@ def test_imagenet_app_googlenet_refuses_to_leave_the_card_unasked(
         imagenet_app.main(argv)
 
 
-def test_imagenet_app_has_synthetic_data_only():
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        imagenet_app.main(TINY[1:])
+def test_imagenet_app_without_tar_dir_trains_on_synthetic_data():
+    """Neither ``--synthetic`` nor ``--tar-dir``: synthetic data, as the
+    JAX app does (sparknet_tpu/apps/imagenet_app.py:105), the same run as
+    with ``--synthetic``."""
+    plain = imagenet_app.main(TINY[1:])
+    synthetic = imagenet_app.main(TINY)
+    assert plain.trainer.round_losses == synthetic.trainer.round_losses
+    assert plain.scores == synthetic.scores
+    assert all(math.isfinite(v) for v in plain.trainer.round_losses.values())
 
 
 def test_feed_equals_the_jax_feed_byte_for_byte():

@@ -266,23 +266,49 @@ def _encoded_db(path):
     write_lmdb(path, [(b"00000000", encode(m, "Datum"))])
 
 
+def test_undecodable_encoded_db_raises_as_the_jax_cli(tool, tmp_path):
+    """An LMDB whose one Datum is a 4-byte JPEG start: both CLIs raise
+    ``DataCorruptionError`` while building the net."""
+    from sparknet_tpu.data.integrity import DataCorruptionError as JaxDCE
+    from sparknet_tpu_torch.data.integrity import DataCorruptionError
+    _encoded_db(str(tmp_path / "enc"))
+    model = tmp_path / "enc.prototxt"
+    model.write_text(NET.format(db=tmp_path / "enc"))
+    solver = _solver(tmp_path, model, "train_enc")
+    with pytest.raises(DataCorruptionError, match="undecodable"):
+        caffe_cli.main(["train", "--solver", solver, "--device", "cpu"])
+    with pytest.raises(JaxDCE, match="undecodable"):
+        jax_cli.main(["train", "--solver", solver])
+
+
+@pytest.mark.parametrize("kind", ["ImageData", "WindowData"])
+def test_image_layers_without_their_params_raise_as_the_jax_cli(
+        tool, tmp_path, kind):
+    """A Data layer's prototxt retyped ImageData or WindowData has no
+    source of its kind: both CLIs raise the same ``ValueError``."""
+    d, _, _ = tool
+    model = tmp_path / "img.prototxt"
+    model.write_text(NET.format(db=d / "train_lmdb").replace(
+        'type: "Data"', f'type: "{kind}"'))
+    with pytest.raises(ValueError, match="missing source") as ours:
+        caffe_cli.main(["train", "--solver", _solver(tmp_path, model, "i"),
+                        "--device", "cpu"])
+    with pytest.raises(ValueError, match="missing source") as theirs:
+        jax_cli.main(["train", "--solver", _solver(tmp_path, model, "ji")])
+    assert str(ours.value) == str(theirs.value)
+
+
 @pytest.mark.parametrize("case,item", [
-    ("encoded", "ROADMAP A15"), ("records", "ROADMAP A6, records"),
-    ("ImageData", "ROADMAP A15"), ("WindowData", "ROADMAP A15"),
-    ("HDF5Data", "ROADMAP A6, HDF5"), ("hierarchical", "ROADMAP A5"),
-    ("hosts", "ROADMAP A12")])
+    ("records", "ROADMAP A6, records"), ("HDF5Data", "ROADMAP A6, HDF5"),
+    ("hierarchical", "ROADMAP A5"), ("hosts", "ROADMAP A12")])
 def test_refusals_name_their_item(tool, tmp_path, case, item):
     d, model, _ = tool
     extra = []
-    if case == "encoded":
-        _encoded_db(str(tmp_path / "enc"))
-        model = tmp_path / "enc.prototxt"
-        model.write_text(NET.format(db=tmp_path / "enc"))
-    elif case == "records":
+    if case == "records":
         model = tmp_path / "rec.prototxt"
         model.write_text(NET.format(db=d / "train_lmdb").replace(
             "backend: LMDB", "backend: RECORDS"))
-    elif case in ("ImageData", "WindowData", "HDF5Data"):
+    elif case == "HDF5Data":
         model = tmp_path / "img.prototxt"
         model.write_text(NET.format(db=d / "train_lmdb").replace(
             'type: "Data"', f'type: "{case}"'))

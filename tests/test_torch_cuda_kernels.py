@@ -350,7 +350,8 @@ def test_cuda_training_step_goes_through_every_kernel():
         if dev == "cuda":
             assert ck.launch_counts == {
                 "lrn_across_channels": 0, "lrn_across_channels_fwd": 8,
-                "lrn_across_channels_bwd": 8, "max_pool_bwd": 12}
+                "lrn_across_channels_bwd": 8, "max_pool_bwd": 12,
+                "ycc_to_rgb": 0, "resize_bilinear": 0}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
@@ -412,11 +413,13 @@ def test_cuda_zoo_training_step_launches_its_kernels(model):
     if model == "googlenet":
         net, shape, classes = googlenet(2, 2), (1, 2, 3, 224, 224), 1000
         want = {"lrn_across_channels": 0, "lrn_across_channels_fwd": 2,
-                "lrn_across_channels_bwd": 2, "max_pool_bwd": 13}
+                "lrn_across_channels_bwd": 2, "max_pool_bwd": 13,
+                "ycc_to_rgb": 0, "resize_bilinear": 0}
     else:
         net, shape, classes = cifar10_full(4, 4), (1, 4, 3, 32, 32), 10
         want = {"lrn_across_channels": 0, "lrn_across_channels_fwd": 0,
-                "lrn_across_channels_bwd": 0, "max_pool_bwd": 1}
+                "lrn_across_channels_bwd": 0, "max_pool_bwd": 1,
+                "ycc_to_rgb": 0, "resize_bilinear": 0}
     sp = load_solver_prototxt_with_net(
         'base_lr: 0.001\nmomentum: 0.9\nweight_decay: 0.004\n', net)
     rng = np.random.default_rng(0)

@@ -25,7 +25,9 @@ its fillers against the JAX package's, on the CPU.
   scale) through both Solvers from one ``.caffemodel`` for 10 steps:
   losses within rtol 2e-4, atol 2e-5 (tests/test_torch_solver.py's
   bound).
-- ImageData, WindowData, HDF5Data and HDF5Output refuse by ROADMAP item.
+- HDF5Data and HDF5Output refuse by ROADMAP item; ImageData and
+  WindowData without a ``source`` raise as the JAX package's do (their
+  feeds: tests/test_torch_image_data.py).
 """
 
 from __future__ import annotations
@@ -367,8 +369,17 @@ layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip" bottom: "label"
     assert ours[-1] != ours[0]
 
 
+@pytest.mark.parametrize("kind", ["ImageData", "WindowData"])
+def test_image_layers_without_a_source_raise_as_jax(kind):
+    txt = f'layer {{ name: "x" type: "{kind}" top: "data" }}'
+    with pytest.raises(ValueError, match="missing source") as ours:
+        Net(load_net_prototxt(txt), NetState(Phase.TRAIN))
+    with pytest.raises(ValueError, match="missing source") as theirs:
+        JaxNet(jax_load_net(txt), JaxNetState(JaxPhase.TRAIN))
+    assert str(ours.value) == str(theirs.value)
+
+
 @pytest.mark.parametrize("kind,item", [
-    ("ImageData", "ROADMAP A15"), ("WindowData", "ROADMAP A15"),
     ("HDF5Data", "ROADMAP A6, HDF5"), ("HDF5Output", "ROADMAP A6, HDF5")])
 def test_unported_data_layers_name_their_item(kind, item):
     txt = f'layer {{ name: "x" type: "{kind}" top: "data" }}'

@@ -265,11 +265,19 @@ def test_corrupt_datums_raise_with_key(case):
     assert str(ours.value) == str(theirs.value)
 
 
-def test_encoded_datum_names_image_decoding():
-    raw = _datum(channels=3, height=0, width=0, data=b"\xff\xd8\xff",
-                 encoded=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        db.datum_to_array(raw, key=b"k")
+@pytest.mark.parametrize("height,width", [(0, 0), (8, 8)])
+def test_undecodable_encoded_datum_raises_as_jax(height, width):
+    """A 4-byte JPEG start is an undecodable encoded Datum: both packages
+    raise ``DataCorruptionError`` naming its key (at its own size through
+    PIL, sized through libjpeg), on the CPU."""
+    raw = _datum(channels=3, height=height, width=width,
+                 data=b"\xff\xd8\xff\xe0", encoded=True)
+    with pytest.raises(integrity.DataCorruptionError) as ours:
+        db.datum_to_array(raw, key=b"k", source="src", device="cpu")
+    with pytest.raises(jint.DataCorruptionError) as theirs:
+        jdb.datum_to_array(raw, key=b"k", source="src")
+    assert ours.value.key == theirs.value.key == b"k"
+    assert str(ours.value).split(":")[0] == str(theirs.value).split(":")[0]
 
 
 POLICIES = [(0.0, 0, 10), (0.0, 2, 10), (0.25, 0, 10), (0.1, 1, 40),

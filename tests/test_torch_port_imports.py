@@ -2,7 +2,10 @@
 imports with ``jax``, ``google.protobuf`` and ``h5py`` blocked, and
 neither the package nor ``chip_smoke.py`` names ``jax`` or
 ``sparknet_tpu`` in an import, nor ``google.protobuf`` or ``h5py`` (the
-card's machine has neither: the wire codec is the port's own)."""
+card's machine has neither: the wire codec is the port's own).  PIL is
+imported only inside the CPU paths of ``data/jpeg.py``, and
+``imagenet_app --tar-dir`` trains with ``jax`` and ``sparknet_tpu``
+blocked."""
 
 from __future__ import annotations
 
@@ -121,3 +124,66 @@ def test_tools_are_scanned_and_caffe_cli_runs_with_jax_blocked(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "Iteration 2, loss" in out.stdout
     assert "Average Forward-Backward" in out.stdout
+
+
+def _pil_imports(path: pathlib.Path) -> list[tuple[int, bool]]:
+    """(line, inside a function) of each import of PIL in ``path``."""
+    tree = ast.parse(path.read_text(), str(path))
+    in_fn = {id(n) for f in ast.walk(tree)
+             if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for n in ast.walk(f)}
+    found = []
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 else [])
+        if any(n.split(".")[0] == "PIL" for n in names):
+            found.append((node.lineno, id(node) in in_fn))
+    return found
+
+
+def test_pil_is_imported_only_inside_the_cpu_paths_of_data_jpeg():
+    """The card's machine may lack PIL: only ``data/jpeg.py`` imports it,
+    inside the function its CPU paths call, never at module level."""
+    for path in SOURCES:
+        found = _pil_imports(path)
+        if path == PKG / "data" / "jpeg.py":
+            assert found and all(inside for _, inside in found), found
+        else:
+            assert not found, f"{path.relative_to(ROOT)} imports PIL"
+
+
+def test_imagenet_app_tar_dir_runs_with_jax_blocked(tmp_path):
+    """``imagenet_app --tar-dir`` trains from a tar of the JPEG fixtures
+    on the CPU with ``jax`` and ``sparknet_tpu`` blocked."""
+    import io
+    import tarfile
+    fixtures = PKG / "data" / "jpeg_fixtures"
+    jpegs = sorted(fixtures.glob("imagenet_*.jpg"))
+    lines = []
+    with tarfile.open(tmp_path / "t.tar", "w") as tf:
+        for i in range(8):
+            data = jpegs[i % len(jpegs)].read_bytes()
+            info = tarfile.TarInfo(f"x{i}.JPEG")
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+            lines.append(f"x{i}.JPEG {i % 3}")
+    (tmp_path / "labels.txt").write_text("\n".join(lines) + "\n")
+    argv = ["--tar-dir", str(tmp_path), "--label-file",
+            str(tmp_path / "labels.txt"), "--device", "cpu", "--workers",
+            "2", "--batch", "2", "--tau", "1", "--rounds", "1",
+            "--resize", "72", "--crop", "67", "--classes", "3"]
+    code = (
+        "import sys, math\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sparknet_tpu'] = None\n"
+        "from sparknet_tpu_torch.apps import imagenet_app\n"
+        f"run = imagenet_app.main({argv!r})\n"
+        "assert math.isfinite(run.trainer.round_losses[0])\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.')) for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
