@@ -43,7 +43,21 @@ from tars of JPEGs through ``imagenet_app.main(["--tar-dir", ...])``
 with undecodable entries planted; ``convert_imageset --encoded``,
 ``compute_image_mean`` and ``caffe_cli train`` over encoded Datums and
 over an ``ImageData`` list; one ``WindowData`` batch against its plain
-path.  Prints the card, timings, a ``{"kernels": [...]}`` line and,
+path.  Phase 5e runs the rest of SparkNet's round on full-width
+CaffeNet: ``caffe_cli train --devices 4 --strategy hierarchical --hosts
+2 --tau 5`` over phase 5c's LMDB (per-host solver state, exact
+launches); a ``DistributedTrainer`` from ``comm_config_from_env`` (2
+workers x 64, τ=5, the crop on the card) with each codec (none, bf16,
+int8, int8_channel, and int8 with ``comm_overlap``): exchange bytes, the
+error-feedback invariant and the card's encode against the CPU's on the
+card's own deltas, overlap bit-identical; recovery in child processes
+(``--round-child``): a run killed by ``crash_in_ckpt`` mid-checkpoint
+and resumed, bit for bit the fault-free run, a ``nan_inject`` under the
+guard rolled back to the same bits, with planted faults (a codec that
+drops its residual, a scribbled newest checkpoint, a resume with its
+generators reset); elastic 4 -> 2 workers; harvest lag 0 against 2;
+checkpoint MB, stalls and resume seconds.  Prints the card, timings, a
+``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Every failed check
 exits non-zero.  Without a CUDA device it exits 2 and prints no result.
 ``--profile PATH`` also writes per-kernel device-time tables of batch-64
@@ -2387,14 +2401,15 @@ def planted_data_faults(d: str, datum: bytes) -> dict:
     return out
 
 
-def caffe_data_path(ck, dev, smi: str, solver_ms_b256: float) -> dict:
+def caffe_data_path(ck, dev, smi: str, solver_ms_b256: float,
+                    d: str) -> dict:
     """Phase 5c: full-width CaffeNet trained by ``caffe_cli train`` from
     an LMDB (batch 256, crop 227, mirror, ``mean_file``; test batch 50),
     exact launches; ``caffe_cli test`` on the snapshot against the last
     test pass; ``extract_features`` fc7 against the net's; ``caffe_cli
     time`` at batch 256; ``compute_image_mean`` against numpy; the feed
-    on the card against the CPU's; planted faults."""
-    import tempfile
+    on the card against the CPU's; planted faults.  The LMDBs, the mean
+    and ``train_val.prototxt`` stay in ``d`` for phase 5e."""
     from sparknet_tpu_torch.data.db import datum_to_array
     from sparknet_tpu_torch.data.lmdb_io import LmdbReader
     from sparknet_tpu_torch.graph.net import Net
@@ -2407,142 +2422,141 @@ def caffe_data_path(ck, dev, smi: str, solver_ms_b256: float) -> dict:
     from sparknet_tpu_torch.utils.device import full_f32
     t_phase = time.perf_counter()
     report: dict = {}
-    with tempfile.TemporaryDirectory(prefix="data_path_smoke_") as d:
-        t0 = time.perf_counter()
-        fx = write_fixture(d)
-        report["fixture_s"] = time.perf_counter() - t0
-        report.update({k: fx[k] for k in ("lmdb_mb", "lmdb_write_mb_s",
-                                          "lmdb_read_mb_s")})
-        # compute_image_mean against numpy's f64 mean, rounded to f32
-        mean_file = os.path.join(d, "mean.binaryproto")
-        _, report["compute_image_mean_s"] = run_cli(
-            compute_image_mean.main, [fx["train_db"], mean_file])
-        acc = np.zeros((3, DB_SIZE, DB_SIZE), np.float64)
-        for i in range(0, DB_TRAIN, 128):
-            acc += fx["train"][i:i + 128].sum(0, dtype=np.float64)
-        want_mean = (acc / DB_TRAIN).astype(np.float32)
-        if load_mean_binaryproto(mean_file).tobytes() != want_mean.tobytes():
-            fail("data_path: compute_image_mean differs from numpy's mean")
-        del fx["train"], acc
-        # the train_val and the solver
-        text = caffenet_train_val(fx["train_db"], fx["test_db"], mean_file)
-        check_train_val(text)
-        model = os.path.join(d, "train_val.prototxt")
-        with open(model, "w") as f:
-            f.write(text)
-        prefix = os.path.join(d, "caffenet")
-        solver = os.path.join(d, "solver.prototxt")
-        with open(solver, "w") as f:
-            f.write(f'net: "{model}"\nsnapshot_prefix: "{prefix}"\n'
-                    + DATA_PATH_SOLVER)
-        train_lp = load_net_prototxt(text).layer[0]
-        check_feed_on_card(dev, train_lp, seed=SEED)
-        with LmdbReader(fx["train_db"]) as r:
-            datum = r.first()[1]
-        report["planted"] = planted_data_faults(d, datum)
-        torch.cuda.empty_cache()
-        # caffe_cli train
-        torch.cuda.reset_peak_memory_stats(dev)
-        ck.reset_launch_counts()
-        log, train_s = run_cli(caffe_cli.main, ["train", "--solver", solver])
-        launches = dict(ck.launch_counts)
-        if launches != DATA_PATH_WANT:
-            fail(f"data_path: caffe_cli train launches {launches}, want "
-                 f"{DATA_PATH_WANT}")
-        peak = torch.cuda.max_memory_allocated(dev)
-        lines = log.splitlines()
-        loss_at, loss_line = {}, {}
-        for ln in lines:
-            if "] Iteration " in ln and ", loss = " in ln:
-                it = int(ln.split("Iteration ")[1].split(",")[0])
-                if it not in loss_at:
-                    loss_at[it] = float(ln.rsplit("= ", 1)[1])
-                    loss_line[it] = glog_seconds(ln)
-        tests = [(ln.split("output: ")[1].split(" = ")[0],
-                  float(ln.rsplit("= ", 1)[1]))
-                 for ln in lines if "Test net output:" in ln]
-        feed_line = [ln for ln in lines if "] Train feed: " in ln]
-        if sorted(loss_at) != list(range(1, SOLVER_ITERS + 1)) or \
-                len(tests) != 2 * SOLVER_TESTS or len(feed_line) != 1 or \
-                "Optimization Done." not in log:
-            print(log[-4000:])
-            fail("data_path: caffe_cli train's log lacks its iterations, "
-                 "test outputs or feed line")
-        feed = json.loads(feed_line[0].split("] Train feed: ")[1])
-        test_loss0 = dict(tests[:2])["loss"]
-        last_scores = dict(tests[-2:])
-        if abs(test_loss0 - math.log(1000)) > 0.5 or \
-                abs(loss_at[1] - math.log(1000)) > 1.0 or not all(
-                    math.isfinite(v) for v in loss_at.values()):
-            fail(f"data_path: test loss at init {test_loss0}, first loss "
-                 f"{loss_at[1]} (ln 1000 = {math.log(1000):.4f})")
-        # the CLI's own log: the interval between consecutive iterations'
-        # loss lines (each fetched from the card, so the card has finished
-        # that iteration), steady iterations 2-10 and 12-20 (11 follows
-        # the test pass at 10)
-        steady = [(loss_line[i] - loss_line[i - 1]) * 1e3
-                  for i in range(3, SOLVER_ITERS + 1) if i != 11]
-        iter_ms = float(np.median(steady))
-        snapshot = f"{prefix}_iter_{SOLVER_ITERS}.caffemodel"
-        if not os.path.exists(snapshot):
-            fail(f"data_path: no snapshot {snapshot}")
-        # caffe_cli test on the snapshot: the last test pass's scores
-        with cudnn_deterministic():
-            tlog, test_s = run_cli(caffe_cli.main, [
-                "test", "--model", model, "--weights", snapshot,
-                "--iterations", str(SOLVER_TEST_ITER)])
-        scores = {ln.split(" = ")[0]: float(ln.split(" = ")[1])
-                  for ln in tlog.splitlines()
-                  if not ln.startswith("Batch") and " = " in ln}
-        test_rel = max(abs(scores[k] - v) / max(abs(v), 1e-12)
-                       for k, v in last_scores.items())
-        if set(scores) != set(last_scores) or test_rel > 1e-5:
-            fail(f"data_path: caffe_cli test {scores} != the last test "
-                 f"pass {last_scores}")
-        # extract_features fc7 against the net's fc7 on the same batches
-        feat_db = os.path.join(d, "fc7_lmdb")
-        ck.reset_launch_counts()
-        with cudnn_deterministic():
-            _, extract_s = run_cli(extract_features.main, [
-                snapshot, model, "fc7", feat_db, str(SOLVER_TEST_ITER)])
-            extract_launches = dict(ck.launch_counts)
-            from sparknet_tpu_torch.data.db import db_feed
-            net = Net(load_net_prototxt(text), NetState(Phase.TEST))
-            params = load_weights_into(net, net.init(
-                torch.Generator().manual_seed(0), device=dev), snapshot)
-            test_lp = [lp for lp in load_net_prototxt(text).layer
-                       if lp.type == "Data"][1]
-            tfeed = db_feed(test_lp, Phase.TEST)
-            want = []
-            with torch.no_grad(), full_f32():
-                for _ in range(SOLVER_TEST_ITER):
-                    b = {k: torch.from_numpy(v).to(dev)
-                         for k, v in next(tfeed).items()}
-                    want.append(net.apply(params, b, blobs=["fc7"])["fc7"]
-                                .cpu().numpy())
-            tfeed.close()
-            del net, params
-        want = np.concatenate(want)
-        with LmdbReader(feat_db) as r:
-            got = np.stack([datum_to_array(v)[0].reshape(-1)
-                            for _, v in r.items()])
-        fc7_err = float(np.abs(got - want).max()) if got.shape == \
-            want.shape else math.inf
-        if fc7_err > 1e-5 * float(np.abs(want).max()):
-            fail(f"data_path: extract_features fc7 differs from the net's "
-                 f"by {fc7_err} (shape {got.shape} vs {want.shape})")
-        # caffe_cli time at batch 256
-        torch.cuda.empty_cache()
-        tm, _ = run_cli(caffe_cli.main, ["time", "--model", model,
-                                         "--iterations", "10"])
-        time_ms = {k: float(ln.split(":")[1].split()[0])
-                   for ln in tm.splitlines()
-                   for k, tag in (("forward_ms", "Average Forward pass"),
-                                  ("forward_backward_ms",
-                                   "Average Forward-Backward"))
-                   if ln.startswith(tag)}
-        if len(time_ms) != 2:
-            fail(f"data_path: caffe_cli time printed {tm[-500:]}")
+    t0 = time.perf_counter()
+    fx = write_fixture(d)
+    report["fixture_s"] = time.perf_counter() - t0
+    report.update({k: fx[k] for k in ("lmdb_mb", "lmdb_write_mb_s",
+                                      "lmdb_read_mb_s")})
+    # compute_image_mean against numpy's f64 mean, rounded to f32
+    mean_file = os.path.join(d, "mean.binaryproto")
+    _, report["compute_image_mean_s"] = run_cli(
+        compute_image_mean.main, [fx["train_db"], mean_file])
+    acc = np.zeros((3, DB_SIZE, DB_SIZE), np.float64)
+    for i in range(0, DB_TRAIN, 128):
+        acc += fx["train"][i:i + 128].sum(0, dtype=np.float64)
+    want_mean = (acc / DB_TRAIN).astype(np.float32)
+    if load_mean_binaryproto(mean_file).tobytes() != want_mean.tobytes():
+        fail("data_path: compute_image_mean differs from numpy's mean")
+    del fx["train"], acc
+    # the train_val and the solver
+    text = caffenet_train_val(fx["train_db"], fx["test_db"], mean_file)
+    check_train_val(text)
+    model = os.path.join(d, "train_val.prototxt")
+    with open(model, "w") as f:
+        f.write(text)
+    prefix = os.path.join(d, "caffenet")
+    solver = os.path.join(d, "solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(f'net: "{model}"\nsnapshot_prefix: "{prefix}"\n'
+                + DATA_PATH_SOLVER)
+    train_lp = load_net_prototxt(text).layer[0]
+    check_feed_on_card(dev, train_lp, seed=SEED)
+    with LmdbReader(fx["train_db"]) as r:
+        datum = r.first()[1]
+    report["planted"] = planted_data_faults(d, datum)
+    torch.cuda.empty_cache()
+    # caffe_cli train
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    log, train_s = run_cli(caffe_cli.main, ["train", "--solver", solver])
+    launches = dict(ck.launch_counts)
+    if launches != DATA_PATH_WANT:
+        fail(f"data_path: caffe_cli train launches {launches}, want "
+             f"{DATA_PATH_WANT}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    lines = log.splitlines()
+    loss_at, loss_line = {}, {}
+    for ln in lines:
+        if "] Iteration " in ln and ", loss = " in ln:
+            it = int(ln.split("Iteration ")[1].split(",")[0])
+            if it not in loss_at:
+                loss_at[it] = float(ln.rsplit("= ", 1)[1])
+                loss_line[it] = glog_seconds(ln)
+    tests = [(ln.split("output: ")[1].split(" = ")[0],
+              float(ln.rsplit("= ", 1)[1]))
+             for ln in lines if "Test net output:" in ln]
+    feed_line = [ln for ln in lines if "] Train feed: " in ln]
+    if sorted(loss_at) != list(range(1, SOLVER_ITERS + 1)) or \
+            len(tests) != 2 * SOLVER_TESTS or len(feed_line) != 1 or \
+            "Optimization Done." not in log:
+        print(log[-4000:])
+        fail("data_path: caffe_cli train's log lacks its iterations, "
+             "test outputs or feed line")
+    feed = json.loads(feed_line[0].split("] Train feed: ")[1])
+    test_loss0 = dict(tests[:2])["loss"]
+    last_scores = dict(tests[-2:])
+    if abs(test_loss0 - math.log(1000)) > 0.5 or \
+            abs(loss_at[1] - math.log(1000)) > 1.0 or not all(
+                math.isfinite(v) for v in loss_at.values()):
+        fail(f"data_path: test loss at init {test_loss0}, first loss "
+             f"{loss_at[1]} (ln 1000 = {math.log(1000):.4f})")
+    # the CLI's own log: the interval between consecutive iterations'
+    # loss lines (each fetched from the card, so the card has finished
+    # that iteration), steady iterations 2-10 and 12-20 (11 follows
+    # the test pass at 10)
+    steady = [(loss_line[i] - loss_line[i - 1]) * 1e3
+              for i in range(3, SOLVER_ITERS + 1) if i != 11]
+    iter_ms = float(np.median(steady))
+    snapshot = f"{prefix}_iter_{SOLVER_ITERS}.caffemodel"
+    if not os.path.exists(snapshot):
+        fail(f"data_path: no snapshot {snapshot}")
+    # caffe_cli test on the snapshot: the last test pass's scores
+    with cudnn_deterministic():
+        tlog, test_s = run_cli(caffe_cli.main, [
+            "test", "--model", model, "--weights", snapshot,
+            "--iterations", str(SOLVER_TEST_ITER)])
+    scores = {ln.split(" = ")[0]: float(ln.split(" = ")[1])
+              for ln in tlog.splitlines()
+              if not ln.startswith("Batch") and " = " in ln}
+    test_rel = max(abs(scores[k] - v) / max(abs(v), 1e-12)
+                   for k, v in last_scores.items())
+    if set(scores) != set(last_scores) or test_rel > 1e-5:
+        fail(f"data_path: caffe_cli test {scores} != the last test "
+             f"pass {last_scores}")
+    # extract_features fc7 against the net's fc7 on the same batches
+    feat_db = os.path.join(d, "fc7_lmdb")
+    ck.reset_launch_counts()
+    with cudnn_deterministic():
+        _, extract_s = run_cli(extract_features.main, [
+            snapshot, model, "fc7", feat_db, str(SOLVER_TEST_ITER)])
+        extract_launches = dict(ck.launch_counts)
+        from sparknet_tpu_torch.data.db import db_feed
+        net = Net(load_net_prototxt(text), NetState(Phase.TEST))
+        params = load_weights_into(net, net.init(
+            torch.Generator().manual_seed(0), device=dev), snapshot)
+        test_lp = [lp for lp in load_net_prototxt(text).layer
+                   if lp.type == "Data"][1]
+        tfeed = db_feed(test_lp, Phase.TEST)
+        want = []
+        with torch.no_grad(), full_f32():
+            for _ in range(SOLVER_TEST_ITER):
+                b = {k: torch.from_numpy(v).to(dev)
+                     for k, v in next(tfeed).items()}
+                want.append(net.apply(params, b, blobs=["fc7"])["fc7"]
+                            .cpu().numpy())
+        tfeed.close()
+        del net, params
+    want = np.concatenate(want)
+    with LmdbReader(feat_db) as r:
+        got = np.stack([datum_to_array(v)[0].reshape(-1)
+                        for _, v in r.items()])
+    fc7_err = float(np.abs(got - want).max()) if got.shape == \
+        want.shape else math.inf
+    if fc7_err > 1e-5 * float(np.abs(want).max()):
+        fail(f"data_path: extract_features fc7 differs from the net's "
+             f"by {fc7_err} (shape {got.shape} vs {want.shape})")
+    # caffe_cli time at batch 256
+    torch.cuda.empty_cache()
+    tm, _ = run_cli(caffe_cli.main, ["time", "--model", model,
+                                     "--iterations", "10"])
+    time_ms = {k: float(ln.split(":")[1].split()[0])
+               for ln in tm.splitlines()
+               for k, tag in (("forward_ms", "Average Forward pass"),
+                              ("forward_backward_ms",
+                               "Average Forward-Backward"))
+               if ln.startswith(tag)}
+    if len(time_ms) != 2:
+        fail(f"data_path: caffe_cli time printed {tm[-500:]}")
     torch.cuda.empty_cache()
     report.update({
         "train_s": train_s, "iters": SOLVER_ITERS,
@@ -3166,6 +3180,525 @@ def real_images(ck, dev, smi: str, synthetic_loop: dict) -> dict:
 # Phase 6: the kernels line
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 5e: the round — the hierarchical strategy through caffe_cli, the
+# compressed exchange with error feedback, round checkpoints with resume
+# after a crash, the numerical guard, elastic re-forming and the harvest
+# lag, on full-width CaffeNet
+# ---------------------------------------------------------------------------
+
+# caffe_cli train --devices 4 --strategy hierarchical --hosts 2 --tau 5
+# over phase 5c's LMDB: phase 5b's solver with display 1, 10 iterations
+# (2 rounds), one test pass at 10
+HIER_DEVICES, HIER_HOSTS, HIER_TAU, HIER_ITERS = 4, 2, 5, 10
+HIER_SOLVER = (DATA_PATH_SOLVER.replace("max_iter: 20",
+                                        f"max_iter: {HIER_ITERS}")
+               .replace("snapshot: 20\n", ""))
+# the first round's mean loss from random weights: near ln 1000, as
+# phase 5's first round
+HIER_LOSS0_TOL = 1.0
+HIER_WANT = {"lrn_across_channels_fwd": 2 * HIER_DEVICES * HIER_ITERS,
+             "lrn_across_channels_bwd": 2 * HIER_DEVICES * HIER_ITERS,
+             "max_pool_bwd": 3 * HIER_DEVICES * HIER_ITERS,
+             # one test pass: ceil(test_iter 2 / 4 workers) step of 4
+             # worker batches, 2 LRNs each
+             "lrn_across_channels": 2 * HIER_DEVICES,
+             **IMAGE_KERNELS_IDLE}
+# the codec rounds: 2 workers x batch 64, τ=5, 4 rounds of full-size
+# 256x256 images cropped, mirrored and mean-subtracted on the card
+ROUND_WORKERS, ROUND_BATCH, ROUND_TAU, ROUNDS = 2, 64, 5, 4
+ROUND_WANT = {"lrn_across_channels_fwd": 2 * ROUND_WORKERS * ROUND_TAU
+              * ROUNDS,
+              "lrn_across_channels_bwd": 2 * ROUND_WORKERS * ROUND_TAU
+              * ROUNDS,
+              "max_pool_bwd": 3 * ROUND_WORKERS * ROUND_TAU * ROUNDS,
+              "lrn_across_channels": 0, **IMAGE_KERNELS_IDLE}
+CODECS = ("none", "bf16", "int8", "int8_channel")
+# wire bytes of one exchange of CaffeNet's 60,965,224 params over 2
+# tiers, by the JAX package's exchange_bytes
+EXCHANGE_BYTES = {"none": 487_721_792, "bf16": 243_860_896,
+                  "int8": 121_930_576, "int8_channel": 122_015_056}
+# tests/test_comms.py:247-258's bound on a lossy codec's last loss
+CODEC_LOSS_BOUND = 0.1
+CRASH_ROUND, NAN_ROUND = 3, 2
+
+
+def round_data(dev, r: int) -> dict:
+    """Round ``r`` of the codec and recovery runs, drawn on the card
+    from a seeded generator (the same bits in every process on one
+    card): [τ, 128, 3, 256, 256] f32 pixels around 120 and labels."""
+    g = torch.Generator(device=dev).manual_seed(SEED * 1000 + 17 + r)
+    n = ROUND_WORKERS * ROUND_BATCH
+    x = torch.randn((ROUND_TAU, n, 3, TRAIN_RESIZE, TRAIN_RESIZE),
+                    generator=g, device=dev).mul_(30.0).add_(120.0)
+    labels = torch.randint(0, 1000, (ROUND_TAU, n),
+                           generator=torch.Generator().manual_seed(r))
+    return {"data": x.clamp_(0.0, 255.0),
+            "label": labels.to(dev, torch.float32)}
+
+
+def round_trainer(dev, workers=ROUND_WORKERS, **cfg):
+    """The second entry point of this phase: a ``DistributedTrainer``
+    built from ``comm_config_from_env`` (``SPARKNET_COMM_CODEC`` picks
+    the codec) over full-width CaffeNet, local_sgd (or ``cfg``'s
+    strategy on a ``workers`` layout), τ=5, with the crop, mirror and
+    mean on the card (``device_crop_mirror_mean``)."""
+    from sparknet_tpu_torch.apps.imagenet_app import SOLVER
+    from sparknet_tpu_torch.models import caffenet
+    from sparknet_tpu_torch.parallel import (DistributedTrainer,
+                                             TrainerConfig,
+                                             comm_config_from_env,
+                                             device_crop_mirror_mean)
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    n = ROUND_WORKERS * ROUND_BATCH
+    sp = load_solver_prototxt_with_net(SOLVER,
+                                       caffenet(n, n, crop=TRAIN_CROP))
+    mean = np.full((3, TRAIN_RESIZE, TRAIN_RESIZE), 120.0, np.float32)
+    config = comm_config_from_env(TrainerConfig(**{
+        "strategy": "local_sgd", "tau": ROUND_TAU,
+        "device_preprocess": device_crop_mirror_mean(TRAIN_CROP, mean=mean),
+        **cfg}))
+    return DistributedTrainer(sp, workers, config, seed=SEED, device=dev)
+
+
+def host_params(tr) -> dict:
+    return {k: [b.detach().cpu().numpy() for b in v]
+            for k, v in tr.params.items()}
+
+
+def round_child(mode: str, d: str, out: str, dev=None) -> int:
+    """One recovery run in a process of its own (``--round-child``): the
+    int8 trainer (the codec from ``SPARKNET_COMM_CODEC``) trains
+    ``ROUNDS`` rounds and writes its final params and counters to
+    ``out``.  Modes: "clean" (no checkpoints), "run" (round checkpoints
+    in ``d`` every round on the asynchronous writer, resuming from
+    ``d``), "guard" (``guard_numerics``, checkpoints every 2 rounds),
+    and "reset_generators" ("run" with the resumed workers' Dropout and
+    crop generators re-seeded: a planted fault the parent must catch).
+    ``SPARKNET_FAULT``, set by the parent, may kill or poison it."""
+    from sparknet_tpu_torch.utils.checkpoint import save_checkpoint
+    dev = dev or torch.device("cuda", 0)
+    cfg = {} if mode == "clean" else dict(
+        checkpoint_dir=d, checkpoint_keep=2,
+        checkpoint_every=2 if mode == "guard" else 1,
+        guard_numerics=mode == "guard")
+    with cudnn_deterministic():
+        t0 = time.perf_counter()
+        tr = round_trainer(dev, **cfg)
+        init_s = time.perf_counter() - t0
+        resumed = tr.round
+        if mode == "reset_generators":
+            for i, g in enumerate(tr.generators + tr.crop_generators):
+                g.manual_seed(7 + i)
+        t0 = time.perf_counter()
+        while tr.round < ROUNDS:
+            tr.train_round(round_data(dev, tr.round))
+        loop_s = time.perf_counter() - t0
+        submit_stall = tr.stall_s["checkpoint"]
+        t0 = time.perf_counter()
+        tr.drain()
+        drain_s = time.perf_counter() - t0
+    save_checkpoint(out, {
+        "params": host_params(tr), "resumed_round": resumed,
+        "guard_trips": tr.guard_trips, "init_s": init_s, "loop_s": loop_s,
+        "drain_s": drain_s, "ckpt_submit_stall_s": submit_stall,
+        "losses": [tr.round_losses.get(r, float("nan"))
+                   for r in range(ROUNDS)]})
+    return 0
+
+
+def run_child(mode: str, d: str, out: str, fault: str = "",
+              attempt: int = 0) -> tuple[int, float, str]:
+    """``chip_smoke.py --round-child`` in a new process: exit code, wall
+    seconds, the tail of its standard error."""
+    env = dict(os.environ, SPARKNET_COMM_CODEC="int8", SPARKNET_FAULT=fault,
+               SPARKNET_FAULT_ATTEMPT=str(attempt))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--round-child", mode, "--round-dir", d,
+                        "--round-out", out], env=env, capture_output=True,
+                       text=True, timeout=600)
+    return p.returncode, time.perf_counter() - t0, p.stderr[-3000:]
+
+
+def ef_holds(codec, delta: dict) -> bool:
+    """The error-feedback invariant on the card's tensors:
+    ``decoded + residual == delta`` exactly, leaf by leaf."""
+    from sparknet_tpu_torch.parallel import comms
+    _, decoded, residual = comms.roundtrip_tree(codec, delta)
+    return all(torch.equal(decoded[k][i] + residual[k][i], delta[k][i])
+               for k in delta for i in range(len(delta[k])))
+
+
+def card_encode_equals_cpu(codec, delta: dict) -> bool:
+    """The card's encode of ``delta`` (payload and residual) equals the
+    CPU's bit for bit: the scale's division must not become a
+    multiplication by a reciprocal on the card."""
+    from sparknet_tpu_torch.parallel import comms
+    cpu = {k: [b.cpu() for b in v] for k, v in delta.items()}
+    pa, _, ra = comms.roundtrip_tree(codec, delta)
+    pb, _, rb = comms.roundtrip_tree(codec, cpu)
+    flat = lambda p: ([p] if isinstance(p, torch.Tensor)
+                      else [t for x in p for t in flat(x)])
+    for k in delta:
+        for i in range(len(delta[k])):
+            for x, y in zip(flat(pa[k][i]), flat(pb[k][i])):
+                if not torch.equal(x.cpu(), y):
+                    return False
+            if not torch.equal(ra[k][i].cpu(), rb[k][i]):
+                return False
+    return True
+
+
+def hierarchical_cli(ck, dev, smi: str, fx: dict) -> dict:
+    """``caffe_cli train --devices 4 --strategy hierarchical --hosts 2
+    --tau 5`` on CaffeNet's train_val over phase 5c's LMDB (batch 256 a
+    worker): its iterations and losses, the 2x2 layout, per-host solver
+    state, exact launches."""
+    import sparknet_tpu_torch.parallel as par
+    from sparknet_tpu_torch.tools import caffe_cli
+    d = fx["dir"]
+    prefix = os.path.join(d, "hier")
+    solver = os.path.join(d, "hier_solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(f'net: "{fx["model"]}"\nsnapshot_prefix: "{prefix}"\n'
+                + HIER_SOLVER)
+    made = []
+
+    class Recorded(par.DistributedTrainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    torch.cuda.empty_cache()
+    ck.reset_launch_counts()
+    with mock.patch.object(par, "DistributedTrainer", Recorded):
+        log, wall = run_cli(caffe_cli.main, [
+            "train", "--solver", solver, "--devices", str(HIER_DEVICES),
+            "--strategy", "hierarchical", "--hosts", str(HIER_HOSTS),
+            "--tau", str(HIER_TAU)])
+    launches = dict(ck.launch_counts)
+    if launches != HIER_WANT:
+        fail(f"round: hierarchical caffe_cli launches {launches}, want "
+             f"{HIER_WANT}")
+    losses = {int(ln.split("Iteration ")[1].split(",")[0]):
+              float(ln.rsplit("= ", 1)[1])
+              for ln in log.splitlines() if ", loss = " in ln}
+    tests = [ln for ln in log.splitlines() if "Test net output:" in ln]
+    if (sorted(losses) != [HIER_TAU, HIER_ITERS] or len(tests) != 2
+            or "Multi-device training: 2x2 pod" not in log
+            or "Optimization Done." not in log
+            or not all(math.isfinite(v) for v in losses.values())
+            or abs(losses[HIER_TAU] - math.log(1000)) > HIER_LOSS0_TOL):
+        print(log[-3000:])
+        fail(f"round: hierarchical caffe_cli log: losses {losses}, "
+             f"{len(tests)} test outputs")
+    (tr,) = made
+    shapes = {k: [tuple(b.shape) for b in v] for k, v in tr.params.items()}
+    if ((tr.n_hosts, tr.n_chips, tr.n_workers) != (2, 2, 4)
+            or len(tr.state) != HIER_HOSTS
+            or any({k: [tuple(b.shape) for b in v]
+                    for k, v in s["history"].items()} != shapes
+                   for s in tr.state)
+            or torch.equal(tr.state[0]["history"]["conv1"][0],
+                           tr.state[1]["history"]["conv1"][0])):
+        fail("round: hierarchical per-host solver state is not one "
+             "distinct state of the params' shapes per host")
+    out = {"losses": losses, "wall_s": wall, "launches": launches,
+           "hosts": tr.n_hosts, "chips": tr.n_chips,
+           "state_rows": len(tr.state),
+           "per_host_state_shape_conv1": list(
+               tr.state[0]["history"]["conv1"][0].shape),
+           "round_s": [tr.round_seconds[r] for r in sorted(tr.round_seconds)],
+           "test_outputs": tests}
+    del made[:], tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def codec_rounds(ck, dev, rounds: list) -> dict:
+    """Each codec, 4 rounds of 2 workers from the same weights on the
+    same rounds, through ``comm_config_from_env``; int8 once more with
+    ``comm_overlap``.  Exact launches, exchange bytes against the JAX
+    package's, the EF invariant and the card's encode against the CPU's
+    on a delta the run made, int8's last loss within
+    ``CODEC_LOSS_BOUND`` of none's, overlap bit-identical; a codec that
+    drops its residual must fail the EF check."""
+    from sparknet_tpu_torch.parallel import comms
+    out, finals = {}, {}
+    for codec, overlap in [(c, False) for c in CODECS] + [("int8", True)]:
+        label = codec + ("_overlap" if overlap else "")
+        with mock.patch.dict(os.environ, {
+                "SPARKNET_COMM_CODEC": codec,
+                "SPARKNET_COMM_OVERLAP": "1" if overlap else "0"}):
+            tr = round_trainer(dev)
+        if tr.config.comm_codec != codec or \
+                tr.config.comm_overlap != overlap:
+            fail(f"round: comm_config_from_env gave {tr.config}")
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        losses = [tr.train_round(b) for b in rounds]
+        launches = dict(ck.launch_counts)
+        if launches != ROUND_WANT:
+            fail(f"round {label}: launches {launches}, want {ROUND_WANT}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"round {label}: losses {losses}")
+        nbytes = comms.exchange_bytes(comms.get_codec(codec), tr.params,
+                                      ROUND_WORKERS)
+        if nbytes != EXCHANGE_BYTES[codec]:
+            fail(f"round {label}: exchange bytes {nbytes}, want "
+                 f"{EXCHANGE_BYTES[codec]}")
+        out[label] = {"losses": losses, "exchange_bytes": nbytes,
+                      "round_s": [tr.round_seconds[r] for r in range(ROUNDS)],
+                      "round_s_steady_median": float(np.median(
+                          [tr.round_seconds[r] for r in range(1, ROUNDS)])),
+                      "stall_s": {k: tr.stall_s[k] for k in
+                                  ("comm_encode", "comm_allreduce",
+                                   "comm_decode")},
+                      "launches": launches}
+        finals[label] = host_params(tr)
+        if codec != "none" and not overlap:
+            # a delta of the run's own: each worker's params against the
+            # averaged ones, plus the residual
+            delta = {k: [torch.stack([p[k][i] for p in tr.worker_params])
+                         - b.unsqueeze(0) + tr.comm_residual[k][i]
+                         for i, b in enumerate(v)]
+                     for k, v in tr.params.items()}
+            c = comms.get_codec(codec)
+            out[label]["ef_invariant_exact"] = ef_holds(c, delta)
+            out[label]["card_encode_equals_cpu"] = \
+                card_encode_equals_cpu(c, delta)
+            if not (out[label]["ef_invariant_exact"]
+                    and out[label]["card_encode_equals_cpu"]):
+                fail(f"round {label}: EF invariant or card-vs-CPU encode "
+                     f"broken: {out[label]}")
+            if codec == "int8":
+                dropres = comms.Codec("int8_dropres_planted", c.encode,
+                                      c.decode, keep_residual=False)
+                if ef_holds(dropres, delta):
+                    fail("round: planted codec without its residual "
+                         "passed the EF check")
+            del delta
+        del tr
+        torch.cuda.empty_cache()
+    if differing(finals["int8"], finals["int8_overlap"]):
+        fail("round: int8 with comm_overlap differs from without")
+    if out["int8_overlap"]["stall_s"] != {k: 0.0 for k in (
+            "comm_encode", "comm_allreduce", "comm_decode")} or \
+            out["int8"]["stall_s"]["comm_encode"] <= 0:
+        fail(f"round: stall_s with/without overlap "
+             f"{out['int8_overlap']['stall_s']} / {out['int8']['stall_s']}")
+    gap = abs(out["int8"]["losses"][-1] - out["none"]["losses"][-1])
+    if gap > CODEC_LOSS_BOUND:
+        fail(f"round: int8's last loss is {gap} from none's")
+    out["int8_vs_none_last_loss_gap"] = gap
+    return out
+
+
+def hierarchical_rounds(ck, dev, rounds: list) -> dict:
+    """4 workers at batch 64 as 2 hosts x 2 chips (codec none), on each
+    round's images twice over (256 a step), against the 2-worker
+    local_sgd rounds of ``codec_rounds``: round seconds and exact
+    launches."""
+    from sparknet_tpu_torch.parallel import make_pod_mesh
+    with mock.patch.dict(os.environ, {"SPARKNET_COMM_CODEC": "none"}):
+        tr = round_trainer(dev, make_pod_mesh(2, 2),
+                           strategy="hierarchical")
+    wide = [{k: torch.cat([v, v], 1) for k, v in b.items()}
+            for b in rounds]
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    losses = [tr.train_round(b) for b in wide]
+    launches = dict(ck.launch_counts)
+    want = {k: 2 * v for k, v in ROUND_WANT.items()}
+    if launches != want or len(tr.state) != 2 or \
+            not all(math.isfinite(v) for v in losses):
+        fail(f"round hierarchical 2x2 b64: launches {launches} (want "
+             f"{want}), losses {losses}, {len(tr.state)} states")
+    out = {"losses": losses, "launches": launches,
+           "round_s": [tr.round_seconds[r] for r in range(ROUNDS)],
+           "round_s_steady_median": float(np.median(
+               [tr.round_seconds[r] for r in range(1, ROUNDS)]))}
+    del tr, wide
+    torch.cuda.empty_cache()
+    return out
+
+
+def child_result(name: str, mode: str, cdir: str, d: str, *,
+                 fault: str = "", attempt: int = 0, want_rc: int = 0):
+    """Run one recovery child; its report and (exit 0) its output."""
+    from sparknet_tpu_torch.utils.checkpoint import load_checkpoint
+    out = os.path.join(d, f"{name}.npz")
+    rc, wall, err = run_child(mode, cdir, out, fault, attempt)
+    if rc != want_rc:
+        print(err)
+        fail(f"round recovery {name}: exit {rc}, want {want_rc}")
+    rep = {"rc": rc, "wall_s": wall}
+    if rc != 0:
+        return rep, None
+    got = load_checkpoint(out)
+    rep.update({k: np.asarray(got[k]).tolist() for k in (
+        "resumed_round", "guard_trips", "init_s", "loop_s", "drain_s",
+        "ckpt_submit_stall_s", "losses")})
+    return rep, got
+
+
+def recovery(ck, dev, rounds: list, d: str) -> dict:
+    """Children on the same card: a fault-free run; a run killed by
+    ``crash_in_ckpt`` while writing round 3's checkpoint (exit 43, npz
+    without manifest) and its resume, bit for bit the fault-free params;
+    the same resume with its generators reset, which must differ; a run
+    poisoned by ``nan_inject`` under the guard, one trip and the
+    fault-free params.  Then a scribbled newest checkpoint, which resume
+    must skip and report; a synchronous checkpoint's stall; elastic
+    4 -> 2; harvest lag 0 against 2."""
+    import contextlib
+    import io
+    from sparknet_tpu_torch.utils import faults
+    rep: dict = {}
+    crash = f"crash_in_ckpt@round:{CRASH_ROUND}"
+    cdir = os.path.join(d, "crash")
+    rep["clean"], clean = child_result("clean", "clean", "", d)
+    rep["crash"], _ = child_result("crash", "run", cdir, d, fault=crash,
+                                   want_rc=43)
+    names = set(os.listdir(cdir))
+    last = f"{CRASH_ROUND - 1:08d}"
+    if (f"ckpt_round_{CRASH_ROUND:08d}.npz" not in names
+            or f"manifest_{CRASH_ROUND:08d}.json" in names
+            or f"manifest_{last}.json" not in names):
+        fail(f"round recovery: the crash left {sorted(names)}")
+    # the planted resume starts from the same files (linked, not copied)
+    pdir = os.path.join(d, "planted")
+    os.makedirs(pdir)
+    for n in (f"manifest_{last}.json", f"ckpt_round_{last}.npz"):
+        os.link(os.path.join(cdir, n), os.path.join(pdir, n))
+    rep["resume"], resumed = child_result("resume", "run", cdir, d,
+                                          fault=crash, attempt=1)
+    rep["reset_generators"], planted = child_result(
+        "reset_generators", "reset_generators", pdir, d)
+    rep["guard"], guarded = child_result(
+        "guard", "guard", os.path.join(d, "guard"), d,
+        fault=f"nan_inject@round:{NAN_ROUND}")
+    if rep["resume"]["resumed_round"] != CRASH_ROUND - 1 or \
+            differing(resumed["params"], clean["params"]):
+        fail(f"round recovery: the resumed run ({rep['resume']}) differs "
+             f"from the fault-free run")
+    if planted["resumed_round"] != CRASH_ROUND - 1 or \
+            not differing(planted["params"], clean["params"]):
+        fail("round recovery: a resume with reset generators passed the "
+             "bit-for-bit check")
+    if rep["guard"]["guard_trips"] != 1 or \
+            differing(guarded["params"], clean["params"]):
+        fail(f"round recovery: nan_inject under the guard: {rep['guard']}")
+    del clean, resumed, planted, guarded
+    newest = os.path.join(cdir, f"ckpt_round_{ROUNDS:08d}.npz")
+    rep["checkpoint_mb"] = os.path.getsize(newest) / 1e6
+    written = ROUNDS - (CRASH_ROUND - 1)
+    rep["async_stall_s_per_checkpoint"] = \
+        rep["resume"]["ckpt_submit_stall_s"] / written
+    rep["resume_s"] = rep["resume"]["init_s"] - rep["clean"]["init_s"]
+    # a scribbled newest checkpoint: resume skips it, says so, and lands
+    # on the one before
+    faults.scribble(newest)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), mock.patch.dict(
+            os.environ, {"SPARKNET_COMM_CODEC": "int8"}):
+        tr = round_trainer(dev, checkpoint_dir=cdir, checkpoint_keep=2)
+    if (tr.round != ROUNDS - 1
+            or f"resume: skipping manifest_{ROUNDS:08d}.json"
+            not in err.getvalue()):
+        print(err.getvalue()[-2000:])
+        fail(f"round recovery: the scribbled checkpoint was not skipped "
+             f"(resumed round {tr.round})")
+    # one synchronous checkpoint of the same state, for its stall
+    with mock.patch.dict(os.environ, {"SPARKNET_ASYNC_CKPT": "0"}):
+        s0 = tr.stall_s["checkpoint"]
+        tr.save_round_checkpoint(os.path.join(d, "sync_ckpt"))
+        rep["sync_stall_s_per_checkpoint"] = tr.stall_s["checkpoint"] - s0
+    del tr
+    torch.cuda.empty_cache()
+    rep["elastic"] = elastic_4_to_2(dev, rounds, os.path.join(d, "elastic"))
+    rep["harvest_lag"] = harvest_lag_0_vs_2(dev, rounds)
+    return rep
+
+
+def elastic_4_to_2(dev, rounds: list, d: str) -> dict:
+    """A 4-worker checkpoint (batch 32 a worker, codec none) resumed by a
+    2-worker elastic trainer: the params restore as they are, the
+    per-worker state re-tiers to rows 0 and 1, and it trains on."""
+    with mock.patch.dict(os.environ, {"SPARKNET_COMM_CODEC": "none",
+                                      "SPARKNET_ASYNC_CKPT": "0"}):
+        a = round_trainer(dev, workers=4, checkpoint_dir=d)
+        a.train_round(rounds[0])
+        want = host_params(a)
+        rows = [s["history"]["fc6"][0].cpu() for s in a.state]
+        del a
+        torch.cuda.empty_cache()
+        b = round_trainer(dev, elastic=True)
+        t0 = time.perf_counter()
+        b.resume_latest(d)
+        resume_s = time.perf_counter() - t0
+    if (b.round != 1 or differing(host_params(b), want)
+            or len(b.state) != 2
+            or any(not torch.equal(b.state[i]["history"]["fc6"][0].cpu(),
+                                   rows[i]) for i in range(2))):
+        fail("round: elastic 4 -> 2 did not restore params and re-tier "
+             "the state")
+    loss = b.train_round(rounds[1])
+    if not math.isfinite(loss):
+        fail(f"round: elastic 2-worker round loss {loss}")
+    del b
+    torch.cuda.empty_cache()
+    return {"resume_s": resume_s, "loss_after": loss}
+
+
+def harvest_lag_0_vs_2(dev, rounds: list) -> dict:
+    """4 rounds at harvest_lag 0 and at 2 from the same weights: losses
+    and params bit-identical; the loops' seconds."""
+    out, finals, losses = {}, {}, {}
+    for lag in (0, 2):
+        with mock.patch.dict(os.environ, {"SPARKNET_COMM_CODEC": "none"}):
+            tr = round_trainer(dev, harvest_lag=lag)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in rounds:
+            tr.train_round(b)
+        losses[lag] = tr.drain()
+        out[f"lag{lag}_loop_s"] = time.perf_counter() - t0
+        finals[lag] = host_params(tr)
+        del tr
+        torch.cuda.empty_cache()
+    if losses[0] != losses[2] or differing(finals[0], finals[2]):
+        fail(f"round: harvest_lag 2 differs from 0: {losses}")
+    out["losses"] = [losses[0][r] for r in range(ROUNDS)]
+    return out
+
+
+def the_round(ck, dev, smi: str, fx: dict) -> dict:
+    """Phase 5e: the hierarchical strategy through caffe_cli over phase
+    5c's LMDB, the codec rounds, and recovery; one ``round [...]`` JSON
+    line.  Every card-side run is under deterministic cuDNN, so replays
+    across processes are bit for bit."""
+    import tempfile
+    t_phase = time.perf_counter()
+    report: dict = {}
+    with cudnn_deterministic():
+        report["hierarchical"] = hierarchical_cli(ck, dev, smi, fx)
+        rounds = [round_data(dev, r) for r in range(ROUNDS)]
+        report["codecs"] = codec_rounds(ck, dev, rounds)
+        report["hierarchical_b64"] = hierarchical_rounds(ck, dev, rounds)
+        report["hierarchical_b64"]["vs_local_sgd_2x64"] = (
+            report["hierarchical_b64"]["round_s_steady_median"]
+            / report["codecs"]["none"]["round_s_steady_median"])
+        with tempfile.TemporaryDirectory(prefix="round_smoke_") as d:
+            report["recovery"] = recovery(ck, dev, rounds, d)
+        del rounds
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"round [{smi}] " + json.dumps(report), flush=True)
+    return report
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
                  rows: list[dict], main: list[dict]) -> dict:
     """One kernel's entry: launches per main path, the worst error over
@@ -3200,11 +3733,17 @@ def main() -> int:
                          "print the host-side split of one batch-64 "
                          "dispatch and each profiled round's device busy "
                          "share and host-to-device copies")
+    # phase 5e's recovery runs, each in a process of its own
+    ap.add_argument("--round-child", help=argparse.SUPPRESS)
+    ap.add_argument("--round-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--round-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 2
+    if args.round_child:
+        return round_child(args.round_child, args.round_dir, args.round_out)
     from sparknet_tpu_torch.ops import cuda_kernels as ck
 
     # phase 1: the card
@@ -3323,18 +3862,27 @@ def main() -> int:
     # and Caffe's six rules
     solved = solver_and_weights(ck, dev, smi)
 
-    # phase 5c: Caffe's data path, CaffeNet trained from an LMDB through
-    # caffe_cli train, tested and timed, its features extracted
-    data_path = caffe_data_path(ck, dev, smi,
-                                solved["caffenet"]["solver_ms_per_iter_b256"])
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="data_path_smoke_") as d5c:
+        # phase 5c: Caffe's data path, CaffeNet trained from an LMDB
+        # through caffe_cli train, tested and timed, its features
+        # extracted
+        data_path = caffe_data_path(
+            ck, dev, smi, solved["caffenet"]["solver_ms_per_iter_b256"],
+            d5c)
 
-    # phase 5d: real images, decoded on the card: the image kernels and
-    # nvJPEG against their plain versions and libjpeg, CaffeNet from tars
-    # of JPEGs through imagenet_app --tar-dir, encoded Datums and
-    # ImageData through caffe_cli, a WindowData batch
-    images = real_images(
-        ck, dev, smi, trained["caffenet_device_pre"]["report"]
-        ["steady_medians"])
+        # phase 5d: real images, decoded on the card: the image kernels
+        # and nvJPEG against their plain versions and libjpeg, CaffeNet
+        # from tars of JPEGs through imagenet_app --tar-dir, encoded
+        # Datums and ImageData through caffe_cli, a WindowData batch
+        images = real_images(
+            ck, dev, smi, trained["caffenet_device_pre"]["report"]
+            ["steady_medians"])
+
+        # phase 5e: the round: hierarchical through caffe_cli over 5c's
+        # LMDB, the codecs, crash/resume, the guard, elastic, the lag
+        round_report = the_round(ck, dev, smi, {
+            "dir": d5c, "model": os.path.join(d5c, "train_val.prototxt")})
 
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
@@ -3360,7 +3908,15 @@ def main() -> int:
         "caffe_cli_extract_features": data_path["extract_launches"],
         "caffenet_training_tar_dir": images["tar_dir"]["launches"],
         **images["cli"]["launches"],
-        "window_data_batch": images["window"]["launches"]}
+        "window_data_batch": images["window"]["launches"],
+        # phase 5e: caffe_cli's hierarchical run and each codec's rounds
+        "caffe_cli_train_hierarchical":
+            round_report["hierarchical"]["launches"],
+        "round_hierarchical_2x2_b64":
+            round_report["hierarchical_b64"]["launches"],
+        **{f"round_codec_{c}": r["launches"]
+           for c, r in round_report["codecs"].items()
+           if isinstance(r, dict)}}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}

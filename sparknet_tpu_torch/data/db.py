@@ -364,9 +364,13 @@ def _is_records(source: str) -> bool:
 
 def corrupt_record(seq: int, value: bytes) -> bytes | None:
     """The fault injector's seam: the bytes to hand the decoder in place
-    of the feed's record number ``seq``, or None to leave it.  None here
-    (the JAX package's ``faults.get_injector().corrupt_record`` is not
-    ported, ROADMAP A9); tests patch it."""
+    of the feed's record number ``seq``, or None to leave it.
+    ``SPARKNET_FAULT=corrupt_record:<p>`` rots that share of the records,
+    the same records as in the JAX package (a pure function of ``seq``,
+    sparknet_tpu/data/db.py:344-358)."""
+    from ..utils import faults
+    if faults.get_injector().corrupt_record(seq):
+        return faults.corrupt_bytes(value, seq)
     return None
 
 

@@ -82,8 +82,15 @@ class PrefetchIterator:
     def _before_pull(self, produced: int) -> tuple[str, float] | None:
         """A failure to model before the ``produced``-th pull, or None:
         ``("die", 0)`` ends the feeder thread silently, ``("hang", s)``
-        stalls it ``s`` seconds.  None here; tests override it."""
-        return None
+        stalls it ``s`` seconds.  The fault injector decides
+        (``SPARKNET_FAULT=feeder_die@round:N`` / ``feeder_hang:<s>@round:N``,
+        N the pull); ``slow_feed:<s>`` sleeps before every pull."""
+        from ..utils import faults
+        injector = faults.get_injector()
+        delay = injector.feed_delay()
+        if delay:
+            time.sleep(delay)
+        return injector.feeder_event(produced)
 
     # -- feeder side ------------------------------------------------------
     def _current(self, gen: int) -> bool:

@@ -1,5 +1,7 @@
-"""SparkNet's round: τ-step local SGD with weight averaging, or
-synchronous SGD, over N workers on one card.
+"""SparkNet's round over N workers on one card: τ-step local SGD with
+weight averaging, synchronous SGD, or both composed (hierarchical), with
+compressed exchange, round checkpoints, the numerical guard and the
+harvest lag.
 
 The port's counterpart of ``sparknet_tpu/parallel/trainer.py``:
 
@@ -15,13 +17,33 @@ The port's counterpart of ``sparknet_tpu/parallel/trainer.py``:
   and losses are averaged over workers, ``preprocess_grads`` runs on the
   average and one update moves one shared set of params and solver
   state.
+- ``"hierarchical"`` (``hierarchical_body``, :690-728): the two composed
+  on a (host, chip) layout (``parallel/mesh.py::make_pod_mesh``).  Each
+  host runs the ``sync`` step over its chips, with one solver state per
+  host, and at the τ boundary the params are averaged over hosts.
 
 The round's loss is the mean over workers and steps.  On one card the N
 workers run one after another, each with one CPU ``torch.Generator`` for
 its Dropout masks (and, with ``device_preprocess``, one more for its crop
-offsets); batching the workers (``vmap``) or running them on streams is
-later work.  Every step runs in full f32 (TF32 off,
-``utils.device.full_f32``), as the JAX trainer's f32 nets do on the CPU.
+offsets); batching the workers is later work.  Every step runs in full
+f32 (TF32 off, ``utils.device.full_f32``), as the JAX trainer's f32 nets
+do on the CPU.
+
+With ``comm_codec`` other than ``"none"`` (``local_sgd`` and
+``hierarchical``), the τ-boundary average goes through
+``parallel/comms.py``: each tier member's weight delta against the
+broadcast params, plus its error-feedback residual, is encoded, the
+payload exchanged (on one card: passed as it is), decoded and averaged.
+``comm_codec="none"`` never enters that path.
+
+Round checkpoints (``checkpoint_dir``) keep the JAX package's files
+(``ckpt_round_%08d.npz`` and a ``manifest_%08d.json`` naming its sha256,
+written tmp+rename, the manifest last, pruned to ``checkpoint_keep``),
+so a checkpoint written by either package resumes in the other; a fresh
+trainer resumes the newest valid one.  ``guard_numerics`` rolls a round
+with a non-finite or spiking loss, or non-finite params, back to the
+newest checkpoint; ``harvest_lag`` keeps the loss and that verdict on
+the device and reads them K rounds late.
 
 Rounds come from the host (numpy arrays, copied to the card per
 micro-batch) or, through :meth:`DistributedTrainer.input_feed`, already
@@ -33,14 +55,21 @@ ships raw images.  Every one of Caffe's six update rules trains here
 JAX package's checkpoint layout, each rule's state slots under their JAX
 names.
 
-Not ported: the ``hierarchical`` strategy, compressed exchange codecs,
-sharding, round checkpoints with resume (``checkpoint_dir``), and the
-numerical guard and replica audit; asking for any of them raises.
+Not ported: sharding (``shard``, ``shard_checkpoint``) and the
+cross-replica audit (``audit_every``), which need resident replicas on
+several devices (ROADMAP A12), and ``remat`` (ROADMAP A5); asking for
+any of them raises.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import glob
+import hashlib
+import json
+import os
+import sys
 import time
 from typing import Any, Iterator, Mapping
 
@@ -53,41 +82,148 @@ from ..solvers.lr_policies import learning_rate
 from ..solvers.step import make_step_fns
 from ..solvers.update_rules import make_update_rule, preprocess_grads
 from ..utils.device import full_f32, resolve_device
+from . import comms
+from .mesh import CHIP_AXIS, DATA_AXIS, HOST_AXIS, Layout, make_mesh
 
-STRATEGIES = ("local_sgd", "sync")
+STRATEGIES = ("local_sgd", "sync", "hierarchical")
+COMM_STAGES = ("comm_encode", "comm_allreduce", "comm_decode")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    strategy: str = "local_sgd"   # "local_sgd" | "sync"
+    """The JAX package's ``TrainerConfig`` (trainer.py:88-228), field for
+    field and default for default, except ``donate`` (XLA buffer
+    donation, which has no counterpart here)."""
+    strategy: str = "local_sgd"   # "local_sgd" | "sync" | "hierarchical"
     tau: int = 1                  # steps per round
     # A callable (micro_batch_dict, generator) -> micro_batch_dict run on
     # each worker's micro-batch before its step, on the device; build one
     # with ``device_crop_mirror_mean``.
     device_preprocess: Any | None = None
-    comm_codec: str = "none"
-    shard: str = "off"
+    remat: bool = False           # not ported (ROADMAP A5)
+    # round checkpoints: every ``checkpoint_every`` completed rounds into
+    # ``checkpoint_dir``, the newest ``checkpoint_keep`` kept; a fresh
+    # trainer resumes the newest valid one
     checkpoint_dir: str | None = None
+    checkpoint_every: int = 1
+    checkpoint_keep: int = 3
+    # resume a checkpoint of another worker (or host) count: stacked
+    # per-tier state and residuals re-tier, row i from saved row i mod n
+    elastic: bool = False
+    # roll a round with a non-finite (or, with loss_spike_factor > 0,
+    # spiking) loss or non-finite params back to the newest checkpoint;
+    # each trip multiplies lr_scale by guard_lr_backoff, and trip
+    # guard_max_trips + 1 raises TrainingDivergedError
     guard_numerics: bool = False
-    audit_every: int = 0
+    loss_spike_factor: float = 0.0
+    guard_lr_backoff: float = 1.0
+    guard_max_trips: int = 3
+    audit_every: int = 0          # not ported (ROADMAP A12)
+    # K > 0: the loss and the guard's verdict stay on the device and are
+    # read K rounds late; drain() reads the rest
+    harvest_lag: int = 0
+    # write round checkpoints on a background thread
+    # (SPARKNET_ASYNC_CKPT=0 overrides to synchronous)
+    async_checkpoint: bool = True
+    # the τ-boundary exchange's wire format (parallel/comms.py); "none"
+    # is the plain average.  local_sgd and hierarchical only.
+    comm_codec: str = "none"
+    # no host synchronisation between encode, exchange and decode (the
+    # same results bit for bit; stall_s charges the stages only without)
+    comm_overlap: bool = False
+    shard: str = "off"            # not ported (ROADMAP A12)
+    shard_checkpoint: bool = False  # not ported (ROADMAP A12)
+
+
+class TrainingDivergedError(RuntimeError):
+    """The numerical guard tripped and could not recover: no checkpoint
+    to roll back to, or more than ``guard_max_trips`` trips."""
 
 
 def _not_ported(config: TrainerConfig) -> list[str]:
-    """The settings of ``config`` this port does not implement."""
+    """The settings of ``config`` this port does not implement, each
+    with the ROADMAP item it waits for."""
     bad = []
-    if config.strategy not in STRATEGIES:
-        bad.append(f"strategy={config.strategy!r}")
-    if config.comm_codec != "none":
-        bad.append(f"comm_codec={config.comm_codec!r}")
     if config.shard != "off":
-        bad.append(f"shard={config.shard!r}")
-    if config.checkpoint_dir is not None:
-        bad.append("checkpoint_dir")
-    if config.guard_numerics:
-        bad.append("guard_numerics")
+        bad.append(f"shard={config.shard!r} (ROADMAP A12)")
+    if config.shard_checkpoint:
+        bad.append("shard_checkpoint (ROADMAP A12)")
     if config.audit_every:
-        bad.append("audit_every")
+        bad.append("audit_every (ROADMAP A12)")
+    if config.remat:
+        bad.append("remat (ROADMAP A5)")
     return bad
+
+
+def comm_config_from_env(base: TrainerConfig | None = None
+                         ) -> TrainerConfig:
+    """``base`` (or a default config) with the round's shape from the
+    knobs that are set: ``SPARKNET_TAU``, ``SPARKNET_COMM_CODEC`` and
+    ``SPARKNET_COMM_OVERLAP`` (the JAX package's trainer.py:286-315).
+    Unset knobs leave ``base`` as it is.  ``SPARKNET_SHARD`` and
+    ``SPARKNET_SHARD_CKPT`` raise: sharding is not ported."""
+    from ..utils import knobs
+    cfg = base or TrainerConfig()
+    tau = knobs.get_int("SPARKNET_TAU", 0)
+    if tau > 0:
+        cfg = dataclasses.replace(cfg, tau=tau)
+    codec = knobs.get_str("SPARKNET_COMM_CODEC", "")
+    if codec:
+        cfg = dataclasses.replace(cfg, comm_codec=codec)
+    if knobs.is_set("SPARKNET_COMM_OVERLAP"):
+        cfg = dataclasses.replace(
+            cfg, comm_overlap=knobs.get_bool("SPARKNET_COMM_OVERLAP", False))
+    for name in ("SPARKNET_SHARD", "SPARKNET_SHARD_CKPT"):
+        if knobs.is_set(name):
+            raise NotImplementedError(
+                f"{name} is set: sharding is not ported yet (ROADMAP A12)")
+    return cfg
+
+
+def _mean(trees: list[Params]) -> Params:
+    """The leafwise mean of ``trees``."""
+    return {k: [torch.stack([t[k][i] for t in trees]).mean(0)
+                for i in range(len(blobs))]
+            for k, blobs in trees[0].items()}
+
+
+def _stack(trees: list[Params]) -> Params:
+    return {k: [torch.stack([t[k][i] for t in trees])
+                for i in range(len(blobs))]
+            for k, blobs in trees[0].items()}
+
+
+def _poison(v):
+    """NaNs in place of a floating input (``nan_inject``)."""
+    if isinstance(v, torch.Tensor):
+        return torch.full_like(v, float("nan")) if v.is_floating_point() \
+            else v
+    v = np.asarray(v)
+    return np.full_like(v, np.nan) if np.issubdtype(v.dtype, np.floating) \
+        else v
+
+
+def _retier(x: np.ndarray, n: int) -> np.ndarray:
+    """Rows of a stacked per-tier array for ``n`` tiers: row i from saved
+    row i mod saved_n (the JAX package's ``_retier_state``, :1539)."""
+    x = np.asarray(x)
+    return x[np.arange(n) % x.shape[0]]
+
+
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _manifest_round(path: str) -> int:
+    stem = os.path.basename(path)
+    try:
+        return int(stem[len("manifest_"):-len(".json")])
+    except ValueError:
+        return -1
 
 
 def _copy(params: Params) -> Params:
@@ -192,24 +328,74 @@ def device_crop_mirror_mean(crop: int, mirror: bool = True, mean=None,
 
 class DistributedTrainer:
     """Master params, solver state (one per worker under ``local_sgd``,
-    one shared under ``sync``) and the round loop over ``n_workers``
-    logical workers on ``device``."""
+    one per host under ``hierarchical``, one shared under ``sync``) and
+    the round loop over logical workers on ``device``.  ``n_workers`` is
+    a worker count (a flat layout, ``make_mesh(n)``) or a
+    ``parallel.mesh`` layout; ``hierarchical`` needs
+    ``make_pod_mesh(hosts, chips)``."""
 
-    def __init__(self, sp: SolverParameter, n_workers: int = 1,
+    def __init__(self, sp: SolverParameter, n_workers: int | Layout = 1,
                  config: TrainerConfig | None = None, *, seed: int = 0,
                  device: str | torch.device = "cuda"):
         self.sp = sp
-        self.config = config or TrainerConfig()
-        bad = _not_ported(self.config)
+        cfg = self.config = config or TrainerConfig()
+        if cfg.strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {cfg.strategy!r}")
+        bad = _not_ported(cfg)
         if bad:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(bad)} (the port trains with "
-                f"strategy 'local_sgd' or 'sync' only)")
-        if n_workers < 1 or self.config.tau < 1:
-            raise ValueError(f"n_workers and tau must be >= 1, got "
-                             f"{n_workers} and {self.config.tau}")
+            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        # "none" stays off the exchange machinery: the plain average
+        self._codec = (None if cfg.comm_codec == "none"
+                       else comms.get_codec(cfg.comm_codec))
+        if self._codec is not None and cfg.strategy == "sync":
+            raise ValueError(
+                f"comm_codec={cfg.comm_codec!r} needs a τ-boundary weight "
+                f"exchange to compress; strategy 'sync' exchanges per-step "
+                f"gradients (use local_sgd or hierarchical, or "
+                f"comm_codec='none')")
+        layout = n_workers
+        if isinstance(layout, int):
+            if layout < 1:
+                raise ValueError(f"n_workers must be >= 1, got {layout}")
+            layout = make_mesh(layout)
+        shape = layout.shape
+        if cfg.strategy == "hierarchical":
+            if HOST_AXIS not in shape or CHIP_AXIS not in shape:
+                raise ValueError(
+                    "hierarchical strategy needs a (host, chip) layout: "
+                    "build it with make_pod_mesh()")
+            self.n_hosts, self.n_chips = shape[HOST_AXIS], shape[CHIP_AXIS]
+        elif DATA_AXIS not in shape:
+            raise ValueError(
+                f"strategy {cfg.strategy!r} needs a flat layout "
+                f"(make_mesh), got {shape}")
+        if cfg.tau < 1:
+            raise ValueError(f"tau must be >= 1, got {cfg.tau}")
+        if cfg.harvest_lag < 0:
+            raise ValueError(
+                f"harvest_lag must be >= 0, got {cfg.harvest_lag}")
+        if cfg.checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got "
+                             f"{cfg.checkpoint_every}")
+        if cfg.guard_numerics and not cfg.checkpoint_dir:
+            raise ValueError("guard_numerics needs checkpoint_dir: rollback "
+                             "is the guard's only recovery action")
+        if cfg.harvest_lag and cfg.guard_numerics:
+            # a poison at round r surfaces up to harvest_lag rounds later;
+            # the newest checkpoint before it must outlive the pruning of
+            # the checkpoints written meanwhile
+            horizon = cfg.checkpoint_every * max(cfg.checkpoint_keep - 1, 0)
+            need = cfg.harvest_lag + cfg.checkpoint_every - 1
+            if horizon < need:
+                raise ValueError(
+                    f"harvest_lag={cfg.harvest_lag} outruns the checkpoint "
+                    f"retention (checkpoint_every={cfg.checkpoint_every} x "
+                    f"(checkpoint_keep={cfg.checkpoint_keep} - 1) = "
+                    f"{horizon} < {need} rounds of detection latency): "
+                    f"raise checkpoint_keep or lower harvest_lag")
+        self.mesh = layout
+        self.n_workers = layout.n_workers
         self.device = resolve_device(device)
-        self.n_workers = n_workers
         net_param = sp.net_param or sp.train_net_param
         if net_param is None:
             raise ValueError("SolverParameter carries no net definition")
@@ -228,10 +414,10 @@ class DistributedTrainer:
         # on the card and on the CPU): its Dropout masks (ops/neuron.py),
         # and its crop offsets under device_preprocess
         self.generators = [torch.Generator().manual_seed(seed * 7919 + w + 1)
-                           for w in range(n_workers)]
+                           for w in range(self.n_workers)]
         self.crop_generators = [
             torch.Generator().manual_seed(seed * 7919 + 104729 + w)
-            for w in range(n_workers)]
+            for w in range(self.n_workers)]
         self.iter = 0
         self.round = 0
         self.lr_scale = 1.0
@@ -239,17 +425,52 @@ class DistributedTrainer:
         self.round_seconds: dict[int, float] = {}
         # each worker's params at the end of the last local_sgd round,
         # before the average: what the master params are the mean of
-        # (empty under sync, where every worker holds the master params)
+        # (empty under sync and hierarchical)
         self.worker_params: list[Params] = []
         # the FeedStats of the newest input_feed()
         self.feed_stats = None
+        # per tier, the error-feedback residual of the compressed
+        # exchange, stacked [n_tier, ...] like the JAX package's
+        self.comm_residual: Params | None = (
+            self._zero_residual() if self._codec is not None else None)
+        # round checkpoints, the guard and the harvest lag
+        self.data_cursor: Any = None
+        self.resumed: dict[str, Any] | None = None
+        self.guard_trips = 0
+        self._loss_history: list[float] = []
+        self._pending: collections.deque = collections.deque()
+        self._ckpt_writer = None
+        # host seconds the loop waited, by what it waited for
+        self.stall_s = {"loss_fetch": 0.0, "finite_check": 0.0,
+                        "checkpoint": 0.0,
+                        **{k: 0.0 for k in COMM_STAGES}}
+        if cfg.checkpoint_dir:
+            self.resumed = self.resume_latest(cfg.checkpoint_dir)
+            if cfg.guard_numerics and self.resumed is None:
+                # a baseline, so the very first round can roll back
+                self.save_round_checkpoint()
+
+    def _state_tier(self) -> int:
+        """Solver states (and residuals) kept: one per host under
+        ``hierarchical``, one per worker otherwise."""
+        if self.config.strategy == "hierarchical":
+            return self.n_hosts
+        return self.n_workers
 
     def init_state(self):
         """Fresh solver state for the current params: a list with one per
-        worker under ``local_sgd``, one shared state under ``sync``."""
+        worker under ``local_sgd``, one per host under ``hierarchical``,
+        one shared state under ``sync``."""
         if self.config.strategy == "sync":
             return self.rule.init(self.params)
-        return [self.rule.init(self.params) for _ in range(self.n_workers)]
+        return [self.rule.init(self.params)
+                for _ in range(self._state_tier())]
+
+    def _zero_residual(self) -> Params:
+        n = self._state_tier()
+        return {k: [torch.zeros((n,) + tuple(b.shape), dtype=torch.float32,
+                                device=self.device) for b in blobs]
+                for k, blobs in self.params.items()}
 
     @property
     def batches_per_round(self) -> int:
@@ -265,13 +486,14 @@ class DistributedTrainer:
         ``data.prefetch.device_feed`` on the trainer's device: the host's
         round building and the copies overlap the rounds, and
         ``train_round`` takes the staged tensors as they are.  ``depth``
-        defaults to ``SPARKNET_FEED_DEPTH`` when set, else 1: a [τ,
-        global_batch, ...] round is large.  Close the returned feed
-        (context manager) after the loop."""
+        defaults to ``SPARKNET_FEED_DEPTH`` when set, else
+        ``harvest_lag + 1``: a [τ, global_batch, ...] round is large, and
+        a lagged loop keeps that many rounds in flight.  Close the
+        returned feed (context manager) after the loop."""
         from ..data.pipeline import FeedStats, feed_depth
         from ..data.prefetch import device_feed
         if depth is None:
-            depth = feed_depth(1)
+            depth = feed_depth(max(1, self.config.harvest_lag + 1))
         self.feed_stats = stats if stats is not None else FeedStats()
         return device_feed(rounds, self.device, depth=depth,
                            stats=self.feed_stats,
@@ -296,7 +518,10 @@ class DistributedTrainer:
             micro = pre(micro, self.crop_generators[w])
         return micro
 
-    def _local_sgd_round(self, batches) -> torch.Tensor:
+    # -- the rounds ------------------------------------------------------
+    def _local_sgd_round(self, batches) -> tuple[list[Params], torch.Tensor]:
+        """τ local steps per worker; each worker's params and the mean
+        loss."""
         workers, worker_losses = [], []
         for w in range(self.n_workers):
             params, state = _copy(self.params), self.state[w]
@@ -309,35 +534,96 @@ class DistributedTrainer:
             self.state[w] = state
             workers.append(params)
             worker_losses.append(torch.stack(losses).mean())
-        self.params = {k: [torch.stack([p[k][i] for p in workers]).mean(0)
-                           for i in range(len(blobs))]
-                       for k, blobs in workers[0].items()}
-        self.worker_params = workers
-        return torch.stack(worker_losses).mean()
+        return workers, torch.stack(worker_losses).mean()
 
-    def _sync_round(self, batches) -> torch.Tensor:
+    def _psum_steps(self, params: Params, state, batches,
+                    workers: range):
+        """τ ``sync`` steps over ``workers`` (the JAX make_psum_step,
+        :577-604): per step each worker's accumulated loss and gradients,
+        their means, ``preprocess_grads`` and one update of ``params``
+        and ``state``.  Returns them and the mean loss.  (The JAX step
+        re-averages BatchNorm's running stats here too, :591-597; the
+        port has no BatchNorm yet, ROADMAP A14.)"""
         losses = []
         for t in range(self.config.tau):
             it = self.iter + t
             step_losses, step_grads = [], []
-            for w in range(self.n_workers):
-                loss, grads = self._accum(self.params,
-                                          self._micro(batches, t, w),
+            for w in workers:
+                loss, grads = self._accum(params, self._micro(batches, t, w),
                                           self.generators[w])
                 step_losses.append(loss)
                 step_grads.append(grads)
-            grads = {k: [torch.stack([g[k][i] for g in step_grads]).mean(0)
-                         for i in range(len(blobs))]
-                     for k, blobs in step_grads[0].items()}
-            grads = preprocess_grads(self.sp, self.params, grads,
+            grads = preprocess_grads(self.sp, params, _mean(step_grads),
                                      self._lr_mults, self._decay_mults)
-            self.params, self.state = self.rule.apply(
-                self.params, grads, self.state,
+            params, state = self.rule.apply(
+                params, grads, state,
                 learning_rate(self.sp, it) * self.lr_scale, it,
                 lr_mults=self._lr_mults)
             losses.append(torch.stack(step_losses).mean())
-        self.worker_params = []
-        return torch.stack(losses).mean()
+        return params, state, torch.stack(losses).mean()
+
+    def _hierarchical_round(self, batches
+                            ) -> tuple[list[Params], torch.Tensor]:
+        """Per host, τ ``sync`` steps over its chips from the master
+        params with the host's state; each host's params and the mean
+        loss."""
+        hosts, host_losses = [], []
+        c = self.n_chips
+        for h in range(self.n_hosts):
+            params, self.state[h], loss = self._psum_steps(
+                _copy(self.params), self.state[h], batches,
+                range(h * c, (h + 1) * c))
+            hosts.append(params)
+            host_losses.append(loss)
+        return hosts, torch.stack(host_losses).mean()
+
+    def _sync_device(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _encode(self, local: Params, ref: Params, residual: Params
+                ) -> tuple[Params, Params]:
+        """Encode each tier's ``local - ref + residual`` (``local`` and
+        ``residual`` stacked on the tier axis); returns the payload and
+        the new residual, the exact f32 quantization error (the JAX
+        package's ``enc``, trainer.py:772-776)."""
+        delta = {k: [x - r.unsqueeze(0) + e for x, r, e in
+                     zip(local[k], ref[k], residual[k])] for k in ref}
+        payload, _, new_residual = comms.roundtrip_tree(self._codec, delta)
+        return payload, new_residual
+
+    def _decode(self, payload: Params, ref: Params) -> Params:
+        """``ref`` plus the tier mean of the decoded deltas (the JAX
+        package's ``dec``, trainer.py:778-781)."""
+        deltas = comms.decode_tree(self._codec, payload)
+        return {k: [r + d.mean(0) for r, d in zip(ref[k], deltas[k])]
+                for k in ref}
+
+    def _exchange(self, local: list[Params]) -> None:
+        """The compressed τ-boundary average (the JAX package's
+        ``_run_comm_round``, :805-836): encode, exchange the stacked
+        payload (on one card it passes as it is; ``comms.exchange_bytes``
+        counts what a wire would carry), decode.  Without
+        ``comm_overlap`` the host waits for the device after each stage
+        and ``stall_s`` charges the wait; with it the three stages queue
+        without a wait and give the same bits."""
+        overlap = self.config.comm_overlap
+        t0 = time.perf_counter()
+        payload, self.comm_residual = self._encode(
+            _stack(local), self.params, self.comm_residual)
+        if not overlap:
+            self._sync_device()
+            self.stall_s["comm_encode"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gathered = payload
+        if not overlap:
+            self._sync_device()
+            self.stall_s["comm_allreduce"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.params = self._decode(gathered, self.params)
+        if not overlap:
+            self._sync_device()
+            self.stall_s["comm_decode"] += time.perf_counter() - t0
 
     def train_round(self, batches: Mapping[str, Any]) -> float:
         """Run one round.  ``batches`` maps each input blob to an array or
@@ -346,7 +632,18 @@ class DistributedTrainer:
         w·batch:(w+1)·batch of every minibatch, and step t the minibatches
         t·iter_size:(t+1)·iter_size.  Returns the round's loss, the mean
         over workers and steps.  When the solver's ``snapshot`` interval
-        was crossed, writes ``<snapshot_prefix>_iter_<iter>.npz``."""
+        was crossed, writes ``<snapshot_prefix>_iter_<iter>.npz``; every
+        ``checkpoint_every`` rounds, a round checkpoint.
+
+        With ``guard_numerics`` a rejected round is dropped: the trainer
+        rolls back and ``self.round`` does not move, so a ``while
+        trainer.round < rounds`` loop replays it (the poisoned loss is
+        still returned).  With ``harvest_lag`` K > 0 the return value is
+        the loss of the round K back (``nan`` until there is one; every
+        harvested loss lands in ``round_losses``), and a trip found then
+        rolls back and drops the rounds in flight after it.  Call
+        ``drain()`` before reading the final params."""
+        from ..utils import faults
         expect = self.batches_per_round
         for k, v in batches.items():
             if v.shape[0] != expect:
@@ -355,14 +652,54 @@ class DistributedTrainer:
             if v.shape[1] % self.n_workers:
                 raise ValueError(f"{k}: batch {v.shape[1]} not divisible by "
                                  f"{self.n_workers} workers")
+        round_idx = self.round
+        lag = self.config.harvest_lag
+        injector = faults.get_injector()
+        if any(s.kind == "bitflip_params" for s in injector.specs):
+            raise NotImplementedError(
+                "SPARKNET_FAULT=bitflip_params needs the cross-replica "
+                "audit, which is not ported yet (ROADMAP A12)")
+        if injector.nan_inject(round_idx):
+            print(f"FAULT: nan_inject poisoning round {round_idx} feed",
+                  file=sys.stderr, flush=True)
+            batches = {k: _poison(v) for k, v in batches.items()}
         t0 = time.perf_counter()
         with full_f32():
             if self.config.strategy == "sync":
-                loss = float(self._sync_round(batches))
+                self.params, self.state, loss = self._psum_steps(
+                    self.params, self.state, batches, range(self.n_workers))
+                self.worker_params = []
             else:
-                loss = float(self._local_sgd_round(batches))
-        self.round_seconds[self.round] = time.perf_counter() - t0
-        self.round_losses[self.round] = loss
+                if self.config.strategy == "hierarchical":
+                    local, loss = self._hierarchical_round(batches)
+                    self.worker_params = []
+                else:
+                    local, loss = self._local_sgd_round(batches)
+                    self.worker_params = local
+                if self._codec is None:
+                    self.params = _mean(local)
+                else:
+                    self._exchange(local)
+                del local
+        if lag:
+            finite = (self._finite(self.params)
+                      if self.config.guard_numerics else None)
+            self._pending.append({"round": round_idx, "loss": loss,
+                                  "finite": finite})
+            loss_val = float("nan")
+        else:
+            t1 = time.perf_counter()
+            loss_val = float(loss)
+            self.stall_s["loss_fetch"] += time.perf_counter() - t1
+            if self.config.guard_numerics:
+                reason = self._poison_reason(loss_val)
+                if reason:
+                    self.round_seconds[round_idx] = time.perf_counter() - t0
+                    self._guard_trip(round_idx, reason)
+                    return loss_val   # round dropped; self.round unchanged
+                self._loss_history = (self._loss_history + [loss_val])[-8:]
+            self.round_losses[round_idx] = loss_val
+        self.round_seconds[round_idx] = time.perf_counter() - t0
         prev = self.iter
         self.iter += self.config.tau
         # snapshot on schedule at round granularity (Solver::Step checks
@@ -372,7 +709,142 @@ class DistributedTrainer:
                 and prev // self.sp.snapshot != self.iter // self.sp.snapshot):
             self.snapshot(f"{self.sp.snapshot_prefix}_iter_{self.iter}.npz")
         self.round += 1
-        return loss
+        if (self.config.checkpoint_dir
+                and self.round % self.config.checkpoint_every == 0):
+            self.save_round_checkpoint()
+        while len(self._pending) > lag:
+            h = self._harvest_one()
+            if h is not None:
+                loss_val = h
+        return loss_val
+
+    # -- the numerical guard (the JAX package's trainer.py:1048-1130) -----
+    @staticmethod
+    def _finite(tree: Params) -> torch.Tensor:
+        """One 0-d bool tensor: every float leaf of ``tree`` finite."""
+        flags = [torch.isfinite(x).all() for blobs in tree.values()
+                 for x in blobs if x.is_floating_point()]
+        if not flags:
+            return torch.tensor(True)
+        return torch.stack(flags).all()
+
+    def _loss_poison_reason(self, loss_val: float) -> str | None:
+        """A non-finite loss, or one over ``loss_spike_factor`` times the
+        trailing mean of the last (at most 8, at least 3) losses."""
+        if not np.isfinite(loss_val):
+            return f"non-finite loss {loss_val}"
+        factor = self.config.loss_spike_factor
+        if factor > 0 and len(self._loss_history) >= 3:
+            mean = sum(self._loss_history) / len(self._loss_history)
+            if loss_val > factor * mean:
+                return (f"loss spike {loss_val:.4g} > {factor:g} x "
+                        f"trailing mean {mean:.4g}")
+        return None
+
+    def _poison_reason(self, loss_val: float) -> str | None:
+        """Why the round just run should be rejected, or None."""
+        reason = self._loss_poison_reason(loss_val)
+        if reason:
+            return reason
+        t0 = time.perf_counter()
+        finite = bool(self._finite(self.params))
+        self.stall_s["finite_check"] += time.perf_counter() - t0
+        if not finite:
+            return "non-finite parameters after averaging"
+        return None
+
+    def _guard_trip(self, round_idx: int, reason: str) -> None:
+        """Reject round ``round_idx``: roll back to the newest valid
+        checkpoint at or before it (params, state, residuals, iter, round
+        and generators, so the replay is exact), back off the rate, and
+        count the trip."""
+        self.guard_trips += 1
+        print(f"guard: round {round_idx} REJECTED ({reason}); rolling "
+              f"back to last valid checkpoint at round <= {round_idx} "
+              f"(trip {self.guard_trips}/{self.config.guard_max_trips})",
+              file=sys.stderr, flush=True)
+        if self.guard_trips > self.config.guard_max_trips:
+            raise TrainingDivergedError(
+                f"numerical guard tripped {self.guard_trips} times "
+                f"(> guard_max_trips={self.config.guard_max_trips}); "
+                f"last reason: {reason}")
+        manifest = self.resume_latest(self.config.checkpoint_dir,
+                                      max_round=round_idx)
+        if manifest is None:
+            raise TrainingDivergedError(
+                f"round {round_idx} poisoned ({reason}) and no valid "
+                f"checkpoint at round <= {round_idx} to roll back to in "
+                f"{self.config.checkpoint_dir!r}")
+        if self.config.guard_lr_backoff != 1.0:
+            self.lr_scale *= self.config.guard_lr_backoff
+            print(f"guard: LR scale backed off to {self.lr_scale:g}",
+                  file=sys.stderr, flush=True)
+
+    # -- the harvest lag (the JAX package's trainer.py:1132-1229) ---------
+    def _harvest_one(self) -> float | None:
+        """Read the oldest round in flight: its loss, then its finite
+        verdict.  A trip drops every younger round in flight, flushes the
+        writer, rolls back and removes the checkpoints newer than the
+        rollback.  Returns the loss (a poisoned one too)."""
+        e = self._pending.popleft()
+        round_idx = int(e["round"])
+        t0 = time.perf_counter()
+        loss_val = float(e["loss"])
+        self.stall_s["loss_fetch"] += time.perf_counter() - t0
+        if self.config.guard_numerics:
+            reason = self._loss_poison_reason(loss_val)
+            if reason is None and e["finite"] is not None:
+                t0 = time.perf_counter()
+                finite = bool(e["finite"])
+                self.stall_s["finite_check"] += time.perf_counter() - t0
+                if not finite:
+                    reason = "non-finite parameters after averaging"
+            if reason:
+                self._pending.clear()
+                self.flush_checkpoints()
+                self._guard_trip(round_idx, reason)
+                self._drop_checkpoints_after(self.round)
+                return loss_val
+            self._loss_history = (self._loss_history + [loss_val])[-8:]
+        self.round_losses[round_idx] = loss_val
+        return loss_val
+
+    def drain(self) -> dict[int, float]:
+        """Harvest every round in flight and flush the checkpoint writer;
+        returns ``round_losses``.  A verdict read here can trip and
+        rewind ``self.round``: a loop that wants the dropped rounds
+        replayed runs ``while trainer.round < rounds`` around it."""
+        while self._pending:
+            self._harvest_one()
+        self.flush_checkpoints()
+        return dict(self.round_losses)
+
+    def flush_checkpoints(self) -> None:
+        """Wait for this trainer's queued checkpoint writes; raises a
+        background write's error.  A no-op on the synchronous path."""
+        if self._ckpt_writer is not None:
+            t0 = time.perf_counter()
+            try:
+                self._ckpt_writer.flush()
+            finally:
+                self.stall_s["checkpoint"] += time.perf_counter() - t0
+
+    def _drop_checkpoints_after(self, round_idx: int) -> None:
+        """Remove the checkpoints newer than ``round_idx``: after a
+        lagged trip rolled back, those written during the lag descend
+        from the poisoned round."""
+        directory = self.config.checkpoint_dir
+        if not directory:
+            return
+        for mpath in glob.glob(os.path.join(directory, "manifest_*.json")):
+            r = _manifest_round(mpath)
+            if r > round_idx:
+                for p in (mpath, os.path.join(directory,
+                                              f"ckpt_round_{r:08d}.npz")):
+                    try:
+                        os.remove(p)
+                    except OSError:
+                        pass
 
     def test(self, feed: Iterator[Mapping[str, Any]],
              num_steps: int) -> dict[str, Any]:
@@ -412,27 +884,27 @@ class DistributedTrainer:
 
     # -- snapshots (the JAX package's layout, trainer.py:1494-1638) -------
     def _host_blob(self) -> dict[str, Any]:
-        """The full training state as host arrays, in the JAX package's
-        checkpoint layout: ``params``; ``state``, stacked on a leading
-        worker axis under ``local_sgd`` and unstacked under ``sync``;
-        ``iter``, ``round``, ``strategy``, ``n_workers``, ``lr_scale``.
-        The port's generator states go under ``torch_generators`` (the
-        JAX package ignores that key; the port ignores the JAX package's
-        ``rng``, a ``jax.random`` key)."""
-        def host(tree):
-            return {k: [b.detach().cpu().numpy() for b in v]
-                    for k, v in tree.items()}
-
+        """The full training state in the JAX package's checkpoint
+        layout: ``params``; ``state``, stacked on a leading tier axis
+        (workers under ``local_sgd``, hosts under ``hierarchical``) and
+        unstacked under ``sync``; ``iter``, ``round``, ``strategy``,
+        ``n_workers``, ``lr_scale``; ``n_hosts`` under hierarchical;
+        ``comm_residual`` and ``comm_codec`` with a codec.  Leaves are
+        tensors where they live (``save_checkpoint`` and
+        ``snapshot_tree`` copy them out); the stacked state is a fresh
+        stack, so it aliases nothing.  The port's generator states go
+        under ``torch_generators`` (the JAX package ignores that key; the
+        port ignores the JAX package's ``rng``, a ``jax.random`` key)."""
         if self.config.strategy == "sync":
-            state = {name: host(tree) for name, tree in self.state.items()}
+            state = self.state
         else:
-            state = {name: {k: [np.stack([s[name][k][i].detach().cpu()
-                                          .numpy() for s in self.state])
+            state = {name: {k: [torch.stack([s[name][k][i]
+                                             for s in self.state])
                                 for i in range(len(blobs))]
                             for k, blobs in tree.items()}
                      for name, tree in self.state[0].items()}
-        return {
-            "params": host(self.params),
+        blob = {
+            "params": self.params,
             "state": state,
             "iter": self.iter,
             "round": self.round,
@@ -440,38 +912,84 @@ class DistributedTrainer:
             "n_workers": self.n_workers,
             "lr_scale": np.float64(self.lr_scale),
             "torch_generators": {
-                "dropout": [g.get_state().numpy() for g in self.generators],
-                "crop": [g.get_state().numpy()
-                         for g in self.crop_generators]},
+                "dropout": [g.get_state() for g in self.generators],
+                "crop": [g.get_state() for g in self.crop_generators]},
         }
+        if self.config.strategy == "hierarchical":
+            blob["n_hosts"] = self.n_hosts
+        if self.comm_residual is not None:
+            blob["comm_residual"] = self.comm_residual
+            blob["comm_codec"] = self.config.comm_codec
+        return blob
 
     def _apply_blob(self, blob: Mapping[str, Any]) -> None:
+        """Restore a blob of ``_host_blob``'s layout, written by either
+        package.  Refuses another strategy, and another worker (or host)
+        count unless ``elastic``, which re-tiers the stacked state and
+        residuals (new row i from saved row i mod saved_n)."""
         saved_strategy = str(np.asarray(blob.get("strategy", "")))
         if saved_strategy and saved_strategy != self.config.strategy:
             raise ValueError(
                 f"checkpoint strategy {saved_strategy!r} != trainer "
                 f"{self.config.strategy!r} (per-worker optimizer state is "
                 f"not convertible)")
-        if "n_workers" in blob and int(blob["n_workers"]) != self.n_workers:
+        elastic = self.config.elastic
+        state = blob["state"]
+        saved_workers = int(blob["n_workers"]) if "n_workers" in blob \
+            else None
+        if saved_workers is not None and saved_workers != self.n_workers:
+            if not elastic:
+                raise ValueError(
+                    f"checkpoint has {saved_workers} workers, the trainer "
+                    f"has {self.n_workers} (set TrainerConfig.elastic=True "
+                    f"to re-form on a different worker set)")
+            print(f"elastic: re-forming {saved_workers} -> "
+                  f"{self.n_workers} workers (params are the consensus "
+                  f"average; stacked optimizer state re-tiled)",
+                  file=sys.stderr, flush=True)
+        n_tier = self._state_tier()
+        if self.config.strategy == "hierarchical" and "n_hosts" in blob \
+                and int(blob["n_hosts"]) != self.n_hosts and not elastic:
             raise ValueError(
-                f"checkpoint has {int(blob['n_workers'])} workers, the "
-                f"trainer has {self.n_workers}")
+                f"checkpoint has {int(blob['n_hosts'])} hosts, the trainer "
+                f"has {self.n_hosts} (per-host optimizer state does not "
+                f"re-tile; set TrainerConfig.elastic=True)")
 
         def dev(a) -> torch.Tensor:
             return torch.from_numpy(np.array(a)).to(self.device)
 
         params = {k: [dev(b) for b in blob["params"][k]]
                   for k in self.params}
-        state = blob["state"]
         if self.config.strategy == "sync":
             new_state = {name: {k: [dev(b) for b in tree[k]]
                                 for k in self.params}
                          for name, tree in state.items()}
         else:
-            new_state = [{name: {k: [dev(np.asarray(b)[w]) for b in tree[k]]
+            rows = {name: {k: [_retier(b, n_tier) for b in tree[k]]
+                           for k in self.params}
+                    for name, tree in state.items()}
+            new_state = [{name: {k: [dev(b[i]) for b in tree[k]]
                                  for k in self.params}
-                          for name, tree in state.items()}
-                         for w in range(self.n_workers)]
+                          for name, tree in rows.items()}
+                         for i in range(n_tier)]
+        if self.comm_residual is not None:
+            saved_codec = str(np.asarray(blob.get("comm_codec", "")))
+            if "comm_residual" in blob and saved_codec == \
+                    self.config.comm_codec:
+                res = blob["comm_residual"]
+                self.comm_residual = {
+                    k: [dev(_retier(b, n_tier)) for b in res[k]]
+                    for k in self.params}
+            else:
+                # a checkpoint without residuals, or of another codec:
+                # they mean nothing on this wire format, so error
+                # feedback starts afresh
+                if saved_codec:
+                    print(f"resume: checkpoint residuals are for codec "
+                          f"{saved_codec!r}, trainer runs "
+                          f"{self.config.comm_codec!r}: resetting error "
+                          f"feedback", file=sys.stderr, flush=True)
+                self.comm_residual = self._zero_residual()
         self.params, self.state = params, new_state
         self.worker_params = []
         self.iter = int(blob["iter"])
@@ -481,6 +999,7 @@ class DistributedTrainer:
             self.lr_scale = float(np.asarray(blob["lr_scale"]))
         gens = blob.get("torch_generators")
         if gens is not None:
+            # workers past the saved count keep their own seeding
             for g, s in zip(self.generators, gens["dropout"]):
                 g.set_state(torch.from_numpy(np.array(s, np.uint8)))
             for g, s in zip(self.crop_generators, gens["crop"]):
@@ -493,6 +1012,169 @@ class DistributedTrainer:
 
     def restore(self, path: str) -> None:
         """Read a snapshot written by either package.  Refuses one of
-        another strategy or worker count."""
+        another strategy, or of another worker count unless ``elastic``."""
         from ..utils.checkpoint import load_checkpoint
         self._apply_blob(load_checkpoint(path))
+
+    # -- round checkpoints and resume (the JAX package's :1642-1907) ------
+    def save_round_checkpoint(self, directory: str | None = None) -> str:
+        """Write ``ckpt_round_<round>.npz`` and its manifest for the
+        current round, in the JAX package's order: the npz (tmp+rename),
+        the fault hooks, the manifest with the npz's sha256 (tmp+rename,
+        last, behind the fence check), then pruning to
+        ``checkpoint_keep`` and the sweep of orphan temporaries.  With
+        the asynchronous writer the state is copied out without blocking
+        and the write runs on the writer's thread; ``flush_checkpoints``
+        waits for it.  Returns the npz's path."""
+        from ..utils import faults, knobs
+        from ..utils.checkpoint import (
+            AsyncCheckpointWriter, CheckpointFencedError, advance_fence,
+            async_checkpoints_enabled, check_fence, save_checkpoint,
+            snapshot_tree)
+        directory = directory or self.config.checkpoint_dir
+        if not directory:
+            raise ValueError("no checkpoint directory configured")
+        # the injector of the round that schedules the write decides its
+        # faults, whatever the env says when the writer gets to it
+        injector = faults.get_injector()
+        t0 = time.perf_counter()
+        blob = self._host_blob()
+        os.makedirs(directory, exist_ok=True)
+        fence_token = knobs.get_int("SPARKNET_FENCE_TOKEN", 0)
+        if fence_token:
+            advance_fence(directory, fence_token)
+        round_now = self.round
+        name = f"ckpt_round_{round_now:08d}.npz"
+        path = os.path.join(directory, name)
+        manifest = {
+            "round": round_now,
+            "iter": self.iter,
+            "file": name,
+            "sha256": None,   # filled in after the npz lands
+            "mesh_shape": self.mesh.shape,
+            "strategy": self.config.strategy,
+            "n_workers": self.n_workers,
+            "tau": self.config.tau,
+            "data_cursor": self.data_cursor,
+        }
+
+        def job(blob=blob) -> None:
+            if not isinstance(blob, dict):
+                blob = blob.wait()
+            check_fence(directory, fence_token)
+            save_checkpoint(path, blob)
+            # the torn-write window: the npz is durable, the manifest is
+            # not yet; crash_in_ckpt dies here
+            injector.on_checkpoint_write(round_now)
+            corrupt = injector.corrupt_checkpoint(round_now)
+            manifest["sha256"] = _sha256_file(path)
+            manifest["fence_token"] = fence_token
+            mpath = os.path.join(directory,
+                                 f"manifest_{round_now:08d}.json")
+            tmp = f"{mpath}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(manifest, f, indent=1)
+            # the last gate before the checkpoint becomes visible
+            try:
+                check_fence(directory, fence_token)
+            except CheckpointFencedError:
+                for p in (tmp, path):
+                    try:
+                        os.remove(p)
+                    except OSError:
+                        pass
+                raise
+            os.replace(tmp, mpath)
+            if corrupt:
+                print(f"FAULT: corrupt_ckpt scribbling {path}",
+                      file=sys.stderr, flush=True)
+                faults.scribble(path)
+            self._prune_checkpoints(directory)
+
+        if self.config.async_checkpoint and async_checkpoints_enabled():
+            snap = snapshot_tree(blob)
+            if self._ckpt_writer is None:
+                self._ckpt_writer = AsyncCheckpointWriter()
+            self._ckpt_writer.submit(lambda: job(snap))
+        else:
+            job()
+        self.stall_s["checkpoint"] += time.perf_counter() - t0
+        return path
+
+    def _prune_checkpoints(self, directory: str) -> None:
+        keep = max(int(self.config.checkpoint_keep), 1)
+        rounds = sorted(
+            (_manifest_round(m) for m in
+             glob.glob(os.path.join(directory, "manifest_*.json"))),
+            reverse=True)
+        for r in rounds[keep:]:
+            for p in (os.path.join(directory, f"manifest_{r:08d}.json"),
+                      os.path.join(directory, f"ckpt_round_{r:08d}.npz")):
+                try:
+                    os.remove(p)
+                except OSError:
+                    pass
+        # temporaries of writers killed mid-write (ours are renamed away
+        # by now, so anything *.tmp.* is an orphan)
+        for p in glob.glob(os.path.join(directory, "*.tmp.*")):
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+
+    def resume_latest(self, directory: str,
+                      max_round: int | None = None) -> dict[str, Any] | None:
+        """Restore from the newest manifest (at most ``max_round``) whose
+        checkpoint validates: the file's sha256 against the manifest,
+        then the content checksum inside.  A corrupt or partial one is
+        skipped with a message naming it; a checkpoint of another
+        strategy or layout raises (a config error, not corruption)
+        unless ``elastic`` allows the layout.  Returns the manifest
+        resumed from, or None when there is no valid checkpoint."""
+        from ..utils import knobs
+        from ..utils.checkpoint import (CheckpointError, advance_fence,
+                                        flush_all_writers, load_checkpoint)
+        # the newest manifest must not be sitting in a writer's queue
+        flush_all_writers()
+        fence_token = knobs.get_int("SPARKNET_FENCE_TOKEN", 0)
+        if fence_token and os.path.isdir(directory):
+            advance_fence(directory, fence_token)
+        for mpath in sorted(
+                glob.glob(os.path.join(directory, "manifest_*.json")),
+                key=_manifest_round, reverse=True):
+            if max_round is not None and _manifest_round(mpath) > max_round:
+                continue
+            try:
+                with open(mpath) as f:
+                    manifest = json.load(f)
+                path = os.path.join(directory, manifest["file"])
+                got = _sha256_file(path)
+                if got != manifest["sha256"]:
+                    raise CheckpointError(
+                        f"manifest sha256 mismatch (manifest "
+                        f"{manifest['sha256'][:12]}…, file {got[:12]}…)",
+                        path)
+                blob = load_checkpoint(path)
+            except (OSError, json.JSONDecodeError, KeyError, TypeError,
+                    CheckpointError) as e:
+                print(f"resume: skipping {os.path.basename(mpath)}: {e}",
+                      file=sys.stderr, flush=True)
+                continue
+            mesh_shape = manifest.get("mesh_shape")
+            if mesh_shape and mesh_shape != self.mesh.shape:
+                if not self.config.elastic:
+                    raise ValueError(
+                        f"checkpoint mesh shape {mesh_shape} != trainer "
+                        f"mesh {self.mesh.shape} (set TrainerConfig."
+                        f"elastic=True to re-form on a different mesh)")
+                print(f"elastic: resuming checkpoint of mesh {mesh_shape} "
+                      f"on mesh {self.mesh.shape}", file=sys.stderr,
+                      flush=True)
+            self._apply_blob(blob)
+            self.round = int(manifest.get("round", self.round))
+            self.data_cursor = manifest.get("data_cursor")
+            print(f"resume: restored round {self.round} (iter {self.iter}) "
+                  f"from {os.path.basename(manifest['file'])}",
+                  file=sys.stderr, flush=True)
+            return manifest
+        return None

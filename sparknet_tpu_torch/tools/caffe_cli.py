@@ -7,7 +7,8 @@ test at :222, time at :290, device_query at :110).
 Usage:
   python -m sparknet_tpu_torch.tools.caffe_cli train --solver S.prototxt \\
       [--snapshot X.solverstate | --weights W.caffemodel] \\
-      [--devices N [--strategy sync|local_sgd] [--tau T]] [--device cpu]
+      [--devices N [--strategy sync|local_sgd|hierarchical] [--tau T]
+      [--hosts H]] [--device cpu]
   python -m sparknet_tpu_torch.tools.caffe_cli test --model M.prototxt \\
       --weights W.caffemodel [--iterations 50]
   python -m sparknet_tpu_torch.tools.caffe_cli time --model M.prototxt \\
@@ -21,8 +22,9 @@ its list of image files and ``WindowData`` from its window file
 (``data/db.py::feed_for_net``), JPEGs decoded on the run's device,
 through the prefetching ``data/prefetch.py::device_feed``.  ``--devices
 N`` trains N workers on the one card through ``DistributedTrainer``;
-``--strategy hierarchical`` (ROADMAP A5) and ``--hosts`` (ROADMAP A12)
-raise.  ``train`` ends with one ``Train feed:`` log line: the feed's host
+``--strategy hierarchical`` lays them out as ``--hosts`` H hosts of N/H
+chips (``make_pod_mesh``; H defaults to max(1, N // 4), as in the JAX
+CLI).  ``train`` ends with one ``Train feed:`` log line: the feed's host
 seconds per batch (decode, transform, copy to the device) and the
 Solver's wait for it.
 """
@@ -56,15 +58,6 @@ class TimedFeed:
         return item
 
 
-def _refuse_distributed(args) -> None:
-    if args.strategy == "hierarchical":
-        raise NotImplementedError(
-            "--strategy hierarchical is not ported yet (ROADMAP A5)")
-    if args.hosts is not None:
-        raise NotImplementedError(
-            "--hosts (multi-host training) is not ported yet (ROADMAP A12)")
-
-
 def _train(args) -> int:
     from ..data.db import feed_for_net
     from ..data.pipeline import FeedStats
@@ -74,16 +67,16 @@ def _train(args) -> int:
     from ..utils.device import resolve_device
     from ..utils.glog import log_line
 
-    _refuse_distributed(args)
     dev = resolve_device(args.device)
     sp = load_solver_prototxt(args.solver)
     _resolve_solver_net(sp, args.solver)
     if _device_count(args) > 1:
         return _train_multi(args, sp, dev)
-    if args.strategy != "sync" or args.tau != 1:
+    if args.strategy != "sync" or args.tau != 1 or args.hosts is not None:
         # distributed flags without --devices must not silently run the
         # single-device path as if the strategy had been honored
-        raise SystemExit("--strategy/--tau require --devices N (>1)")
+        raise SystemExit(
+            "--strategy/--tau/--hosts require --devices N|all (>1)")
     solver = Solver(sp, seed=0, device=dev)
     if args.weights:
         solver.load_weights(args.weights)
@@ -171,24 +164,42 @@ def _train_multi(args, sp, dev) -> int:
     (reference: caffe/tools/caffe.cpp:208-211 -> parallel.cpp
     P2PSync::Run), all on the one card.  "sync" is per-step gradient
     averaging; "local_sgd" is SparkNet's τ-step weight averaging
-    (ImageNetApp.scala:100-182).  As in Caffe's multi-GPU mode, the
-    prototxt batch stays per worker: each step takes one feed minibatch
-    per worker (parallel.cpp:390-415)."""
+    (ImageNetApp.scala:100-182); "hierarchical" composes the two on
+    ``--hosts`` H hosts of N/H chips each (the JAX CLI's pod mesh,
+    sparknet_tpu/tools/caffe_cli.py:113-128).  As in Caffe's multi-GPU
+    mode, the prototxt batch stays per worker: each step takes one feed
+    minibatch per worker (parallel.cpp:390-415)."""
     import math
 
     import numpy as np
 
     from ..data.db import feed_for_net
-    from ..parallel import DistributedTrainer, TrainerConfig
+    from ..parallel import (DistributedTrainer, TrainerConfig, make_mesh,
+                            make_pod_mesh)
     from ..proto import Phase
     from ..solvers.solver import load_weights_into
     from ..utils.glog import log_line
 
     n = _device_count(args)
+    if args.strategy == "hierarchical":
+        hosts = args.hosts if args.hosts is not None else max(1, n // 4)
+        if hosts < 1:
+            raise SystemExit(f"--hosts must be >= 1, got {hosts}")
+        if n % hosts:
+            raise SystemExit(
+                f"--devices {n} not divisible by --hosts {hosts}")
+        layout = make_pod_mesh(hosts, n // hosts)
+        topo = f"{hosts}x{n // hosts} pod"
+    else:
+        if args.hosts is not None:
+            raise SystemExit(
+                "--hosts only applies to --strategy hierarchical")
+        layout = make_mesh(n)
+        topo = f"{n} workers"
     trainer = DistributedTrainer(
-        sp, n, TrainerConfig(strategy=args.strategy, tau=args.tau),
+        sp, layout, TrainerConfig(strategy=args.strategy, tau=args.tau),
         seed=0, device=dev)
-    print(f"Multi-device training: {n} workers on {dev}, "
+    print(f"Multi-device training: {topo} on {dev}, "
           f"strategy={args.strategy}, tau={args.tau}")
     if args.weights:
         trainer.params = load_weights_into(trainer.train_net, trainer.params,
@@ -274,6 +285,11 @@ def _train_multi(args, sp, dev) -> int:
                     and prev // sp.test_interval
                     != trainer.iter // sp.test_interval):
                 eval_pass()
+    # the feed's thread may still be inside a pull from ``feed`` (its
+    # close waits 5 s at most); closing a generator another thread is
+    # running raises, so wait for the thread to leave it first
+    for t in rounds.threads():
+        t.join()
     feed.close()
     if sp.snapshot_prefix:
         path = f"{sp.snapshot_prefix}_iter_{trainer.iter}.npz"
@@ -401,12 +417,13 @@ def main(argv=None) -> int:
                    default="sync",
                    help="sync: per-step gradient averaging (P2PSync "
                         "semantics); local_sgd: tau-step weight averaging "
-                        "(SparkNet rounds); hierarchical: not ported "
-                        "(ROADMAP A5)")
+                        "(SparkNet rounds); hierarchical: both composed "
+                        "on a (host, chip) layout")
     p.add_argument("--tau", type=int, default=1,
-                   help="steps per round for local_sgd")
+                   help="steps per round for local_sgd / hierarchical")
     p.add_argument("--hosts", type=int, default=None,
-                   help="multi-host training: not ported (ROADMAP A12)")
+                   help="host-axis size for --strategy hierarchical "
+                        "(default: devices//4)")
     p.set_defaults(fn=_train)
     p = sub.add_parser("test")
     p.add_argument("--model", required=True)

@@ -1,9 +1,11 @@
 """The ``SPARKNET_*`` environment knobs the port reads.
 
-The port's own copy of the read half of ``sparknet_tpu/utils/knobs.py``,
-for the knobs of the serving path, the training feed and the DB
-readers.  Reading a name that is not declared
-here raises :class:`UnknownKnob`, so a typo'd knob fails loudly instead of
+The port's own copy of the read half of ``sparknet_tpu/utils/knobs.py``
+(``raw``, ``is_set``, ``get_str``, ``get_int``, ``get_bool``, :106-157),
+for the knobs of the serving path, the training feed, the DB readers,
+the trainer's round shape (``comm_config_from_env``), the checkpoint
+writer and the fault injector.  Reading a name that is not declared here
+raises :class:`UnknownKnob`, so a typo'd knob fails loudly instead of
 silently meaning "default".  Values are read live from ``os.environ``.
 """
 
@@ -12,7 +14,8 @@ from __future__ import annotations
 import os
 
 # name -> one-line doc (defaults live with the readers: ServeConfig,
-# data/pipeline.py)
+# data/pipeline.py, parallel/trainer.py, utils/checkpoint.py,
+# utils/faults.py; each doc names the JAX package's default)
 KNOBS: dict[str, str] = {
     "SPARKNET_SERVE_SHAPES": "serving batch shapes, comma-separated",
     "SPARKNET_SERVE_MAX_DELAY_MS": "coalesce deadline in milliseconds",
@@ -30,11 +33,38 @@ KNOBS: dict[str, str] = {
     "SPARKNET_QUARANTINE_FRACTION": "bad records an epoch may skip, as a "
                                     "fraction of the epoch",
     "SPARKNET_QUARANTINE_RECORDS": "bad records an epoch may skip, a count",
+    "SPARKNET_TAU": "steps per round for comm_config_from_env; unset (the "
+                    "default) keeps the config's tau",
+    "SPARKNET_COMM_CODEC": "τ-boundary exchange codec for "
+                           "comm_config_from_env: none, bf16, int8, "
+                           "int8_channel or a registered name; unset (the "
+                           "default) keeps the config's",
+    "SPARKNET_COMM_OVERLAP": "1 dispatches encode/exchange/decode without "
+                             "host syncs; unset (the default) keeps the "
+                             "config's",
+    "SPARKNET_SHARD": "partition rule table (not ported, ROADMAP A12); "
+                      "unset by default",
+    "SPARKNET_SHARD_CKPT": "per-shard round checkpoints (not ported, "
+                           "ROADMAP A12); unset by default",
+    "SPARKNET_ASYNC_CKPT": "0 forces synchronous round checkpoints; default "
+                           "1 (asynchronous)",
+    "SPARKNET_FENCE_TOKEN": "this writer's incarnation fence token; default "
+                            "0 (fencing off)",
+    "SPARKNET_FAULT": "comma-separated fault specs (utils/faults.py); "
+                      "empty (the default) injects none",
+    "SPARKNET_FAULT_ATTEMPT": "relaunch attempt index faults gate on; "
+                              "default 0",
+    "SPARKNET_PROC_ID": "this process's rank, which faults gate on; "
+                        "default 0",
 }
 
 
 class UnknownKnob(KeyError):
     """A read of a ``SPARKNET_*`` name the port does not declare."""
+
+
+class InvalidKnobValue(ValueError):
+    """A set knob whose value does not parse as its type."""
 
 
 def raw(name: str, default: str | None = None) -> str | None:
@@ -44,3 +74,34 @@ def raw(name: str, default: str | None = None) -> str | None:
                           f"(known: {sorted(KNOBS)})")
     return os.environ.get(name, default)
 
+
+def is_set(name: str) -> bool:
+    """True when the knob is present and non-empty."""
+    return bool(raw(name))
+
+
+def get_str(name: str, default: str = "") -> str:
+    val = raw(name)
+    return default if val is None or val == "" else val
+
+
+def get_int(name: str, default: int) -> int:
+    val = raw(name)
+    if val is None or val == "":
+        return default
+    try:
+        return int(val)
+    except ValueError:
+        raise InvalidKnobValue(
+            f"{name} must be an integer, got {val!r}") from None
+
+
+def get_bool(name: str, default: bool) -> bool:
+    """``"0"`` -> False, ``"1"`` -> True, unset or anything else ->
+    ``default``."""
+    val = raw(name)
+    if val == "0":
+        return False
+    if val == "1":
+        return True
+    return default

@@ -22,9 +22,9 @@ Caffe's finetune path) drawn by the port.
 - ``compute_image_mean`` writes the JAX tool's binaryproto byte for
   byte; ``extract_features`` writes records equal to the net's blob.
 - Refusals name their ROADMAP item: an encoded Datum and ImageData/
-  WindowData/HDF5Data (A15, A6), ``backend: RECORDS`` (A6),
-  ``--strategy hierarchical`` (A5), ``--hosts`` (A12), ``time_net
-  --trace`` (A13).
+  WindowData/HDF5Data (A15, A6), ``backend: RECORDS`` (A6), ``time_net
+  --trace`` (A13).  ``--hosts`` misused exits with the JAX CLI's usage
+  errors (``--strategy hierarchical`` itself: test_torch_hierarchical.py).
 """
 
 from __future__ import annotations
@@ -192,6 +192,41 @@ def test_two_workers_match_the_jax_mesh(tool, capsys, strategy, tau):
     assert "(iter 4)" in resumed and "Iteration 6" in resumed
 
 
+def test_devices_run_waits_for_a_pull_in_flight(tool, capsys,
+                                                monkeypatch):
+    """When the loop ends while the feed's thread is still pulling the
+    next round from the Data layer's feed (a pull slower than the feed's
+    5 s close), the run waits for that pull before it closes the Data
+    feed, instead of raising "generator already executing"."""
+    import time
+
+    from sparknet_tpu_torch.data import db
+    d, model, _ = tool
+    real = db.feed_for_net
+
+    def slow_after_training(net_param, phase, **kw):
+        it = real(net_param, phase, **kw)
+        if phase != Phase.TRAIN:
+            return it
+
+        def gen():
+            try:
+                for i, batch in enumerate(it):
+                    if i == 4:       # the pull after the 2 rounds trained
+                        time.sleep(6.0)
+                    yield batch
+            finally:
+                it.close()
+        return gen()
+
+    monkeypatch.setattr(db, "feed_for_net", slow_after_training)
+    kw = dict(max_iter=2, display=1, test_interval=0, snapshot=0)
+    out = _run(capsys, caffe_cli.main,
+               ["train", "--solver", _solver(d, model, "slow", **kw),
+                "--devices", "2", "--strategy", "sync", "--device", "cpu"])
+    assert "Iteration 2, loss" in out and "Optimization Done." in out
+
+
 def test_time_and_device_query(tool, capsys):
     d, model, _ = tool
     out = _run(capsys, caffe_cli.main, ["time", "--model", str(model),
@@ -299,27 +334,42 @@ def test_image_layers_without_their_params_raise_as_the_jax_cli(
 
 
 @pytest.mark.parametrize("case,item", [
-    ("records", "ROADMAP A6, records"), ("HDF5Data", "ROADMAP A6, HDF5"),
-    ("hierarchical", "ROADMAP A5"), ("hosts", "ROADMAP A12")])
+    ("records", "ROADMAP A6, records"), ("HDF5Data", "ROADMAP A6, HDF5")])
 def test_refusals_name_their_item(tool, tmp_path, case, item):
     d, model, _ = tool
-    extra = []
+    model = tmp_path / f"{case}.prototxt"
     if case == "records":
-        model = tmp_path / "rec.prototxt"
         model.write_text(NET.format(db=d / "train_lmdb").replace(
             "backend: LMDB", "backend: RECORDS"))
-    elif case == "HDF5Data":
-        model = tmp_path / "img.prototxt"
+    else:
         model.write_text(NET.format(db=d / "train_lmdb").replace(
             'type: "Data"', f'type: "{case}"'))
-    elif case == "hierarchical":
-        extra = ["--devices", "2", "--strategy", "hierarchical"]
-    else:
-        extra = ["--devices", "2", "--hosts", "2"]
     with pytest.raises(NotImplementedError, match=item):
         caffe_cli.main(["train", "--solver",
                         _solver(tmp_path, model, "refused"), "--device",
-                        "cpu"] + extra)
+                        "cpu"])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--devices", "2", "--hosts", "2"],
+    ["--devices", "3", "--strategy", "hierarchical", "--hosts", "2"],
+    ["--hosts", "2"]],
+    ids=["hosts_without_hierarchical", "devices_not_divisible_by_hosts",
+         "hosts_without_devices"])
+def test_hosts_usage_errors_as_the_jax_cli(tool, tmp_path, extra):
+    """``--hosts`` is the host-axis size of ``--strategy hierarchical``'s
+    layout, as in the JAX CLI (sparknet_tpu/tools/caffe_cli.py:37-41,
+    :113-128): without hierarchical, with a device count it does not
+    divide, or without ``--devices``, both CLIs exit with one message."""
+    d, model, _ = tool
+    solver = _solver(tmp_path, model, "usage")
+    with pytest.raises(SystemExit) as ours:
+        caffe_cli.main(["train", "--solver", solver, "--device", "cpu"]
+                       + extra)
+    with pytest.raises(SystemExit) as theirs:
+        jax_cli.main(["train", "--solver", solver] + extra)
+    assert str(ours.value) == str(theirs.value)
+    assert "hosts" in str(ours.value)
 
 
 def test_time_net_trace_names_a13():

@@ -126,6 +126,50 @@ def test_tools_are_scanned_and_caffe_cli_runs_with_jax_blocked(tmp_path):
     assert "Average Forward-Backward" in out.stdout
 
 
+ROUND_MODULES = ["ops/quant.py", "parallel/comms.py", "parallel/mesh.py",
+                 "utils/faults.py", "utils/checkpoint.py", "utils/knobs.py"]
+
+
+def test_round_modules_are_scanned_and_the_round_runs_with_jax_blocked(
+        tmp_path):
+    """The round's modules are among the files the scans above cover,
+    and a hierarchical int8 round with guarded, asynchronous round
+    checkpoints and a resume runs on the CPU with ``jax`` and
+    ``sparknet_tpu`` blocked."""
+    for rel in ROUND_MODULES:
+        assert PKG / rel in SOURCES
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sparknet_tpu'] = None\n"
+        "import numpy as np\n"
+        "from sparknet_tpu_torch.models import lenet\n"
+        "from sparknet_tpu_torch.parallel import (DistributedTrainer, "
+        "TrainerConfig, make_pod_mesh)\n"
+        "from sparknet_tpu_torch.proto import "
+        "load_solver_prototxt_with_net\n"
+        "sp = load_solver_prototxt_with_net('base_lr: 0.01\\n', "
+        "lenet(2, 2))\n"
+        "cfg = TrainerConfig(strategy='hierarchical', tau=1, "
+        "comm_codec='int8', guard_numerics=True, "
+        f"checkpoint_dir={str(tmp_path)!r})\n"
+        "b = {'data': np.ones((1, 8, 1, 28, 28), np.float32), "
+        "'label': np.zeros((1, 8), np.float32)}\n"
+        "tr = DistributedTrainer(sp, make_pod_mesh(2, 2), cfg, "
+        "device='cpu')\n"
+        "assert np.isfinite(tr.train_round(b))\n"
+        "tr.flush_checkpoints()\n"
+        "tr2 = DistributedTrainer(sp, make_pod_mesh(2, 2), cfg, "
+        "device='cpu')\n"
+        "assert tr2.round == 1\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.')) for m in sys.modules if sys.modules[m])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "resume: restored round 1" in out.stderr
+
+
 def _pil_imports(path: pathlib.Path) -> list[tuple[int, bool]]:
     """(line, inside a function) of each import of PIL in ``path``."""
     tree = ast.parse(path.read_text(), str(path))

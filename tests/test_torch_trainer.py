@@ -196,14 +196,28 @@ def test_distributed_test_sums_worker_batches():
     assert np.isfinite(scores["loss"])
 
 
-@pytest.mark.parametrize("config", [
-    TrainerConfig(strategy="hierarchical"), TrainerConfig(comm_codec="int8"),
-    TrainerConfig(shard="auto"), TrainerConfig(checkpoint_dir="ckpt"),
-    TrainerConfig(guard_numerics=True), TrainerConfig(audit_every=1)],
-    ids=["hierarchical", "codec", "shard", "checkpoint", "guard", "audit"])
-def test_unported_settings_raise(config):
+@pytest.mark.parametrize("config,error,match", [
+    # hierarchical over a flat layout: it needs make_pod_mesh's
+    (TrainerConfig(strategy="hierarchical"), ValueError, "make_pod_mesh"),
+    (TrainerConfig(strategy="sync", comm_codec="int8"), ValueError,
+     "gradients"),
+    (TrainerConfig(shard="auto"), NotImplementedError, "A12"),
+    (TrainerConfig(checkpoint_dir="ckpt", checkpoint_every=0), ValueError,
+     "checkpoint_every"),
+    (TrainerConfig(guard_numerics=True), ValueError, "checkpoint_dir"),
+    (TrainerConfig(audit_every=1), NotImplementedError, "A12"),
+    (TrainerConfig(shard_checkpoint=True), NotImplementedError, "A12"),
+    (TrainerConfig(remat=True), NotImplementedError, "A5"),
+    (TrainerConfig(comm_codec="int9"), ValueError, "unknown comm codec")],
+    ids=["hierarchical", "codec", "shard", "checkpoint", "guard", "audit",
+         "shard_checkpoint", "remat", "unknown_codec"])
+def test_unported_settings_raise(config, error, match):
+    """Only ``shard``, ``shard_checkpoint``, ``audit_every`` and
+    ``remat`` are refused as not ported, each naming its ROADMAP item;
+    the other cases are the JAX package's own ``ValueError``s
+    (sparknet_tpu/parallel/trainer.py:327-347, :473-483)."""
     sp = load_solver_prototxt_with_net(SOLVER_TXT, lenet(4, 4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error, match=match):
         DistributedTrainer(sp, 1, config, device="cpu")
 
 
