@@ -72,9 +72,11 @@ Imports nothing of JAX and nothing of ``sparknet_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3699,6 +3701,465 @@ def the_round(ck, dev, smi: str, fx: dict) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 5f: the bench — sparknet_tpu_torch.bench at its defaults (CaffeNet,
+# batch 256, 20 iterations, both dtypes, every tier) in process, its CLI
+# in a child, tools/profile_step on CaffeNet b256 f32, and the telemetry
+# plane on the card, with planted faults
+# ---------------------------------------------------------------------------
+
+# the hand kernels' names in a profile of the train step (B2 runs in
+# no train step: its launches there are 0 by the counts)
+PROFILE_KERNELS = {"lrn_across_channels_fwd": r"lrn_fwd(_generic)?_kernel",
+                   "lrn_across_channels_bwd": r"lrn_bwd(_generic)?_kernel",
+                   "max_pool_bwd": r"maxpool_bwd_kernel"}
+PROFILE_LAYERS = ("norm1", "norm2", "pool1", "pool2", "pool5")
+# the keys of the bench line beyond BENCH_r05.json's ``parsed``: those the
+# JAX bench has printed since (bench.py:735-760) and the port's peak_flops
+BENCH_LINE_EXTRA = {"fuse_plan", "tune_plan", "round_overhead", "serving",
+                    "provenance", "feed_records", "shard_round",
+                    "peak_flops"}
+# the CLI contract's short configuration
+BENCH_CLI_ENV = {"BENCH_ITERS": "2", "BENCH_REPS": "1", "BENCH_WINDOWS": "1",
+                 "BENCH_FEED_ITERS": "2", "BENCH_ROUND_N": "1",
+                 "BENCH_ROUND_TAU": "2", "BENCH_SERVE_SECONDS": "0.5"}
+BENCH_TIME_TOL, SOLVER_TIME_TOL, PROFILE_TIME_TOL = 0.10, 0.15, 0.15
+TELEMETRY_ROUNDS = 2
+SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize")
+
+
+def want_steps(steps: int, forwards: int = 0) -> dict:
+    """Every kernel's launches for ``steps`` CaffeNet train steps and
+    ``forwards`` test-net forwards."""
+    return {"lrn_across_channels_fwd": 2 * steps,
+            "lrn_across_channels_bwd": 2 * steps,
+            "max_pool_bwd": 3 * steps,
+            "lrn_across_channels": 2 * forwards, **IMAGE_KERNELS_IDLE}
+
+
+def block_time_ok(host_s: float, event_s: float) -> bool:
+    """A host window that ends at ``torch.cuda.synchronize()`` holds the
+    device time between its first launch and its end, and not 10% more."""
+    return event_s * (1 - 1e-4) <= host_s <= (1 + BENCH_TIME_TOL) * event_s
+
+
+def event_timed_blocks(bench_mod, solver, reps: int, iters: int,
+                       sync) -> tuple[float, float]:
+    """(host s, CUDA-event s) of one bench window of ``reps`` blocks, the
+    events recorded inside the window around the blocks' launches and
+    ``sync`` (the bench's ``torch.cuda.synchronize``) ending it."""
+    from sparknet_tpu_torch.utils.profiling import train_block
+    block = train_block(solver, iters)
+    block()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    calls = [0]
+
+    def run():
+        if calls[0] == 0:
+            start.record()
+        block()
+        calls[0] += 1
+        if calls[0] == reps:
+            end.record()
+
+    host = bench_mod.timed_windows(run, reps, 1, sync)[0]
+    torch.cuda.synchronize()
+    return host, start.elapsed_time(end) / 1e3
+
+
+def bench_solver(dev, cfg, dtype: str):
+    import itertools
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    from sparknet_tpu_torch.solvers import Solver
+    from sparknet_tpu_torch.utils.profiling import (BENCH_SOLVER_PROTOTXT,
+                                                    build_bench_model)
+    net, in_shape, classes = build_bench_model(cfg.model, cfg.batch)
+    solver = Solver(load_solver_prototxt_with_net(BENCH_SOLVER_PROTOTXT,
+                                                  net), seed=0, device=dev,
+                    compute_dtype=torch.bfloat16 if dtype == "bf16"
+                    else None)
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    batch = {"data": torch.randn((cfg.batch,) + in_shape, generator=g,
+                                 device=dev),
+             "label": torch.randint(0, classes, (cfg.batch,), device=dev,
+                                    generator=g).float()}
+    solver.set_train_data(itertools.repeat(batch))
+    return solver
+
+
+def bench_in_process(ck, dev, smi: str, solver_ms_b256: float) -> dict:
+    """The bench at its defaults, each phase's launches counted from 0
+    and each of its timed windows also timed by CUDA events recorded
+    inside it, around its blocks' launches; every check of the line."""
+    from sparknet_tpu_torch import bench as bench_mod
+    cfg = bench_mod.BenchConfig()
+    launches: dict[str, dict] = {}
+    windows: dict[str, list] = {}
+    current: list = [None]
+
+    def on_phase(name):
+        if current[0] is not None:
+            launches[current[0]] = dict(ck.launch_counts)
+        ck.reset_launch_counts()
+        current[0] = name
+
+    timed = bench_mod.timed_windows
+
+    def event_windows(run, reps, n, sync):
+        """The bench's timer, ``run`` wrapped to record a CUDA event
+        before the first and after the last block of each window."""
+        marks: list = []
+        calls = [0]
+
+        def marked():
+            if calls[0] % reps == 0:
+                marks.append([torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True)])
+                marks[-1][0].record()
+            out = run()
+            calls[0] += 1
+            if calls[0] % reps == 0:
+                marks[-1][1].record()
+            return out
+
+        host = timed(marked, reps, n, sync)
+        torch.cuda.synchronize()
+        windows.setdefault(current[0], []).extend(
+            zip(host, [a.elapsed_time(b) / 1e3 for a, b in marks]))
+        return host
+
+    t0 = time.perf_counter()
+    with mock.patch.object(bench_mod, "timed_windows", event_windows):
+        line = bench_mod.run(cfg, "cuda", on_phase)
+    wall = time.perf_counter() - t0
+    print(f"bench [{smi}] ({wall:.1f} s) " + json.dumps(line), flush=True)
+    it, reps, win = cfg.iters, cfg.reps, cfg.windows
+    steps_per_dtype = (1 + win * reps) * it
+    forwards_per_dtype = 1 + win * it * reps
+    want = {}
+    for d in cfg.dtypes:
+        want[f"bench_caffenet_train_{d}"] = want_steps(steps_per_dtype)
+        want[f"bench_caffenet_eval_{d}"] = want_steps(0, forwards_per_dtype)
+    want["bench_feed_compute"] = want_steps(2 + cfg.feed_iters)
+    want["bench_feed_loop"] = want_steps(2 + cfg.feed_iters)
+    ro = line["round_overhead"]
+    for leg in ("bare", "sync", "async"):
+        if ro[leg]["guard_trips"] or ro[leg]["rounds"] != 1 + cfg.round_n:
+            fail(f"bench round tier {leg}: {ro[leg]}")
+        want[f"bench_round_{leg}"] = want_steps(
+            (1 + cfg.round_n) * cfg.round_tau)
+    want["bench_serving"] = want_steps(0, line["serving"]["device_forwards"])
+    if launches != want:
+        fail(f"bench launches {launches} != {want}")
+    # the line: MFU, the FLOP count, correctness of the tiers
+    conv1 = 2 * cfg.batch * 96 * 55 * 55 * 3 * 11 * 11
+    from sparknet_tpu_torch.graph.net import Net
+    from sparknet_tpu_torch.models import caffenet
+    from sparknet_tpu_torch.proto import NetState, Phase
+    fwd = Net(caffenet(cfg.batch, cfg.batch),
+              NetState(Phase.TRAIN)).forward_flops()
+    for d, r in line["by_dtype"].items():
+        if not (r["mfu"] is not None and 0 < r["mfu"] <= 1):
+            fail(f"bench {d}: mfu {r['mfu']} outside (0, 1]")
+        if r["flops_per_step"] != 3 * fwd - conv1:
+            fail(f"bench {d}: flops_per_step {r['flops_per_step']} != "
+                 f"3 x {fwd} - {conv1}")
+    if not line["serving"]["verdicts"]["bit_identical"]:
+        fail(f"bench serving: {line['serving']['verdicts']}")
+    if line["feed_in_loop"]["staged_dtype"] != "uint8":
+        fail(f"bench feed tier: {line['feed_in_loop']}")
+    # timing: every window the bench timed against the CUDA events
+    # inside it, and each dtype's block against the events' median
+    timing = {}
+    for d in cfg.dtypes:
+        for phase in (f"bench_caffenet_train_{d}",
+                      f"bench_caffenet_eval_{d}"):
+            for host, event in windows[phase]:
+                if not block_time_ok(host, event):
+                    fail(f"{phase}: host window {host:.4f} s against "
+                         f"{event:.4f} s under CUDA events")
+        train = windows[f"bench_caffenet_train_{d}"]
+        event_block = float(np.median([e for _, e in train])) / reps
+        bench_s = line["by_dtype"][d]["block_20x256_s"] * it / 20
+        timing[d] = {"bench_block_s": bench_s, "event_block_s": event_block,
+                     "windows_host_event_s": train}
+        if len(train) != win or \
+                abs(bench_s - event_block) > BENCH_TIME_TOL * event_block:
+            fail(f"bench {d}: block {bench_s:.4f} s, {event_block:.4f} s "
+                 f"under CUDA events ({train})")
+    # planted: a window of the same block with no synchronize at its end
+    solver = bench_solver(dev, cfg, "f32")
+    host_ns, event_ns = event_timed_blocks(bench_mod, solver, 1, it,
+                                           lambda: None)
+    del solver
+    torch.cuda.empty_cache()
+    timing["planted_no_sync_f32"] = {"host_s": host_ns, "event_s": event_ns}
+    if block_time_ok(host_ns, event_ns):
+        fail(f"bench: a window without synchronize passed ({host_ns:.4f} "
+             f"s host, {event_ns:.4f} s device)")
+    f32_ms = line["by_dtype"]["f32"]["block_20x256_s"] / 20 * 1e3
+    if abs(f32_ms - solver_ms_b256) > SOLVER_TIME_TOL * solver_ms_b256:
+        fail(f"bench f32 {f32_ms:.2f} ms an iteration against phase 5b's "
+             f"Solver {solver_ms_b256:.2f} ms")
+    print(f"bench_timing [{smi}] " + json.dumps(
+        {**timing, "f32_ms_per_iter": f32_ms,
+         "solver_5b_ms_per_iter": solver_ms_b256}), flush=True)
+    return {"line": line, "launches": launches, "timing": timing}
+
+
+def bench_cli(smi: str) -> dict:
+    """``python -m sparknet_tpu_torch.bench`` as a child at a short
+    configuration: one JSON line on stdout, the JAX line's keys."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BENCH_")}
+    env.update(BENCH_CLI_ENV)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "sparknet_tpu_torch.bench"],
+                       cwd=here, env=env, capture_output=True, text=True,
+                       timeout=900)
+    wall = time.perf_counter() - t0
+    lines = p.stdout.splitlines()
+    if p.returncode != 0 or len(lines) != 1:
+        fail(f"bench CLI: rc {p.returncode}, {len(lines)} stdout lines: "
+             f"{p.stdout[-2000:]} {p.stderr[-3000:]}")
+    line = json.loads(lines[0])
+    with open(os.path.join(here, "BENCH_r05.json")) as f:
+        parsed = set(json.load(f)["parsed"])
+    keys = set(line)
+    if not parsed <= keys or not keys - parsed <= BENCH_LINE_EXTRA \
+            or not {"feed_records", "shard_round"} <= keys:
+        fail(f"bench CLI keys: missing {sorted(parsed - keys)}, extra "
+             f"{sorted(keys - parsed - BENCH_LINE_EXTRA)}")
+    for tier in ("feed_records", "shard_round"):
+        if "not_ported" not in line[tier]:
+            fail(f"bench CLI: {tier} = {line[tier]}")
+    if not line["device"].endswith(torch.cuda.get_device_name(0)):
+        fail(f"bench CLI device {line['device']}")
+    print(f"bench_cli [{smi}] {wall:.1f} s, keys {sorted(keys)}",
+          flush=True)
+    return {"wall_s": wall, "keys": sorted(keys)}
+
+
+class DroppedEvents:
+    """A profile that lost the device activity whose name matches
+    ``pattern`` (the planted lost kernel): its device events, and its
+    entries in the host ops' ``kernels``."""
+
+    def __init__(self, prof, pattern: str):
+        import copy
+        self._events = []
+        for e in prof.events():
+            if str(e.device_type).endswith("CPU"):
+                e = copy.copy(e)
+                e.kernels = [k for k in e.kernels
+                             if not re.search(pattern, k.name)]
+            elif re.search(pattern, e.name):
+                continue
+            self._events.append(e)
+
+    def events(self):
+        return self._events
+
+
+def profile_faults(tables: dict, launched: dict, event_step_ms: float,
+                   iters: int) -> list[str]:
+    """What is wrong with a profile of ``iters`` train steps: a hand
+    kernel whose events do not count its launches, a layer of the five
+    without forward or backward time, an unattributed share of 5% or
+    more, a device total more than 15% from the CUDA-event step time."""
+    from sparknet_tpu_torch.utils.trace_tables import UNATTRIBUTED
+    bad = []
+    for k, pat in PROFILE_KERNELS.items():
+        n = sum(r["count"] for r in tables["by_op"]
+                if re.search(pat, r["op"]))
+        if n != launched[k]:
+            bad.append(f"{k}: {n} kernel events, {launched[k]} launches")
+    rows = {r["op"]: r for r in tables["by_layer"]}
+    for name in PROFILE_LAYERS:
+        r = rows.get(name)
+        if r is None or r["total_ms"] <= r["backward_ms"] or \
+                r["backward_ms"] <= 0:
+            bad.append(f"layer {name}: {r}")
+    un = rows.get(UNATTRIBUTED, {"total_ms": 0.0})["total_ms"]
+    if un >= 0.05 * tables["total_ms"]:
+        bad.append(f"unattributed {un} ms of {tables['total_ms']}")
+    step_ms = tables["total_ms"] / iters
+    if abs(step_ms - event_step_ms) > PROFILE_TIME_TOL * event_step_ms:
+        bad.append(f"device {step_ms:.3f} ms a step, {event_step_ms:.3f} "
+                   f"ms under CUDA events")
+    return bad
+
+
+def profile_caffenet(ck, dev, smi: str, event_step_ms: float) -> dict:
+    """``tools/profile_step`` on CaffeNet b256 f32: warm-up block, one
+    profiled block of 20 steps, the op tables checked (and a planted
+    lost kernel rejected)."""
+    import tempfile
+    from sparknet_tpu_torch.tools import profile_step
+    from sparknet_tpu_torch.utils import trace_tables
+    iters = 20
+    ck.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="profile_step_") as d:
+        summary, tables, prof = profile_step.profile(
+            "caffenet", 256, iters, "f32", d, device=str(dev), top=None)
+        launches = dict(ck.launch_counts)
+        if launches != want_steps(2 * iters):
+            fail(f"profile_step launches {launches}")
+        profiled = want_steps(iters)
+        bad = profile_faults(tables, profiled, event_step_ms, iters)
+        if bad:
+            print(trace_tables.format_tables(
+                {**tables, "by_op": tables["by_op"][:25]}), flush=True)
+            fail("profile_step: " + "; ".join(bad))
+        planted = trace_tables.op_tables(
+            DroppedEvents(prof, PROFILE_KERNELS["lrn_across_channels_bwd"]),
+            top=None)
+        if not profile_faults(planted, profiled, event_step_ms, iters):
+            fail("profile_step: a profile without the LRN backward's "
+                 "kernels passed")
+    rows = {r["op"]: r for r in tables["by_layer"]}
+    print(f"profile_step [{smi}] " + json.dumps({
+        "summary": summary, "total_ms": tables["total_ms"],
+        "by_layer": tables["by_layer"][:12],
+        "hand_kernels": [r for r in tables["by_op"] if any(
+            re.search(p, r["op"]) for p in PROFILE_KERNELS.values())]}),
+        flush=True)
+    return {"launches": launches, "summary": summary,
+            "layers": {k: rows[k] for k in PROFILE_LAYERS}}
+
+
+def sync_count(prof) -> int:
+    """Host waits and device-to-host copies in a profile."""
+    return sum(1 for e in prof.events()
+               if e.name in SYNC_EVENTS or e.name.startswith("Memcpy DtoH"))
+
+
+def round_syncs(dev, rounds: list, plane_on: bool, d: str,
+                publish_extra=None) -> int:
+    """Syncs in one profiled steady round of the 5e trainer with the
+    plane on (tracing) or off; ``publish_extra`` plants work in the
+    trainer's per-round publishing."""
+    from sparknet_tpu_torch.parallel import DistributedTrainer
+    from sparknet_tpu_torch.utils import telemetry
+    env = {"SPARKNET_TELEMETRY": "1" if plane_on else "0",
+           "SPARKNET_TRACE_DIR": d}
+    with mock.patch.dict(os.environ, env):
+        if not plane_on:
+            os.environ.pop("SPARKNET_TRACE_DIR")
+        telemetry.reset()
+        tr = round_trainer(dev)
+        tr.train_round(rounds[0])
+        torch.cuda.synchronize()
+        publish = DistributedTrainer._publish_round
+
+        def planted(self):
+            publish(self)
+            publish_extra(self)
+
+        with (mock.patch.object(DistributedTrainer, "_publish_round",
+                                planted) if publish_extra
+              else contextlib.nullcontext()):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                tr.train_round(rounds[1])
+                torch.cuda.synchronize()
+        telemetry.reset()
+    return sync_count(prof)
+
+
+def telemetry_on_card(ck, dev, smi: str) -> dict:
+    """Two 2-round CaffeNet runs through ``imagenet_app`` (2 x 64, τ=5,
+    the crop on the card, deterministic cuDNN), the plane on with a trace
+    directory and off: spans and ``trainer_rounds_total`` count the
+    rounds, the final params are equal bit for bit; the plane adds no
+    host wait or device-to-host copy to a round (a planted ``.item()``
+    in the per-round publishing is caught)."""
+    import glob
+    import tempfile
+    from sparknet_tpu_torch.apps import imagenet_app
+    from sparknet_tpu_torch.utils import telemetry
+    argv = imagenet_argv("caffenet", dev, batch=TRAIN_BATCH, tau=TRAIN_TAU,
+                         rounds=TELEMETRY_ROUNDS,
+                         extra=["--device-preprocess"])
+    steps = TRAIN_WORKERS * TRAIN_TAU * TELEMETRY_ROUNDS
+    want = want_steps(steps, eval_batches(TRAIN_WORKERS, TRAIN_BATCH))
+    out, params, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="telemetry_") as d:
+        for on in (True, False):
+            env = {"SPARKNET_TELEMETRY": "1" if on else "0",
+                   "SPARKNET_TRACE_DIR": os.path.join(d, "trace")}
+            with mock.patch.dict(os.environ, env):
+                if not on:
+                    os.environ.pop("SPARKNET_TRACE_DIR")
+                telemetry.reset()
+                ck.reset_launch_counts()
+                with cudnn_deterministic():
+                    run = imagenet_app.main(argv)
+                label = f"telemetry_caffenet_{'on' if on else 'off'}"
+                launches[label] = dict(ck.launch_counts)
+                if launches[label] != want:
+                    fail(f"{label}: launches {launches[label]} != {want}")
+                params[on] = host_params(run.trainer)
+                if on:
+                    reg = telemetry.get_registry()
+                    out["rounds_total"] = reg.counter(
+                        "trainer_rounds_total").value()
+                    telemetry.get_tracer().flush()
+                    names = []
+                    for path in glob.glob(os.path.join(d, "trace",
+                                                       "trace_*.jsonl")):
+                        with open(path) as f:
+                            names += [json.loads(x)["name"] for x in f]
+                    out["round_spans"] = names.count("trainer.round")
+                    out["feed_spans"] = sum(n.startswith("feed.")
+                                            for n in names)
+                telemetry.reset()
+            del run
+        if out["rounds_total"] != TELEMETRY_ROUNDS or \
+                out["round_spans"] != TELEMETRY_ROUNDS:
+            fail(f"telemetry: {out} for {TELEMETRY_ROUNDS} rounds")
+        diff = differing(params[True], params[False])
+        if diff:
+            fail(f"telemetry: params differ with the plane on and off: "
+                 f"{diff[:5]}")
+        rounds = [round_data(dev, r) for r in range(2)]
+        with cudnn_deterministic():
+            syncs = {"on": round_syncs(dev, rounds, True, d),
+                     "off": round_syncs(dev, rounds, False, d),
+                     "planted_item": round_syncs(
+                         dev, rounds, True, d, publish_extra=lambda tr: float(
+                             next(iter(tr.params.values()))[0].sum()))}
+        del rounds
+    if syncs["on"] != syncs["off"] or syncs["planted_item"] <= syncs["on"]:
+        fail(f"telemetry: syncs in a round {syncs}")
+    torch.cuda.empty_cache()
+    out.update(syncs_per_round=syncs, launches=launches)
+    print(f"telemetry [{smi}] " + json.dumps(out), flush=True)
+    return out
+
+
+def the_bench(ck, dev, smi: str, solver_ms_b256: float) -> dict:
+    """Phase 5f."""
+    t0 = time.perf_counter()
+    rep = bench_in_process(ck, dev, smi, solver_ms_b256)
+    torch.cuda.empty_cache()
+    rep["cli"] = bench_cli(smi)
+    event_step_ms = rep["timing"]["f32"]["event_block_s"] / 20 * 1e3
+    rep["profile"] = profile_caffenet(ck, dev, smi, event_step_ms)
+    torch.cuda.empty_cache()
+    rep["telemetry"] = telemetry_on_card(ck, dev, smi)
+    rep["launches"].update(
+        {"profile_step_caffenet_f32": rep["profile"]["launches"],
+         **rep["telemetry"]["launches"]})
+    print(f"phase 5f: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rep
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
                  rows: list[dict], main: list[dict]) -> dict:
     """One kernel's entry: launches per main path, the worst error over
@@ -3884,6 +4345,11 @@ def main() -> int:
         round_report = the_round(ck, dev, smi, {
             "dir": d5c, "model": os.path.join(d5c, "train_val.prototxt")})
 
+    # phase 5f: the bench at its defaults, its CLI, profile_step on
+    # CaffeNet b256 and the telemetry plane on the card
+    bench_report = the_bench(ck, dev, smi,
+                             solved["caffenet"]["solver_ms_per_iter_b256"])
+
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
     # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
@@ -3916,7 +4382,9 @@ def main() -> int:
             round_report["hierarchical_b64"]["launches"],
         **{f"round_codec_{c}": r["launches"]
            for c, r in round_report["codecs"].items()
-           if isinstance(r, dict)}}
+           if isinstance(r, dict)},
+        # phase 5f: the bench's paths, profile_step and the telemetry runs
+        **bench_report["launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}

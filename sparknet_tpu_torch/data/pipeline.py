@@ -6,8 +6,10 @@ The port's own copy of the part of ``sparknet_tpu/data/pipeline.py`` that
 - :func:`feed_workers` (:69) and :func:`feed_depth` (:80), the
   ``SPARKNET_FEED_WORKERS`` and ``SPARKNET_FEED_DEPTH`` knobs (a width of
   0 takes one thread);
-- :class:`FeedStats` (:88), per-stage wall-time accounting, without the
-  JAX package's telemetry hooks (the port has no telemetry yet);
+- :class:`FeedStats` (:88), per-stage wall-time accounting, publishing
+  each stage timing as the JAX package's ``feed_stage_seconds`` histogram
+  sample and ``feed.<stage>`` span, and each delivered batch to
+  ``feed_batches_total`` (``utils/telemetry.py``);
 - :class:`DecodePool` (:198), the order-preserving thread pool, with
   threads only (the JAX package's ``workers=0`` serial path is not
   ported);
@@ -26,7 +28,7 @@ from typing import Any, Callable, Iterator
 
 import torch
 
-from ..utils import knobs
+from ..utils import knobs, telemetry
 
 
 def _env_int(name: str, default: int) -> int:
@@ -83,11 +85,21 @@ class FeedStats:
         with self._lock:
             self._s[stage] = self._s.get(stage, 0.0) + seconds
             self.records += records
+        # the stage timing the pipeline already measured becomes a
+        # histogram sample and (when tracing) a retroactive span
+        telemetry.get_registry().histogram(
+            "feed_stage_seconds",
+            "host feed pipeline stage latency").observe(seconds,
+                                                        stage=stage)
+        telemetry.note_span(f"feed.{stage}", seconds, cat="feed")
 
     def count_batch(self, records: int = 0) -> None:
         with self._lock:
             self.batches += 1
             self.records += records
+        telemetry.get_registry().counter(
+            "feed_batches_total", "batches delivered to the consumer"
+        ).inc()
 
     def snapshot(self) -> dict[str, Any]:
         with self._lock:

@@ -16,8 +16,10 @@ poll that checks the feeder thread (its death and, with
 ``stall_timeout``, a hang); a failed feeder is restarted once on the same
 source iterator (nothing is lost: the hook that models a failure fires
 before a pull), and a feed still dead after that raises
-:class:`FeedStalled`.  The JAX package's fault injector and health-plane
-heartbeat are not ported; :meth:`PrefetchIterator._before_pull` is where
+:class:`FeedStalled`.  Each restart is a ``feed_restart`` flight event
+and a ``feed_restarts_total`` count; a stall past the budget records
+``feed_stalled`` and dumps the flight recorder (``utils/telemetry.py``).
+The JAX package's health-plane heartbeat is not ported (ROADMAP A12); :meth:`PrefetchIterator._before_pull` is where
 the injector fires there, and a test overrides it here.
 """
 
@@ -32,6 +34,7 @@ from typing import Any, Iterator, Mapping
 import numpy as np
 import torch
 
+from ..utils import telemetry
 from .pipeline import BufferRing, DecodePool, feed_depth, feed_putters, \
     ring_size
 
@@ -153,7 +156,17 @@ class PrefetchIterator:
             self._err = FeedStalled(
                 f"prefetch feed stalled after {self._delivered} delivered "
                 f"batches: {reason} (restart budget spent)")
+            rec = telemetry.get_recorder()
+            rec.record("feed_stalled", delivered=self._delivered,
+                       reason=reason)
+            rec.dump("feed_stalled")
             raise self._err
+        telemetry.get_recorder().record(
+            "feed_restart", delivered=self._delivered, reason=reason,
+            restarts_left=self._restarts_left)
+        telemetry.get_registry().counter(
+            "feed_restarts_total", "prefetch feeder watchdog restarts"
+        ).inc()
         print(f"prefetch: {reason}; restarting feeder "
               f"({self._restarts_left} restarts left)",
               file=sys.stderr, flush=True)

@@ -13,9 +13,12 @@ f32 master weights while loss and accuracy layers stay f32 (``_cast``,
 net.py:529 of the JAX package).  :meth:`Net.forward` also sums the loss
 tops, weighted by their ``loss_weight`` (``NetOutputs``, net.py:46-62),
 and runs the TRAIN phase's stochastic layers from a CPU
-``torch.Generator``; gradients come from ``torch.autograd``.  Not ported
-yet: cross-layer param sharing, horizontal and vertical fusion and the
-lowering tuner.
+``torch.Generator``; gradients come from ``torch.autograd``.  While a
+profiler records, each layer's forward runs inside an ``L[<layer>]``
+range (``utils/profiling.py::layer_scope``), which
+``utils/trace_tables.py`` reads to charge device time to layers.  Not
+ported yet: cross-layer param sharing, horizontal and vertical fusion and
+the lowering tuner.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from .. import ops  # noqa: F401  (registers the layer implementations)
 from ..ops.registry import LayerImpl, Shape, get_layer_impl
 from ..proto.caffe_pb import LayerParameter, NetParameter, NetState, Phase
 from ..utils.device import resolve_device
+from ..utils.profiling import layer_scope
 
 Params = dict[str, list[torch.Tensor]]
 
@@ -160,25 +164,31 @@ class Net:
                       for i in range(len(blobs))]
                 for key, blobs in params.items()}
 
-    def forward_flops(self) -> int:
-        """Multiply-add FLOPs (2 per MAC) of one forward at the declared
-        shapes, counted from the Convolution and InnerProduct geometries."""
+    def layer_flops(self) -> list[tuple[_LayerNode, int]]:
+        """(node, forward FLOPs) of every Convolution and InnerProduct
+        layer: 2 FLOPs a multiply-add, at the declared shapes."""
         from ..ops.common import inner_product_geometry
         from ..ops.vision import conv_geometry
-        flops = 0
+        out = []
         for node in self.nodes:
             if node.lp.type == "Convolution":
                 kh, kw, *_, group, _ = conv_geometry(node.lp)
                 cin = self.blob_shapes[node.bottoms[0]][1]
-                for t in node.tops:
-                    flops += (2 * math.prod(self.blob_shapes[t])
-                              * (cin // group) * kh * kw)
+                out.append((node, sum(
+                    2 * math.prod(self.blob_shapes[t]) * (cin // group)
+                    * kh * kw for t in node.tops)))
             elif node.lp.type == "InnerProduct":
                 shape = self.blob_shapes[node.bottoms[0]]
                 num_output, axis, dim, _, _ = inner_product_geometry(
                     node.lp, shape)
-                flops += 2 * math.prod(shape[:axis]) * dim * num_output
-        return flops
+                out.append((node, 2 * math.prod(shape[:axis]) * dim
+                            * num_output))
+        return out
+
+    def forward_flops(self) -> int:
+        """Multiply-add FLOPs (2 per MAC) of one forward at the declared
+        shapes, counted from the Convolution and InnerProduct geometries."""
+        return sum(f for _, f in self.layer_flops())
 
     @staticmethod
     def _cast(tensors: Sequence[torch.Tensor],
@@ -203,6 +213,19 @@ class Net:
         values, _ = self._run(params, inputs, train, generator, device)
         return {b: values[b] for b in (self.output_blobs if blobs is None
                                        else blobs)}
+
+    def apply_all(self, params: Mapping[str, Sequence[torch.Tensor]],
+                  inputs: Mapping[str, torch.Tensor], *,
+                  train: bool = False,
+                  generator: torch.Generator | None = None,
+                  device: str | torch.device | None = None
+                  ) -> dict[str, torch.Tensor]:
+        """One forward returning every blob, inputs included, at its final
+        value (the JAX package's ``Net.apply_all``, net.py:505, without
+        its ``upto``/``start``/``eps`` options; the Solver's
+        ``debug_info`` reads it)."""
+        values, _ = self._run(params, inputs, train, generator, device)
+        return values
 
     def forward(self, params: Mapping[str, Sequence[torch.Tensor]],
                 inputs: Mapping[str, torch.Tensor], *,
@@ -249,7 +272,8 @@ class Net:
                          or node.lp.type == "Accuracy" else cd)
                 bots = self._cast(bots, dtype)
                 p = self._cast(p, dtype)
-            tops = node.impl.apply(node.lp, p, bots, train, generator)
+            with layer_scope(node.lp.name):
+                tops = node.impl.apply(node.lp, p, bots, train, generator)
             if not node.bottoms:
                 # a source layer (DummyData) draws its tops on the CPU
                 tops = [t.to(dev) for t in tops]

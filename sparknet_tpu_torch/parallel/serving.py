@@ -34,9 +34,16 @@ convolutions and of matmuls for the length of the forward's enqueue and
 then restores them (bf16 models leave the flags alone).
 
 ``ModelHouse.load(name, weights=path)`` serves a ``.caffemodel`` (or npz)
-in place of the seeded weights.  Not ported yet: the SLO monitor, health
-beacons, the telemetry registry, fault injection, registry versions, and
-the HTTP shell (``tools/serve.py``).
+in place of the seeded weights.  The engine publishes into the telemetry
+plane (``utils/telemetry.py``) under the JAX package's names: the
+``serve.dispatch``, ``serve.batch`` and per-request ``serve.queue``
+spans, ``serve_request_seconds``, ``serve_infer_seconds``,
+``serve_completed_total``, ``serve_failed_total``,
+``serve_rejected_total{reason}`` and, at scrape time, the queue, in-flight,
+latency and liveness gauges.  ``serve.batch`` spans the harvester's wait
+for a batch, which the harvester makes anyway.  Not ported yet: the SLO
+monitor, health beacons, fault injection, registry versions, and the
+HTTP shell (``tools/serve.py``), ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from ..models import (alexnet, caffenet, cifar10_full, cifar10_quick,
                       googlenet, lenet, vgg16)
 from ..models.dsl import softmax_layer
 from ..proto.caffe_pb import BlobShape, NetParameter, NetState, Phase
+from ..utils import telemetry
 from ..utils import knobs
 from ..utils.device import full_f32, resolve_device
 
@@ -593,6 +601,20 @@ class InferenceEngine:
         # occupancy["<padded shape>"][<real n>] = batches dispatched
         self.occupancy: dict[str, dict[int, int]] = {}
         self._t_start = time.monotonic()
+        # telemetry: histograms and counters observed on the hot path,
+        # point-in-time gauges filled by a scrape-time collector
+        reg = telemetry.get_registry()
+        self._m_lat = reg.histogram(
+            "serve_request_seconds", "request latency, submit to demux")
+        self._m_infer = reg.histogram(
+            "serve_infer_seconds", "batch dispatch-to-host latency")
+        self._m_done = reg.counter(
+            "serve_completed_total", "requests answered")
+        self._m_failed = reg.counter(
+            "serve_failed_total", "requests failed by model errors")
+        self._m_rej = reg.counter(
+            "serve_rejected_total", "admission rejections by reason")
+        reg.add_collector(self._publish_gauges)
         self._harvest_q: "queue.Queue[Any]" = queue.Queue(
             maxsize=self.cfg.inflight_batches)
         self._harvester = threading.Thread(
@@ -657,6 +679,7 @@ class InferenceEngine:
                         cap, self._clock)
                 if not bucket.allow():
                     self.rejected["tenant_rate"] += 1
+                    self._m_rej.inc(reason="tenant_rate")
                     raise Overloaded(
                         "tenant_rate",
                         f"tenant {tenant!r} over its {cap:g} qps cap")
@@ -664,6 +687,7 @@ class InferenceEngine:
             # answered): max_queue / throughput bounds accepted latency
             if self._depth + self._in_flight >= self.cfg.max_queue:
                 self.rejected["queue_full"] += 1
+                self._m_rej.inc(reason="queue_full")
                 raise Overloaded(
                     "queue_full",
                     f"{self._depth} queued + {self._in_flight} in flight "
@@ -740,6 +764,10 @@ class InferenceEngine:
         err = ServingError(
             f"batch of {len(reqs)} on {model!r} failed: {cause}")
         err.__cause__ = cause
+        self._m_failed.inc(len(reqs))
+        telemetry.get_recorder().record(
+            "serve_batch_failed", model=model, n=len(reqs),
+            cause=repr(cause))
         with self._cond:
             self.failed += len(reqs)
             self._in_flight -= len(reqs)
@@ -753,13 +781,15 @@ class InferenceEngine:
         n = len(reqs)
         t_dispatch = self._clock()
         try:
-            lm = self.models.get(model)
-            shape = lm.pad_shape(n)
-            batch = np.zeros((shape,) + lm.in_shape, np.float32)
-            for i, r in enumerate(reqs):
-                batch[i] = r.x
-            # pad rows computed, masked at demux
-            handle = lm.infer_async(batch)
+            with telemetry.span("serve.dispatch", cat="serving",
+                                model=model, n=n):
+                lm = self.models.get(model)
+                shape = lm.pad_shape(n)
+                batch = np.zeros((shape,) + lm.in_shape, np.float32)
+                for i, r in enumerate(reqs):
+                    batch[i] = r.x
+                # pad rows computed, masked at demux
+                handle = lm.infer_async(batch)
         except Exception as e:
             self._fail_batch(reqs, model, e)
             return
@@ -789,8 +819,10 @@ class InferenceEngine:
         """Wait for one launched batch, then demux rows to waiters."""
         n = len(reqs)
         try:
-            probs = lm.harvest(handle)
-            t_done = self._clock()
+            with telemetry.span("serve.batch", cat="serving",
+                                model=model, n=n, padded_to=shape):
+                probs = lm.harvest(handle)
+                t_done = self._clock()
         except Exception as e:
             with self._cond:
                 self._batches_in_flight -= 1
@@ -805,6 +837,7 @@ class InferenceEngine:
                 f"refusing to serve them"))
             return
         infer_ms = (t_done - t_dispatch) * 1e3
+        self._m_infer.observe(infer_ms / 1e3)
         results = [ServeResult(
             model=model, probs=probs[i], tenant=r.tenant, request_id=r.id,
             queue_ms=round((t_dispatch - r.t_submit) * 1e3, 3),
@@ -823,9 +856,46 @@ class InferenceEngine:
             for res in results:
                 self._lat_ms.append(res.total_ms)
                 self._queue_ms.append(res.queue_ms)
+        self._m_done.inc(n)
+        for res in results:
+            self._m_lat.observe(res.total_ms / 1e3)
+        tr = telemetry.get_tracer()
+        if tr is not None:
+            # per-request queue spans (submit -> dispatch) from the
+            # latency stamps, beside the dispatch and batch spans
+            now_us = time.time() * 1e6
+            for res in results:
+                tr.complete("serve.queue", "serving",
+                            now_us - res.total_ms * 1e3,
+                            res.queue_ms * 1e3,
+                            {"model": model, "rid": res.request_id})
         for r, res in zip(reqs, results):
             r.result = res
             r.event.set()
+
+    # -- telemetry --------------------------------------------------------
+    def _publish_gauges(self) -> None:
+        """Scrape-time registry filler (held weakly): queue depth,
+        in-flight work and latency percentiles over the trailing
+        window."""
+        reg = telemetry.get_registry()
+        with self._cond:
+            depth = self._depth
+            in_flight = self._in_flight
+            batches = self._batches_in_flight
+            pcts = self._percentiles(self._lat_ms)
+        reg.gauge("serve_queue_depth",
+                  "requests queued awaiting coalesce").set(depth)
+        reg.gauge("serve_in_flight",
+                  "requests dispatched, not yet demuxed").set(in_flight)
+        reg.gauge("serve_in_flight_batches",
+                  "batches dispatched, not yet demuxed").set(batches)
+        reg.gauge("serve_p50_ms",
+                  "trailing-window p50 request latency").set(pcts["p50_ms"])
+        reg.gauge("serve_p99_ms",
+                  "trailing-window p99 request latency").set(pcts["p99_ms"])
+        reg.gauge("serve_alive", "1 while the engine serves").set(
+            1.0 if self.alive else 0.0)
 
     # -- stats ------------------------------------------------------------
     @staticmethod

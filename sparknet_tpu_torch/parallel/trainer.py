@@ -59,6 +59,17 @@ Not ported: sharding (``shard``, ``shard_checkpoint``) and the
 cross-replica audit (``audit_every``), which need resident replicas on
 several devices (ROADMAP A12), and ``remat`` (ROADMAP A5); asking for
 any of them raises.
+
+Telemetry (``utils/telemetry.py``, the JAX package's names): the
+``trainer.round``, ``trainer.harvest`` and ``trainer.ckpt_submit`` spans;
+``trainer_rounds_total``, ``trainer_guard_trips_total``,
+``trainer_stall_seconds{comp}`` and ``trainer_pending_rounds``; the
+``guard_trip`` and ``resume`` flight events.  A span is host time: the
+round's span closes where the round already waits for the card (the
+loss fetch without a harvest lag) or, with a lag, when its work is
+enqueued.  The plane adds no synchronisation to a round.  The JAX
+package's ``trainer_audit_trips_total`` belongs to the cross-replica
+audit (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -81,6 +92,7 @@ from ..proto.caffe_pb import NetState, Phase, SolverParameter
 from ..solvers.lr_policies import learning_rate
 from ..solvers.step import make_step_fns
 from ..solvers.update_rules import make_update_rule, preprocess_grads
+from ..utils import telemetry
 from ..utils.device import full_f32, resolve_device
 from . import comms
 from .mesh import CHIP_AXIS, DATA_AXIS, HOST_AXIS, Layout, make_mesh
@@ -444,6 +456,16 @@ class DistributedTrainer:
         self.stall_s = {"loss_fetch": 0.0, "finite_check": 0.0,
                         "checkpoint": 0.0,
                         **{k: 0.0 for k in COMM_STAGES}}
+        # telemetry handles (shared no-ops under SPARKNET_TELEMETRY=0)
+        reg = telemetry.get_registry()
+        self._m_rounds = reg.counter(
+            "trainer_rounds_total", "training rounds run (replays included)")
+        self._m_guard = reg.counter(
+            "trainer_guard_trips_total", "numerical-guard rollbacks")
+        self._m_stall = reg.gauge(
+            "trainer_stall_seconds", "cumulative host stall by component")
+        self._m_pending = reg.gauge(
+            "trainer_pending_rounds", "in-flight rounds awaiting harvest")
         if cfg.checkpoint_dir:
             self.resumed = self.resume_latest(cfg.checkpoint_dir)
             if cfg.guard_numerics and self.resumed is None:
@@ -643,6 +665,22 @@ class DistributedTrainer:
         harvested loss lands in ``round_losses``), and a trip found then
         rolls back and drops the rounds in flight after it.  Call
         ``drain()`` before reading the final params."""
+        with telemetry.span("trainer.round", cat="trainer",
+                            round=self.round):
+            loss_val = self._train_round_impl(batches)
+        self._publish_round()
+        return loss_val
+
+    def _publish_round(self) -> None:
+        """The per-round counter, gauges and throttled snapshot: host
+        numbers only, never a device read."""
+        self._m_rounds.inc()
+        self._m_pending.set(len(self._pending))
+        for k, v in self.stall_s.items():
+            self._m_stall.set(v, comp=k)
+        telemetry.get_registry().maybe_snapshot()
+
+    def _train_round_impl(self, batches: Mapping[str, Any]) -> float:
         from ..utils import faults
         expect = self.batches_per_round
         for k, v in batches.items():
@@ -759,6 +797,11 @@ class DistributedTrainer:
         and generators, so the replay is exact), back off the rate, and
         count the trip."""
         self.guard_trips += 1
+        self._m_guard.inc()
+        rec = telemetry.get_recorder()
+        rec.record("guard_trip", round=round_idx, reason=reason,
+                   trips=self.guard_trips)
+        rec.dump("guard_trip")
         print(f"guard: round {round_idx} REJECTED ({reason}); rolling "
               f"back to last valid checkpoint at round <= {round_idx} "
               f"(trip {self.guard_trips}/{self.config.guard_max_trips})",
@@ -782,6 +825,11 @@ class DistributedTrainer:
 
     # -- the harvest lag (the JAX package's trainer.py:1132-1229) ---------
     def _harvest_one(self) -> float | None:
+        with telemetry.span("trainer.harvest", cat="trainer",
+                            round=int(self._pending[0]["round"])):
+            return self._harvest_one_impl()
+
+    def _harvest_one_impl(self) -> float | None:
         """Read the oldest round in flight: its loss, then its finite
         verdict.  A trip drops every younger round in flight, flushes the
         writer, rolls back and removes the checkpoints newer than the
@@ -1026,6 +1074,11 @@ class DistributedTrainer:
         the asynchronous writer the state is copied out without blocking
         and the write runs on the writer's thread; ``flush_checkpoints``
         waits for it.  Returns the npz's path."""
+        with telemetry.span("trainer.ckpt_submit", cat="ckpt",
+                            round=self.round):
+            return self._save_round_checkpoint_impl(directory)
+
+    def _save_round_checkpoint_impl(self, directory: str | None) -> str:
         from ..utils import faults, knobs
         from ..utils.checkpoint import (
             AsyncCheckpointWriter, CheckpointFencedError, advance_fence,
@@ -1173,6 +1226,9 @@ class DistributedTrainer:
             self._apply_blob(blob)
             self.round = int(manifest.get("round", self.round))
             self.data_cursor = manifest.get("data_cursor")
+            telemetry.get_recorder().record(
+                "resume", round=self.round, iter=self.iter,
+                file=os.path.basename(manifest["file"]))
             print(f"resume: restored round {self.round} (iter {self.iter}) "
                   f"from {os.path.basename(manifest['file'])}",
                   file=sys.stderr, flush=True)

@@ -23,9 +23,11 @@ Weights and state on disk: ``snapshot``/``restore`` write and read the
 JAX package's npz layout (``utils/checkpoint.py``);
 ``snapshot_caffe``/``restore_caffe`` the ``.caffemodel`` + ``.solverstate``
 pair Caffe writes; ``load_weights`` reads npz or ``.caffemodel`` (V1 zoo
-files included).  Not ported yet, and refused by name: ``set_augment``
-(ROADMAP A14), ``debug_info`` (A13), ``snapshot_format: HDF5`` and HDF5
-weight files (A6), shared params (A3, in ``graph/net.py``).
+files included).  ``debug_info`` prints the JAX Solver's ``[Forward]``
+and ``[Update]`` lines (mean |x| of every top blob and param) at each
+display boundary.  Not ported yet, and refused by name: ``set_augment``
+(ROADMAP A14), ``snapshot_format: HDF5`` and HDF5 weight files (A6),
+shared params (A3, in ``graph/net.py``).
 """
 
 from __future__ import annotations
@@ -91,10 +93,6 @@ class Solver:
     def __init__(self, sp: SolverParameter, *, seed: int | None = None,
                  device: str | torch.device = "cuda",
                  compute_dtype: torch.dtype | None = None):
-        if sp.debug_info:
-            raise NotImplementedError(
-                "debug_info (per-blob forward and update dumps) is not "
-                "ported yet (ROADMAP A13)")
         if sp.snapshot_format == "HDF5":
             _refuse_hdf5("snapshot_format: HDF5")
         net_param = sp.net_param or sp.train_net_param
@@ -198,6 +196,14 @@ class Solver:
         loss = torch.zeros(())
         for _ in range(n):
             batches = self._next_batches()
+            debug = self.sp.debug_info and (
+                not self.sp.display or (self.iter + 1) % self.sp.display == 0)
+            if debug:
+                # the rule updates in place: keep the params the step
+                # starts from, and the Dropout draws it will make
+                before = {k: [b.clone() for b in v]
+                          for k, v in self.params.items()}
+                gen_state = self.generator.get_state()
             with self._precision():
                 self.params, self.state, loss = self._local_update(
                     self.params, self.state, self.iter, batches,
@@ -207,6 +213,8 @@ class Solver:
             # the end of the call
             self._smoothed.append(loss)
             self.iter += 1
+            if debug:
+                self._log_debug_info(batches, before, gen_state)
             if self.sp.display and self.iter % self.sp.display == 0:
                 log_line(f"Iteration {self.iter}, "
                          f"loss = {self.smoothed_loss():.6f}")
@@ -228,6 +236,34 @@ class Solver:
                     self._stop_requested = True
                     break
         return self.smoothed_loss() if self._smoothed else float(loss)
+
+    def _log_debug_info(self, batches, before: Params, gen_state) -> None:
+        """The ``debug_info`` dumps (Caffe's ForwardDebugInfo and
+        UpdateDebugInfo, net.cpp:711-735; the JAX Solver's
+        ``_log_debug_info``, solver.py:357-380): the step's forward again
+        on its first micro-batch with the params it started from and the
+        same Dropout draws, one ``[Forward]`` line per top blob, then one
+        ``[Update]`` line per param with the mean |x| of its value and of
+        its change."""
+        def asum(v: torch.Tensor) -> float:
+            return float(v.float().abs().mean())
+
+        gen = torch.Generator()
+        gen.set_state(gen_state)
+        first = {k: v[0] for k, v in batches.items()}
+        with torch.no_grad(), self._precision():
+            blobs = self.train_net.apply_all(before, first, train=True,
+                                             generator=gen,
+                                             device=self.device)
+        for node in self.train_net.nodes:
+            for t in node.tops:
+                if t in blobs:
+                    print(f"    [Forward] Layer {node.lp.name}, "
+                          f"top blob {t} data: {asum(blobs[t]):.6g}")
+        for key, old in before.items():
+            for i, (b, a) in enumerate(zip(old, self.params[key])):
+                print(f"    [Update] Layer {key}, param {i} "
+                      f"data: {asum(a):.6g}; diff: {asum(a - b):.6g}")
 
     def solve(self, max_iter: int | None = None) -> float:
         """Train to ``max_iter`` on Solver::Solve's schedule (reference:

@@ -9,8 +9,11 @@ The net runs in the TRAIN phase in full f32 (TF32 off), as the Solver
 trains it: the forward under ``no_grad`` (the inference LRN kernel), the
 forward-backward under autograd (the training kernels).  Input blobs are
 synthetic: pixel-scale normal values for blobs of rank 2 or more, zeros
-(a valid label for any classifier) for the rest.  ``--trace``, the JAX
-tool's per-layer device-time partition, belongs to ROADMAP A13.
+(a valid label for any classifier) for the rest.  ``--trace`` profiles
+the forward-backward iterations (``utils/profiling.py::trace``) and
+prints the per-layer partition of their device time (CPU op time on the
+CPU), ``utils/trace_tables.py``'s ``by_layer``: each layer's forward and
+backward, the JAX tool's ``--trace`` table.
 
 Run:  python -m sparknet_tpu_torch.tools.time_net --model caffenet \\
           --iterations 10
@@ -65,10 +68,13 @@ def synthetic_inputs(net, device: torch.device,
 
 
 def time_net(net_param, *, iterations: int = 10, per_layer: bool = False,
+             trace_dir: str | None = None,
              device: str | torch.device = "cuda") -> dict:
     """Forward and forward-backward ms of ``net_param`` in the TRAIN phase
-    (and, with ``per_layer``, each layer's forward alone); prints the
-    ``caffe time`` lines and returns the numbers."""
+    (and, with ``per_layer``, each layer's forward alone; with
+    ``trace_dir``, the per-layer partition of a profiled run of
+    ``iterations`` forward-backward passes, its trace kept there); prints
+    the ``caffe time`` lines and returns the numbers."""
     from ..graph.net import Net
     from ..proto.caffe_pb import NetState, Phase
     from ..utils.device import full_f32, resolve_device
@@ -99,7 +105,37 @@ def time_net(net_param, *, iterations: int = 10, per_layer: bool = False,
         if per_layer:
             out["layers"] = _per_layer(net, params, inputs, gen, dev,
                                        iterations)
+        if trace_dir is not None:
+            out["trace_layers"] = _trace_layers(net, fwdbwd, dev,
+                                                iterations, trace_dir)
     return out
+
+
+def _trace_layers(net, fwdbwd, dev, iterations: int,
+                  trace_dir: str) -> list[dict]:
+    """The ``by_layer`` rows of a profiled run of ``iterations``
+    forward-backward passes, a zero row for a layer that recorded no
+    work; printed as ms per iteration."""
+    from ..utils import profiling, trace_tables
+    with profiling.trace(trace_dir) as prof:
+        for _ in range(iterations):
+            fwdbwd()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    rows = trace_tables.op_tables(prof)["by_layer"]
+    seen = {r["op"] for r in rows}
+    rows += [{"op": n.lp.name, "total_ms": 0.0, "count": 0, "pct": 0.0,
+              "gflops_per_s": 0.0, "gb_per_s": 0.0, "backward_ms": 0.0}
+             for n in net.nodes
+             if not n.impl.is_input() and n.lp.name not in seen]
+    print(f"\nPer-layer {'device' if dev.type == 'cuda' else 'CPU op'} "
+          f"time over {iterations} forward-backward iterations (trace: "
+          f"{trace_dir}):")
+    print(f"{'layer':<28} {'ms/iter':>10} {'bwd ms/iter':>12} {'%':>6}")
+    for r in rows:
+        print(f"{r['op']:<28} {r['total_ms'] / iterations:>10.3f} "
+              f"{r['backward_ms'] / iterations:>12.3f} {r['pct']:>6.1f}")
+    return rows
 
 
 def _per_layer(net, params, inputs, gen, dev, iterations) -> dict:
@@ -138,14 +174,13 @@ def main(argv=None) -> int:
     ap.add_argument("--per-layer", action="store_true",
                     help="also time each layer's forward alone")
     ap.add_argument("--trace", action="store_true",
-                    help="the per-layer device-time partition of a trace "
-                         "(not ported: ROADMAP A13)")
+                    help="profile the forward-backward iterations and "
+                         "print the per-layer partition of their device "
+                         "time (L[...] ranges)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="keep the profiler trace here (default: temp)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.trace:
-        raise NotImplementedError(
-            "time_net --trace (the per-layer device-time partition of a "
-            "profiler trace) is not ported yet (ROADMAP A13)")
     if args.prototxt:
         from ..proto.caffe_pb import load_net_prototxt
         net_param = load_net_prototxt(args.prototxt)
@@ -154,8 +189,13 @@ def main(argv=None) -> int:
         kw = (dict(train_batch=args.batch, test_batch=args.batch)
               if args.batch else {})
         net_param = getattr(models, args.model)(**kw)
+    trace_dir = None
+    if args.trace:
+        import tempfile
+        trace_dir = args.trace_dir or tempfile.mkdtemp(prefix="time_net_")
     time_net(net_param, iterations=args.iterations,
-             per_layer=args.per_layer, device=args.device)
+             per_layer=args.per_layer, trace_dir=trace_dir,
+             device=args.device)
     return 0
 
 

@@ -29,7 +29,10 @@ other pieces (:61-120, :277-446):
   host memory without blocking (pinned buffers and a CUDA event on the
   card), and :class:`AsyncCheckpointWriter` serializes, checksums and
   renames on one background thread, in order, behind a bounded queue.
-  ``SPARKNET_ASYNC_CKPT=0`` keeps every write synchronous.
+  ``SPARKNET_ASYNC_CKPT=0`` keeps every write synchronous.  Each job
+  is a ``ckpt.write`` span and a ``ckpt_write_seconds`` sample, and
+  ``ckpt_queue_depth`` gauges the jobs queued or running
+  (``utils/telemetry.py``).
 
 Not ported: sharded split and join (ROADMAP A12).
 """
@@ -50,7 +53,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from . import knobs
+from . import knobs, telemetry
 
 
 class CheckpointError(Exception):
@@ -286,10 +289,15 @@ class AsyncCheckpointWriter:
         _WRITERS.add(self)
 
     def _run(self) -> None:
+        m_lat = telemetry.get_registry().histogram(
+            "ckpt_write_seconds", "durable checkpoint write latency")
+        m_depth = telemetry.get_registry().gauge(
+            "ckpt_queue_depth", "checkpoint jobs queued or in flight")
         while True:
             job = self._q.get()
             if job is _STOP:
                 return
+            t0 = time.perf_counter()
             try:
                 job()
             except BaseException as e:  # raised by the next submit/flush
@@ -297,9 +305,19 @@ class AsyncCheckpointWriter:
                     if self._err is None:
                         self._err = e
             finally:
+                dur = time.perf_counter() - t0
+                m_lat.observe(dur)
+                telemetry.note_span("ckpt.write", dur, cat="ckpt")
                 with self._cond:
                     self._completed += 1
                     self._cond.notify_all()
+                m_depth.set(self.pending)
+
+    @property
+    def pending(self) -> int:
+        """Jobs submitted and not yet finished."""
+        with self._cond:
+            return self._submitted - self._completed
 
     def _take_error(self) -> BaseException | None:
         with self._cond:
@@ -317,6 +335,9 @@ class AsyncCheckpointWriter:
         with self._cond:
             self._submitted += 1
         self._q.put(job)
+        telemetry.get_registry().gauge(
+            "ckpt_queue_depth", "checkpoint jobs queued or in flight"
+        ).set(self.pending)
 
     def flush(self, raise_errors: bool = True) -> None:
         """Wait until every submitted job has finished; with

@@ -4,7 +4,8 @@ The port's own copy of the read half of ``sparknet_tpu/utils/knobs.py``
 (``raw``, ``is_set``, ``get_str``, ``get_int``, ``get_bool``, :106-157),
 for the knobs of the serving path, the training feed, the DB readers,
 the trainer's round shape (``comm_config_from_env``), the checkpoint
-writer and the fault injector.  Reading a name that is not declared here
+writer, the fault injector and the telemetry plane
+(``utils/telemetry.py``).  Reading a name that is not declared here
 raises :class:`UnknownKnob`, so a typo'd knob fails loudly instead of
 silently meaning "default".  Values are read live from ``os.environ``.
 """
@@ -15,7 +16,8 @@ import os
 
 # name -> one-line doc (defaults live with the readers: ServeConfig,
 # data/pipeline.py, parallel/trainer.py, utils/checkpoint.py,
-# utils/faults.py; each doc names the JAX package's default)
+# utils/faults.py, utils/telemetry.py; each doc names the JAX package's
+# default)
 KNOBS: dict[str, str] = {
     "SPARKNET_SERVE_SHAPES": "serving batch shapes, comma-separated",
     "SPARKNET_SERVE_MAX_DELAY_MS": "coalesce deadline in milliseconds",
@@ -56,6 +58,23 @@ KNOBS: dict[str, str] = {
                               "default 0",
     "SPARKNET_PROC_ID": "this process's rank, which faults gate on; "
                         "default 0",
+    "SPARKNET_TELEMETRY": "0 turns the telemetry plane off (null registry, "
+                          "no spans, no recorder); default on",
+    "SPARKNET_TRACE_DIR": "write trace_*.jsonl span shards and flight "
+                          "dumps here; unset (the default) traces nothing",
+    "SPARKNET_METRICS_SNAP": "write metrics_rank*.json/.prom snapshots "
+                             "here; unset by default",
+    "SPARKNET_METRICS_SNAP_S": "least seconds between metrics snapshots; "
+                               "default 2",
+    "SPARKNET_FLIGHT_EVENTS": "flight-recorder ring size; default 256",
+    "SPARKNET_RUN_ID": "telemetry correlation run id; default derived "
+                       "once per process",
+    "SPARKNET_TELEMETRY_RANK": "trace-shard rank of a process outside a "
+                               "launcher; wins over SPARKNET_PROC_ID",
+    "SPARKNET_INCARNATION": "relaunch incarnation in the correlation ids; "
+                            "default 0",
+    "SPARKNET_FLEET_JOB": "fleet job name in the correlation ids; unset by "
+                          "default",
 }
 
 

@@ -1,7 +1,8 @@
 """Signal-driven snapshot and stop, the SignalHandler analog.
 
-The port's own copy of ``sparknet_tpu/utils/signals.py`` (:24-81), less
-its flight-recorder dump (the port has no telemetry yet).  The reference
+The port's own copy of ``sparknet_tpu/utils/signals.py`` (:24-81),
+with its flight-recorder dump on SIGTERM (``utils/telemetry.py``).  The
+reference
 maps SIGINT and SIGHUP to solver actions checked between iterations
 (reference: caffe/src/caffe/util/signal_handler.cpp:12-115; acted on in
 ``Solver::Step``, caffe/src/caffe/solver.cpp:270-281).  Handlers only set
@@ -46,6 +47,13 @@ class SignalGuard:
 
     def _on_signal(self, signum, frame) -> None:
         self._pending.append(self._actions[signum])
+        if signum == signal.SIGTERM:
+            # the preemption notice is a flight-recorder moment: the
+            # recent-event ring goes to disk before a kill can land
+            from . import telemetry
+            rec = telemetry.get_recorder()
+            rec.record("sigterm", action=self._actions[signum])
+            rec.dump("sigterm")
 
     def __exit__(self, *exc) -> None:
         for sig, prev in self._previous.items():

@@ -22,8 +22,9 @@ Caffe's finetune path) drawn by the port.
 - ``compute_image_mean`` writes the JAX tool's binaryproto byte for
   byte; ``extract_features`` writes records equal to the net's blob.
 - Refusals name their ROADMAP item: an encoded Datum and ImageData/
-  WindowData/HDF5Data (A15, A6), ``backend: RECORDS`` (A6), ``time_net
-  --trace`` (A13).  ``--hosts`` misused exits with the JAX CLI's usage
+  WindowData/HDF5Data (A15, A6), ``backend: RECORDS`` (A6).
+  ``time_net --trace`` prints a per-layer row for every layer of the net.
+  ``--hosts`` misused exits with the JAX CLI's usage
   errors (``--strategy hierarchical`` itself: test_torch_hierarchical.py).
 """
 
@@ -372,6 +373,20 @@ def test_hosts_usage_errors_as_the_jax_cli(tool, tmp_path, extra):
     assert "hosts" in str(ours.value)
 
 
-def test_time_net_trace_names_a13():
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        time_net.main(["--model", "lenet", "--trace", "--device", "cpu"])
+def test_time_net_trace_gives_every_layer(tmp_path, capsys):
+    """``--trace`` partitions the profiled forward-backward time by
+    layer: a row for every layer of lenet, forward and backward time on
+    the layers with work in both."""
+    from sparknet_tpu_torch import models
+    out = time_net.time_net(models.lenet(4, 4), iterations=2,
+                            trace_dir=str(tmp_path), device="cpu")
+    rows = {r["op"]: r for r in out["trace_layers"]}
+    net = Net(models.lenet(4, 4), NetState(Phase.TRAIN))
+    layers = {n.lp.name for n in net.nodes if not n.impl.is_input()}
+    assert layers <= set(rows)
+    for name in ("conv1", "conv2", "ip1", "loss"):
+        assert rows[name]["total_ms"] > 0 and rows[name]["backward_ms"] > 0
+    assert "Per-layer CPU op time" in capsys.readouterr().out
+    assert time_net.main(["--model", "lenet", "--batch", "2",
+                          "--iterations", "1", "--trace", "--trace-dir",
+                          str(tmp_path / "cli"), "--device", "cpu"]) == 0
