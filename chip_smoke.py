@@ -56,7 +56,18 @@ and resumed, bit for bit the fault-free run, a ``nan_inject`` under the
 guard rolled back to the same bits, with planted faults (a codec that
 drops its residual, a scribbled newest checkpoint, a resume with its
 generators reset); elastic 4 -> 2 workers; harvest lag 0 against 2;
-checkpoint MB, stalls and resume seconds.  Prints the card, timings, a
+checkpoint MB, stalls and resume seconds.  Phase 5f runs the bench, its
+CLI, ``profile_step`` and the telemetry plane.  Phase 5g holds the neuron
+and loss layers, ``Slice`` and Accuracy's per-class top on the card
+against the CPU in f32 and bf16 (planted: ContrastiveLoss's legacy form),
+then trains Caffe's mnist_siamese (shared params, the pool backward at
+2x2 stride 2, exactly 4 launches an iteration) and mnist_autoencoder
+(two test nets by ``test_state``) at their published widths through
+``caffe_cli train`` on synthetic digits, checks that every sharer holds
+its owner's storage and that the ``.caffemodel`` carries every sharer's
+blobs (planted: a sharer with its own clone), scores the siamese
+snapshot with ``caffe_cli test``, and runs 5 iterations of each net on
+the card against the CPU.  Prints the card, timings, a
 ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Every failed check
 exits non-zero.  Without a CUDA device it exits 2 and prints no result.
@@ -468,6 +479,10 @@ POOL_CASES = [
     (f"caffenet_pool2_b{TRAIN_BATCH}", (TRAIN_BATCH, 256, 27, 27), 3, 2, 0),
     (f"caffenet_pool5_b{TRAIN_BATCH}", (TRAIN_BATCH, 256, 13, 13), 3, 2, 0),
     *GN_POOLS,
+    # mnist_siamese's pools (phase 5g), each twice a step: 2x2 stride-2
+    # windows that do not overlap
+    ("siamese_pool1_b64", (64, 20, 24, 24), 2, 2, 0),
+    ("siamese_pool2_b64", (64, 50, 8, 8), 2, 2, 0),
     (f"cifar_pool1_b{CIFAR_BATCH}", (CIFAR_BATCH, 32, 32, 32), 3, 2, 0),
     *VGG_POOLS,
     ("googlenet_k3s1p1_b16", (16, 192, 28, 28), 3, 1, 1),
@@ -4160,6 +4175,582 @@ def the_bench(ck, dev, smi: str, solver_ms_b256: float) -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# Phase 5g: the rest of the graph compiler — shared params, the neuron and
+# loss layers and Slice, on Caffe's mnist_siamese and mnist_autoencoder at
+# their published widths through caffe_cli train
+# ---------------------------------------------------------------------------
+
+def _siamese_branch(s: str, bottom: str) -> str:
+    def param(name, lr):
+        return f'param {{ name: "{name}" lr_mult: {lr} }}'
+    fillers = ('weight_filler { type: "xavier" } '
+               'bias_filler { type: "constant" }')
+    return f"""
+layer {{ name: "conv1{s}" type: "Convolution" bottom: "{bottom}"
+  top: "conv1{s}" {param("conv1_w", 1)} {param("conv1_b", 2)}
+  convolution_param {{ num_output: 20 kernel_size: 5 stride: 1 {fillers} }} }}
+layer {{ name: "pool1{s}" type: "Pooling" bottom: "conv1{s}" top: "pool1{s}"
+  pooling_param {{ pool: MAX kernel_size: 2 stride: 2 }} }}
+layer {{ name: "conv2{s}" type: "Convolution" bottom: "pool1{s}"
+  top: "conv2{s}" {param("conv2_w", 1)} {param("conv2_b", 2)}
+  convolution_param {{ num_output: 50 kernel_size: 5 stride: 1 {fillers} }} }}
+layer {{ name: "pool2{s}" type: "Pooling" bottom: "conv2{s}" top: "pool2{s}"
+  pooling_param {{ pool: MAX kernel_size: 2 stride: 2 }} }}
+layer {{ name: "ip1{s}" type: "InnerProduct" bottom: "pool2{s}"
+  top: "ip1{s}" {param("ip1_w", 1)} {param("ip1_b", 2)}
+  inner_product_param {{ num_output: 500 {fillers} }} }}
+layer {{ name: "relu1{s}" type: "ReLU" bottom: "ip1{s}" top: "ip1{s}" }}
+layer {{ name: "ip2{s}" type: "InnerProduct" bottom: "ip1{s}" top: "ip2{s}"
+  {param("ip2_w", 1)} {param("ip2_b", 2)}
+  inner_product_param {{ num_output: 10 {fillers} }} }}
+layer {{ name: "feat{s}" type: "InnerProduct" bottom: "ip2{s}"
+  top: "feat{s}" {param("feat_w", 1)} {param("feat_b", 2)}
+  inner_product_param {{ num_output: 2 {fillers} }} }}
+"""
+
+
+SIAMESE_BATCH, SIAMESE_TEST_BATCH = 64, 100
+# Caffe's examples/siamese/mnist_siamese_train_test.prototxt (BVLC caffe,
+# master) at its published widths: 2-channel pair Datums from a LevelDB,
+# sliced into two branches sharing every blob by name, ContrastiveLoss
+SIAMESE_NET = f"""
+name: "mnist_siamese_train_test"
+layer {{ name: "pair_data" type: "Data" top: "pair_data" top: "sim"
+  include {{ phase: TRAIN }} transform_param {{ scale: 0.00390625 }}
+  data_param {{ source: "TRAIN_DB" batch_size: {SIAMESE_BATCH} }} }}
+layer {{ name: "pair_data" type: "Data" top: "pair_data" top: "sim"
+  include {{ phase: TEST }} transform_param {{ scale: 0.00390625 }}
+  data_param {{ source: "TEST_DB" batch_size: {SIAMESE_TEST_BATCH} }} }}
+layer {{ name: "slice_pair" type: "Slice" bottom: "pair_data"
+  top: "data" top: "data_p" slice_param {{ slice_dim: 1 slice_point: 1 }} }}
+""" + _siamese_branch("", "data") + _siamese_branch("_p", "data_p") + """
+layer { name: "loss" type: "ContrastiveLoss" bottom: "feat"
+  bottom: "feat_p" bottom: "sim" top: "loss"
+  contrastive_loss_param { margin: 1 } }
+"""
+SIAMESE_OWNERS = ("conv1", "conv2", "ip1", "ip2", "feat")
+GRAPH_ITERS = 200          # the published solvers run 50,000 and 65,000
+GRAPH_TEST_INTERVAL = 100  # published: 500
+# examples/siamese/mnist_siamese_solver.prototxt, cut in iterations
+SIAMESE_TEST_ITER = 100
+SIAMESE_SOLVER = f"""
+test_iter: {SIAMESE_TEST_ITER}
+test_interval: {GRAPH_TEST_INTERVAL}
+base_lr: 0.01
+momentum: 0.9
+weight_decay: 0.0000
+lr_policy: "inv"
+gamma: 0.0001
+power: 0.75
+display: 1
+max_iter: {GRAPH_ITERS}
+snapshot: {GRAPH_ITERS}
+"""
+
+
+def _ae_ip(name: str, bottom: str, width: int) -> str:
+    return f"""
+layer {{ name: "{name}" type: "InnerProduct" bottom: "{bottom}" top: "{name}"
+  param {{ lr_mult: 1 decay_mult: 1 }} param {{ lr_mult: 1 decay_mult: 0 }}
+  inner_product_param {{ num_output: {width}
+    weight_filler {{ type: "gaussian" std: 1 sparse: 15 }}
+    bias_filler {{ type: "constant" value: 0 }} }} }}""" + (
+        "" if name in ("encode4", "decode1") else
+        f'\nlayer {{ name: "{name}neuron" type: "Sigmoid" bottom: "{name}" '
+        f'top: "{name}neuron" }}')
+
+
+AE_BATCH = 100
+_AE_DATA = "".join(f"""
+layer {{ name: "data" type: "Data" top: "data" include {{ {rule} }}
+  transform_param {{ scale: 0.0039215684 }}
+  data_param {{ source: "{src}" batch_size: {AE_BATCH} backend: LMDB }} }}"""
+    for rule, src in (("phase: TRAIN", "TRAIN_DB"),
+                      ('phase: TEST stage: "test-on-train"', "TRAIN_DB"),
+                      ('phase: TEST stage: "test-on-test"', "TEST_DB")))
+# Caffe's examples/mnist/mnist_autoencoder.prototxt (BVLC caffe, master)
+# at its published widths, 784-1000-500-250-30 and back, Sigmoid between
+# layers, SigmoidCrossEntropyLoss and EuclideanLoss at loss_weight 0;
+# the gaussian filler's sparse: 15 is read and not applied (ROADMAP C)
+AUTOENCODER_NET = 'name: "MNISTAutoencoder"' + _AE_DATA + """
+layer { name: "flatdata" type: "Flatten" bottom: "data" top: "flatdata" }
+""" + "".join(_ae_ip(n, b, w) for n, b, w in (
+    ("encode1", "data", 1000), ("encode2", "encode1neuron", 500),
+    ("encode3", "encode2neuron", 250), ("encode4", "encode3neuron", 30),
+    ("decode4", "encode4", 250), ("decode3", "decode4neuron", 500),
+    ("decode2", "decode3neuron", 1000),
+    ("decode1", "decode2neuron", 784))) + """
+layer { name: "loss" type: "SigmoidCrossEntropyLoss" bottom: "decode1"
+  bottom: "flatdata" top: "cross_entropy_loss" loss_weight: 1 }
+layer { name: "decode1neuron" type: "Sigmoid" bottom: "decode1"
+  top: "decode1neuron" }
+layer { name: "loss" type: "EuclideanLoss" bottom: "decode1neuron"
+  bottom: "flatdata" top: "l2_error" loss_weight: 0 }
+"""
+# examples/mnist/mnist_autoencoder_solver.prototxt, cut in iterations and
+# test_iter (published 500 and 100)
+AE_TEST_ITERS = (50, 10)
+AUTOENCODER_SOLVER = f"""
+test_state: {{ stage: "test-on-train" }}
+test_iter: {AE_TEST_ITERS[0]}
+test_state: {{ stage: "test-on-test" }}
+test_iter: {AE_TEST_ITERS[1]}
+test_interval: {GRAPH_TEST_INTERVAL}
+base_lr: 0.01
+lr_policy: "step"
+gamma: 0.1
+stepsize: 10000
+display: 1
+max_iter: {GRAPH_ITERS}
+weight_decay: 0.0005
+snapshot: {GRAPH_ITERS}
+momentum: 0.9
+"""
+PAIRS_TRAIN, PAIRS_TEST = 6400, 1000
+DIGITS_TRAIN, DIGITS_TEST = 5000, 1000
+CARD_VS_CPU_ITERS = 5
+
+
+def synthetic_digits(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` 28x28 uint8 digits and their classes: one smooth template a
+    class drawn from ``seed`` (7x7 blocks of 4x4 pixels), plus noise.
+    Real MNIST is not in the repository."""
+    rng = np.random.default_rng(seed)
+    templates = np.kron(rng.uniform(0.0, 1.0, size=(10, 7, 7)),
+                        np.ones((4, 4)))
+    labels = rng.integers(0, 10, size=n)
+    x = 200.0 * templates[labels] + rng.normal(0.0, 25.0, size=(n, 28, 28))
+    return np.clip(x, 0, 255).astype(np.uint8), labels
+
+
+def write_pair_leveldb(path: str, n: int, seed: int) -> None:
+    """A LevelDB of ``n`` 2x28x28 pair Datums, about half of them one
+    class, label 1 for a same-class pair (the layout of
+    examples/siamese/convert_mnist_siamese_data.cpp)."""
+    from sparknet_tpu_torch.data.db import array_to_datum
+    from sparknet_tpu_torch.data.leveldb_io import write_leveldb
+    imgs, labels = synthetic_digits(2 * n, seed)
+    rng = np.random.default_rng(seed + 1)
+    items = []
+    for i in range(n):
+        pool = np.flatnonzero((labels == labels[i]) == (rng.random() < 0.5))
+        pool = pool[pool != i]
+        if not len(pool):
+            pool = np.flatnonzero(labels != labels[i])
+        j = int(rng.choice(pool))
+        items.append((b"%08d" % i, array_to_datum(
+            np.stack([imgs[i], imgs[j]]), int(labels[i] == labels[j]))))
+    write_leveldb(path, items)
+
+
+def write_digit_lmdb(path: str, n: int, seed: int) -> None:
+    from sparknet_tpu_torch.data.db import array_to_datum
+    from sparknet_tpu_torch.data.lmdb_io import write_lmdb
+    imgs, labels = synthetic_digits(n, seed)
+    write_lmdb(path, [(b"%08d" % i, array_to_datum(imgs[i][None],
+                                                   int(labels[i])))
+                      for i in range(n)])
+
+
+# (label, type, bottoms, indices of the bottoms to differentiate, params,
+# sub-messages): every layer type of the slice at a small shape
+def _layer_cases() -> list:
+    g = np.random.default_rng(SEED + 40)
+    x = g.normal(size=(4, 3, 5, 6)).astype(np.float32)
+    pos = np.abs(x) + 0.5
+    z = g.normal(size=(6, 5))
+    probs = (np.exp(z) / np.exp(z).sum(1, keepdims=True)).astype(np.float32)
+    probs[1, 3] = 0.0                      # a clamped log at the label
+    labels = np.array([0, 3, 1, 4, 2, 3], np.float32)
+    feats = g.normal(size=(2, 6, 2)).astype(np.float32)
+    # pairs inside the margin, where the legacy form differs, and d = 0
+    # on a dissimilar pair
+    feats[1] = feats[0] + 0.3 * g.normal(size=(6, 2)).astype(np.float32)
+    feats[1, 1] = feats[0, 1]
+    sim = np.array([1, 0, 1, 0, 0, 1], np.float32)
+    return [
+        ("AbsVal", "AbsVal", [x], [0], [], {}),
+        ("BNLL", "BNLL", [3 * x], [0], [], {}),
+        ("Exp", "Exp", [x], [0], [], {"exp_param": {"base": 2.0,
+                                                     "scale": 0.5}}),
+        ("Log", "Log", [pos], [0], [], {"log_param": {"shift": 1.0}}),
+        ("Power", "Power", [x], [0], [], {"power_param": {
+            "power": 2.0, "scale": 3.0, "shift": 1.0}}),
+        ("PReLU", "PReLU", [x], [0],
+         [g.uniform(0, 0.5, size=3).astype(np.float32)], {}),
+        ("Sigmoid", "Sigmoid", [3 * x], [0], [], {}),
+        ("TanH", "TanH", [2 * x], [0], [], {}),
+        ("Threshold", "Threshold", [x], [], [], {
+            "threshold_param": {"threshold": 0.3}}),
+        ("Slice", "Slice", [x], [0], [], {"slice_param": {
+            "slice_point": [1, 2]}}),
+        ("MultinomialLogisticLoss", "MultinomialLogisticLoss",
+         [probs, labels], [0], [], {}),
+        ("EuclideanLoss", "EuclideanLoss", [x, 2 * x + 1], [0, 1], [], {}),
+        ("SigmoidCrossEntropyLoss", "SigmoidCrossEntropyLoss",
+         [4 * z.astype(np.float32), g.uniform(size=(6, 5)).astype(
+             np.float32)], [0, 1], [], {}),
+        ("HingeLoss", "HingeLoss", [z.astype(np.float32), labels], [0], [],
+         {"hinge_loss_param": {"norm": "L2"}}),
+        ("InfogainLoss", "InfogainLoss",
+         [probs, labels, g.uniform(0, 2, size=(5, 5)).astype(np.float32)],
+         [0, 2], [], {}),
+        ("ContrastiveLoss", "ContrastiveLoss", [feats[0], feats[1], sim],
+         [0, 1], [], {"contrastive_loss_param": {"margin": 1.0}}),
+        ("Accuracy_per_class", "Accuracy", [z.astype(np.float32), labels],
+         [], [], {}),
+    ]
+
+
+def run_layer(dev, dtype, type_, bottoms, wrt, params, sub) -> list:
+    """One layer's tops and the gradients of the ``wrt`` bottoms and the
+    params under a fixed cotangent, on ``dev`` in ``dtype``, as f64 on
+    the host."""
+    from sparknet_tpu_torch.models.dsl import layer
+    from sparknet_tpu_torch.ops import get_layer_impl
+    ntop = 3 if type_ == "Slice" else 2 if type_ == "Accuracy" else 1
+    lp = layer("l", type_, [f"b{i}" for i in range(len(bottoms))],
+               [f"t{i}" for i in range(ntop)], **sub)
+    label_at = {"MultinomialLogisticLoss": 1, "HingeLoss": 1,
+                "InfogainLoss": 1, "ContrastiveLoss": 2,
+                "Accuracy": 1}.get(type_)
+    xs = [torch.from_numpy(b).to(dev, torch.float32 if i == label_at
+                                 else dtype)
+          for i, b in enumerate(bottoms)]
+    for i in wrt:
+        xs[i].requires_grad_()
+    ps = [torch.from_numpy(p).to(dev, dtype).requires_grad_() for p in params]
+    tops = get_layer_impl(type_).apply(lp, ps, xs, True)
+    leaves = [xs[i] for i in wrt] + ps
+    live = [t for t in tops if t.requires_grad]
+    grads = []
+    if live and leaves:
+        gen = torch.Generator().manual_seed(SEED + 41)
+        cots = [torch.randn(t.shape, generator=gen).to(dev, t.dtype)
+                for t in live]
+        grads = list(torch.autograd.grad(live, leaves, cots))
+    return [t.detach().double().cpu() for t in list(tops) + grads]
+
+
+def check_layers_on_card(dev) -> dict:
+    """Every layer type of the slice, forward and the gradients of its
+    float bottoms and params, on the card against the CPU in f32 and
+    bf16: each tensor within tol·max|CPU| + tol (f32 1e-5, bf16 2e-2, the
+    bounds the CPU tests hold the port to against the JAX package).
+    Planted fault: ContrastiveLoss on the card with ``legacy_version``
+    flipped must fall outside."""
+    tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    worst = {}
+    cases = _layer_cases()
+    for dtype, tol in tols.items():
+        for label, type_, bottoms, wrt, params, sub in cases:
+            want = run_layer("cpu", dtype, type_, bottoms, wrt, params, sub)
+            got = run_layer(dev, dtype, type_, bottoms, wrt, params, sub)
+            errs = [float((a - b).abs().max() / (tol * b.abs().max() + tol))
+                    for a, b in zip(got, want)]
+            if len(got) != len(want) or max(errs) > 1.0:
+                fail(f"layer {label} {dtype}: the card differs from the "
+                     f"CPU by {max(errs):.3g} of its tolerance")
+            worst[f"{label} {str(dtype).split('.')[-1]}"] = max(errs)
+    label, type_, bottoms, wrt, params, sub = cases[-2]
+    want = run_layer("cpu", torch.float32, type_, bottoms, wrt, params, sub)
+    planted = run_layer(dev, torch.float32, type_, bottoms, wrt, params,
+                        {"contrastive_loss_param": {
+                            "margin": 1.0, "legacy_version": True}})
+    planted_err = max(float((a - b).abs().max() / (1e-5 * b.abs().max()
+                                                    + 1e-5))
+                      for a, b in zip(planted, want))
+    if planted_err <= 1.0:
+        fail("layers: the planted legacy ContrastiveLoss passes the check")
+    out = {"worst_over_tolerance": max(worst.values()), "cases": worst,
+           "planted_contrastive_legacy_over_tolerance": planted_err}
+    print("graph_layers " + json.dumps(out), flush=True)
+    return out
+
+
+def sharer_clones():
+    """A planted fault: every layer that shares a blob computes with a
+    clone of its owner's, so no gradient of the sharer reaches the
+    owner."""
+    from sparknet_tpu_torch.graph.net import Net
+    own = Net.node_params
+
+    def cloned(self, params, node):
+        blobs = own(self, params, node)
+        return [b.detach().clone().requires_grad_(b.requires_grad)
+                if i in node.shared_refs else b for i, b in enumerate(blobs)]
+    return mock.patch.object(Net, "node_params", cloned)
+
+
+def unaliased_sharers(net, params) -> list[str]:
+    """The shared blobs whose tensor is not the owner's storage."""
+    bad = []
+    for node in net.nodes:
+        blobs = net.node_params(params, node)
+        for i, (owner, pos) in node.shared_refs.items():
+            if (blobs[i].untyped_storage().data_ptr()
+                    != params[owner][pos].untyped_storage().data_ptr()):
+                bad.append(f"{node.lp.name}[{i}]")
+    return bad
+
+
+def cli_losses(log: str) -> tuple[dict, dict, list]:
+    """The first logged loss and its glog second of each iteration, and
+    the test outputs, from a caffe_cli train log."""
+    loss_at, stamp = {}, {}
+    for ln in log.splitlines():
+        if "] Iteration " in ln and ", loss = " in ln:
+            it = int(ln.split("Iteration ")[1].split(",")[0])
+            if it not in loss_at:
+                loss_at[it] = float(ln.rsplit("= ", 1)[1])
+                stamp[it] = glog_seconds(ln)
+    tests = [(ln.split("output: ")[1].split(" = ")[0],
+              float(ln.rsplit("= ", 1)[1]))
+             for ln in log.splitlines() if "output:" in ln and "Test net" in ln]
+    return loss_at, stamp, tests
+
+
+def train_graph_net(ck, dev, label: str, d: str, net_text: str,
+                    solver_text: str, want_launches: dict) -> dict:
+    """``caffe_cli.main(["train", ...])`` on the net, the Solver it builds
+    recorded; exact launches; the loss over the last ten iterations under
+    half of that over the first ten; ms an iteration from the CLI's own
+    log (iterations after a test pass left out)."""
+    from sparknet_tpu_torch import solvers
+    from sparknet_tpu_torch.tools import caffe_cli
+    model = os.path.join(d, f"{label}.prototxt")
+    with open(model, "w") as f:
+        f.write(net_text)
+    solver = os.path.join(d, f"{label}_solver.prototxt")
+    prefix = os.path.join(d, label)
+    with open(solver, "w") as f:
+        f.write(f'net: "{model}"\nsnapshot_prefix: "{prefix}"\n'
+                + solver_text)
+    built = []
+
+    class Recorded(solvers.Solver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    ck.reset_launch_counts()
+    with mock.patch.object(solvers, "Solver", Recorded):
+        log, train_s = run_cli(caffe_cli.main, ["train", "--solver", solver,
+                                                "--device", str(dev)])
+    launches = dict(ck.launch_counts)
+    if launches != want_launches:
+        fail(f"{label}: caffe_cli train launches {launches}, want "
+             f"{want_launches}")
+    loss_at, stamp, tests = cli_losses(log)
+    if sorted(loss_at) != list(range(1, GRAPH_ITERS + 1)) or \
+            "Optimization Done." not in log or not tests or not all(
+                math.isfinite(v) for v in loss_at.values()):
+        print(log[-4000:])
+        fail(f"{label}: caffe_cli train's log lacks its iterations or "
+             f"test outputs, or a loss is not finite")
+    first = float(np.mean([loss_at[i] for i in range(1, 11)]))
+    last = float(np.mean([loss_at[i] for i in range(GRAPH_ITERS - 9,
+                                                    GRAPH_ITERS + 1)]))
+    if not last < 0.5 * first:
+        fail(f"{label}: the training loss did not fall: {first} over the "
+             f"first ten iterations, {last} over the last ten")
+    after_test = {i + 1 for i in range(0, GRAPH_ITERS, GRAPH_TEST_INTERVAL)}
+    steady = [(stamp[i] - stamp[i - 1]) * 1e3
+              for i in range(3, GRAPH_ITERS + 1) if i not in after_test]
+    snapshot = f"{prefix}_iter_{GRAPH_ITERS}.caffemodel"
+    if len(built) != 1 or not os.path.exists(snapshot):
+        fail(f"{label}: {len(built)} Solvers built, snapshot "
+             f"{os.path.exists(snapshot)}")
+    return {"solver": built[0], "model": model, "snapshot": snapshot,
+            "tests": tests, "launches": launches, "train_s": train_s,
+            "first_loss_10": first, "last_loss_10": last,
+            "iter_ms_median": float(np.median(steady))}
+
+
+def feed_batches(net_text: str, n: int) -> list[dict]:
+    """The first ``n`` training batches of the net's Data layer, as the
+    CPU's feed makes them."""
+    from sparknet_tpu_torch.data.db import db_feed
+    from sparknet_tpu_torch.proto import Phase, load_net_prototxt
+    lp = load_net_prototxt(net_text).layer[0]
+    feed = db_feed(lp, Phase.TRAIN)
+    out = [{k: v.copy() for k, v in next(feed).items()} for _ in range(n)]
+    feed.close()
+    return out
+
+
+def solver_run(sp, weights: str, batches: list, device, dtype) -> tuple:
+    """Per-iteration losses and the final params (f64, host) of a Solver
+    on ``device`` in ``dtype`` from the ``weights`` file."""
+    from sparknet_tpu_torch.solvers import Solver
+    s = Solver(sp, seed=SEED, device=device)
+    s.load_weights(weights)
+    s.params = {k: [b.to(dtype) for b in v] for k, v in s.params.items()}
+    s.state = s.rule.init(s.params)
+    s.set_train_data(iter({k: torch.from_numpy(v).to(device, dtype)
+                           for k, v in b.items()} for b in batches))
+    losses = [s.step(1) for _ in batches]
+    return losses, host_f64(s.params)
+
+
+def graph_against_cpu(dev, label: str, net_text: str, solver_text: str,
+                      weights: str, planted) -> dict:
+    """``CARD_VS_CPU_ITERS`` Solver iterations from one ``.caffemodel`` on
+    the same batches on the card (deterministic cuDNN, TF32 off), on the
+    CPU in f32 and in f64.  The bound, set before the first run on the
+    card: every loss within 1e-4 relative of the CPU f32 run's, and per
+    blob max|Δ|/max|ref| against the f64 run within 1e-3 or 10x the CPU
+    f32 run's own error (``train_against_cpu``'s rule).  A CPU run under
+    ``planted`` must break it."""
+    from sparknet_tpu_torch.proto import (load_net_prototxt,
+                                          load_solver_prototxt_with_net)
+    sp = load_solver_prototxt_with_net(solver_text.replace(
+        "display: 1", "display: 0"), load_net_prototxt(net_text))
+    batches = feed_batches(net_text, CARD_VS_CPU_ITERS)
+    with cudnn_deterministic():
+        card_l, card = solver_run(sp, weights, batches, dev, torch.float32)
+    cpu_l, cpu = solver_run(sp, weights, batches, "cpu", torch.float32)
+    _, exact = solver_run(sp, weights, batches, "cpu", torch.float64)
+    with planted:
+        bad_l, bad = solver_run(sp, weights, batches, "cpu", torch.float32)
+    cpu_err = rel_errors(cpu, exact)
+    allowed = {b: max(1e-3, 10.0 * e) for b, e in cpu_err.items()}
+    card_err = rel_errors(card, exact)
+    bad_err = rel_errors(bad, exact)
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    out = {"losses_card": card_l, "losses_cpu": cpu_l,
+           "loss_rel": rel(card_l, cpu_l), "planted_loss_rel": rel(bad_l,
+                                                                   cpu_l),
+           "card_vs_f64_max": max(card_err.values()),
+           "cpu_f32_vs_f64_max": max(cpu_err.values()),
+           "card_blobs_beyond_bound": [b for b, e in card_err.items()
+                                       if e > allowed[b]],
+           "planted_blobs_beyond_bound": sum(e > allowed[b]
+                                             for b, e in bad_err.items())}
+    print(f"{label} card vs CPU " + json.dumps(out), flush=True)
+    if out["card_blobs_beyond_bound"] or out["loss_rel"] > 1e-4:
+        fail(f"{label}: the card's iterations differ from the CPU's: {out}")
+    if out["planted_loss_rel"] <= 1e-4 and not out[
+            "planted_blobs_beyond_bound"]:
+        fail(f"{label}: the planted fault passes the card-vs-CPU checks")
+    return out
+
+
+def loss_weight_ignored():
+    """A planted fault for the autoencoder: every loss top weighted 1,
+    its EuclideanLoss's explicit ``loss_weight: 0`` dropped."""
+    from sparknet_tpu_torch.graph import net as net_mod
+    return mock.patch.object(net_mod._LayerNode, "loss_weights",
+                             lambda self: [1.0] if self.impl.is_loss()
+                             else [0.0] * len(self.tops))
+
+
+def graph_compiler_rest(ck, dev, smi: str) -> dict:
+    """Phase 5g: the layers of the slice on the card against the CPU;
+    mnist_siamese (shared params, Slice, ContrastiveLoss, the pool
+    backward at 2x2 s2) and mnist_autoencoder (Sigmoid, the two losses,
+    two test nets by ``test_state``) through ``caffe_cli train`` at
+    their published widths on synthetic digits, with exact launches and
+    planted faults; each net's iterations on the card against the CPU."""
+    import tempfile
+
+    from sparknet_tpu_torch.proto import load_caffemodel
+    from sparknet_tpu_torch.tools import caffe_cli
+    t_phase = time.perf_counter()
+    report = {"layers": check_layers_on_card(dev)}
+    idle = {k: 0 for k in ck.launch_counts}
+    with tempfile.TemporaryDirectory(prefix="graph_smoke_") as d:
+        t0 = time.perf_counter()
+        pairs = (os.path.join(d, "pairs_train_leveldb"),
+                 os.path.join(d, "pairs_test_leveldb"))
+        digits = (os.path.join(d, "digits_train_lmdb"),
+                  os.path.join(d, "digits_test_lmdb"))
+        write_pair_leveldb(pairs[0], PAIRS_TRAIN, SEED + 50)
+        write_pair_leveldb(pairs[1], PAIRS_TEST, SEED + 51)
+        write_digit_lmdb(digits[0], DIGITS_TRAIN, SEED + 52)
+        write_digit_lmdb(digits[1], DIGITS_TEST, SEED + 53)
+        report["fixture_s"] = time.perf_counter() - t0
+
+        # mnist_siamese through caffe_cli train: 4 pool backwards an
+        # iteration (pool1, pool2, pool1_p, pool2_p), none at test
+        siamese_text = SIAMESE_NET.replace("TRAIN_DB", pairs[0]).replace(
+            "TEST_DB", pairs[1])
+        sm = train_graph_net(ck, dev, "mnist_siamese", d, siamese_text,
+                             SIAMESE_SOLVER,
+                             {**idle, "max_pool_bwd": 4 * GRAPH_ITERS})
+        s = sm.pop("solver")
+        net, params = s.train_net, s.params
+        if sorted(params) != sorted(SIAMESE_OWNERS) or \
+                unaliased_sharers(net, params) or \
+                sum(len(n.shared_refs) for n in net.nodes) != 10:
+            fail(f"mnist_siamese: the sharers do not hold their owners' "
+                 f"storage: {unaliased_sharers(net, params)}")
+        with sharer_clones():
+            if not unaliased_sharers(net, params):
+                fail("mnist_siamese: the planted sharer clones pass the "
+                     "storage check")
+        saved = load_caffemodel(sm["snapshot"])
+        for o in SIAMESE_OWNERS:
+            mine = [b.detach().cpu().numpy() for b in params[o]]
+            if len(saved[o + "_p"]) != 2 or not all(
+                    a.tobytes() == b.tobytes() == c.tobytes()
+                    for a, b, c in zip(saved[o], saved[o + "_p"], mine)):
+                fail(f"mnist_siamese: the .caffemodel's {o}_p blobs are "
+                     f"not {o}'s")
+        del s, net, params
+        with cudnn_deterministic():
+            tlog, _ = run_cli(caffe_cli.main, [
+                "test", "--model", sm["model"], "--weights",
+                sm["snapshot"], "--iterations", str(SIAMESE_TEST_ITER),
+                "--device",
+                str(dev)])
+        scored = float(re.search(r"^loss = ([-\d.e+]+)$", tlog,
+                                 re.M).group(1))
+        last_test = sm["tests"][-1][1]
+        sm["cli_test_loss"], sm["last_test_loss"] = scored, last_test
+        sm["test_losses"] = [v for _, v in sm["tests"]]
+        if abs(scored - last_test) > 1e-5 * abs(last_test) or not \
+                sm["test_losses"][-1] < sm["test_losses"][0]:
+            fail(f"mnist_siamese: caffe_cli test gives {scored}, the last "
+                 f"test pass {last_test}; test losses {sm['test_losses']}")
+        ck.reset_launch_counts()
+        sm["card_vs_cpu"] = graph_against_cpu(
+            dev, "mnist_siamese", siamese_text, SIAMESE_SOLVER,
+            sm["snapshot"], sharer_clones())
+        sm["card_vs_cpu_launches"] = dict(ck.launch_counts)
+        if sm["card_vs_cpu_launches"] != {
+                **idle, "max_pool_bwd": 4 * CARD_VS_CPU_ITERS}:
+            fail(f"mnist_siamese card vs CPU: launches "
+                 f"{sm['card_vs_cpu_launches']}")
+        torch.cuda.empty_cache()
+
+        # mnist_autoencoder through caffe_cli train with its two test
+        # stages: no hand kernel on its path
+        ae_text = AUTOENCODER_NET.replace("TRAIN_DB", digits[0]).replace(
+            "TEST_DB", digits[1])
+        ae = train_graph_net(ck, dev, "mnist_autoencoder", d, ae_text,
+                             AUTOENCODER_SOLVER, idle)
+        del ae["solver"]
+        names = {k for k, _ in ae["tests"]}
+        n_tests = len(range(0, GRAPH_ITERS + 1, GRAPH_TEST_INTERVAL))
+        if names != {"cross_entropy_loss", "l2_error"} or \
+                len(ae["tests"]) != 2 * 2 * n_tests:
+            fail(f"mnist_autoencoder: test outputs {ae['tests']}")
+        ae["card_vs_cpu"] = graph_against_cpu(
+            dev, "mnist_autoencoder", ae_text, AUTOENCODER_SOLVER,
+            ae["snapshot"], loss_weight_ignored())
+        torch.cuda.empty_cache()
+    report.update(siamese=sm, autoencoder=ae,
+                  phase_s=time.perf_counter() - t_phase)
+    print(f"graph_compiler [{smi}] " + json.dumps(report, default=str),
+          flush=True)
+    print(f"phase 5g: {report['phase_s']:.1f} s; ms an iteration: "
+          f"mnist_siamese {sm['iter_ms_median']:.3f}, mnist_autoencoder "
+          f"{ae['iter_ms_median']:.3f} [{smi}]", flush=True)
+    return report
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
                  rows: list[dict], main: list[dict]) -> dict:
     """One kernel's entry: launches per main path, the worst error over
@@ -4350,6 +4941,10 @@ def main() -> int:
     bench_report = the_bench(ck, dev, smi,
                              solved["caffenet"]["solver_ms_per_iter_b256"])
 
+    # phase 5g: the layers of the slice on the card, mnist_siamese and
+    # mnist_autoencoder through caffe_cli train, each against the CPU
+    graph = graph_compiler_rest(ck, dev, smi)
+
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
     # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
@@ -4384,7 +4979,12 @@ def main() -> int:
            for c, r in round_report["codecs"].items()
            if isinstance(r, dict)},
         # phase 5f: the bench's paths, profile_step and the telemetry runs
-        **bench_report["launches"]}
+        **bench_report["launches"],
+        # phase 5g: mnist_siamese through caffe_cli and its card-vs-CPU
+        # iterations
+        "caffe_cli_train_mnist_siamese": graph["siamese"]["launches"],
+        "solver_mnist_siamese_card_vs_cpu":
+            graph["siamese"]["card_vs_cpu_launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}
@@ -4427,7 +5027,10 @@ def main() -> int:
             "max_pool_bwd", "sparknet_tpu_torch/ops/csrc/maxpool_bwd.cu",
             "sparknet_tpu/ops/pallas_kernels.py:203",
             {**{f"{m}_training": tl[m]["max_pool_bwd"] for m in tl},
-             **solver_launches("max_pool_bwd")},
+             **solver_launches("max_pool_bwd"),
+             # a path without a pool: its count stays 0
+             "caffe_cli_train_mnist_autoencoder":
+                 graph["autoencoder"]["launches"]["max_pool_bwd"]},
             pool_rows, rows_of(pool_rows)),
         # no TPU counterpart: they take the place of the JAX package's
         # native libjpeg decode and its resize.  Main path: CaffeNet from

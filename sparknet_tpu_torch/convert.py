@@ -3,7 +3,10 @@
 The JAX package keeps params as ``{layer name: [blobs...]}`` of arrays in
 Caffe's layouts (conv OIHW, InnerProduct (out, in)), and so does the port:
 carrying them across is a per-blob copy, checked against the shapes the
-port's net expects.
+port's net expects.  Under shared params (``ParamSpec.name``) both keep
+the owners' blobs only, compacted (a layer that shares every blob has no
+entry), so the JAX ``Net.init`` layout is the port's
+``Net.param_shapes()``.
 """
 
 from __future__ import annotations

@@ -671,11 +671,13 @@ def feed_for_layer(lp, phase: Phase, seed: int = 0,
 _FEEDABLE_TYPES = ("Data", "ImageData", "WindowData", "HDF5Data")
 
 
-def feed_for_net(net_param, phase: Phase, seed: int = 0, **kw):
+def feed_for_net(net_param, phase: Phase, seed: int = 0, *,
+                 state=None, **kw):
     """Feed for the first self-sourcing data layer active in ``phase``
-    (the standalone `caffe train` data path)."""
+    (the standalone `caffe train` data path), or in the full ``state``
+    (a ``NetState`` with its level and stages) when one is given."""
     from ..proto.caffe_pb import NetState
-    for lp in net_param.filtered(NetState(phase)).layer:
+    for lp in net_param.filtered(state or NetState(phase)).layer:
         if lp.type in _FEEDABLE_TYPES:
             return feed_for_layer(lp, phase, seed=seed, **kw)
     raise ValueError(

@@ -16,9 +16,16 @@ and runs the TRAIN phase's stochastic layers from a CPU
 ``torch.Generator``; gradients come from ``torch.autograd``.  While a
 profiler records, each layer's forward runs inside an ``L[<layer>]``
 range (``utils/profiling.py::layer_scope``), which
-``utils/trace_tables.py`` reads to charge device time to layers.  Not
-ported yet: cross-layer param sharing, horizontal and vertical fusion and
-the lowering tuner.
+``utils/trace_tables.py`` reads to charge device time to layers.
+
+Params are shared across layers by ``ParamSpec.name`` as Caffe's
+``AppendParam`` shares them (net.cpp): the first layer to declare a name
+owns the blob, and only owners store it, in the JAX package's compacted
+layout (a layer that shares every blob has no entry; one that shares
+some keeps its own blobs in order).  Every layer that shares a blob is
+handed the owner's very tensor, so autograd sums all their gradients
+into it before the solver regularizes and steps.  Not ported:
+horizontal and vertical fusion and the lowering tuner (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -47,7 +54,15 @@ class NetOutputs:
 
 
 class _LayerNode:
-    __slots__ = ("lp", "impl", "bottoms", "tops")
+    """One layer, with its blobs' place in the storage: ``shared_refs``
+    maps a blob index to (owner layer, position in the owner's stored
+    list), ``own_map`` a blob index this layer owns to its position in
+    its own stored list (both empty when it shares nothing), and
+    ``lr_mults``/``decay_mults`` its per-blob multipliers after the merge
+    with the layers that share them."""
+
+    __slots__ = ("lp", "impl", "bottoms", "tops", "lr_mults", "decay_mults",
+                 "shared_refs", "own_map", "n_blobs")
 
     def __init__(self, lp: LayerParameter, impl: LayerImpl,
                  bottoms: list[str], tops: list[str]):
@@ -55,6 +70,11 @@ class _LayerNode:
         self.impl = impl
         self.bottoms = bottoms
         self.tops = tops
+        self.lr_mults = [ps.lr_mult for ps in lp.param]
+        self.decay_mults = [ps.decay_mult for ps in lp.param]
+        self.shared_refs: dict[int, tuple[str, int]] = {}
+        self.own_map: dict[int, int] = {}
+        self.n_blobs = 0
 
     def loss_weights(self) -> list[float]:
         """Per-top loss weights, Layer::SetLossWeights: the explicit
@@ -86,11 +106,9 @@ class Net:
             self.blob_shapes[name] = shape
             self.input_blobs[name] = shape
 
+        shared_owner: dict[str, tuple[str, int]] = {}  # name -> (layer, i)
+        self._node_by_name: dict[str, _LayerNode] = {}
         for lp in self.param.layer:
-            if any(ps.name for ps in lp.param):
-                raise NotImplementedError(
-                    f"layer {lp.name!r}: shared params (ParamSpec.name) are "
-                    f"not ported yet (ROADMAP A3)")
             impl = get_layer_impl(lp.type)
             for b in lp.bottom:
                 if b not in self.blob_shapes:
@@ -106,7 +124,21 @@ class Net:
                 self.blob_shapes[t] = tuple(int(d) for d in s)
                 if impl.is_input():
                     self.input_blobs[t] = self.blob_shapes[t]
-            self.nodes.append(_LayerNode(lp, impl, list(lp.bottom), tops))
+            node = _LayerNode(lp, impl, list(lp.bottom), tops)
+            # each named spec shares one blob with the first layer that
+            # declared the name (net.cpp AppendParam)
+            raw_refs: dict[int, tuple[str, int]] = {}
+            for i, ps in enumerate(lp.param):
+                if not ps.name:
+                    continue
+                if ps.name in shared_owner:
+                    raw_refs[i] = shared_owner[ps.name]
+                else:
+                    shared_owner[ps.name] = (lp.name, i)
+            if raw_refs:
+                self._resolve_sharing(node, raw_refs)
+            self.nodes.append(node)
+            self._node_by_name[lp.name] = node
 
         # net outputs via Caffe's available-blob walk (net.cpp AppendTop/
         # AppendBottom): a trailing in-place layer's blob stays an output;
@@ -122,21 +154,85 @@ class Net:
         self.output_blobs = [t for t in order
                              if t in available and t not in self.input_blobs]
 
+    def _blob_shapes_of(self, node: _LayerNode) -> list[Shape]:
+        return [tuple(s) for s in node.impl.param_shapes(
+            node.lp, [self.blob_shapes[b] for b in node.bottoms])]
+
+    @staticmethod
+    def _merge_shared_mult(node: _LayerNode, owner: _LayerNode, i: int,
+                           oidx: int, attr: str, label: str) -> None:
+        """net.cpp AppendParam's lr_mult/decay_mult rule for a shared
+        blob: the sharer's explicit value goes to the owner when the owner
+        left it unset; two explicit values that differ are an error."""
+        raw = f"raw_{label}"
+        specs, ospecs = node.lp.param, owner.lp.param
+        mine = getattr(specs[i], raw) if i < len(specs) else None
+        if mine is None:
+            return
+        owners = getattr(ospecs[oidx], raw) if oidx < len(ospecs) else None
+        if owners is None:
+            mults = getattr(owner, attr)
+            while len(mults) <= oidx:
+                mults.append(1.0)
+            mults[oidx] = mine
+        elif owners != mine:
+            raise ValueError(
+                f"shared param {label} mismatch: layer {node.lp.name!r} "
+                f"blob {i} sets {mine}, owner {owner.lp.name!r} blob {oidx} "
+                f"sets {owners} (reference: net.cpp AppendParam CHECK)")
+
+    def _resolve_sharing(self, node: _LayerNode,
+                         raw_refs: dict[int, tuple[str, int]]) -> None:
+        """Map each shared blob index to (owner, owner's stored position),
+        checking shapes against the owner's (net.cpp AppendParam CHECKs),
+        and merge the multipliers into the owner's."""
+        mine = self._blob_shapes_of(node)
+        node.n_blobs = len(mine)
+        for i, (oname, oidx) in raw_refs.items():
+            if i >= len(mine):
+                continue  # a named spec beyond the layer's blob count
+            owner = self._node_by_name.get(oname)
+            if owner is None:
+                raise ValueError(
+                    f"layer {node.lp.name!r} shares param {i} with unknown "
+                    f"layer {oname!r}")
+            oshapes = self._blob_shapes_of(owner)
+            if oidx >= len(oshapes):
+                raise ValueError(
+                    f"layer {node.lp.name!r} param {i} shares blob {oidx} of "
+                    f"{oname!r}, which has only {len(oshapes)} blobs")
+            if oshapes[oidx] != mine[i]:
+                raise ValueError(
+                    f"shared param shape mismatch: {node.lp.name!r} blob {i} "
+                    f"{mine[i]} vs owner {oname!r} blob {oidx} "
+                    f"{oshapes[oidx]} (reference: net.cpp AppendParam)")
+            self._merge_shared_mult(node, owner, i, oidx, "lr_mults",
+                                    "lr_mult")
+            self._merge_shared_mult(node, owner, i, oidx, "decay_mults",
+                                    "decay_mult")
+            opos = owner.own_map.get(oidx, oidx) if owner.shared_refs else oidx
+            node.shared_refs[i] = (oname, opos)
+        node.own_map = {i: pos for pos, i in enumerate(
+            j for j in range(len(mine)) if j not in node.shared_refs)}
+
     def param_shapes(self) -> dict[str, list[Shape]]:
-        """Shape of every learnable blob, by layer name."""
+        """Shape of every stored learnable blob, by layer name: owners'
+        blobs only (the storage :meth:`init` makes)."""
         out = {}
         for node in self.nodes:
-            shapes = node.impl.param_shapes(
-                node.lp, [self.blob_shapes[b] for b in node.bottoms])
+            shapes = [s for i, s in enumerate(self._blob_shapes_of(node))
+                      if i not in node.shared_refs]
             if shapes:
-                out[node.lp.name] = [tuple(s) for s in shapes]
+                out[node.lp.name] = shapes
         return out
 
     def init(self, generator: torch.Generator | None = None, *,
              device: str | torch.device = "cuda") -> Params:
         """Create all learnable blobs with Caffe-filler init (the SetUp pass
         of reference net.cpp:73-133): f32, drawn on the CPU from
-        ``generator`` (seed 0 when None), then moved to ``device``."""
+        ``generator`` (seed 0 when None), then moved to ``device``.  A
+        layer that shares a blob draws it too, as Caffe's SetUp does, and
+        the draw is dropped: only owners store blobs."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -144,25 +240,56 @@ class Net:
         for node in self.nodes:
             blobs = node.impl.init(
                 generator, node.lp, [self.blob_shapes[b] for b in node.bottoms])
-            if blobs:
-                params[node.lp.name] = [b.to(dev) for b in blobs]
+            own = [b.to(dev) for i, b in enumerate(blobs)
+                   if i not in node.shared_refs]
+            if own:
+                params[node.lp.name] = own
         return params
+
+    def node_params(self, params: Mapping[str, Sequence[torch.Tensor]],
+                    node: _LayerNode) -> list[torch.Tensor]:
+        """The blob list ``node`` computes with, shared blobs taken from
+        their owners: the owners' own tensors, not copies."""
+        if not node.shared_refs:
+            return list(params.get(node.lp.name, []))
+        return [params[node.lp.name][node.own_map[i]]
+                if i not in node.shared_refs
+                else params[node.shared_refs[i][0]][node.shared_refs[i][1]]
+                for i in range(node.n_blobs)]
+
+    def full_params(self, params: Mapping[str, Sequence[torch.Tensor]]
+                    ) -> Params:
+        """Every layer's full blob list, a sharer's shared blobs included,
+        as ``Net::ToProto`` writes them into a ``.caffemodel``."""
+        out = {}
+        for node in self.nodes:
+            blobs = self.node_params(params, node)
+            if blobs:
+                out[node.lp.name] = blobs
+        return out
 
     def lr_mult_tree(self, params: Params) -> dict[str, list[float]]:
         """Per-blob lr multipliers, keyed like ``params``
-        (ParamSpec.lr_mult, 1 where a layer declares fewer specs)."""
-        return self._mult_tree(params, "lr_mult")
+        (ParamSpec.lr_mult merged over the sharers, 1 where a layer
+        declares fewer specs)."""
+        return self._mult_tree(params, "lr_mults")
 
     def decay_mult_tree(self, params: Params) -> dict[str, list[float]]:
         """Per-blob weight-decay multipliers, keyed like ``params``."""
-        return self._mult_tree(params, "decay_mult")
+        return self._mult_tree(params, "decay_mults")
 
     def _mult_tree(self, params: Params, attr: str) -> dict[str, list[float]]:
-        specs = {node.lp.name: node.lp.param for node in self.nodes}
-        return {key: [getattr(specs[key][i], attr)
-                      if i < len(specs.get(key, ())) else 1.0
-                      for i in range(len(blobs))]
-                for key, blobs in params.items()}
+        out = {}
+        for key, blobs in params.items():
+            node = self._node_by_name.get(key)
+            mults = getattr(node, attr) if node is not None else []
+            # stored position -> blob index (storage compacts away the
+            # shared blobs)
+            orig = ({pos: i for i, pos in node.own_map.items()}
+                    if node is not None and node.shared_refs else {})
+            idxs = [orig.get(p, p) for p in range(len(blobs))]
+            out[key] = [mults[i] if i < len(mults) else 1.0 for i in idxs]
+        return out
 
     def layer_flops(self) -> list[tuple[_LayerNode, int]]:
         """(node, forward FLOPs) of every Convolution and InnerProduct
@@ -218,13 +345,25 @@ class Net:
                   inputs: Mapping[str, torch.Tensor], *,
                   train: bool = False,
                   generator: torch.Generator | None = None,
-                  device: str | torch.device | None = None
+                  device: str | torch.device | None = None,
+                  upto: str | None = None, start: str | None = None,
+                  eps: Mapping[str, torch.Tensor] | None = None
                   ) -> dict[str, torch.Tensor]:
         """One forward returning every blob, inputs included, at its final
-        value (the JAX package's ``Net.apply_all``, net.py:505, without
-        its ``upto``/``start``/``eps`` options; the Solver's
-        ``debug_info`` reads it)."""
-        values, _ = self._run(params, inputs, train, generator, device)
+        value (the JAX package's ``Net.apply_all``, net.py:505; the
+        Solver's ``debug_info`` reads it).  ``upto`` stops after the named
+        layer (pycaffe's ``forward(end=)``); ``start`` begins at it
+        (``forward(start=)``), every bottom a skipped layer would have
+        made then supplied in ``inputs``.  ``eps`` maps blob names to
+        zero perturbations added where the run last assigns each blob:
+        the gradient of an output with respect to one is the blob's diff
+        (pycaffe ``backward(diffs=)``)."""
+        for name, which in ((upto, "upto"), (start, "start")):
+            if name is not None and name not in self._node_by_name:
+                raise ValueError(f"unknown layer {name!r} for {which}= "
+                                 f"(layers: {self.layer_names()})")
+        values, _ = self._run(params, inputs, train, generator, device,
+                              upto=upto, start=start, eps=eps)
         return values
 
     def forward(self, params: Mapping[str, Sequence[torch.Tensor]],
@@ -252,19 +391,36 @@ class Net:
                 return b.device
         return torch.device("cpu")
 
-    def _run(self, params, inputs, train, generator, device=None):
-        for name in self.input_blobs:
-            if name not in inputs:
-                raise ValueError(f"missing input blob {name!r}")
+    def _run(self, params, inputs, train, generator, device=None, *,
+             upto=None, start=None, eps=None):
+        names = self.layer_names()
+        start_i = names.index(start) if start is not None else 0
+        stop_i = names.index(upto) if upto is not None else len(names) - 1
+        if stop_i < start_i:
+            raise ValueError(f"start={start!r} comes after upto={upto!r}")
+        active = self.nodes[start_i:stop_i + 1]
+        if start is None:
+            for name in self.input_blobs:
+                if name not in inputs:
+                    raise ValueError(f"missing input blob {name!r}")
+        # eps goes in where the executed range last assigns each blob
+        last_producer = {t: n.lp.name for n in active for t in n.tops
+                         if eps and t in eps}
         dev = (torch.device(device) if device is not None
                else self._device_of(params, inputs))
         values: dict[str, torch.Tensor] = dict(inputs)
         loss = None
         cd = self.compute_dtype
-        for node in self.nodes:
+        for node in active:
             if node.impl.is_input():
                 continue
-            p = list(params.get(node.lp.name, []))
+            missing = [b for b in node.bottoms if b not in values]
+            if missing:
+                raise ValueError(
+                    f"layer {node.lp.name!r} needs blobs {missing}; with "
+                    f"start={start!r} every bottom made before the start "
+                    f"layer must be fed in inputs")
+            p = self.node_params(params, node)
             bots = [values[b] for b in node.bottoms]
             if cd is not None:
                 # numerics-critical loss and accuracy layers stay f32
@@ -277,6 +433,9 @@ class Net:
             if not node.bottoms:
                 # a source layer (DummyData) draws its tops on the CPU
                 tops = [t.to(dev) for t in tops]
+            if last_producer:
+                tops = [v + eps[t] if last_producer.get(t) == node.lp.name
+                        else v for t, v in zip(node.tops, tops)]
             for t, v in zip(node.tops, tops):
                 values[t] = v
             for w, v in zip(node.loss_weights(), tops):
@@ -286,3 +445,27 @@ class Net:
         if loss is None:
             loss = torch.zeros((), dtype=torch.float32, device=dev)
         return values, loss
+
+    # -- introspection (reference: ccaffe.cpp:86-139, Net.scala:64-66) -----
+    @property
+    def num_layers(self) -> int:
+        return len(self.nodes)
+
+    def layer_names(self) -> list[str]:
+        return [n.lp.name for n in self.nodes]
+
+    def layer_num_weights(self, params: Params) -> dict[str, int]:
+        return {k: len(v) for k, v in params.items()}
+
+
+# -- WeightCollection math (reference: Net.scala:17-46) ----------------------
+
+def weights_add(a: Params, b: Params) -> Params:
+    """Blob-wise sum, WeightCollection.add (Net.scala:27-46)."""
+    return {k: [x + y for x, y in zip(a[k], b[k])] for k in a}
+
+
+def weights_scalar_divide(w: Params, v: float) -> Params:
+    """Every blob divided by ``v``, WeightCollection.scalarDivide
+    (Net.scala:17-23; in place there, a new collection here)."""
+    return {k: [x / v for x in blobs] for k, blobs in w.items()}

@@ -1,8 +1,8 @@
-"""InnerProduct, Softmax, Accuracy, Flatten, Concat and Split.
+"""InnerProduct, Softmax, Accuracy, Flatten, Concat, Slice and Split.
 
 Counterparts of the layers of ``sparknet_tpu/ops/common.py`` (reference:
 caffe/src/caffe/layers/{inner_product,softmax,accuracy,flatten,concat,
-split}_layer.cpp).  The weight
+slice,split}_layer.cpp).  The weight
 keeps the JAX layout, (num_output, dim) or (dim, num_output) with
 ``transpose``.  The product goes to ``F.linear``/``torch.matmul``, as the
 JAX package left it to XLA.
@@ -80,14 +80,15 @@ class AccuracyLayer(LayerImpl):
     (accuracy_layer.cpp): bottom[0] scores (N, C, spatial...), bottom[1]
     integer-valued labels; one scalar top, in f32.  The label's rank is
     the count of classes with a strictly greater score, so ties count in
-    the label's favour, as Caffe's partial sort does.  The per-class
-    second top is not ported yet."""
+    the label's favour, as Caffe's partial sort does.  A second top is
+    the accuracy of each class: its correct predictions over its count,
+    0 for a class the batch lacks (accuracy_layer.cpp ``nums_buffer_``)."""
 
     def out_shapes(self, lp, bottom_shapes):
         if len(lp.top) > 1:
-            raise NotImplementedError(
-                f"layer {lp.name!r}: the per-class accuracy top is not "
-                f"ported yet")
+            axis = _canon_axis(int(lp.sub("accuracy_param").get("axis", 1)),
+                               len(bottom_shapes[0]))
+            return [(), (bottom_shapes[0][axis],)]
         return [()]
 
     def apply(self, lp, params, bottoms, train, gen=None):
@@ -106,9 +107,18 @@ class AccuracyLayer(LayerImpl):
         rank = (sc > true_score).sum(-1)
         correct = (rank < top_k).float()
         if ignore is None:
-            return [correct.mean()]
-        mask = (lab != int(ignore)).float()
-        return [(correct * mask).sum() / mask.sum().clamp_min(1.0)]
+            mask = torch.ones_like(correct)
+            tops = [correct.mean()]
+        else:
+            mask = (lab != int(ignore)).float()
+            tops = [(correct * mask).sum() / mask.sum().clamp_min(1.0)]
+        if len(lp.top) > 1:
+            classes = torch.arange(sc.shape[-1], device=lab.device)
+            onehot = (lab[..., None] == classes) * mask[..., None]
+            count = onehot.sum((0, 1))
+            hits = (onehot * correct[..., None]).sum((0, 1))
+            tops.append(hits / count.clamp_min(1.0))
+        return tops
 
 
 @register_layer("Flatten")
@@ -150,6 +160,43 @@ class ConcatLayer(LayerImpl):
 
     def apply(self, lp, params, bottoms, train, gen=None):
         return [torch.cat(list(bottoms), dim=self._axis(lp, bottoms[0].dim()))]
+
+
+@register_layer("Slice")
+class SliceLayer(LayerImpl):
+    """Split along ``axis`` (the legacy ``slice_dim`` wins where given) at
+    each ``slice_point``, or into equal parts, one a top
+    (slice_layer.cpp).  The tops are views; autograd writes each one's
+    gradient into its part of the bottom's."""
+
+    def _bounds(self, lp, shape) -> tuple[int, list[int]]:
+        p = lp.sub("slice_param")
+        if p.has("slice_dim"):
+            axis = int(p.get("slice_dim"))
+        else:
+            axis = _canon_axis(int(p.get("axis", 1)), len(shape))
+        points = [int(x) for x in p.get_all("slice_point")]
+        if not points:
+            ntop = max(len(lp.top), 1)
+            if shape[axis] % ntop:
+                raise ValueError(
+                    f"layer {lp.name!r}: axis dim {shape[axis]} not "
+                    f"divisible into {ntop} equal slices (give slice_point)")
+            step = shape[axis] // ntop
+            points = [step * i for i in range(1, ntop)]
+        return axis, [0] + points + [shape[axis]]
+
+    def out_shapes(self, lp, bottom_shapes):
+        shape = tuple(bottom_shapes[0])
+        axis, bounds = self._bounds(lp, shape)
+        return [shape[:axis] + (hi - lo,) + shape[axis + 1:]
+                for lo, hi in zip(bounds, bounds[1:])]
+
+    def apply(self, lp, params, bottoms, train, gen=None):
+        x = bottoms[0]
+        axis, bounds = self._bounds(lp, tuple(x.shape))
+        return [x.narrow(axis, lo, hi - lo)
+                for lo, hi in zip(bounds, bounds[1:])]
 
 
 @register_layer("Split")

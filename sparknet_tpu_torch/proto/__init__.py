@@ -1,4 +1,4 @@
-from .textformat import ParseError, PMessage, parse
+from .textformat import ParseError, PMessage, parse, serialize
 from .wireformat import WireError, decode as decode_wire, encode as encode_wire
 from .caffe_pb import (
     BlobShape,
@@ -14,8 +14,10 @@ from .caffe_pb import (
     load_net_prototxt,
     load_solver_prototxt,
     load_solver_prototxt_with_net,
+    replace_data_layers,
     resolve_net_path,
     resolve_solver_nets,
+    save_net_prototxt,
 )
 from .caffemodel import (
     array_to_blob,

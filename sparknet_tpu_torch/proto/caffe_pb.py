@@ -9,11 +9,15 @@ The port's own copy of part of ``sparknet_tpu/proto/caffe_pb.py``:
 snapshots read, plus ``resolve_net_path``/``resolve_solver_nets``.  Nets
 are read new-style (V2, ``layer``) or V1 (``layers`` with enum types and
 ``blobs_lr``/``weight_decay``, the format of every BVLC zoo
-``.caffemodel``), upgraded as upgrade_proto.cpp ``UpgradeV1Net`` does.
-V0 nets and a bare ``input_dim`` raise (ROADMAP A3).  Per-layer parameter
-sub-messages stay as ``PMessage`` and are read with defaulting accessors
-by the op implementations (reference: caffe.proto:64 NetParameter, :102
-SolverParameter, :310 LayerParameter).
+``.caffemodel``), upgraded as upgrade_proto.cpp ``UpgradeV1Net`` does,
+or V0 (a ``layer`` nested in each ``layers`` entry, explicit ``padding``
+layers, a bare ``input_dim``), upgraded to V1 first as
+``UpgradeV0Net`` does.  ``to_pmsg``/``save_net_prototxt`` write a net
+back as V2 text and ``replace_data_layers`` swaps its data layers for
+host-fed inputs.  Per-layer parameter sub-messages stay as ``PMessage``
+and are read with defaulting accessors by the op implementations
+(reference: caffe.proto:64 NetParameter, :102 SolverParameter, :310
+LayerParameter).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import Any, Sequence
 
 import numpy as np
 
-from .textformat import PMessage, parse
+from .textformat import EnumToken, PMessage, parse, serialize
 
 
 class Phase(enum.IntEnum):
@@ -87,6 +91,12 @@ class BlobShape:
             dims.extend(int(x) for x in np.atleast_1d(np.asarray(d)))
         return cls(dim=dims)
 
+    def to_pmsg(self) -> PMessage:
+        m = PMessage()
+        for d in self.dim:
+            m.add("dim", int(d))
+        return m
+
 
 @dataclasses.dataclass
 class FillerParameter:
@@ -99,6 +109,9 @@ class FillerParameter:
     mean: float = 0.0
     std: float = 1.0
     variance_norm: str = "FAN_IN"  # FAN_IN | FAN_OUT | AVERAGE
+    # read but not applied: the gaussian filler stays dense, as in the
+    # JAX package (ROADMAP C, known differences)
+    sparse: int = -1
 
     @classmethod
     def from_pmsg(cls, m: PMessage | None) -> "FillerParameter":
@@ -112,6 +125,7 @@ class FillerParameter:
             mean=float(m.get("mean", 0.0)),
             std=float(m.get("std", 1.0)),
             variance_norm=str(m.get("variance_norm", "FAN_IN")),
+            sparse=int(m.get("sparse", -1)),
         )
 
 
@@ -130,6 +144,15 @@ class NetState:
             level=int(m.get("level", 0)),
             stage=[str(s) for s in m.get_all("stage")],
         )
+
+    def to_pmsg(self) -> PMessage:
+        m = PMessage()
+        m.add("phase", EnumToken(self.phase.name))
+        if self.level:
+            m.add("level", int(self.level))
+        for s in self.stage:
+            m.add("stage", s)
+        return m
 
 
 @dataclasses.dataclass
@@ -151,6 +174,20 @@ class NetStateRule:
             stage=[str(s) for s in m.get_all("stage")],
             not_stage=[str(s) for s in m.get_all("not_stage")],
         )
+
+    def to_pmsg(self) -> PMessage:
+        m = PMessage()
+        if self.phase is not None:
+            m.add("phase", EnumToken(self.phase.name))
+        if self.min_level is not None:
+            m.add("min_level", int(self.min_level))
+        if self.max_level is not None:
+            m.add("max_level", int(self.max_level))
+        for s in self.stage:
+            m.add("stage", s)
+        for s in self.not_stage:
+            m.add("not_stage", s)
+        return m
 
     def matches(self, state: NetState) -> bool:
         """Mirror of Net::StateMeetsRule (reference: caffe/src/caffe/net.cpp:287-329)."""
@@ -248,11 +285,137 @@ def _upgrade_data_transform(lp: "LayerParameter") -> None:
         p.clear(k)
 
 
+# V0 lowercase type names -> V1 enum names
+# (reference: caffe/src/caffe/util/upgrade_proto.cpp UpgradeV0LayerType)
+_V0_TYPE_MAP = {
+    "accuracy": "ACCURACY", "bnll": "BNLL", "concat": "CONCAT",
+    "conv": "CONVOLUTION", "data": "DATA", "dropout": "DROPOUT",
+    "euclidean_loss": "EUCLIDEAN_LOSS", "flatten": "FLATTEN",
+    "hdf5_data": "HDF5_DATA", "hdf5_output": "HDF5_OUTPUT",
+    "im2col": "IM2COL", "images": "IMAGE_DATA",
+    "infogain_loss": "INFOGAIN_LOSS", "innerproduct": "INNER_PRODUCT",
+    "lrn": "LRN", "multinomial_logistic_loss": "MULTINOMIAL_LOGISTIC_LOSS",
+    "pool": "POOLING", "relu": "RELU", "sigmoid": "SIGMOID",
+    "softmax": "SOFTMAX", "softmax_loss": "SOFTMAX_LOSS", "split": "SPLIT",
+    "tanh": "TANH", "window_data": "WINDOW_DATA", "padding": "PADDING",
+}
+
+
 def _net_needs_v0_upgrade(m: PMessage) -> bool:
     """V0 nets nest a V0LayerParameter inside each ``layers`` entry
     (upgrade_proto.cpp NetNeedsV0ToV1Upgrade)."""
     return any(isinstance(l, PMessage) and l.has("layer")
                for l in m.get_all("layers"))
+
+
+def _upgrade_v0_padding(entries: list[PMessage]) -> list[PMessage]:
+    """Fold explicit ``padding`` layers into the conv/pool layer that
+    consumes them (upgrade_proto.cpp UpgradeV0PaddingLayers)."""
+    top_src: dict[str, PMessage] = {}
+    out: list[PMessage] = []
+    for entry in entries:
+        v0 = entry.get("layer")
+        if v0 is not None and str(v0.get("type", "")) == "padding":
+            for t in entry.get_all("top"):
+                top_src[str(t)] = entry
+            continue
+        for i, b in enumerate(entry.get_all("bottom")):
+            pad_entry = top_src.get(str(b))
+            if pad_entry is None:
+                continue
+            pv0 = pad_entry.get("layer")
+            if v0 is None or str(v0.get("type", "")) not in ("conv", "pool"):
+                who = str(v0.get("name", "?")) if v0 is not None else "?"
+                raise ValueError(
+                    f"padding layer feeds non-conv/pool layer {who!r} "
+                    "(undefined in Caffe; upgrade_proto.cpp CHECK)")
+            v0.set("pad", pv0.get("pad", 0))
+            bots = entry.get_all("bottom")
+            bots[i] = pad_entry.get("bottom")
+            entry.clear("bottom")
+            for b2 in bots:
+                entry.add("bottom", b2)
+        for t in entry.get_all("top"):
+            top_src.pop(str(t), None)
+        out.append(entry)
+    return out
+
+
+def _upgrade_v0_layer(entry: PMessage) -> PMessage:
+    """One V0 ``layers`` entry -> a V1-style flat PMessage
+    (upgrade_proto.cpp UpgradeV0LayerParameter)."""
+    v0 = entry.get("layer")
+    out = PMessage()
+    for b in entry.get_all("bottom"):
+        out.add("bottom", b)
+    for t in entry.get_all("top"):
+        out.add("top", t)
+    if v0 is None:
+        return out
+    type_ = str(v0.get("type", ""))
+    if v0.has("name"):
+        out.add("name", v0.get("name"))
+    out.add("type", _V0_TYPE_MAP.get(type_, type_))
+    for key in ("blobs", "blobs_lr", "weight_decay"):
+        for val in v0.get_all(key):
+            out.add(key, val)
+
+    subs: dict[str, PMessage] = {}
+
+    def move(v0_key: str, sub_name: str, new_key: str | None = None) -> None:
+        if v0.has(v0_key):
+            subs.setdefault(sub_name, PMessage()).add(new_key or v0_key,
+                                                     v0.get(v0_key))
+
+    # (V0 type, V1 sub-message, [(V0 field, V1 field or None), ...])
+    for v0_type, sub_name, fields in _V0_FIELDS:
+        if type_ == v0_type:
+            for v0_key, new_key in fields:
+                move(v0_key, sub_name, new_key)
+    # old-style transformation fields -> transform_param
+    # (UpgradeNetDataTransformation)
+    if type_ in ("data", "images", "window_data"):
+        move("scale", "transform_param")
+        move("meanfile", "transform_param", "mean_file")
+        move("cropsize", "transform_param", "crop_size")
+        move("mirror", "transform_param")
+    for name, msg_ in subs.items():
+        out.add(name, msg_)
+    return out
+
+
+_V0_FIELDS = [
+    ("conv", "convolution_param", [
+        ("num_output", None), ("biasterm", "bias_term"),
+        ("weight_filler", None), ("bias_filler", None), ("pad", None),
+        ("kernelsize", "kernel_size"), ("group", None), ("stride", None)]),
+    ("innerproduct", "inner_product_param", [
+        ("num_output", None), ("biasterm", "bias_term"),
+        ("weight_filler", None), ("bias_filler", None)]),
+    ("pool", "pooling_param", [
+        ("pad", None), ("kernelsize", "kernel_size"), ("stride", None),
+        ("pool", None)]),
+    ("dropout", "dropout_param", [("dropout_ratio", None)]),
+    ("lrn", "lrn_param", [("local_size", None), ("alpha", None),
+                          ("beta", None), ("k", None)]),
+    ("data", "data_param", [("source", None), ("batchsize", "batch_size"),
+                            ("rand_skip", None)]),
+    ("hdf5_data", "hdf5_data_param", [("source", None),
+                                      ("batchsize", "batch_size")]),
+    ("images", "image_data_param", [
+        ("source", None), ("batchsize", "batch_size"), ("rand_skip", None),
+        ("shuffle_images", "shuffle"), ("new_height", None),
+        ("new_width", None)]),
+    ("window_data", "window_data_param", [
+        ("source", None), ("batchsize", "batch_size"),
+        ("det_fg_threshold", "fg_threshold"),
+        ("det_bg_threshold", "bg_threshold"),
+        ("det_fg_fraction", "fg_fraction"),
+        ("det_context_pad", "context_pad"),
+        ("det_crop_mode", "crop_mode")]),
+    ("infogain_loss", "infogain_loss_param", [("source", None)]),
+    ("concat", "concat_param", [("concat_dim", None)]),
+]
 
 
 @dataclasses.dataclass
@@ -268,6 +431,7 @@ class LayerParameter:
     param: list[ParamSpec] = dataclasses.field(default_factory=list)
     include: list[NetStateRule] = dataclasses.field(default_factory=list)
     exclude: list[NetStateRule] = dataclasses.field(default_factory=list)
+    propagate_down: list[bool] = dataclasses.field(default_factory=list)
     # type-specific sub-configs, kept schema-free:
     params: dict[str, PMessage] = dataclasses.field(default_factory=dict)
     # trained weight blobs, present when read from a .caffemodel
@@ -291,6 +455,7 @@ class LayerParameter:
             loss_weight=[float(w) for w in m.get_all("loss_weight")],
             include=[NetStateRule.from_pmsg(r) for r in m.get_all("include")],
             exclude=[NetStateRule.from_pmsg(r) for r in m.get_all("exclude")],
+            propagate_down=[bool(p) for p in m.get_all("propagate_down")],
         )
         pmsgs = [p for p in m.get_all("param") if isinstance(p, PMessage)]
         shared_names = [p for p in m.get_all("param") if isinstance(p, str)]
@@ -322,6 +487,45 @@ class LayerParameter:
         """Type-specific sub-config, empty message if absent."""
         return self.params.get(key) or PMessage()
 
+    def to_pmsg(self, include_blobs: bool = False) -> PMessage:
+        """The layer as a new-style (V2) message, the write half of the
+        prototxt round trip: unset multipliers stay unset."""
+        m = PMessage()
+        if self.name:
+            m.add("name", self.name)
+        if self.type:
+            m.add("type", self.type)
+        for b in self.bottom:
+            m.add("bottom", b)
+        for t in self.top:
+            m.add("top", t)
+        if self.phase is not None:
+            m.add("phase", EnumToken(self.phase.name))
+        for w in self.loss_weight:
+            m.add("loss_weight", float(w))
+        for ps in self.param:
+            pm = PMessage()
+            if ps.name:
+                pm.add("name", ps.name)
+            if ps.raw_lr_mult is not None:
+                pm.add("lr_mult", ps.raw_lr_mult)
+            if ps.raw_decay_mult is not None:
+                pm.add("decay_mult", ps.raw_decay_mult)
+            m.add("param", pm)
+        for r in self.include:
+            m.add("include", r.to_pmsg())
+        for r in self.exclude:
+            m.add("exclude", r.to_pmsg())
+        for p in self.propagate_down:
+            m.add("propagate_down", bool(p))
+        for key, sub in self.params.items():
+            m.add(key, sub)
+        if include_blobs and self.blobs:
+            from .caffemodel import array_to_blob
+            for b in self.blobs:
+                m.add("blobs", array_to_blob(np.asarray(b)))
+        return m
+
     def included_in(self, state: NetState) -> bool:
         """Mirror of Net::FilterNet layer inclusion (reference: net.cpp:256-286):
         no rules -> included; include rules -> any match; exclude -> none
@@ -342,33 +546,55 @@ class NetParameter:
     input: list[str] = dataclasses.field(default_factory=list)
     input_shape: list[BlobShape] = dataclasses.field(default_factory=list)
     state: NetState = dataclasses.field(default_factory=NetState)
+    force_backward: bool = False
 
     @classmethod
     def from_pmsg(cls, m: PMessage) -> "NetParameter":
         """New-style ``layer`` entries, then V1 ``layers`` entries upgraded
-        (upgrade_proto.cpp UpgradeV1Net); old-style data transformation
-        fields move into ``transform_param``."""
+        (upgrade_proto.cpp UpgradeV1Net), V0 entries first upgraded to V1
+        (padding layers folded in, the nested layer flattened); old-style
+        data transformation fields move into ``transform_param``, and a
+        bare ``input_dim`` (4 ints an input) becomes ``input_shape``."""
+        layers_v1 = m.get_all("layers")
         if _net_needs_v0_upgrade(m):
-            raise NotImplementedError(
-                "V0 nets (a `layer` nested in each `layers` entry) are not "
-                "ported yet (ROADMAP A3): upgrade the net to `layer`")
-        if m.has("input_dim") and not m.has("input_shape"):
-            raise NotImplementedError(
-                "`input_dim` (the V0 input declaration) is not ported yet "
-                "(ROADMAP A3): declare the inputs with `input_shape`")
+            layers_v1 = [_upgrade_v0_layer(e)
+                         for e in _upgrade_v0_padding(list(layers_v1))]
         layer = [LayerParameter.from_pmsg(l) for l in m.get_all("layer")]
-        layer += [LayerParameter.from_pmsg(l, v1=True)
-                  for l in m.get_all("layers")]
+        layer += [LayerParameter.from_pmsg(l, v1=True) for l in layers_v1]
         for lp in layer:
             _upgrade_data_transform(lp)
+        input_shape = [BlobShape.from_pmsg(s)
+                       for s in m.get_all("input_shape")]
+        input_dims = [int(d) for d in m.get_all("input_dim")]
+        if input_dims and not input_shape:
+            input_shape = [BlobShape(dim=input_dims[i:i + 4])
+                           for i in range(0, len(input_dims), 4)]
         return cls(
             name=str(m.get("name", "")),
             layer=layer,
             input=[str(i) for i in m.get_all("input")],
-            input_shape=[BlobShape.from_pmsg(s)
-                         for s in m.get_all("input_shape")],
+            input_shape=input_shape,
             state=NetState.from_pmsg(m.get("state")),
+            force_backward=bool(m.get("force_backward", False)),
         )
+
+    def to_pmsg(self, include_blobs: bool = False) -> PMessage:
+        """The net as a new-style (V2) message, always upgraded, as the
+        reference's upgrade_net_proto_* tools write it."""
+        m = PMessage()
+        if self.name:
+            m.add("name", self.name)
+        for name in self.input:
+            m.add("input", name)
+        for s in self.input_shape:
+            m.add("input_shape", s.to_pmsg())
+        if self.force_backward:
+            m.add("force_backward", True)
+        if self.state != NetState():
+            m.add("state", self.state.to_pmsg())
+        for lp in self.layer:
+            m.add("layer", lp.to_pmsg(include_blobs=include_blobs))
+        return m
 
     def filtered(self, state: NetState) -> "NetParameter":
         """Phase-filtered copy — Net::FilterNet (reference: net.cpp:256)."""
@@ -521,6 +747,17 @@ def load_solver_prototxt_with_net(solver_path_or_text: str,
     return sp
 
 
+def save_net_prototxt(net: NetParameter, path_or_none: str | None = None
+                      ) -> str:
+    """``net`` as prototxt text, also written to ``path_or_none`` when
+    given (the write half of the ProtoLoader round trip)."""
+    text = serialize(net.to_pmsg())
+    if path_or_none:
+        with open(path_or_none, "w") as f:
+            f.write(text)
+    return text
+
+
 def _resolve_ref_path(net_ref: str, solver_path: str,
                       extra_bases: Sequence[str] = ()) -> str:
     """Resolve one net file reference: the working directory first (Caffe
@@ -559,3 +796,45 @@ def resolve_solver_nets(sp: SolverParameter, solver_path: str) -> None:
         sp.test_net_param = [
             load_net_prototxt(_resolve_ref_path(p, solver_path))
             for p in sp.test_net]
+
+
+_DATA_LAYER_TYPES = {"Data", "ImageData", "WindowData", "MemoryData",
+                     "HDF5Data", "DummyData", "JavaData", "Input"}
+
+
+def replace_data_layers(net: NetParameter, train_batch_size: int,
+                        test_batch_size: int, channels: int, height: int,
+                        width: int) -> NetParameter:
+    """``net`` with its data layers swapped for host-fed ``JavaData``
+    input layers, one a phase (ProtoLoader.replaceDataLayers, reference:
+    ProtoLoader.scala:50-57).  The new layers' tops are every top of the
+    removed data layers, in order (``data`` and ``label`` when there
+    were none); the label, when there is one, is (batch,)."""
+    kept = [l for l in net.layer if l.type not in _DATA_LAYER_TYPES]
+    tops: list[str] = []
+    for l in net.layer:
+        if l.type in _DATA_LAYER_TYPES:
+            for t in l.top:
+                if t not in tops:
+                    tops.append(t)
+    if not tops:
+        tops = ["data", "label"]
+
+    def make(phase: Phase, batch: int) -> LayerParameter:
+        lp = LayerParameter(name=f"{tops[0]}_{phase.name.lower()}",
+                            type="JavaData", top=list(tops), phase=phase)
+        shape = PMessage()
+        for d in (batch, channels, height, width):
+            shape.add("dim", d)
+        jd = PMessage()
+        jd.add("shape", shape)
+        if len(tops) > 1:
+            lshape = PMessage()
+            lshape.add("dim", batch)
+            jd.add("label_shape", lshape)
+        lp.params["java_data_param"] = jd
+        return lp
+
+    return dataclasses.replace(net, layer=[make(Phase.TRAIN, train_batch_size),
+                                           make(Phase.TEST, test_batch_size)]
+                               + kept)

@@ -1,7 +1,7 @@
-"""Protobuf text-format (prototxt) parser, schema-free.
+"""Protobuf text-format (prototxt) parser and serializer, schema-free.
 
-The port's own copy of ``sparknet_tpu/proto/textformat.py`` (parse half
-only): the port imports nothing from the JAX package.
+The port's own copy of ``sparknet_tpu/proto/textformat.py``: the port
+imports nothing from the JAX package.
 
 The reference delegates prototxt parsing to native code and round-trips the
 binary back into the JVM (reference: libccaffe/ccaffe.cpp:213-242,
@@ -232,3 +232,32 @@ class _Parser:
 def parse(text: str) -> PMessage:
     """Parse prototxt text into a PMessage."""
     return _Parser(_tokenize(text)).parse_message(top_level=True)
+
+
+def _format_scalar(v: Any) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, float):
+        return repr(v)
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, EnumToken):
+        return str(v)
+    if isinstance(v, str):
+        escaped = (v.replace("\\", "\\\\").replace('"', '\\"')
+                   .replace("\n", "\\n"))
+        return f'"{escaped}"'
+    raise TypeError(f"cannot serialize {v!r}")
+
+
+def serialize(msg: PMessage, indent: int = 0) -> str:
+    """Serialize a PMessage back to prototxt text (round-trip capable):
+    enums bare, every other string quoted."""
+    pad = "  " * indent
+    out: list[str] = []
+    for key, val in msg.items():
+        if isinstance(val, PMessage):
+            out.append(f"{pad}{key} {{\n{serialize(val, indent + 1)}{pad}}}\n")
+        else:
+            out.append(f"{pad}{key}: {_format_scalar(val)}\n")
+    return "".join(out)

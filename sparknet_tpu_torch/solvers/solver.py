@@ -25,9 +25,12 @@ JAX package's npz layout (``utils/checkpoint.py``);
 pair Caffe writes; ``load_weights`` reads npz or ``.caffemodel`` (V1 zoo
 files included).  ``debug_info`` prints the JAX Solver's ``[Forward]``
 and ``[Update]`` lines (mean |x| of every top blob and param) at each
-display boundary.  Not ported yet, and refused by name: ``set_augment``
-(ROADMAP A14), ``snapshot_format: HDF5`` and HDF5 weight files (A6),
-shared params (A3, in ``graph/net.py``).
+display boundary.  Params shared across layers (``ParamSpec.name``) are
+stored once, by their owner (``graph/net.py``): weight files are read
+through the sharing map and written with every layer's full blob list,
+as Caffe writes them.  Not ported yet, and refused by name:
+``set_augment`` (ROADMAP A14), ``snapshot_format: HDF5`` and HDF5 weight
+files (A6).
 """
 
 from __future__ import annotations
@@ -71,6 +74,28 @@ def load_weights_into(net: Net, params: Params, path: str) -> Params:
     return loader.params
 
 
+def _test_net_specs(sp: SolverParameter, net_param
+                    ) -> list[tuple[Any, NetState]]:
+    """(NetParameter, NetState) of each test net (Solver::InitTestNets,
+    solver.cpp:104-172): every ``test_net_param`` entry, else the shared
+    net, in phase TEST.  With ``test_state``s, one net a state, the
+    shared net making up the rest, each state's level and stages merged
+    over the net's own."""
+    if not sp.test_state:
+        return [(tp, NetState(Phase.TEST))
+                for tp in (list(sp.test_net_param) or [net_param])]
+    n = len(sp.test_state)
+    if n < len(sp.test_net_param):
+        raise ValueError(f"{n} test_state entries for "
+                         f"{len(sp.test_net_param)} test nets "
+                         f"(solver.cpp CHECK_EQ test_state_size)")
+    specs = list(sp.test_net_param) + [net_param] * (
+        n - len(sp.test_net_param))
+    return [(tp, NetState(Phase.TEST, ts.level or tp.state.level,
+                          list(tp.state.stage) + list(ts.stage)))
+            for tp, ts in zip(specs, sp.test_state)]
+
+
 class Solver:
     """Owns the params and the update rule's state on ``device``, the
     iteration count, the Dropout generator and the test nets.
@@ -79,9 +104,13 @@ class Solver:
     is ``sp.net_param`` or ``sp.train_net_param`` in the TRAIN phase; the
     test nets are one per ``sp.test_net_param`` entry, else the shared
     net in the TEST phase (Solver::InitTestNets precedence,
-    solver.cpp:104-172), and every one is evaluated.  A test net's layers
-    that the train net lacks keep their filler init.  ``seed`` defaults
-    to ``sp.random_seed`` when set, else 0.
+    solver.cpp:104-172), and every one is evaluated.  With
+    ``test_state``s there is one test net a state, the shared net making
+    up those the ``test_net_param`` entries do not, each filtered by its
+    phase TEST, level and stages (``InitTestNets``; the test nets of
+    examples/mnist/mnist_autoencoder_solver.prototxt).  A test net's
+    layers that the train net lacks keep their filler init.  ``seed``
+    defaults to ``sp.random_seed`` when set, else 0.
     """
 
     _HISTORY_SLOTS = {
@@ -105,9 +134,8 @@ class Solver:
         self.train_net = Net(net_param, NetState(Phase.TRAIN),
                              compute_dtype=compute_dtype)
         self._dedicated_test_net = bool(sp.test_net_param)
-        self.test_nets = [Net(tp, NetState(Phase.TEST),
-                              compute_dtype=compute_dtype)
-                          for tp in (list(sp.test_net_param) or [net_param])]
+        self.test_nets = [Net(tp, st, compute_dtype=compute_dtype)
+                          for tp, st in _test_net_specs(sp, net_param)]
         self.test_net = self.test_nets[0]
         self.rule = make_update_rule(sp)
         self.params: Params = self.train_net.init(
@@ -469,12 +497,16 @@ class Solver:
         must match in blob count and in shape (legacy size-1 axes aside).
         Every layer is validated before any is written: a failed load
         leaves the params as they were."""
-        names = {n.lp.name for n in self.train_net.nodes}
-        staged: dict[str, list[torch.Tensor]] = {}
+        by_name = {n.lp.name: n for n in self.train_net.nodes}
+        # (storage key, stored position) -> the new blob; a sharer's
+        # blobs go to their owner's place, the last write winning, as
+        # Caffe copies through the shared pointer
+        staged: dict[tuple[str, int], torch.Tensor] = {}
         for name, blobs in saved.items():
-            if name not in names:
+            node = by_name.get(name)
+            if node is None:
                 continue
-            target = self.params.get(name, [])
+            target = self.train_net.node_params(self.params, node)
             blobs = list(blobs)
             if not target and not blobs:
                 continue
@@ -482,12 +514,15 @@ class Solver:
                 raise ValueError(
                     f"layer {name!r}: checkpoint has {len(blobs)} blobs, "
                     f"net expects {len(target)}")
-            staged[name] = [
-                self._blob_tensor(self._shape_adapt(
+            for i, (src, dst) in enumerate(zip(blobs, target)):
+                ref = node.shared_refs.get(i)
+                place = ref if ref is not None else (
+                    name, node.own_map[i] if node.shared_refs else i)
+                staged[place] = self._blob_tensor(self._shape_adapt(
                     src, dst.shape, f"layer {name!r} blob {i}"), dst)
-                for i, (src, dst) in enumerate(zip(blobs, target))]
-        for name, blobs in staged.items():
-            self.params[name] = blobs
+        for (key, pos), blob in staged.items():
+            self.params[key] = list(self.params[key])
+            self.params[key][pos] = blob
 
     # -- Caffe-format snapshots (Solver::Snapshot/Restore; reference:
     #    solver.cpp:447-530, sgd_solver.cpp:242-296) ------------------------
@@ -510,7 +545,10 @@ class Solver:
         prefix = prefix if prefix is not None else self.sp.snapshot_prefix
         base = f"{prefix}_iter_{self.iter}"
         model_path, state_path = base + ".caffemodel", base + ".solverstate"
-        save_caffemodel(model_path, self.params,
+        # Net::ToProto writes every layer with its full blob list (a
+        # sharer repeats its owner's), which CopyTrainedLayersFrom's blob
+        # count check needs
+        save_caffemodel(model_path, self.train_net.full_params(self.params),
                         self.sp.net_param or self.sp.train_net_param)
         save_solverstate(state_path, self.iter, self._history_flat(),
                          learned_net=model_path)

@@ -87,20 +87,22 @@ def _train(args) -> int:
 
     net_param = sp.net_param or sp.train_net_param
     # test feeds come from the nets the Solver evaluates: every dedicated
-    # test_net definition when present, else the shared net
-    for i, ts in enumerate(list(sp.test_net_param) or [net_param]):
-        if not solver.test_nets[i].input_blobs:
+    # test_net definition when present, else the shared net, each in its
+    # own state (a test_state's stages pick its data layer)
+    for i, tn in enumerate(solver.test_nets):
+        if not tn.input_blobs:
             continue
         try:
             # finds the data layer
-            feed_for_net(ts, Phase.TEST, device=dev).close()
+            feed_for_net(tn.param, Phase.TEST, state=tn.state,
+                         device=dev).close()
         except ValueError as e:
             print(f"WARNING: test net #{i} feed unavailable, skipping "
                   f"eval for it: {e}", file=sys.stderr)
             continue
-        solver.set_test_data(lambda ts=ts: feed_for_net(ts, Phase.TEST,
-                                                         device=dev),
-                             net_id=i)
+        solver.set_test_data(
+            lambda tn=tn: feed_for_net(tn.param, Phase.TEST, state=tn.state,
+                                       device=dev), net_id=i)
 
     host_stats, put_stats = FeedStats(), FeedStats()
     feed = None

@@ -148,7 +148,7 @@ def _per_layer(net, params, inputs, gen, dev, iterations) -> dict:
         for node in net.nodes:
             if node.impl.is_input():
                 continue
-            p = list(params.get(node.lp.name, []))
+            p = net.node_params(params, node)
             bots = [blobs[b] for b in node.bottoms]
 
             def one(node=node, p=p, bots=bots):

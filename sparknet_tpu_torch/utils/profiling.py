@@ -178,8 +178,8 @@ def step_cost_flops(solver) -> float:
     needs_grad: set[str] = set()    # blobs that depend on a param
     shapes = net.param_shapes()
     for node in net.nodes:
-        if node.lp.name in shapes or any(b in needs_grad
-                                         for b in node.bottoms):
+        if (node.lp.name in shapes or node.shared_refs
+                or any(b in needs_grad for b in node.bottoms)):
             needs_grad.update(node.tops)
     total = 0
     for node, f in net.layer_flops():

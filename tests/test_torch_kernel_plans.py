@@ -45,6 +45,10 @@ POOL_SHAPES = [
     ("googlenet_inception_5a_pool_b32", (32, 832, 7, 7), 3, 1, 1),
     ("cifar_pool1_b100", (100, 32, 32, 32), 3, 2, 0),
     ("vgg_pool1_224", (2, 64, 224, 224), 2, 2, 0),
+    # mnist_siamese's pools at its training batch: 2x2 stride-2 windows
+    # that do not overlap, on 24x24 and 8x8 planes
+    ("siamese_pool1_b64", (64, 20, 24, 24), 2, 2, 0),
+    ("siamese_pool2_b64", (64, 50, 8, 8), 2, 2, 0),
     ("vgg_pool2_112", (2, 128, 112, 112), 2, 2, 0),
     ("k3s2p1_224", (2, 8, 224, 224), 3, 2, 1),
     ("padded_13_k3s2p1", (2, 4, 13, 13), 3, 2, 1),

@@ -30,10 +30,10 @@ weights moved through a ``.caffemodel``.
 - Serving: ``ModelHouse.load(name, weights=)`` serves the JAX engine's
   probabilities for the same ``.caffemodel`` (rtol 1e-4, atol 1e-6, the
   serving tests' bound).
-- Refusals: HDF5 weights and snapshots (ROADMAP A6), ``set_augment``
-  (A14), a V0 net and a shared param (A3) raise
-  ``NotImplementedError`` naming their item; a history one blob short, a
-  transposed weight and a file without weights raise.
+- Refusals: HDF5 weights and snapshots (ROADMAP A6) and
+  ``set_augment`` (A14) raise ``NotImplementedError`` naming their
+  item; a history one blob short, a transposed weight and a file without
+  weights raise.  A V0 net and a shared param load.
 """
 
 from __future__ import annotations
@@ -390,20 +390,25 @@ def test_hdf5_weights_and_snapshots_are_refused(tmp_path):
 
 def test_debug_info_set_augment_v0_and_shared_params_are_refused():
     # debug_info runs now (tests/test_torch_bench.py holds its lines
-    # against the JAX Solver's); the other three still refuse
+    # against the JAX Solver's), and so do V0 nets, a bare input_dim and
+    # shared params (tests/test_torch_proto_upgrade.py and
+    # test_torch_shared_params.py hold them against the JAX package);
+    # set_augment still refuses
     with pytest.raises(NotImplementedError, match="A14"):
         _small_solver().set_augment(object())
     v0 = ('name: "v0" layers { layer { name: "ip" type: "innerproduct" '
           'num_output: 2 } bottom: "data" top: "ip" }')
-    with pytest.raises(NotImplementedError, match="A3"):
-        load_net_prototxt(v0)
-    with pytest.raises(NotImplementedError, match="A3"):
-        load_net_prototxt('input: "data"\ninput_dim: 1 input_dim: 3 '
-                          'input_dim: 8 input_dim: 8\n')
-    shared = LEGACY_SHARED
-    with pytest.raises(NotImplementedError, match="A3"):
-        Solver(load_solver_prototxt_with_net(
-            RULE_SOLVERS["SGD"], load_net_prototxt(shared)), device="cpu")
+    lp = load_net_prototxt(v0).layer[0]
+    assert (lp.type, lp.bottom, lp.top) == ("InnerProduct", ["data"], ["ip"])
+    assert load_net_prototxt('input: "data"\ninput_dim: 1 input_dim: 3 '
+                             'input_dim: 8 input_dim: 8\n'
+                             ).input_shape[0].dim == [1, 3, 8, 8]
+    s = Solver(load_solver_prototxt_with_net(
+        RULE_SOLVERS["SGD"], load_net_prototxt(LEGACY_SHARED)), device="cpu")
+    # ip_b shares ip_a's weight and stores only its own bias
+    assert [len(s.params[k]) for k in ("ip_a", "ip_b")] == [2, 1]
+    ip_b = s.train_net.node_params(s.params, s.train_net.nodes[2])
+    assert ip_b[0] is s.params["ip_a"][0] and ip_b[1] is s.params["ip_b"][0]
 
 
 LEGACY_SHARED = """
