@@ -67,7 +67,17 @@ then trains Caffe's mnist_siamese (shared params, the pool backward at
 its owner's storage and that the ``.caffemodel`` carries every sharer's
 blobs (planted: a sharer with its own clone), scores the siamese
 snapshot with ``caffe_cli test``, and runs 5 iterations of each net on
-the card against the CPU.  Prints the card, timings, a
+the card against the CPU.  Phase 5h holds the layer library's last 17
+types and STOCHASTIC pooling on the card against the CPU in f32 and
+bf16 (planted: BatchNorm's biased variance, ArgMax's last-index tie
+break), then trains Caffe's cifar10_full_sigmoid_bn at its published
+widths from an LMDB of synthetic 32x32 images through ``caffe_cli
+train`` on one device and with ``--devices 2`` under ``sync`` (each
+step's BatchNorm statistics the mean of what the two workers' forwards
+wrote) and ``local_sgd --tau 5``, the pool backward once a worker step,
+scores the snapshot with ``caffe_cli test`` and runs 5 iterations on
+the card against the CPU (planted: the statistics never written back).
+Prints the card, timings, a
 ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Every failed check
 exits non-zero.  Without a CUDA device it exits 2 and prints no result.
@@ -492,6 +502,11 @@ POOL_CASES = [
     ("vgg_pool1_b2_banded", (2, 64, 224, 224), 2, 2, 0),
     ("k3s2p1_224_banded", (2, 8, 224, 224), 3, 2, 1),
     ("pool5_planes_not_multiple", (64, 251, 13, 13), 3, 2, 0),
+    # SPP's MAX levels on 13x13 planes (phase 5h): kernel = stride =
+    # ceil(13 / bins), Caffe's padding, for 1, 2 and 4 bins
+    ("spp_13_level0_k13s13", (64, 32, 13, 13), 13, 13, 0),
+    ("spp_13_level1_k7s7p1", (64, 32, 13, 13), 7, 7, 1),
+    ("spp_13_level2_k4s4p2", (64, 32, 13, 13), 4, 4, 2),
 ]
 
 
@@ -4512,11 +4527,14 @@ def cli_losses(log: str) -> tuple[dict, dict, list]:
 
 
 def train_graph_net(ck, dev, label: str, d: str, net_text: str,
-                    solver_text: str, want_launches: dict) -> dict:
+                    solver_text: str, want_launches: dict, *,
+                    iters: int = GRAPH_ITERS,
+                    test_interval: int = GRAPH_TEST_INTERVAL) -> dict:
     """``caffe_cli.main(["train", ...])`` on the net, the Solver it builds
-    recorded; exact launches; the loss over the last ten iterations under
-    half of that over the first ten; ms an iteration from the CLI's own
-    log (iterations after a test pass left out)."""
+    recorded; exact launches; the loss over the last ten of ``iters``
+    iterations under half that over the first ten; ms an
+    iteration from the CLI's own log (iterations after a test pass left
+    out)."""
     from sparknet_tpu_torch import solvers
     from sparknet_tpu_torch.tools import caffe_cli
     model = os.path.join(d, f"{label}.prototxt")
@@ -4543,22 +4561,21 @@ def train_graph_net(ck, dev, label: str, d: str, net_text: str,
         fail(f"{label}: caffe_cli train launches {launches}, want "
              f"{want_launches}")
     loss_at, stamp, tests = cli_losses(log)
-    if sorted(loss_at) != list(range(1, GRAPH_ITERS + 1)) or \
+    if sorted(loss_at) != list(range(1, iters + 1)) or \
             "Optimization Done." not in log or not tests or not all(
                 math.isfinite(v) for v in loss_at.values()):
         print(log[-4000:])
         fail(f"{label}: caffe_cli train's log lacks its iterations or "
              f"test outputs, or a loss is not finite")
     first = float(np.mean([loss_at[i] for i in range(1, 11)]))
-    last = float(np.mean([loss_at[i] for i in range(GRAPH_ITERS - 9,
-                                                    GRAPH_ITERS + 1)]))
+    last = float(np.mean([loss_at[i] for i in range(iters - 9, iters + 1)]))
     if not last < 0.5 * first:
         fail(f"{label}: the training loss did not fall: {first} over the "
              f"first ten iterations, {last} over the last ten")
-    after_test = {i + 1 for i in range(0, GRAPH_ITERS, GRAPH_TEST_INTERVAL)}
+    after_test = {i + 1 for i in range(0, iters, test_interval)}
     steady = [(stamp[i] - stamp[i - 1]) * 1e3
-              for i in range(3, GRAPH_ITERS + 1) if i not in after_test]
-    snapshot = f"{prefix}_iter_{GRAPH_ITERS}.caffemodel"
+              for i in range(3, iters + 1) if i not in after_test]
+    snapshot = f"{prefix}_iter_{iters}.caffemodel"
     if len(built) != 1 or not os.path.exists(snapshot):
         fail(f"{label}: {len(built)} Solvers built, snapshot "
              f"{os.path.exists(snapshot)}")
@@ -4748,6 +4765,551 @@ def graph_compiler_rest(ck, dev, smi: str) -> dict:
     print(f"phase 5g: {report['phase_s']:.1f} s; ms an iteration: "
           f"mnist_siamese {sm['iter_ms_median']:.3f}, mnist_autoencoder "
           f"{ae['iter_ms_median']:.3f} [{smi}]", flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 5h: the layer library's last types, BatchNorm's forward state, and
+# Caffe's cifar10_full_sigmoid_bn through caffe_cli
+# ---------------------------------------------------------------------------
+
+class SmokePyEuclideanLoss:
+    """A pycaffe-style layer (Caffe's examples/pycaffe/layers/pyloss.py),
+    the top's diff applied: numpy on the host, whatever the device."""
+
+    def setup(self, bottom, top):
+        pass
+
+    def reshape(self, bottom, top):
+        self.diff = np.zeros_like(bottom[0].data, dtype=np.float32)
+        top[0].reshape(1)
+
+    def forward(self, bottom, top):
+        self.diff[...] = bottom[0].data - bottom[1].data
+        top[0].data[...] = np.sum(self.diff ** 2) / bottom[0].num / 2.0
+
+    def backward(self, top, propagate_down, bottom):
+        for i, sign in ((0, 1.0), (1, -1.0)):
+            bottom[i].diff[...] = (sign * self.diff / bottom[i].num
+                                   * top[0].diff[0])
+
+
+class SmokeCube:
+    """A functional Python layer: its forward in torch ops, on the card."""
+
+    def out_shapes(self, bottom_shapes):
+        return [tuple(bottom_shapes[0])]
+
+    def forward(self, x):
+        return x * x * x
+
+
+def _slice_layer_cases() -> list:
+    """(label, type, bottoms, indices of the bottoms to differentiate,
+    blobs, sub-messages, tops, train) of every type of the slice and
+    STOCHASTIC pooling at a small shape."""
+    g = np.random.default_rng(SEED + 60)
+    x, x2, x3 = (g.normal(size=(4, 3, 5, 6)).astype(np.float32)
+                 for _ in range(3))
+    pos = np.abs(g.normal(size=(4, 3, 9, 9))).astype(np.float32)
+    pos13 = np.abs(g.normal(size=(4, 3, 13, 13))).astype(np.float32)
+    ties = np.round(2.0 * g.normal(size=(4, 3, 5, 6))).astype(np.float32)
+    c3 = g.uniform(0.5, 1.5, size=3).astype(np.float32)
+    zero = [np.zeros(3, np.float32)] * 2 + [np.zeros(1, np.float32)]
+    stats = [g.normal(size=3).astype(np.float32),
+             g.uniform(1, 4, size=3).astype(np.float32),
+             np.array([2.5], np.float32)]
+    idx = np.array([[0, 6, 7], [-1, -9, 2.7], [-0.5, 100, 3]], np.float32)
+    py = lambda layer: {"python_param": {"module": "smoke_absent_module",
+                                         "layer": layer}}
+    pool = lambda method: {"pooling_param": {"pool": method,
+                                             "kernel_size": 3, "stride": 2}}
+    return [
+        ("ArgMax_ties", "ArgMax", [ties], [], [],
+         {"argmax_param": {"top_k": 3}}, 1, True),
+        ("ArgMax_values_axis", "ArgMax", [x], [0], [],
+         {"argmax_param": {"top_k": 2, "axis": 1, "out_max_val": True}}, 1,
+         True),
+        ("BatchNorm_train", "BatchNorm", [2.0 + 3.0 * x], [0], zero, {}, 1,
+         True),
+        ("BatchNorm_global_stats", "BatchNorm", [x], [0], stats,
+         {"batch_norm_param": {"use_global_stats": True}}, 1, True),
+        ("BatchReindex", "BatchReindex",
+         [x, np.array([2, 0, 0, 3, -1, 7], np.float32)], [0], [], {}, 1,
+         True),
+        ("Bias", "Bias", [x], [0], [c3], {}, 1, True),
+        ("Deconvolution", "Deconvolution", [x], [0],
+         [g.normal(size=(3, 2, 4, 4)).astype(np.float32),
+          g.normal(size=2).astype(np.float32)],
+         {"convolution_param": {"num_output": 2, "kernel_size": 4,
+                                "stride": 2, "pad": 1}}, 1, True),
+        ("Eltwise_sum", "Eltwise", [x, x2, x3], [0, 1, 2], [],
+         {"eltwise_param": {"operation": "SUM",
+                            "coeff": [1.0, -0.5, 2.0]}}, 1, True),
+        ("Eltwise_prod", "Eltwise", [x, x2], [0, 1], [],
+         {"eltwise_param": {"operation": "PROD"}}, 1, True),
+        ("Eltwise_max", "Eltwise", [x, x2], [0, 1], [],
+         {"eltwise_param": {"operation": "MAX"}}, 1, True),
+        ("Embed", "Embed", [idx], [], [g.normal(size=(7, 4)).astype(
+            np.float32), g.normal(size=4).astype(np.float32)],
+         {"embed_param": {"num_output": 4, "input_dim": 7}}, 1, True),
+        ("Filter", "Filter", [x, x2, np.array([1, 0, 1, 1], np.float32)],
+         [0, 1], [], {}, 2, True),
+        ("Im2col", "Im2col", [x], [0], [],
+         {"convolution_param": {"num_output": 1, "kernel_size": 3,
+                                "pad": 1}}, 1, True),
+        ("MVN", "MVN", [3.0 + 2.0 * x], [0], [],
+         {"mvn_param": {"across_channels": True}}, 1, True),
+        ("Python_pycaffe", "Python", [x, x2], [0, 1], [],
+         py("SmokePyEuclideanLoss"), 1, True),
+        ("Python_functional", "Python", [x], [0], [], py("SmokeCube"), 1,
+         True),
+        ("Reduction", "Reduction", [x], [0], [],
+         {"reduction_param": {"operation": "SUMSQ", "axis": 1,
+                              "coeff": 0.5}}, 1, True),
+        ("Reshape", "Reshape", [x], [0], [],
+         {"reshape_param": {"shape": {"dim": [0, -1, 10]}}}, 1, True),
+        ("SPP_MAX", "SPP", [pos13], [0], [],
+         {"spp_param": {"pyramid_height": 3}}, 1, True),
+        ("SPP_AVE", "SPP", [pos13], [0], [],
+         {"spp_param": {"pyramid_height": 3, "pool": "AVE"}}, 1, True),
+        ("Scale", "Scale", [x], [0], [c3, c3 - 1.0],
+         {"scale_param": {"bias_term": True}}, 1, True),
+        ("Silence", "Silence", [x], [], [], {}, 0, True),
+        ("Tile", "Tile", [x], [0], [], {"tile_param": {"tiles": 3}}, 1,
+         True),
+        ("STOCHASTIC_train", "Pooling", [pos], [0], [], pool("STOCHASTIC"),
+         1, True),
+        ("STOCHASTIC_test", "Pooling", [pos], [0], [], pool("STOCHASTIC"),
+         1, False),
+    ]
+
+
+INDEX_BOTTOMS = {("Embed", 0), ("BatchReindex", 1), ("Filter", 2)}
+
+
+def run_slice_layer(dev, dtype, case) -> list:
+    """One layer's tops, its updated blobs (BatchNorm) and the gradients
+    of the differentiated bottoms and the blobs under a fixed cotangent,
+    on ``dev`` in ``dtype`` (index bottoms and BatchNorm's blobs f32), as
+    f64 on the host.  STOCHASTIC draws its uniform from a CPU generator
+    seeded the same on either device, then uploads it."""
+    from sparknet_tpu_torch.models.dsl import layer
+    from sparknet_tpu_torch.ops import get_layer_impl
+    from sparknet_tpu_torch.utils.device import full_f32
+    label, type_, bottoms, wrt, params, sub, ntop, train = case
+    lp = layer("l", type_, [f"b{i}" for i in range(len(bottoms))],
+               [f"t{i}" for i in range(ntop)], **sub)
+    impl = get_layer_impl(type_).per_net_copy()
+    xs = [torch.from_numpy(b).to(dev, torch.float32
+                                 if (type_, i) in INDEX_BOTTOMS else dtype)
+          for i, b in enumerate(bottoms)]
+    for i in wrt:
+        xs[i].requires_grad_()
+    pdt = torch.float32 if impl.has_state else dtype
+    ps = [torch.from_numpy(p).to(dev, pdt).requires_grad_() for p in params]
+    gen = torch.Generator().manual_seed(SEED + 61)
+    with full_f32():
+        out = impl.apply(lp, ps, xs, train, gen)
+        tops, updated = out if impl.has_state else (out, [])
+        leaves = [xs[i] for i in wrt] + ps
+        live = [t for t in tops if t.requires_grad]
+        grads = []
+        if live and leaves:
+            cg = torch.Generator().manual_seed(SEED + 62)
+            cots = [torch.randn(t.shape, generator=cg).to(dev, t.dtype)
+                    for t in live]
+            grads = [torch.zeros_like(l) if g is None else g
+                     for g, l in zip(torch.autograd.grad(
+                         live, leaves, cots, allow_unused=True), leaves)]
+    return [t.detach().double().cpu()
+            for t in list(tops) + list(updated) + grads]
+
+
+def bn_biased_variance():
+    """A planted fault: BatchNorm storing the biased batch variance,
+    without Caffe's m/(m−1) correction."""
+    from sparknet_tpu_torch.ops.common import BatchNormLayer
+    own = BatchNormLayer.apply
+
+    def biased(self, lp, params, bottoms, train, gen=None):
+        tops, updated = own(self, lp, params, bottoms, train, gen)
+        if train and not lp.sub("batch_norm_param").get("use_global_stats"):
+            x = bottoms[0]
+            m = x.numel() // x.shape[1]
+            maf = float(lp.sub("batch_norm_param").get(
+                "moving_average_fraction", 0.999))
+            updated[1] = (params[1] * maf
+                          + (updated[1] - params[1] * maf) * (m - 1) / m)
+        return tops, updated
+    return mock.patch.object(BatchNormLayer, "apply", biased)
+
+
+def argmax_last_on_ties():
+    """A planted fault: ArgMax breaking a tie toward the higher index."""
+    from sparknet_tpu_torch.ops.common import ArgMaxLayer
+
+    def last_first(x, k):
+        vals, idxs = torch.sort(x.flip(-1), dim=-1, descending=True,
+                                stable=True)
+        return vals[..., :k], x.shape[-1] - 1 - idxs[..., :k]
+    return mock.patch.object(ArgMaxLayer, "top_k", staticmethod(last_first))
+
+
+def slice_layers_on_card(dev) -> dict:
+    """Every type of the slice and STOCHASTIC pooling, forward, updated
+    blobs and gradients, on the card against the CPU in f32 and bf16 on
+    deterministic cuDNN with TF32 off: each tensor within tol·max|CPU| +
+    tol (f32 1e-5, bf16 2e-2, the CPU tests' bounds against the JAX
+    package).  Planted: BatchNorm's biased variance and ArgMax's last-index
+    tie-break on the card must fall outside."""
+    from sparknet_tpu_torch.ops import register_python_layer
+    register_python_layer("SmokePyEuclideanLoss", SmokePyEuclideanLoss)
+    register_python_layer("SmokeCube", SmokeCube)
+    tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    cases = _slice_layer_cases()
+
+    def over(got, want, tol):
+        if len(got) != len(want) or any(a.shape != b.shape
+                                        for a, b in zip(got, want)):
+            return math.inf
+        return max([float((a - b).abs().max() / (tol * b.abs().max() + tol))
+                    for a, b in zip(got, want) if b.numel()] or [0.0])
+
+    worst = {}
+    for dtype, tol in tols.items():
+        for case in cases:
+            want = run_slice_layer("cpu", dtype, case)
+            with cudnn_deterministic():
+                got = run_slice_layer(dev, dtype, case)
+            err = over(got, want, tol)
+            if err > 1.0:
+                fail(f"layer {case[0]} {dtype}: the card differs from the "
+                     f"CPU by {err:.3g} of its tolerance")
+            worst[f"{case[0]} {str(dtype).split('.')[-1]}"] = err
+    planted = {}
+    for name, plant, label in (("bn_biased_variance", bn_biased_variance,
+                                "BatchNorm_train"),
+                               ("argmax_last_on_ties", argmax_last_on_ties,
+                                "ArgMax_ties")):
+        case = next(c for c in cases if c[0] == label)
+        want = run_slice_layer("cpu", torch.float32, case)
+        with plant(), cudnn_deterministic():
+            got = run_slice_layer(dev, torch.float32, case)
+        planted[name] = over(got, want, 1e-5)
+        if planted[name] <= 1.0:
+            fail(f"layers: the planted {name} passes the check")
+    out = {"worst_over_tolerance": max(worst.values()), "cases": worst,
+           "planted_over_tolerance": planted}
+    print("slice_layers " + json.dumps(out), flush=True)
+    return out
+
+
+BN_BATCH = 100
+BN_ITERS = 200           # the published solver runs 60,000
+BN_TEST_INTERVAL = 100   # published: 1,000
+BN_TEST_ITER = 10
+BN_MULTI_ITERS = 50      # each --devices 2 run
+BN_TRAIN, BN_TEST = 5000, 1000   # CIFAR-10: 50,000 and 10,000 images
+
+
+def _bn_conv(name: str, bottom: str, width: int, std: str) -> str:
+    return f"""
+layer {{ name: "{name}" type: "Convolution" bottom: "{bottom}" top: "{name}"
+  param {{ lr_mult: 1 }}
+  convolution_param {{ num_output: {width} pad: 2 kernel_size: 5 stride: 1
+    bias_term: false weight_filler {{ type: "gaussian" std: {std} }} }} }}"""
+
+
+def _bn_layer(name: str, bottom: str) -> str:
+    return f"""
+layer {{ name: "{name}" type: "BatchNorm" bottom: "{bottom}" top: "{name}"
+  param {{ lr_mult: 0 }} param {{ lr_mult: 0 }} param {{ lr_mult: 0 }} }}"""
+
+
+def _bn_one(name: str, type_: str, bottom: str, body: str = "") -> str:
+    return (f'\nlayer {{ name: "{name}" type: "{type_}" bottom: "{bottom}" '
+            f'top: "{name}" {body} }}')
+
+
+def _bn_pool(name: str, bottom: str, method: str) -> str:
+    return _bn_one(name, "Pooling", bottom, f"pooling_param {{ pool: "
+                   f"{method} kernel_size: 3 stride: 2 }}")
+
+
+# Caffe's examples/cifar10/cifar10_full_sigmoid_train_test_bn.prototxt
+# (BVLC caffe, master) at its published widths: LMDB Data layers with
+# the mean file, three convolutions without bias, each followed by a
+# BatchNorm whose three blobs take no learning rate, Sigmoid, MAX then
+# AVE pools, ip1
+BN_NET = ('name: "CIFAR10_full"' + "".join(f"""
+layer {{ name: "cifar" type: "Data" top: "data" top: "label"
+  include {{ phase: {phase} }}
+  transform_param {{ mean_file: "MEAN_FILE" }}
+  data_param {{ source: "{db}" batch_size: {BN_BATCH} backend: LMDB }} }}"""
+    for phase, db in (("TRAIN", "TRAIN_DB"), ("TEST", "TEST_DB")))
+    + _bn_conv("conv1", "data", 32, "0.0001") + _bn_pool("pool1", "conv1",
+                                                         "MAX")
+    + _bn_layer("bn1", "pool1") + _bn_one("Sigmoid1", "Sigmoid", "bn1")
+    + _bn_conv("conv2", "Sigmoid1", 32, "0.01") + _bn_layer("bn2", "conv2")
+    + _bn_one("Sigmoid2", "Sigmoid", "bn2") + _bn_pool("pool2", "Sigmoid2",
+                                                        "AVE")
+    + _bn_conv("conv3", "pool2", 64, "0.01") + _bn_layer("bn3", "conv3")
+    + _bn_one("Sigmoid3", "Sigmoid", "bn3") + _bn_pool("pool3", "Sigmoid3",
+                                                        "AVE")
+    + """
+layer { name: "ip1" type: "InnerProduct" bottom: "pool3" top: "ip1"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 1 decay_mult: 0 }
+  inner_product_param { num_output: 10
+    weight_filler { type: "gaussian" std: 0.01 }
+    bias_filler { type: "constant" } } }
+layer { name: "accuracy" type: "Accuracy" bottom: "ip1" bottom: "label"
+  top: "accuracy" include { phase: TEST } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip1" bottom: "label"
+  top: "loss" }
+""")
+BN_BLOBS = ("bn1", "bn2", "bn3")
+
+
+def bn_solver(iters: int, test_interval: int) -> str:
+    """examples/cifar10/cifar10_full_sigmoid_solver_bn.prototxt (its
+    weight_decay line commented out there), cut in iterations, test
+    interval and snapshot, with a display every iteration."""
+    return f"""
+test_iter: {BN_TEST_ITER}
+test_interval: {test_interval}
+base_lr: 0.001
+momentum: 0.9
+lr_policy: "step"
+gamma: 1
+stepsize: 5000
+display: 1
+max_iter: {iters}
+snapshot: {iters}
+"""
+
+
+def write_cifar_lmdb(path: str, n: int, seed: int) -> None:
+    """``n`` 3x32x32 uint8 Datums: one smooth colour template a class
+    drawn from SEED + 70 (8x8 blocks of 4x4 pixels), plus noise drawn
+    from ``seed``.  Real CIFAR-10 is not in the repository."""
+    from sparknet_tpu_torch.data.db import array_to_datum
+    from sparknet_tpu_torch.data.lmdb_io import write_lmdb
+    templates = np.kron(np.random.default_rng(SEED + 70).uniform(
+        0.0, 1.0, size=(10, 3, 8, 8)), np.ones((4, 4)))
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n)
+    x = np.clip(40.0 + 160.0 * templates[labels]
+                + rng.normal(0.0, 30.0, size=(n, 3, 32, 32)), 0, 255)
+    x = x.astype(np.uint8)
+    write_lmdb(path, [(b"%08d" % i, array_to_datum(x[i], int(labels[i])))
+                      for i in range(n)])
+
+
+def bn_state_dropped():
+    """A planted fault: the forward's updated statistics never written
+    back, so the running blobs stay at their init."""
+    from sparknet_tpu_torch.graph.net import Net
+    return mock.patch.object(Net, "_scatter_node_params",
+                             lambda self, params, node, updated: None)
+
+
+def train_bn_devices(ck, dev, label: str, d: str, model: str,
+                     strategy: str, tau: int, want: dict) -> dict:
+    """``caffe_cli train --devices 2 --strategy S --tau T`` on the net,
+    the trainer it builds recorded: exact launches, ms an iteration from
+    the log's round lines, the loss finite and falling.  Under ``sync``
+    the first step's statistics must be the mean of what the two
+    workers' forwards wrote, each forward from the same pre-step blobs;
+    under ``local_sgd`` the last round's statistics the mean of the
+    workers'."""
+    from sparknet_tpu_torch import parallel
+    from sparknet_tpu_torch.tools import caffe_cli
+    solver = os.path.join(d, f"{label}_solver.prototxt")
+    prefix = os.path.join(d, label)
+    with open(solver, "w") as f:
+        f.write(f'net: "{model}"\nsnapshot_prefix: "{prefix}"\n'
+                + bn_solver(BN_MULTI_ITERS, BN_MULTI_ITERS))
+    built = []
+
+    class Recorded(parallel.DistributedTrainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+            self.first_step = None
+
+        def _psum_steps(self, params, state, batches, workers):
+            if self.first_step is not None:
+                return super()._psum_steps(params, state, batches, workers)
+            wrote, accum = [], self._accum
+
+            def spy(p, micro, gen):
+                loss, after, grads = accum(p, micro, gen)
+                wrote.append({k: [b.detach().clone() for b in after[k]]
+                              for k in self._state_keys})
+                return loss, after, grads
+            self._accum = spy
+            try:
+                out = super()._psum_steps(params, state, batches, workers)
+            finally:
+                self._accum = accum
+            self.first_step = (wrote, {k: [b.detach().clone() for b in
+                                           out[0][k]]
+                                       for k in self._state_keys})
+            return out
+
+    ck.reset_launch_counts()
+    with mock.patch.object(parallel, "DistributedTrainer", Recorded):
+        log, train_s = run_cli(caffe_cli.main, [
+            "train", "--solver", solver, "--devices", "2", "--strategy",
+            strategy, "--tau", str(tau), "--device", str(dev)])
+    launches = dict(ck.launch_counts)
+    if launches != want:
+        fail(f"{label}: caffe_cli train launches {launches}, want {want}")
+    loss_at, stamp, tests = cli_losses(log)
+    want_its = list(range(tau, BN_MULTI_ITERS + 1, tau))
+    if sorted(loss_at) != want_its or not tests or \
+            "Optimization Done." not in log or not all(
+                math.isfinite(v) for v in loss_at.values()):
+        print(log[-4000:])
+        fail(f"{label}: caffe_cli train's log lacks its rounds or test "
+             f"outputs, or a loss is not finite")
+    if len(built) != 1 or sorted(built[0]._state_keys) != list(BN_BLOBS):
+        fail(f"{label}: {len(built)} trainers, state keys "
+             f"{built and built[0]._state_keys}")
+    tr = built[0]
+    check = {}
+    if strategy == "sync":
+        wrote, after = tr.first_step
+        for k in BN_BLOBS:
+            for i in range(3):
+                mean = torch.stack([w[k][i] for w in wrote]).mean(0)
+                if not torch.allclose(after[k][i], mean, rtol=1e-6,
+                                      atol=1e-7):
+                    fail(f"{label}: {k}[{i}] after the first step is not "
+                         f"the mean of the workers' forwards")
+            if not (len(wrote) == 2 and torch.equal(wrote[0][k][2],
+                                                    wrote[1][k][2])
+                    and not torch.equal(wrote[0][k][0], wrote[1][k][0])):
+                fail(f"{label}: the workers' forwards did not start from "
+                     f"the same statistics or saw the same batch")
+        check["first_step_scale_factor"] = float(after["bn1"][2])
+    else:
+        for k in BN_BLOBS:
+            for i in range(3):
+                mean = torch.stack([w[k][i] for w in tr.worker_params]
+                                   ).mean(0)
+                if not torch.allclose(tr.params[k][i], mean, rtol=1e-6,
+                                      atol=1e-7):
+                    fail(f"{label}: {k}[{i}] is not the workers' mean")
+    check["scale_factor"] = float(tr.params["bn1"][2])
+    want_factor = sum(0.999 ** i for i in range(BN_MULTI_ITERS))
+    if abs(check["scale_factor"] - want_factor) > 1e-4 * want_factor:
+        fail(f"{label}: bn1's scale factor {check['scale_factor']}, want "
+             f"{want_factor}")
+    its = sorted(loss_at)
+    steady = [(stamp[b] - stamp[a]) * 1e3 / (b - a)
+              for a, b in zip(its[1:], its[2:])]
+    del built[:], tr
+    return {"launches": launches, "train_s": train_s, "tests": tests,
+            "losses": [loss_at[i] for i in its], **check,
+            "iter_ms_median": float(np.median(steady)),
+            "snapshot_exists": os.path.exists(
+                f"{prefix}_iter_{BN_MULTI_ITERS}.npz")}
+
+
+def batchnorm_slice(ck, dev, smi: str) -> dict:
+    """Phase 5h: every type of the slice and STOCHASTIC pooling on the
+    card against the CPU; Caffe's cifar10_full_sigmoid_bn at its
+    published widths from an LMDB of synthetic 32x32 images through
+    ``caffe_cli train`` (one device; ``--devices 2`` under ``sync`` and
+    under ``local_sgd --tau 5``), with exact launches (the pool backward
+    once a worker step, no LRN kernel), the snapshot scored by
+    ``caffe_cli test``, and 5 iterations on the card against the CPU."""
+    import tempfile
+
+    from sparknet_tpu_torch.proto import load_caffemodel
+    from sparknet_tpu_torch.tools import caffe_cli, compute_image_mean
+    t_phase = time.perf_counter()
+    report = {"layers": slice_layers_on_card(dev)}
+    idle = {k: 0 for k in ck.launch_counts}
+    with tempfile.TemporaryDirectory(prefix="bn_smoke_") as d:
+        t0 = time.perf_counter()
+        dbs = (os.path.join(d, "cifar_train_lmdb"),
+               os.path.join(d, "cifar_test_lmdb"))
+        write_cifar_lmdb(dbs[0], BN_TRAIN, SEED + 71)
+        write_cifar_lmdb(dbs[1], BN_TEST, SEED + 72)
+        mean_file = os.path.join(d, "mean.binaryproto")
+        run_cli(compute_image_mean.main, [dbs[0], mean_file])
+        report["fixture_s"] = time.perf_counter() - t0
+        text = BN_NET.replace("TRAIN_DB", dbs[0]).replace(
+            "TEST_DB", dbs[1]).replace("MEAN_FILE", mean_file)
+
+        # one device: the pool backward once an iteration, none at test
+        one = train_graph_net(ck, dev, "cifar10_full_sigmoid_bn", d, text,
+                              bn_solver(BN_ITERS, BN_TEST_INTERVAL),
+                              {**idle, "max_pool_bwd": BN_ITERS},
+                              iters=BN_ITERS,
+                              test_interval=BN_TEST_INTERVAL)
+        s = one.pop("solver")
+        saved = load_caffemodel(one["snapshot"])
+        for k in BN_BLOBS:
+            mine = [b.detach().cpu().numpy() for b in s.params[k]]
+            if len(saved[k]) != 3 or not all(
+                    a.tobytes() == b.tobytes()
+                    for a, b in zip(saved[k], mine)) or \
+                    abs(float(mine[2][0]) - sum(0.999 ** i for i in range(
+                        BN_ITERS))) > 1e-3:
+                fail(f"cifar10_full_sigmoid_bn: the .caffemodel's {k} "
+                     f"blobs are not the Solver's running statistics")
+        del s
+        with cudnn_deterministic():
+            tlog, _ = run_cli(caffe_cli.main, [
+                "test", "--model", one["model"], "--weights",
+                one["snapshot"], "--iterations", str(BN_TEST_ITER),
+                "--device", str(dev)])
+        scored = float(re.search(r"^loss = ([-\d.e+]+)$", tlog,
+                                 re.M).group(1))
+        test_losses = [v for k, v in one["tests"] if k == "loss"]
+        accuracy = [v for k, v in one["tests"] if k == "accuracy"]
+        one.update(cli_test_loss=scored, test_losses=test_losses,
+                   test_accuracy=accuracy)
+        if abs(scored - test_losses[-1]) > 1e-5 * abs(test_losses[-1]) or \
+                not test_losses[-1] < test_losses[0]:
+            fail(f"cifar10_full_sigmoid_bn: caffe_cli test gives {scored}, "
+                 f"the last test pass {test_losses[-1]}; test losses "
+                 f"{test_losses}")
+        torch.cuda.empty_cache()
+
+        # --devices 2: sync, each step's statistics re-averaged, and
+        # SparkNet's local_sgd at τ=5; two pool backwards an iteration
+        two = {**idle, "max_pool_bwd": 2 * BN_MULTI_ITERS}
+        report["sync2"] = train_bn_devices(ck, dev, "bn_sync2", d,
+                                           one["model"], "sync", 1, two)
+        report["local_sgd2"] = train_bn_devices(
+            ck, dev, "bn_local_sgd2", d, one["model"], "local_sgd", 5, two)
+        torch.cuda.empty_cache()
+
+        ck.reset_launch_counts()
+        one["card_vs_cpu"] = graph_against_cpu(
+            dev, "cifar10_full_sigmoid_bn", text,
+            bn_solver(BN_ITERS, BN_TEST_INTERVAL), one["snapshot"],
+            bn_state_dropped())
+        one["card_vs_cpu_launches"] = dict(ck.launch_counts)
+        if one["card_vs_cpu_launches"] != {
+                **idle, "max_pool_bwd": CARD_VS_CPU_ITERS}:
+            fail(f"cifar10_full_sigmoid_bn card vs CPU: launches "
+                 f"{one['card_vs_cpu_launches']}")
+        torch.cuda.empty_cache()
+    report.update(single=one, phase_s=time.perf_counter() - t_phase)
+    print(f"batchnorm_slice [{smi}] " + json.dumps(report, default=str),
+          flush=True)
+    print(f"phase 5h: {report['phase_s']:.1f} s; ms an iteration of "
+          f"cifar10_full_sigmoid_bn (batch {BN_BATCH}): one device "
+          f"{one['iter_ms_median']:.3f}, --devices 2 sync "
+          f"{report['sync2']['iter_ms_median']:.3f}, local_sgd τ=5 "
+          f"{report['local_sgd2']['iter_ms_median']:.3f} [{smi}]",
+          flush=True)
     return report
 
 
@@ -4945,6 +5507,11 @@ def main() -> int:
     # mnist_autoencoder through caffe_cli train, each against the CPU
     graph = graph_compiler_rest(ck, dev, smi)
 
+    # phase 5h: the layer library's last types on the card, and Caffe's
+    # cifar10_full_sigmoid_bn through caffe_cli on one device and on two
+    # workers (sync, local_sgd), BatchNorm's statistics carried
+    bn = batchnorm_slice(ck, dev, smi)
+
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
     # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
@@ -4984,7 +5551,16 @@ def main() -> int:
         # iterations
         "caffe_cli_train_mnist_siamese": graph["siamese"]["launches"],
         "solver_mnist_siamese_card_vs_cpu":
-            graph["siamese"]["card_vs_cpu_launches"]}
+            graph["siamese"]["card_vs_cpu_launches"],
+        # phase 5h: cifar10_full_sigmoid_bn through caffe_cli on one
+        # device and two workers, and its card-vs-CPU iterations
+        "caffe_cli_train_cifar10_full_sigmoid_bn": bn["single"]["launches"],
+        "caffe_cli_train_cifar10_full_sigmoid_bn_sync2":
+            bn["sync2"]["launches"],
+        "caffe_cli_train_cifar10_full_sigmoid_bn_local_sgd2":
+            bn["local_sgd2"]["launches"],
+        "solver_cifar10_full_sigmoid_bn_card_vs_cpu":
+            bn["single"]["card_vs_cpu_launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}

@@ -26,6 +26,17 @@ some keeps its own blobs in order).  Every layer that shares a blob is
 handed the owner's very tensor, so autograd sums all their gradients
 into it before the solver regularizes and steps.  Not ported:
 horizontal and vertical fusion and the lowering tuner (ROADMAP A8).
+
+Forward state: a layer with ``has_state`` (BatchNorm) hands back its
+blobs as the forward rewrote them (its running statistics), and
+:meth:`Net.forward` returns the params with them written in, through the
+sharing map, as ``NetOutputs.params`` (the JAX package's
+``_scatter_node_params``, net.py:448-470).  Such a layer runs in f32
+under a bf16 ``compute_dtype``, and BatchNorm's three blobs get lr_mult
+and decay_mult 0 whatever the prototxt says (net.py:176-178).  A top of
+a ``dynamic_batch`` layer (Filter) has a batch dim the data decides: a
+consumer whose parameter shapes would depend on it is refused at build
+time (``_check_batch_insensitive``, net.py:319-340).
 """
 
 from __future__ import annotations
@@ -51,6 +62,31 @@ class NetOutputs:
 
     blobs: dict[str, torch.Tensor]   # the net's output blobs
     loss: torch.Tensor               # sum of loss_weight x top, f32
+    params: dict[str, list[torch.Tensor]]   # with the forward's state
+
+
+def _check_batch_insensitive(lp: LayerParameter, impl: LayerImpl,
+                             bottoms: Sequence[str],
+                             bshapes: Sequence[Shape],
+                             tainted: set[str]) -> None:
+    """A consumer of a Filter's tops sees a placeholder batch dim (the
+    real one is the data's, filter_layer.cpp Reshape).  Refuse a layer
+    whose parameter shapes change with that dim; the usual layers size
+    their blobs from the other dims and stay valid (the JAX package's
+    ``Net._check_batch_insensitive``)."""
+    def probe(shapes):
+        return [tuple(s) for s in impl.param_shapes(lp, shapes)]
+    bumped = [(s[0] + 1,) + tuple(s[1:]) if b in tainted and s else s
+              for b, s in zip(bottoms, bshapes)]
+    try:
+        sensitive = probe(bshapes) != probe(bumped)
+    except Exception:
+        sensitive = bool(probe(bshapes))   # the bump broke it: be strict
+    if sensitive:
+        raise ValueError(
+            f"layer {lp.name!r} ({lp.type}) builds parameters from blobs "
+            f"with a data-dependent batch dim (downstream of a Filter "
+            f"layer): its declared shapes are unreliable")
 
 
 class _LayerNode:
@@ -75,6 +111,13 @@ class _LayerNode:
         self.shared_refs: dict[int, tuple[str, int]] = {}
         self.own_map: dict[int, int] = {}
         self.n_blobs = 0
+
+    def owner_keys(self) -> set[str]:
+        """The storage keys that hold any of this layer's blobs."""
+        keys = {o for o, _ in self.shared_refs.values()}
+        if self.own_map or not self.shared_refs:
+            keys.add(self.lp.name)
+        return keys
 
     def loss_weights(self) -> list[float]:
         """Per-top loss weights, Layer::SetLossWeights: the explicit
@@ -108,15 +151,27 @@ class Net:
 
         shared_owner: dict[str, tuple[str, int]] = {}  # name -> (layer, i)
         self._node_by_name: dict[str, _LayerNode] = {}
+        # blobs whose batch dim the data decides (downstream of Filter):
+        # their declared shapes are placeholders
+        tainted: set[str] = set()
         for lp in self.param.layer:
-            impl = get_layer_impl(lp.type)
+            # a fresh impl for a layer with host state per net (Python)
+            impl = get_layer_impl(lp.type).per_net_copy()
+            # input layers are fed, not run: their bottoms go unread
+            if not impl.is_input() and len(lp.bottom) < impl.min_bottoms():
+                raise ValueError(
+                    f"layer {lp.name!r} ({lp.type}) needs at least "
+                    f"{impl.min_bottoms()} bottoms, has {len(lp.bottom)}")
             for b in lp.bottom:
                 if b not in self.blob_shapes:
                     raise ValueError(
                         f"layer {lp.name!r} bottom {b!r} unknown "
                         f"(known: {sorted(self.blob_shapes)})")
-            oshapes = impl.out_shapes(
-                lp, [self.blob_shapes[b] for b in lp.bottom])
+            bshapes = [self.blob_shapes[b] for b in lp.bottom]
+            if any(b in tainted for b in lp.bottom):
+                _check_batch_insensitive(lp, impl, lp.bottom, bshapes,
+                                         tainted)
+            oshapes = impl.out_shapes(lp, bshapes)
             tops = list(lp.top) or ([lp.name] if oshapes else [])
             while len(tops) < len(oshapes):
                 tops.append(f"{lp.name}_top{len(tops)}")
@@ -124,7 +179,13 @@ class Net:
                 self.blob_shapes[t] = tuple(int(d) for d in s)
                 if impl.is_input():
                     self.input_blobs[t] = self.blob_shapes[t]
+            if impl.dynamic_batch or any(b in tainted for b in lp.bottom):
+                tainted.update(tops)
             node = _LayerNode(lp, impl, list(lp.bottom), tops)
+            if lp.type == "BatchNorm":
+                # running statistics: no update moves them
+                node.lr_mults = [0.0, 0.0, 0.0]
+                node.decay_mults = [0.0, 0.0, 0.0]
             # each named spec shares one blob with the first layer that
             # declared the name (net.cpp AppendParam)
             raw_refs: dict[int, tuple[str, int]] = {}
@@ -257,6 +318,26 @@ class Net:
                 else params[node.shared_refs[i][0]][node.shared_refs[i][1]]
                 for i in range(node.n_blobs)]
 
+    def _scatter_node_params(self, params: Params, node: _LayerNode,
+                             updated: Sequence[torch.Tensor]) -> None:
+        """Write a node's updated blobs into ``params`` where they are
+        stored, a shared blob at its owner's place; lists are replaced,
+        never changed in place."""
+        if not node.shared_refs:
+            params[node.lp.name] = list(updated)
+            return
+        own = list(params.get(node.lp.name, []))
+        for i, b in enumerate(updated):
+            ref = node.shared_refs.get(i)
+            if ref is None:
+                own[node.own_map[i]] = b
+            else:
+                oblobs = list(params[ref[0]])
+                oblobs[ref[1]] = b
+                params[ref[0]] = oblobs
+        if own:
+            params[node.lp.name] = own
+
     def full_params(self, params: Mapping[str, Sequence[torch.Tensor]]
                     ) -> Params:
         """Every layer's full blob list, a sharer's shared blobs included,
@@ -337,7 +418,7 @@ class Net:
         DummyData draw from.  ``device`` is where source layers
         (DummyData) put their tops; by default the device of the inputs,
         else of the params, else the CPU."""
-        values, _ = self._run(params, inputs, train, generator, device)
+        values, _, _ = self._run(params, inputs, train, generator, device)
         return {b: values[b] for b in (self.output_blobs if blobs is None
                                        else blobs)}
 
@@ -362,8 +443,8 @@ class Net:
             if name is not None and name not in self._node_by_name:
                 raise ValueError(f"unknown layer {name!r} for {which}= "
                                  f"(layers: {self.layer_names()})")
-        values, _ = self._run(params, inputs, train, generator, device,
-                              upto=upto, start=start, eps=eps)
+        values, _, _ = self._run(params, inputs, train, generator, device,
+                                 upto=upto, start=start, eps=eps)
         return values
 
     def forward(self, params: Mapping[str, Sequence[torch.Tensor]],
@@ -371,14 +452,18 @@ class Net:
                 train: bool | None = None,
                 generator: torch.Generator | None = None,
                 device: str | torch.device | None = None) -> NetOutputs:
-        """One forward pass with the loss: the net's output blobs and the
-        sum of every loss top times its weight, in f32.  ``train``
-        defaults to whether the net's phase is TRAIN; ``generator`` and
-        ``device`` as in :meth:`apply`."""
+        """One forward pass with the loss: the net's output blobs, the
+        sum of every loss top times its weight, in f32, and the params
+        with every stateful layer's updated blobs written in (the same
+        tensors as ``params`` elsewhere).  ``train`` defaults to whether
+        the net's phase is TRAIN; ``generator`` and ``device`` as in
+        :meth:`apply`."""
         if train is None:
             train = self.state.phase == Phase.TRAIN
-        values, loss = self._run(params, inputs, train, generator, device)
-        return NetOutputs({b: values[b] for b in self.output_blobs}, loss)
+        values, loss, new_params = self._run(params, inputs, train,
+                                             generator, device)
+        return NetOutputs({b: values[b] for b in self.output_blobs}, loss,
+                          new_params)
 
     @staticmethod
     def _device_of(params, inputs) -> torch.device:
@@ -399,6 +484,13 @@ class Net:
         if stop_i < start_i:
             raise ValueError(f"start={start!r} comes after upto={upto!r}")
         active = self.nodes[start_i:stop_i + 1]
+        if generator is None:
+            for n in active:
+                if n.impl.needs_rng(n.lp, train):
+                    raise ValueError(
+                        f"net {self.name!r}: layer {n.lp.name!r} draws "
+                        f"from a CPU torch.Generator in this mode; none "
+                        f"was passed")
         if start is None:
             for name in self.input_blobs:
                 if name not in inputs:
@@ -409,6 +501,7 @@ class Net:
         dev = (torch.device(device) if device is not None
                else self._device_of(params, inputs))
         values: dict[str, torch.Tensor] = dict(inputs)
+        new_params: Params = dict(params)
         loss = None
         cd = self.compute_dtype
         for node in active:
@@ -420,16 +513,21 @@ class Net:
                     f"layer {node.lp.name!r} needs blobs {missing}; with "
                     f"start={start!r} every bottom made before the start "
                     f"layer must be fed in inputs")
-            p = self.node_params(params, node)
+            p = self.node_params(new_params, node)
             bots = [values[b] for b in node.bottoms]
+            stateful = node.impl.has_state
             if cd is not None:
-                # numerics-critical loss and accuracy layers stay f32
+                # numerics-critical layers stay f32: losses, accuracy,
+                # BatchNorm's batch statistics
                 dtype = (torch.float32 if node.impl.is_loss()
-                         or node.lp.type == "Accuracy" else cd)
+                         or node.lp.type == "Accuracy" or stateful else cd)
                 bots = self._cast(bots, dtype)
                 p = self._cast(p, dtype)
             with layer_scope(node.lp.name):
                 tops = node.impl.apply(node.lp, p, bots, train, generator)
+            if stateful:
+                tops, updated = tops
+                self._scatter_node_params(new_params, node, updated)
             if not node.bottoms:
                 # a source layer (DummyData) draws its tops on the CPU
                 tops = [t.to(dev) for t in tops]
@@ -444,7 +542,7 @@ class Net:
                     loss = term if loss is None else loss + term
         if loss is None:
             loss = torch.zeros((), dtype=torch.float32, device=dev)
-        return values, loss
+        return values, loss, new_params
 
     # -- introspection (reference: ccaffe.cpp:86-139, Net.scala:64-66) -----
     @property

@@ -19,6 +19,9 @@ from .registry import LayerImpl, register_layer
 
 
 class InputLikeLayer(LayerImpl):
+    def min_bottoms(self) -> int:
+        return 0
+
     def is_input(self) -> bool:
         return True
 
@@ -159,7 +162,8 @@ class HDF5DataLayer(HDF5NotPortedLayer):
 
 @register_layer("HDF5Output")
 class HDF5OutputLayer(HDF5NotPortedLayer):
-    pass
+    def min_bottoms(self) -> int:
+        return 1
 
 
 @register_layer("DummyData")
@@ -168,6 +172,13 @@ class DummyDataLayer(LayerImpl):
     of Caffe's own test nets.  Its tops are drawn on the CPU, from the
     CPU ``torch.Generator`` the net passes down, as Dropout's masks are;
     ``Net`` moves them to the device of the run."""
+
+    def min_bottoms(self) -> int:
+        return 0
+
+    def needs_rng(self, lp, train: bool = True) -> bool:
+        fillers = lp.sub("dummy_data_param").get_all("data_filler")
+        return any(f.get("type", "constant") != "constant" for f in fillers)
 
     def _shapes(self, lp) -> list[tuple[int, ...]]:
         p = lp.sub("dummy_data_param")

@@ -25,6 +25,9 @@ _LOG_THRESHOLD = 1e-20
 class LossLayer(LayerImpl):
     """A layer whose one top is a scalar loss."""
 
+    def min_bottoms(self) -> int:
+        return 2
+
     def out_shapes(self, lp, bottom_shapes):
         return [()]
 
@@ -160,6 +163,9 @@ class ContrastiveLossLayer(LossLayer):
     """The siamese contrastive loss (contrastive_loss_layer.cpp) over 2N:
     y·d² + (1 − y)·max(margin − d, 0)², d = sqrt(d² + 1e-12); with
     ``legacy_version``, (1 − y)·max(margin − d², 0)."""
+
+    def min_bottoms(self) -> int:
+        return 3
 
     def apply(self, lp, params, bottoms, train, gen=None):
         p = lp.sub("contrastive_loss_param")

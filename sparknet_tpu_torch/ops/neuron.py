@@ -91,6 +91,10 @@ class DropoutLayer(LayerImpl):
     training round on the card can be checked against the CPU's.  (The
     JAX package's masks come from ``jax.random`` and cannot match.)"""
 
+    def needs_rng(self, lp, train: bool = True) -> bool:
+        return train and float(
+            lp.sub("dropout_param").get("dropout_ratio", 0.5)) > 0
+
     def apply(self, lp, params, bottoms, train, gen=None):
         ratio = float(lp.sub("dropout_param").get("dropout_ratio", 0.5))
         x = bottoms[0]

@@ -30,11 +30,26 @@ class LayerImpl:
         ``LayerSetUp`` filler logic.
       - ``apply(lp, params, bottoms, train, gen)``: forward compute;
         returns the list of top tensors.  ``gen`` is the CPU
-        ``torch.Generator`` a stochastic layer (train-mode Dropout) draws
-        from, None elsewhere.
+        ``torch.Generator`` a stochastic layer (train-mode Dropout,
+        STOCHASTIC pooling) draws from, None elsewhere.  A layer with
+        ``has_state`` (BatchNorm) returns ``(tops, updated_blobs)``: its
+        blobs as the forward rewrote them.
+
+    The hooks of the JAX registry (ops/registry.py:37-75): ``min_bottoms``,
+    ``needs_rng``, ``per_net_copy``, ``has_state`` and ``dynamic_batch``
+    (a top whose batch dim is data-dependent, Filter's).  ``Net`` refuses
+    a layer it runs (not an input layer) with fewer than ``min_bottoms``
+    bottoms when it is built, and
+    a run without a generator whose layers ``needs_rng``, before any
+    layer runs (the JAX package's net.py:564).
     """
 
     type: str = ""
+    has_state: bool = False
+    dynamic_batch: bool = False
+
+    def min_bottoms(self) -> int:
+        return 1
 
     def out_shapes(self, lp: LayerParameter,
                    bottom_shapes: Sequence[Shape]) -> list[Shape]:
@@ -52,6 +67,15 @@ class LayerImpl:
               bottoms: Sequence[torch.Tensor], train: bool,
               gen: torch.Generator | None = None) -> list[torch.Tensor]:
         raise NotImplementedError(self.type)
+
+    def needs_rng(self, lp: LayerParameter, train: bool = True) -> bool:
+        """Whether ``apply`` draws from ``gen`` in the given mode."""
+        return False
+
+    def per_net_copy(self) -> "LayerImpl":
+        """The instance a Net binds: the registry's singleton, or a fresh
+        copy for a layer that holds host state per net (Python)."""
+        return self
 
     def is_loss(self) -> bool:
         """Whether top[0] carries an implicit loss_weight of 1
@@ -84,3 +108,7 @@ def get_layer_impl(type_name: str) -> LayerImpl:
         raise KeyError(
             f"Unknown layer type: {type_name!r} (the port implements "
             f"{sorted(_REGISTRY)})") from None
+
+
+def registered_types() -> list[str]:
+    return sorted(_REGISTRY)

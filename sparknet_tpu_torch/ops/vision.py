@@ -1,4 +1,5 @@
-"""Vision layers: Convolution, MAX Pooling, LRN.
+"""Vision layers: Convolution, Deconvolution, Pooling, LRN, Im2col and
+SPP.
 
 Counterparts of the layers of ``sparknet_tpu/ops/vision.py``, with Caffe's
 shape and padding semantics (reference:
@@ -16,7 +17,14 @@ JAX primal ``reduce_window``); under autograd its backward is the port's
 first-maximum kernel (the JAX package's ``max_pool_vmem_bwd``).  AVE
 pooling and WITHIN_CHANNEL LRN are library work, as the JAX package left
 them to XLA: a zero-padded window sum over Caffe's clipped divisor, under
-autograd.  STOCHASTIC pooling is not ported yet.
+autograd.  STOCHASTIC pooling samples each window's element in
+proportion to its value at train (the uniform drawn on the CPU generator
+and uploaded, as Dropout's mask is) and takes Σx²/Σx at test.
+Deconvolution is ``F.conv_transpose2d`` (cuDNN): Caffe's weight blob
+(C_in, C_out/group, kh, kw) is already its layout.  Im2col is
+``F.unfold``, whose rows are channel-major (C, kh, kw) as the JAX
+package's ``conv_general_dilated_patches``; SPP pools each level with
+the MAX pool above (its backward the kernel) or the AVE pool.
 """
 
 from __future__ import annotations
@@ -97,6 +105,43 @@ class ConvolutionLayer(LayerImpl):
         bias = params[1] if bias_term else None
         return [F.conv2d(x, params[0], bias, stride=(sh, sw),
                          padding=(ph, pw), dilation=(dh, dw), groups=group)
+                for x in bottoms]
+
+
+@register_layer("Deconvolution")
+class DeconvolutionLayer(LayerImpl):
+    """Transposed convolution (deconv_layer.cpp): weight blob (C_in,
+    C_out/group, kh, kw), out = s·(in − 1) + ke − 2p with ke = d·(k − 1)
+    + 1; ``F.conv_transpose2d`` (cuDNN), whose weight layout that is.
+    The JAX package computes it as a forward convolution, hence its flip
+    and regrouping of the weight; the product is a library call in
+    both."""
+
+    def out_shapes(self, lp, bottom_shapes):
+        n, _, h, w = bottom_shapes[0]
+        kh, kw, sh, sw, ph, pw, dh, dw, num_output, _, _ = conv_geometry(lp)
+        oh = sh * (h - 1) + dh * (kh - 1) + 1 - 2 * ph
+        ow = sw * (w - 1) + dw * (kw - 1) + 1 - 2 * pw
+        return [(n, num_output, oh, ow) for _ in lp.bottom]
+
+    def param_shapes(self, lp, bottom_shapes):
+        c = bottom_shapes[0][1]
+        kh, kw, _, _, _, _, _, _, num_output, group, bias_term = \
+            conv_geometry(lp)
+        wshape = (c, num_output // group, kh, kw)
+        return [wshape, (num_output,)] if bias_term else [wshape]
+
+    def init(self, gen, lp, bottom_shapes):
+        return fill_weight_bias(gen, lp.sub("convolution_param"),
+                                self.param_shapes(lp, bottom_shapes))
+
+    def apply(self, lp, params, bottoms, train, gen=None):
+        kh, kw, sh, sw, ph, pw, dh, dw, _, group, bias_term = \
+            conv_geometry(lp)
+        bias = params[1] if bias_term else None
+        return [F.conv_transpose2d(x, params[0], bias, stride=(sh, sw),
+                                   padding=(ph, pw), groups=group,
+                                   dilation=(dh, dw))
                 for x in bottoms]
 
 
@@ -198,10 +243,56 @@ class MaxPool(torch.autograd.Function):
         return (dx,) + (None,) * 8
 
 
+def max_pool_layer(x: torch.Tensor, kh, kw, sh, sw, ph, pw, oh,
+                   ow) -> torch.Tensor:
+    """MAX pooling as a layer runs it: under autograd :class:`MaxPool`,
+    whose backward is the kernel, else :func:`max_pool`."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return MaxPool.apply(x, kh, kw, sh, sw, ph, pw, oh, ow)
+    return max_pool(x, kh, kw, sh, sw, ph, pw, oh, ow)
+
+
+def stochastic_pool_train(x: torch.Tensor, kh, kw, sh, sw, ph, pw, oh, ow,
+                          u: torch.Tensor) -> torch.Tensor:
+    """Train-mode STOCHASTIC pooling (pooling_layer.cu StoPoolForwardTrain;
+    sparknet_tpu/ops/vision.py:370-390): in each window, the first element
+    whose running sum exceeds ``u``·Σwindow, ``u`` (N, C, oh, ow) uniform
+    in [0, 1); the gradient goes to that element alone.  The windows are
+    ``F.unfold``'s over the zero padding that ``max_pool`` pads with -inf
+    (``F.unfold`` pads both sides alike, so the high side is padded here).
+    An all-zero window gives 0, its gradient to its first element.  The
+    running sums and the threshold are f32 whatever the input's dtype: a
+    bf16 cumsum rounds differently on the card and on the CPU, and would
+    sample another element there."""
+    n, c = x.shape[:2]
+    pads = _pool_pads(x.shape[2], x.shape[3], kh, kw, sh, sw, ph, pw, oh, ow)
+    if any(pads):
+        x = F.pad(x, pads)
+    x = x[:, :, :(oh - 1) * sh + kh, :(ow - 1) * sw + kw]
+    p = F.unfold(x, (kh, kw), stride=(sh, sw)).reshape(n, c, kh * kw, oh, ow)
+    cs = torch.cumsum(p.detach().float(), dim=2)
+    thres = u.float().reshape(n, c, 1, oh, ow) * cs[:, :, -1:]
+    idx = (cs > thres).to(torch.uint8).argmax(dim=2, keepdim=True)
+    return torch.gather(p, 2, idx)[:, :, 0]
+
+
+def stochastic_pool_test(x: torch.Tensor, kh, kw, sh, sw, ph, pw, oh,
+                         ow) -> torch.Tensor:
+    """Test-mode STOCHASTIC pooling (StoPoolForwardTest): Σx²/Σx over each
+    window, a zero denominator taken as 1."""
+    num = ave_pool(x * x, kh, kw, sh, sw, ph, pw, oh, ow)
+    den = ave_pool(x, kh, kw, sh, sw, ph, pw, oh, ow)
+    return num / torch.where(den == 0, torch.ones_like(den), den)
+
+
 @register_layer("Pooling")
 class PoolingLayer(LayerImpl):
-    """MAX and AVE pooling (reference: pooling_layer.cpp Forward_cpu MAX
-    and AVE branches).  STOCHASTIC raises: no zoo model uses it."""
+    """MAX, AVE and STOCHASTIC pooling (reference: pooling_layer.cpp
+    Forward_cpu, pooling_layer.cu StoPoolForwardTrain/Test)."""
+
+    def needs_rng(self, lp, train: bool = True) -> bool:
+        return train and str(
+            lp.sub("pooling_param").get("pool", "MAX")) == "STOCHASTIC"
 
     def out_shapes(self, lp, bottom_shapes):
         n, c, h, w = bottom_shapes[0]
@@ -215,12 +306,19 @@ class PoolingLayer(LayerImpl):
                                   ph, pw)
         if method == "AVE":
             return [ave_pool(x, kh, kw, sh, sw, ph, pw, oh, ow)]
-        if method != "MAX":
+        if method == "MAX":
+            return [max_pool_layer(x, kh, kw, sh, sw, ph, pw, oh, ow)]
+        if method != "STOCHASTIC":
+            raise ValueError(f"unknown pool method {method!r}")
+        if not train:
+            return [stochastic_pool_test(x, kh, kw, sh, sw, ph, pw, oh, ow)]
+        if gen is None:
             raise NotImplementedError(
-                f"layer {lp.name!r}: {method} pooling is not ported yet")
-        if torch.is_grad_enabled() and x.requires_grad:
-            return [MaxPool.apply(x, kh, kw, sh, sw, ph, pw, oh, ow)]
-        return [max_pool(x, kh, kw, sh, sw, ph, pw, oh, ow)]
+                f"layer {lp.name!r}: train-mode STOCHASTIC pooling draws "
+                f"from a CPU torch.Generator; none was passed")
+        u = torch.rand((x.shape[0], x.shape[1], oh, ow), generator=gen).to(
+            x.device, non_blocking=True)
+        return [stochastic_pool_train(x, kh, kw, sh, sw, ph, pw, oh, ow, u)]
 
 
 def lrn_geometry(lp: LayerParameter):
@@ -284,3 +382,59 @@ class LRNLayer(LayerImpl):
             raise ValueError(f"layer {lp.name!r}: unknown norm_region "
                              f"{region!r}")
         return [relu_lrn(x, size, alpha, beta, k, relu=False)]
+
+
+@register_layer("Im2col")
+class Im2colLayer(LayerImpl):
+    """The convolution's patches as a blob (im2col_layer.cpp): (N,
+    C·kh·kw, oh, ow), each row channel-major (C, kh, kw)."""
+
+    def out_shapes(self, lp, bottom_shapes):
+        n, c, h, w = bottom_shapes[0]
+        kh, kw, sh, sw, ph, pw, dh, dw, _, _, _ = conv_geometry(lp)
+        oh = (h + 2 * ph - (dh * (kh - 1) + 1)) // sh + 1
+        ow = (w + 2 * pw - (dw * (kw - 1) + 1)) // sw + 1
+        return [(n, c * kh * kw, oh, ow)]
+
+    def apply(self, lp, params, bottoms, train, gen=None):
+        x = bottoms[0]
+        kh, kw, sh, sw, ph, pw, dh, dw, _, _, _ = conv_geometry(lp)
+        shape = self.out_shapes(lp, [tuple(x.shape)])[0]
+        return [F.unfold(x, (kh, kw), dilation=(dh, dw), padding=(ph, pw),
+                         stride=(sh, sw)).reshape(shape)]
+
+
+@register_layer("SPP")
+class SPPLayer(LayerImpl):
+    """Spatial pyramid pooling (spp_layer.cpp): ``pyramid_height``
+    levels, level l pooling the plane into 2^l x 2^l bins (kernel and
+    stride ceil(dim / bins), padding (kernel·bins − dim + 1) // 2), each
+    flattened, all concatenated a sample.  MAX levels go through
+    :func:`max_pool_layer` (the kernel's backward on the card), AVE
+    levels through :func:`ave_pool`."""
+
+    @staticmethod
+    def levels(lp, shape) -> list[tuple[int, int, int, int, int]]:
+        """(bins, kh, kw, ph, pw) of each level."""
+        _, _, h, w = shape
+        out = []
+        for level in range(int(lp.sub("spp_param").get("pyramid_height", 1))):
+            bins = 2 ** level
+            kh, kw = -(-h // bins), -(-w // bins)
+            out.append((bins, kh, kw, (kh * bins - h + 1) // 2,
+                        (kw * bins - w + 1) // 2))
+        return out
+
+    def out_shapes(self, lp, bottom_shapes):
+        n, c = bottom_shapes[0][:2]
+        return [(n, sum(c * b * b for b, *_ in self.levels(
+            lp, bottom_shapes[0])))]
+
+    def apply(self, lp, params, bottoms, train, gen=None):
+        x = bottoms[0]
+        pool = (max_pool_layer if str(lp.sub("spp_param").get("pool", "MAX"))
+                == "MAX" else ave_pool)
+        return [torch.cat([pool(x, kh, kw, kh, kw, ph, pw, bins,
+                                bins).reshape(x.shape[0], -1)
+                           for bins, kh, kw, ph, pw in self.levels(
+                               lp, tuple(x.shape))], dim=1)]

@@ -16,7 +16,9 @@ The port's counterpart of ``sparknet_tpu/parallel/trainer.py``:
   gradients on its rows over ``iter_size`` micro-batches, the gradients
   and losses are averaged over workers, ``preprocess_grads`` runs on the
   average and one update moves one shared set of params and solver
-  state.
+  state.  Every worker's forward starts from the step's params, and the
+  blobs of forward-state layers (BatchNorm's running statistics) become
+  the mean of what the workers' forwards wrote (:591-597).
 - ``"hierarchical"`` (``hierarchical_body``, :690-728): the two composed
   on a (host, chip) layout (``parallel/mesh.py::make_pod_mesh``).  Each
   host runs the ``sync`` step over its chips, with one solver state per
@@ -422,6 +424,11 @@ class DistributedTrainer:
         _, self._local_update, self._accum = make_step_fns(
             sp, self.train_net, self.rule, self._lr_mults,
             self._decay_mults)
+        # the storage keys of forward-state layers' blobs (BatchNorm's
+        # running statistics), which sync re-averages every step
+        self._state_keys = sorted({
+            k for n in self.train_net.nodes if n.impl.has_state
+            for k in n.owner_keys()})
         # per worker, CPU generators whatever the device (the same draws
         # on the card and on the CPU): its Dropout masks (ops/neuron.py),
         # and its crop offsets under device_preprocess
@@ -563,18 +570,23 @@ class DistributedTrainer:
         """τ ``sync`` steps over ``workers`` (the JAX make_psum_step,
         :577-604): per step each worker's accumulated loss and gradients,
         their means, ``preprocess_grads`` and one update of ``params``
-        and ``state``.  Returns them and the mean loss.  (The JAX step
-        re-averages BatchNorm's running stats here too, :591-597; the
-        port has no BatchNorm yet, ROADMAP A14.)"""
+        and ``state``.  Returns them and the mean loss.  Every worker's
+        forward starts from the step's params; the blobs of stateful
+        layers (BatchNorm's running statistics), and only those, become
+        the mean of what the workers' forwards wrote, before
+        ``preprocess_grads`` (:591-597)."""
         losses = []
         for t in range(self.config.tau):
             it = self.iter + t
-            step_losses, step_grads = [], []
+            step_losses, step_grads, step_params = [], [], []
             for w in workers:
-                loss, grads = self._accum(params, self._micro(batches, t, w),
-                                          self.generators[w])
+                loss, after, grads = self._accum(
+                    params, self._micro(batches, t, w), self.generators[w])
                 step_losses.append(loss)
                 step_grads.append(grads)
+                step_params.append({k: after[k] for k in self._state_keys})
+            if self._state_keys:
+                params = {**params, **_mean(step_params)}
             grads = preprocess_grads(self.sp, params, _mean(step_grads),
                                      self._lr_mults, self._decay_mults)
             params, state = self.rule.apply(

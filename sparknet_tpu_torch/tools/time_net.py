@@ -158,6 +158,8 @@ def _per_layer(net, params, inputs, gen, dev, iterations) -> dict:
             rows[node.lp.name] = ms
             print(f"{node.lp.name:<28} {node.lp.type:<18} {ms:>10.3f}")
             tops = one()
+            if node.impl.has_state:
+                tops = tops[0]   # BatchNorm's updated statistics aside
             if not node.bottoms:
                 tops = [t.to(dev) for t in tops]
             blobs.update(zip(node.tops, tops))

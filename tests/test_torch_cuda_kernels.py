@@ -435,3 +435,103 @@ def test_cuda_zoo_training_step_launches_its_kernels(model):
         if dev == "cuda":
             assert ck.launch_counts == want
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The pool backward under SPP's MAX levels and on cifar10_full_sigmoid_bn's
+# training path (batch 100: its pool1 is ZOO_POOL_CASES' last case)
+# ---------------------------------------------------------------------------
+
+SPP_SHAPES = [(2, 3, 13, 13), (4, 8, 10, 7), (100, 64, 4, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SPP_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_spp_max_levels_launch_the_pool_backward(shape, dtype):
+    """A 3-level MAX SPP on the card: its backward launches the kernel
+    once a level, each level's geometry (kernel = stride = ceil(dim /
+    bins), Caffe's padding) against the plain version, and the layer's
+    input gradient equals the CPU's."""
+    _need_cuda()
+    from sparknet_tpu_torch.models.dsl import layer
+    from sparknet_tpu_torch.ops import get_layer_impl
+    from sparknet_tpu_torch.ops.vision import SPPLayer
+    lp = layer("spp", "SPP", ["x"], ["y"], spp_param={"pyramid_height": 3})
+    rng = np.random.default_rng(1)
+    x0 = np.round(2 * rng.normal(size=shape)) / 2
+    for bins, kh, kw, ph, pw in SPPLayer.levels(lp, shape):
+        x = torch.from_numpy(x0).to("cuda", dtype)
+        dy = torch.from_numpy(rng.normal(size=shape[:2] + (bins, bins))).to(
+            "cuda", dtype)
+        got = ck.max_pool_bwd(x, dy, kh, kw, kh, kw, ph, pw, bins, bins)
+        want = ck.max_pool_bwd_reference(x, dy, kh, kw, kh, kw, ph, pw,
+                                         bins, bins)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=1e-4,
+                                   atol=1e-6)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        x = torch.from_numpy(x0).to(dev, dtype).requires_grad_()
+        ck.reset_launch_counts()
+        (y,) = get_layer_impl("SPP").apply(lp, [], [x], True)
+        (grads[dev],) = torch.autograd.grad(y.sum(), x)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ck.launch_counts["max_pool_bwd"] == 3
+    np.testing.assert_allclose(grads["cuda"].float().cpu().numpy(),
+                               grads["cpu"].float().numpy(), rtol=1e-4,
+                               atol=1e-6)
+
+
+BN_STEP_NET = """
+name: "bn_step"
+layer { name: "data" type: "Input" top: "data"
+  input_param { shape { dim: 100 dim: 3 dim: 32 dim: 32 } } }
+layer { name: "label" type: "Input" top: "label"
+  input_param { shape { dim: 100 } } }
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+  convolution_param { num_output: 32 pad: 2 kernel_size: 5 bias_term: false
+    weight_filler { type: "gaussian" std: 0.01 } } }
+layer { name: "pool1" type: "Pooling" bottom: "conv1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "bn1" type: "BatchNorm" bottom: "pool1" top: "bn1" }
+layer { name: "sig1" type: "Sigmoid" bottom: "bn1" top: "sig1" }
+layer { name: "pool2" type: "Pooling" bottom: "sig1" top: "pool2"
+  pooling_param { pool: AVE kernel_size: 3 stride: 2 } }
+layer { name: "ip1" type: "InnerProduct" bottom: "pool2" top: "ip1"
+  inner_product_param { num_output: 10
+    weight_filler { type: "gaussian" std: 0.01 } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip1" bottom: "label" }
+"""
+
+
+def test_cuda_batchnorm_step_launches_the_pool_backward_once():
+    """cifar10_full_sigmoid_bn's first stage at batch 100 (its MAX pool1,
+    then BatchNorm) through one Solver step on the card: one pool
+    backward, no LRN kernel; the loss and the running statistics equal
+    the CPU's (TF32 off)."""
+    _need_cuda()
+    from sparknet_tpu_torch.proto import (load_net_prototxt,
+                                          load_solver_prototxt_with_net)
+    from sparknet_tpu_torch.solvers import Solver
+    sp = load_solver_prototxt_with_net('base_lr: 0.001\nmomentum: 0.9\n',
+                                       load_net_prototxt(BN_STEP_NET))
+    rng = np.random.default_rng(2)
+    batch = {"data": (50 * rng.normal(size=(100, 3, 32, 32))).astype(
+        np.float32), "label": rng.integers(0, 10, 100).astype(np.float32)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = Solver(sp, seed=0, device=dev)
+        s.set_train_data(iter([batch]))
+        ck.reset_launch_counts()
+        out[dev] = (s.step(1), [b.cpu() for b in s.params["bn1"]])
+        if dev == "cuda":
+            assert ck.launch_counts["max_pool_bwd"] == 1
+            assert not any(v for k, v in ck.launch_counts.items()
+                           if k.startswith("lrn"))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)

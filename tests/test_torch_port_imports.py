@@ -231,3 +231,51 @@ def test_imagenet_app_tar_dir_runs_with_jax_blocked(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_python_layer_is_scanned_and_runs_with_jax_blocked():
+    """``ops/python_layer.py`` is among the files the scans above cover,
+    and a pycaffe-style numpy layer and a functional one run forward and
+    backward in a net with ``jax``, ``sparknet_tpu`` and ``caffe``
+    blocked: the adapter needs none of them."""
+    assert PKG / "ops" / "python_layer.py" in SOURCES
+    assert "sparknet_tpu_torch.ops.python_layer" in _module_names()
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'sparknet_tpu', 'caffe'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from sparknet_tpu_torch.graph import Net\n"
+        "from sparknet_tpu_torch.ops import register_python_layer\n"
+        "from sparknet_tpu_torch.proto import load_net_prototxt\n"
+        "class Double:\n"
+        "    def setup(self, bottom, top): pass\n"
+        "    def reshape(self, bottom, top):\n"
+        "        top[0].reshape(*bottom[0].data.shape)\n"
+        "    def forward(self, bottom, top):\n"
+        "        top[0].data[...] = 2 * bottom[0].data\n"
+        "    def backward(self, top, down, bottom):\n"
+        "        bottom[0].diff[...] = 2 * top[0].diff\n"
+        "class Cube:\n"
+        "    def out_shapes(self, s): return [tuple(s[0])]\n"
+        "    def forward(self, x): return x ** 3\n"
+        "register_python_layer('Double', Double)\n"
+        "register_python_layer('Cube', Cube)\n"
+        "net = Net(load_net_prototxt(\"\"\"\n"
+        "input: 'x' input_shape { dim: 3 }\n"
+        "layer { type: 'Python' name: 'd' bottom: 'x' top: 'd'\n"
+        "  python_param { module: 'm' layer: 'Double' } }\n"
+        "layer { type: 'Python' name: 'c' bottom: 'd' top: 'c'\n"
+        "  python_param { module: 'm' layer: 'Cube' } }\"\"\"))\n"
+        "x = torch.tensor([1.0, -2.0, 0.5], requires_grad=True)\n"
+        "y = net.apply_all({}, {'x': x})['c']\n"
+        "(g,) = torch.autograd.grad(y.sum(), x)\n"
+        "assert torch.allclose(y, (2 * x) ** 3)\n"
+        "assert torch.allclose(g, 24 * x.detach() ** 2)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.')) for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

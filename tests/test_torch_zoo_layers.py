@@ -11,7 +11,8 @@ plane (CIFAR's 3/2 pools on 16x16 and 8x8) and a padded window (3/2 pad 1,
 which overshoots too).  In bf16 both packages return the AVE sum over an
 f32 divisor as f32 (the next layer's cast takes it back to bf16); they
 agree at atol 2e-2, the bf16 bound of test_torch_net.py, since the JAX
-window sum rounds to bf16 at every add and the port's once.
+window sum rounds to bf16 at every add and the port's once.  STOCHASTIC
+pooling at test and, with the JAX layer's uniform, at train.
 """
 
 from __future__ import annotations
@@ -142,11 +143,32 @@ def test_ave_pool_bf16_is_f32_out_as_in_jax():
                                atol=1e-6)
 
 
-def test_stochastic_pooling_still_raises():
-    lp = torch_layer("l", "Pooling", ["x"], ["y"], pooling_param={
-        "pool": "STOCHASTIC", "kernel_size": 2, "stride": 2})
-    with pytest.raises(NotImplementedError, match="STOCHASTIC"):
-        torch_impl("Pooling").apply(lp, [], [torch.ones(1, 1, 4, 4)], False)
+@pytest.mark.parametrize("train", [False, True], ids=["test", "train"])
+def test_stochastic_pooling_matches_jax(train):
+    """STOCHASTIC pooling through the layer: at test Σx²/Σx, at train the
+    element each window samples with the JAX layer's own uniform draw
+    (tests/test_torch_vision_rest.py holds more geometries)."""
+    from sparknet_tpu_torch.ops.vision import stochastic_pool_train
+    x = np.abs(np.random.default_rng(6).normal(size=(2, 3, 8, 8))).astype(
+        np.float32)
+    sub = {"pooling_param": {"pool": "STOCHASTIC", "kernel_size": 3,
+                             "stride": 2}}
+    key = jax.random.PRNGKey(1)
+    want = jax_impl("Pooling").apply(
+        jax_layer("l", "Pooling", ["x"], ["y"], **sub), [],
+        [jnp.asarray(x)], train, key if train else None)[0]
+    if train:
+        u = jax.random.uniform(key, (2, 3, 1, 4, 4), jnp.float32)
+        got = stochastic_pool_train(torch.from_numpy(x), 3, 3, 2, 2, 0, 0,
+                                    4, 4, torch.from_numpy(
+                                        np.array(u).reshape(2, 3, 4, 4)))
+    else:
+        got = torch_impl("Pooling").apply(
+            torch_layer("l", "Pooling", ["x"], ["y"], **sub), [],
+            [torch.from_numpy(x)], False)[0]
+    assert got.shape == (2, 3, 4, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("size", [3, 4, 5])
