@@ -77,6 +77,28 @@ step's BatchNorm statistics the mean of what the two workers' forwards
 wrote) and ``local_sgd --tau 5``, the pool backward once a worker step,
 scores the snapshot with ``caffe_cli test`` and runs 5 iterations on
 the card against the CPU (planted: the statistics never written back).
+Phase 5i runs SparkNet's data tier over phase 5c's LMDBs: ``python -m
+sparknet_tpu_torch.tools.convert`` writes them as record shards (6 of
+32 MB), every record equal to its Datum's pixels (planted: a flipped
+byte named by shard and record, and under a quarantine budget of one
+replaced by the next record); ``records_feed`` through a
+``VerifyingStore`` and a ``ShardCache`` of 2 RAM shards with a spill
+directory gives the LMDB feed's first 8 batches of 256 bit for bit;
+full-width CaffeNet trains from the shards through ``caffe_cli train``
+with exact launches and snapshots to ``.caffemodel.h5`` and
+``.solverstate.h5``, its first 5 losses equal to a same-seed run from
+the LMDB, ``caffe_cli test`` on the HDF5 weights scoring what the
+binary ones of the same iteration score, a resume from the
+``.solverstate.h5`` equal to the uninterrupted run (planted: a history
+of flipped shape refused); a fake RDD of 512 records through
+``SparkPartitionBridge``'s spill and ``RoundFeed`` into a ``local_sgd``
+round equal bit for bit to the same round from
+``PartitionedDataset.from_items`` and from ``from_records(...)
+.rebalance(2).cached()`` (planted: a rotted spill file); Caffe's
+hdf5_classification net through ``caffe_cli train`` from the committed
+HDF5 fixtures (read by the port's own reader), against the CPU.  Phase
+5f's bench line carries the records tier (``feed_records``, at
+CaffeNet's 256², batch 256).
 Prints the card, timings, a
 ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Every failed check
@@ -3749,10 +3771,16 @@ PROFILE_LAYERS = ("norm1", "norm2", "pool1", "pool2", "pool5")
 BENCH_LINE_EXTRA = {"fuse_plan", "tune_plan", "round_overhead", "serving",
                     "provenance", "feed_records", "shard_round",
                     "peak_flops"}
+# the JAX bench's records tier's keys (bench.py:464-477)
+FEED_RECORDS_KEYS = {"feed_source", "records", "edge", "batch", "epochs",
+                     "images_per_sec", "serial_img_s", "speedup_x",
+                     "convert_s", "read_s", "serial_decode_s", "cache"}
 # the CLI contract's short configuration
 BENCH_CLI_ENV = {"BENCH_ITERS": "2", "BENCH_REPS": "1", "BENCH_WINDOWS": "1",
                  "BENCH_FEED_ITERS": "2", "BENCH_ROUND_N": "1",
-                 "BENCH_ROUND_TAU": "2", "BENCH_SERVE_SECONDS": "0.5"}
+                 "BENCH_ROUND_TAU": "2", "BENCH_SERVE_SECONDS": "0.5",
+                 "BENCH_RECORDS_N": "64", "BENCH_RECORDS_EDGE": "64",
+                 "BENCH_RECORDS_BATCH": "32", "BENCH_RECORDS_EPOCHS": "1"}
 BENCH_TIME_TOL, SOLVER_TIME_TOL, PROFILE_TIME_TOL = 0.10, 0.15, 0.15
 TELEMETRY_ROUNDS = 2
 SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -3875,6 +3903,18 @@ def bench_in_process(ck, dev, smi: str, solver_ms_b256: float) -> dict:
         want[f"bench_caffenet_eval_{d}"] = want_steps(0, forwards_per_dtype)
     want["bench_feed_compute"] = want_steps(2 + cfg.feed_iters)
     want["bench_feed_loop"] = want_steps(2 + cfg.feed_iters)
+    # the records tier decodes each Datum on the card, one ycc_to_rgb and
+    # one resize a decode: the feed's first record (its geometry), its
+    # warm-up and timed batches, and the conversion
+    rec = line["feed_records"]
+    decodes = 1 + (2 + max(1, cfg.records_epochs * cfg.records_n
+                           // cfg.records_batch)) * cfg.records_batch \
+        + cfg.records_n
+    want["bench_feed_records"] = {**want_steps(0), "ycc_to_rgb": decodes,
+                                  "resize_bilinear": decodes}
+    if not rec["images_per_sec"] > rec["serial_img_s"] > 0 or \
+            rec["cache"]["misses"] < 1:
+        fail(f"bench feed_records tier: {rec}")
     ro = line["round_overhead"]
     for leg in ("bare", "sync", "async"):
         if ro[leg]["guard_trips"] or ro[leg]["rounds"] != 1 + cfg.round_n:
@@ -3964,9 +4004,10 @@ def bench_cli(smi: str) -> dict:
             or not {"feed_records", "shard_round"} <= keys:
         fail(f"bench CLI keys: missing {sorted(parsed - keys)}, extra "
              f"{sorted(keys - parsed - BENCH_LINE_EXTRA)}")
-    for tier in ("feed_records", "shard_round"):
-        if "not_ported" not in line[tier]:
-            fail(f"bench CLI: {tier} = {line[tier]}")
+    if "not_ported" not in line["shard_round"] or \
+            set(line["feed_records"]) != FEED_RECORDS_KEYS:
+        fail(f"bench CLI: shard_round {line['shard_round']}, feed_records "
+             f"{line['feed_records']}")
     if not line["device"].endswith(torch.cuda.get_device_name(0)):
         fail(f"bench CLI device {line['device']}")
     print(f"bench_cli [{smi}] {wall:.1f} s, keys {sorted(keys)}",
@@ -5313,6 +5354,627 @@ def batchnorm_slice(ck, dev, smi: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 5i: SparkNet's data tier — record shards through the convert tool,
+# the verifying store and the tiered cache, CaffeNet trained from them
+# through caffe_cli with HDF5 snapshots, the Spark bridge's partitions in
+# a round, Caffe's hdf5_classification through HDF5Data
+# ---------------------------------------------------------------------------
+
+RECORD_SHARD_MB = 32        # 1,024 raw 256x256 Datums roll 6 shards
+RECORD_BATCHES = 8          # two epochs of the 1,024 records at batch 256
+RECORD_RAM_SHARDS = 2
+RECORD_RESUME_AT, RECORD_RESUME_ITERS = 10, 5
+RECORD_SOLVER = (DATA_PATH_SOLVER.replace("snapshot: 20",
+                                          f"snapshot: {RECORD_RESUME_AT}")
+                 + "snapshot_format: HDF5\n")
+# phase 5c's solver cut to the first iterations, the LMDB's same-seed run
+LMDB_ITERS = 5
+BRIDGE_RECORDS, BRIDGE_TAU = 512, 2
+BRIDGE_WANT = want_steps(ROUND_WORKERS * BRIDGE_TAU)
+NO_KERNELS = want_steps(0)
+# the binary .caffemodel of full-width CaffeNet as phase 5b first wrote
+# and read it on an H100 80GB HBM3 at 700 W, printed beside the HDF5 pair
+BINARY_EARLIER = {"mb": 243.86, "write_s": 0.869, "read_s": 0.085}
+HDF5_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "sparknet_tpu_torch", "data", "hdf5_fixtures")
+# Caffe's examples/hdf5_classification/nonlinear_train_val.prototxt, the
+# sources pointed at the committed fixtures
+HDF5_NET = """name: "LogisticRegressionNet"
+layer { name: "data" type: "HDF5Data" top: "data" top: "label"
+  include { phase: TRAIN }
+  hdf5_data_param { source: "%(train)s" batch_size: 10 } }
+layer { name: "data" type: "HDF5Data" top: "data" top: "label"
+  include { phase: TEST }
+  hdf5_data_param { source: "%(test)s" batch_size: 10 } }
+layer { name: "fc1" type: "InnerProduct" bottom: "data" top: "fc1"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 2 decay_mult: 0 }
+  inner_product_param { num_output: 40
+    weight_filler { type: "gaussian" std: 0.01 }
+    bias_filler { type: "constant" value: 0 } } }
+layer { name: "relu1" type: "ReLU" bottom: "fc1" top: "fc1" }
+layer { name: "fc2" type: "InnerProduct" bottom: "fc1" top: "fc2"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 2 decay_mult: 0 }
+  inner_product_param { num_output: 2
+    weight_filler { type: "gaussian" std: 0.01 }
+    bias_filler { type: "constant" value: 0 } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "fc2" bottom: "label"
+  top: "loss" }
+layer { name: "accuracy" type: "Accuracy" bottom: "fc2" bottom: "label"
+  top: "accuracy" include { phase: TEST } }
+""" % {"train": os.path.join(HDF5_FIXTURES, "train.txt"),
+       "test": os.path.join(HDF5_FIXTURES, "test.txt")}
+# Caffe's nonlinear_solver.prototxt (10,000 iterations, a test every 1,000
+# of 250 batches) cut to the 1,000 and 250 fixture rows: 200 iterations,
+# a test every 100 over the 25 test batches
+HDF5_ITERS = 200
+HDF5_SOLVER = f"""
+base_lr: 0.01
+lr_policy: "step"
+gamma: 0.1
+stepsize: 5000
+momentum: 0.9
+weight_decay: 0.0005
+display: 1
+max_iter: {HDF5_ITERS}
+test_iter: 25
+test_interval: 100
+snapshot: {HDF5_ITERS}
+"""
+HDF5_CARD_VS_CPU_REL = 1e-5
+
+
+def records_of(path: str) -> list:
+    """Every record of a shard directory, in order."""
+    from sparknet_tpu_torch.data.records import ShardSet
+    ss = ShardSet.open(path)
+    out = [s.read(i) for s in ss.shards for i in range(s.count)]
+    ss.close()
+    return out
+
+
+def convert_and_plant(d: str, fx: dict) -> dict:
+    """(a) 5c's training LMDB through ``python -m
+    sparknet_tpu_torch.tools.convert`` (``SPARKNET_RECORD_SHARD_MB=32``),
+    its test LMDB through the tool's ``main``; every record equal to
+    ``datum_to_array`` of its Datum; a flipped byte in a shard must raise
+    ``DataCorruptionError`` naming the shard and the record, and under
+    ``SPARKNET_QUARANTINE_RECORDS=1`` be admitted with the next record
+    pulled in its place."""
+    import shutil
+    from sparknet_tpu_torch.data.db import datum_to_array, db_feed
+    from sparknet_tpu_torch.data.integrity import DataCorruptionError
+    from sparknet_tpu_torch.data.lmdb_io import LmdbReader
+    from sparknet_tpu_torch.data.records import RecordShard, records_feed
+    from sparknet_tpu_torch.proto import Phase, load_net_prototxt
+    from sparknet_tpu_torch.tools import convert
+    out = {"train": os.path.join(d, "train_shards"),
+           "test": os.path.join(d, "test_shards")}
+    env = dict(os.environ, SPARKNET_RECORD_SHARD_MB=str(RECORD_SHARD_MB))
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "sparknet_tpu_torch.tools."
+                        "convert", "--source", fx["train_db"], "--out",
+                        out["train"]], cwd=here, env=env,
+                       capture_output=True, text=True, timeout=600)
+    convert_s = time.perf_counter() - t0
+    if p.returncode != 0 or len(p.stdout.splitlines()) != 1:
+        fail(f"data_tier: convert exited {p.returncode}: {p.stdout[-500:]} "
+             f"{p.stderr[-2000:]}")
+    line = json.loads(p.stdout)
+    with open(os.devnull, "w") as devnull, \
+            contextlib.redirect_stdout(devnull):
+        convert.main(["--source", fx["test_db"], "--out", out["test"],
+                      "--shard-mb", str(RECORD_SHARD_MB)])
+    for split, db in (("train", fx["train_db"]), ("test", fx["test_db"])):
+        recs = records_of(out[split])
+        with LmdbReader(db) as r:
+            items = list(r.items())
+        if len(recs) != len(items) or any(
+                img.tobytes() != datum_to_array(v)[0].astype(
+                    np.uint8).tobytes() or label != datum_to_array(v)[1]
+                for (img, label), (_, v) in zip(recs, items)):
+            fail(f"data_tier: the {split} shards differ from the LMDB's "
+                 f"records")
+    if line["records"] != DB_TRAIN or line["quarantine"]["total_bad"]:
+        fail(f"data_tier: convert line {line}")
+    # planted: record 2 of the first shard rots
+    planted = os.path.join(d, "planted_shards")
+    os.makedirs(planted)
+    first = line["shards"][0]
+    shutil.copy(first, planted)
+    path = os.path.join(planted, os.path.basename(first))
+    shard = RecordShard.open(path)
+    with open(path, "r+b") as f:
+        f.seek(shard.offset(2) + 1000)
+        byte = f.read(1)[0]
+        f.seek(shard.offset(2) + 1000)
+        f.write(bytes([byte ^ 0x10]))
+    try:
+        RecordShard.open(path).read(2)
+        fail("data_tier: a flipped byte in a shard was read")
+    except DataCorruptionError as e:
+        if e.key != 2 or os.path.basename(first) not in str(e):
+            fail(f"data_tier: the planted rot is misattributed: {e}")
+        rot = str(e)[-160:]
+    lp = load_net_prototxt(
+        f'layer {{ name: "d" type: "Data" top: "data" top: "label" '
+        f'data_param {{ source: "{planted}" batch_size: 4 backend: '
+        f'RECORDS }} }}').layer[0]
+    feed = db_feed(lp, Phase.TRAIN)
+    try:
+        next(feed)
+        fail("data_tier: the planted rot went through a zero budget")
+    except DataCorruptionError:
+        pass
+    finally:
+        feed.close()
+    os.environ["SPARKNET_QUARANTINE_RECORDS"] = "1"
+    try:
+        feed = records_feed(lp, Phase.TRAIN, raw=True)
+        got = next(feed)
+        feed.close()
+    finally:
+        del os.environ["SPARKNET_QUARANTINE_RECORDS"]
+    want = [0, 1, 3, 4]                 # record 4 pulled in 2's place
+    clean = RecordShard.open(first)
+    if got["data"].tobytes() != np.stack(
+            [clean.read(i)[0] for i in want]).tobytes():
+        fail("data_tier: the quarantined record's replacement is not the "
+             "next record")
+    return {"dirs": out, "line": line, "convert_s": convert_s,
+            "planted_rot": rot, "shards": len(line["shards"])}
+
+
+def feeds_equal(d: str, text: str, shards: dict) -> dict:
+    """(b) ``records_feed`` through a ``VerifyingStore`` and a
+    ``ShardCache`` of 2 RAM shards with a spill directory against
+    ``db_feed`` on the LMDB, the same seed, crop 227, mirror and mean:
+    the first 8 batches of 256 (two epochs: cold, then the RAM and the
+    spilled tiers) bit for bit, and each feed's host img/s."""
+    from sparknet_tpu_torch.data.db import db_feed
+    from sparknet_tpu_torch.data.pipeline import FeedStats, ShardCache
+    from sparknet_tpu_torch.data.records import records_feed
+    from sparknet_tpu_torch.proto import Phase, load_net_prototxt
+    lp = load_net_prototxt(text).layer[0]
+    rlp = load_net_prototxt(text.replace(
+        lp.sub("data_param").get("source"), shards["train"])).layer[0]
+    stats = FeedStats()
+    cache = ShardCache(RECORD_RAM_SHARDS,
+                       spill_dir=os.path.join(d, "spill"),
+                       max_spill=len(os.listdir(shards["train"])))
+    rates = {}
+    batches = {}
+    for name, make in (
+            ("lmdb", lambda: db_feed(lp, Phase.TRAIN, seed=SEED)),
+            ("records", lambda: records_feed(rlp, Phase.TRAIN, seed=SEED,
+                                             verify=True, cache=cache,
+                                             stats=stats))):
+        feed = make()
+        t0 = time.perf_counter()
+        batches[name] = [next(feed)["data"].tobytes()
+                         for _ in range(RECORD_BATCHES)]
+        rates[name] = RECORD_BATCHES * SOLVER_TRAIN_BATCH / (
+            time.perf_counter() - t0)
+        feed.close()
+    if batches["lmdb"] != batches["records"]:
+        fail("data_tier: the records feed's batches differ from the LMDB "
+             "feed's")
+    tiers = cache.tier_counts()
+    if not (tiers["disk_hits"] and tiers["misses"] and tiers["ram_hits"]):
+        fail(f"data_tier: the cache's tiers were not all exercised: {tiers}")
+    return {"lmdb_img_s": rates["lmdb"], "records_img_s": rates["records"],
+            "cache": tiers, "stats": stats.snapshot()}
+
+
+def records_train_val(text: str, shards: dict) -> str:
+    """5c's train_val with its Data layers on the shards."""
+    from sparknet_tpu_torch.proto import load_net_prototxt
+    layers = [lp for lp in load_net_prototxt(text).layer
+              if lp.type == "Data"]
+    for lp, split in zip(layers, ("train", "test")):
+        text = text.replace(str(lp.sub("data_param").get("source")),
+                            shards[split])
+    return text.replace("backend: LMDB", "backend: RECORDS")
+
+
+def recorded_cli(argv: list[str], *, gens: dict | None = None,
+                 resume_gen=None, skip_batches: int = 0) -> tuple:
+    """``caffe_cli.main(argv)`` with the Solver it builds recorded (its
+    Dropout generator's state kept at each snapshot in ``gens``, or set
+    from ``resume_gen`` on restore: a ``.solverstate`` carries none, as
+    Caffe's does not) and the training feed advanced by
+    ``skip_batches`` (a resumed run starts its feed where the
+    uninterrupted run's stood)."""
+    from sparknet_tpu_torch import solvers
+    from sparknet_tpu_torch.data import db
+    from sparknet_tpu_torch.proto import Phase
+    from sparknet_tpu_torch.tools import caffe_cli
+    built = []
+
+    class Recorded(solvers.Solver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+        def snapshot_caffe(self, prefix=None):
+            if gens is not None:
+                gens[self.iter] = self.generator.get_state()
+            return super().snapshot_caffe(prefix)
+
+        def restore_caffe(self, path):
+            super().restore_caffe(path)
+            if resume_gen is not None:
+                self.generator.set_state(resume_gen)
+
+    real = db.feed_for_net
+
+    def skipping(net_param, phase, **kw):
+        it = real(net_param, phase, **kw)
+        if phase == Phase.TRAIN:
+            for _ in range(skip_batches):
+                next(it)
+        return it
+
+    with mock.patch.object(solvers, "Solver", Recorded), \
+            mock.patch.object(db, "feed_for_net", skipping):
+        log, wall = run_cli(caffe_cli.main, argv)
+    return log, wall, built[0]
+
+
+def loss_bits(solver, n: int) -> list[str]:
+    """The first ``n`` per-iteration losses the Solver kept, as hex."""
+    return [float(v).hex() for v in list(solver._smoothed)[:n]]
+
+
+def train_from_records(ck, dev, d: str, text: str, shards: dict,
+                       lmdb_text: str, data_path: dict) -> dict:
+    """(c) and (d): full-width CaffeNet through ``caffe_cli train`` from
+    the shards (5c's solver, snapshots to HDF5 at 10 and 20) with exact
+    launches, its first 5 losses against a same-seed 5-iteration run
+    from 5c's LMDB bit for bit; ``caffe_cli test`` on the
+    ``.caffemodel.h5`` against the binary ``.caffemodel`` of the same
+    iteration; a resume from the ``.solverstate.h5`` at 10 whose next 5
+    iterations equal the uninterrupted run's; each format's MB, and the
+    seconds of the whole ``Solver.snapshot_caffe`` (the params' copy to
+    the host and the encode, ended by a synchronize) and of each file's
+    read; a history of flipped shape refused."""
+    from sparknet_tpu_torch.data import hdf5
+    from sparknet_tpu_torch.proto import caffemodel
+    from sparknet_tpu_torch.tools import caffe_cli
+    model = os.path.join(d, "records_train_val.prototxt")
+    with open(model, "w") as f:
+        f.write(records_train_val(text, shards))
+    prefix = os.path.join(d, "records")
+    solver = os.path.join(d, "records_solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(f'net: "{model}"\nsnapshot_prefix: "{prefix}"\n'
+                + RECORD_SOLVER)
+    gens: dict = {}
+    torch.cuda.empty_cache()
+    ck.reset_launch_counts()
+    with cudnn_deterministic():
+        log, train_s, s = recorded_cli(["train", "--solver", solver],
+                                       gens=gens)
+    launches = dict(ck.launch_counts)
+    if launches != DATA_PATH_WANT:
+        fail(f"data_tier: caffe_cli train from records launches "
+             f"{launches}, want {DATA_PATH_WANT}")
+    loss_at, stamp, tests = cli_losses(log)
+    if sorted(loss_at) != list(range(1, SOLVER_ITERS + 1)) or \
+            "Optimization Done." not in log or not all(
+                math.isfinite(v) for v in loss_at.values()):
+        print(log[-4000:])
+        fail("data_tier: caffe_cli train from records: iterations missing "
+             "or a loss not finite")
+    steady = [(stamp[i] - stamp[i - 1]) * 1e3
+              for i in range(3, SOLVER_ITERS + 1) if i != 11]
+    # the same seed from the LMDB: the first 5 losses bit for bit
+    lmdb_solver = os.path.join(d, "lmdb5_solver.prototxt")
+    with open(lmdb_solver, "w") as f:
+        f.write(f'net: "{lmdb_text}"\n' + DATA_PATH_SOLVER.replace(
+            f"max_iter: {SOLVER_ITERS}", f"max_iter: {LMDB_ITERS}")
+            .replace(f"snapshot: {SOLVER_ITERS}\n", ""))
+    ck.reset_launch_counts()
+    with cudnn_deterministic():
+        _, _, s_lmdb = recorded_cli(["train", "--solver", lmdb_solver])
+    lmdb_launches = dict(ck.launch_counts)
+    ours, theirs = loss_bits(s, LMDB_ITERS), loss_bits(s_lmdb, LMDB_ITERS)
+    if ours != theirs:
+        fail(f"data_tier: the records run's first losses {ours} differ "
+             f"from the LMDB run's {theirs}")
+    # (d) the HDF5 snapshot at 20 against the binary file of the same
+    # iteration, scored by caffe_cli test
+    h5_model = f"{prefix}_iter_{SOLVER_ITERS}.caffemodel.h5"
+    h5_state = f"{prefix}_iter_{SOLVER_ITERS}.solverstate.h5"
+    # each format's whole snapshot over the same span, twice, alternated
+    write_s: dict = {"HDF5": [], "BINARYPROTO": []}
+    for rep in range(2):
+        for fmt in ("HDF5", "BINARYPROTO"):
+            s.sp.snapshot_format = fmt
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths = s.snapshot_caffe(f"{prefix}_{fmt.lower()}")
+            torch.cuda.synchronize()
+            write_s[fmt].append(time.perf_counter() - t0)
+            if fmt == "HDF5":
+                for p in paths:
+                    os.unlink(p)
+    bin_model, bin_state = paths
+    scores = {}
+    ck.reset_launch_counts()
+    with cudnn_deterministic():
+        for name, w in (("hdf5", h5_model), ("binary", bin_model)):
+            tlog, _ = run_cli(caffe_cli.main, [
+                "test", "--model", model, "--weights", w, "--iterations",
+                str(SOLVER_TEST_ITER)])
+            scores[name] = [ln for ln in tlog.splitlines()
+                            if " = " in ln and not ln.startswith("Batch")]
+    test_launches = dict(ck.launch_counts)
+    if not scores["hdf5"] or scores["hdf5"] != scores["binary"]:
+        fail(f"data_tier: caffe_cli test on the HDF5 weights scores "
+             f"{scores['hdf5']}, on the binary ones {scores['binary']}")
+    t0 = time.perf_counter()
+    h5_read = hdf5.load_model_hdf5(h5_model)
+    h5_read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hdf5.load_state_hdf5(h5_state)
+    h5_state_read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    caffemodel.load_caffemodel(bin_model)
+    bin_read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    caffemodel.load_solverstate(bin_state)
+    bin_state_read_s = time.perf_counter() - t0
+    if differing(h5_read, s.train_net.full_params(s.params)):
+        fail("data_tier: the .caffemodel.h5 read back differs from the "
+             "card's params")
+    # resume from the .solverstate.h5 at 10: iterations 11-15 as the
+    # uninterrupted run's
+    resume_solver = os.path.join(d, "resume_solver.prototxt")
+    with open(resume_solver, "w") as f:
+        f.write(f'net: "{model}"\n' + RECORD_SOLVER.replace(
+            f"max_iter: {SOLVER_ITERS}",
+            f"max_iter: {RECORD_RESUME_AT + RECORD_RESUME_ITERS}")
+            .replace(f"snapshot: {RECORD_RESUME_AT}\n", ""))
+    state10 = f"{prefix}_iter_{RECORD_RESUME_AT}.solverstate.h5"
+    ck.reset_launch_counts()
+    with cudnn_deterministic():
+        rlog, _, s_res = recorded_cli(
+            ["train", "--solver", resume_solver, "--snapshot", state10],
+            resume_gen=gens[RECORD_RESUME_AT], skip_batches=RECORD_RESUME_AT)
+    resume_launches = dict(ck.launch_counts)
+    uninterrupted = [float(v).hex() for v in list(s._smoothed)[
+        RECORD_RESUME_AT:RECORD_RESUME_AT + RECORD_RESUME_ITERS]]
+    resumed = loss_bits(s_res, RECORD_RESUME_ITERS)
+    if f"(iter {RECORD_RESUME_AT})" not in rlog or resumed != uninterrupted:
+        fail(f"data_tier: the resumed run's losses {resumed} differ from "
+             f"the uninterrupted run's {uninterrupted}")
+    # planted: a history blob of flipped shape
+    st = hdf5.load_state_hdf5(h5_state)
+    st["history"][0] = st["history"][0].reshape(
+        st["history"][0].shape[::-1])
+    bad = os.path.join(d, "flipped.solverstate.h5")
+    hdf5.save_state_hdf5(bad, st["iter"], st["history"],
+                         learned_net=h5_model)
+    try:
+        s.restore_caffe(bad)
+        fail("data_tier: a .solverstate.h5 with a flipped history shape "
+             "was restored")
+    except ValueError as e:
+        flipped = str(e)[:160]
+    mb = lambda p: os.path.getsize(p) / 1e6  # noqa: E731
+    del s, s_lmdb, s_res, h5_read
+    torch.cuda.empty_cache()
+    return {
+        "launches": launches, "lmdb5_launches": lmdb_launches,
+        "test_launches": test_launches, "resume_launches": resume_launches,
+        "train_s": train_s, "first_losses": [loss_at[i] for i in
+                                             range(1, LMDB_ITERS + 1)],
+        "last_loss": loss_at[SOLVER_ITERS], "tests": tests,
+        "iter_ms_median": float(np.median(steady)),
+        "iter_ms_lmdb_5c": data_path["iter_ms_median"],
+        "scores": scores["hdf5"], "planted_flipped_history": flipped,
+        "hdf5_pair": {
+            "model_mb": mb(h5_model), "state_mb": mb(h5_state),
+            "snapshot_s": write_s["HDF5"],
+            "model_read_s": h5_read_s, "state_read_s": h5_state_read_s},
+        "binary_pair_same_run": {
+            "model_mb": mb(bin_model), "state_mb": mb(bin_state),
+            "snapshot_s": write_s["BINARYPROTO"],
+            "model_read_s": bin_read_s, "state_read_s": bin_state_read_s},
+        "binary_model_5b_earlier": BINARY_EARLIER}
+
+
+def bridge_rounds(ck, dev, d: str, fx: dict) -> dict:
+    """(e) a fake RDD of 512 CaffeNet-sized uint8 records in two
+    partitions through ``SparkPartitionBridge(rdd, 2).to_local_dataset(
+    spill_dir=...)`` and ``RoundFeed`` into one ``local_sgd`` round of
+    CaffeNet (2 workers x 64, τ=2, the crop on the card); the same round
+    from ``PartitionedDataset.from_items`` over the same partitions and
+    from ``from_records(shards).rebalance(2).cached()``: the rounds and
+    the params after them bit for bit; a spill file with a flipped byte
+    raises its crc error."""
+    from sparknet_tpu_torch.apps.common import RoundFeed
+    from sparknet_tpu_torch.data import PartitionedDataset
+    from sparknet_tpu_torch.data.integrity import DataCorruptionError
+    from sparknet_tpu_torch.data.records import convert_to_shards
+    from sparknet_tpu_torch.data.spark_bridge import SparkPartitionBridge
+    recs = records_of(fx["shards"])[:BRIDGE_RECORDS]
+    half = BRIDGE_RECORDS // 2
+    parts = [recs[:half], recs[half:]]
+
+    class FakeRDD:
+        """The minimal RDD protocol over a list of partitions."""
+
+        def __init__(self, partitions):
+            self.parts = [list(p) for p in partitions]
+
+        def getNumPartitions(self):
+            return len(self.parts)
+
+        def coalesce(self, n):
+            flat = [x for p in self.parts for x in p]
+            return FakeRDD([flat[i::n] for i in range(n)])
+
+        def repartition(self, n):
+            return self.coalesce(n)
+
+        def mapPartitionsWithIndex(self, f):
+            return FakeRDD([list(f(i, iter(p)))
+                            for i, p in enumerate(self.parts)])
+
+        def collect(self):
+            return [x for p in self.parts for x in p]
+
+    spill = os.path.join(d, "bridge_spill")
+    t0 = time.perf_counter()
+    bridged = SparkPartitionBridge(FakeRDD(parts), ROUND_WORKERS) \
+        .to_local_dataset(spill_dir=spill)
+    bridge_s = time.perf_counter() - t0
+    interleaved = [r for pair in zip(*parts) for r in pair]
+    shard_dir = os.path.join(d, "bridge_shards")
+    convert_to_shards(iter(recs), shard_dir,
+                      shard_bytes=RECORD_SHARD_MB << 20)
+    datasets = {
+        "bridge": bridged,
+        "from_items": PartitionedDataset.from_items(interleaved,
+                                                    ROUND_WORKERS),
+        "from_records": PartitionedDataset.from_records(
+            shard_dir).rebalance(ROUND_WORKERS).cached()}
+    rounds, params, launches = {}, {}, {}
+    f32 = lambda x: x.astype(np.float32)  # noqa: E731
+    for name, ds in datasets.items():
+        rounds[name] = RoundFeed(ds, ROUND_BATCH, BRIDGE_TAU, preprocess=f32,
+                                 seed=SEED).next_round()
+        with mock.patch.dict(os.environ, {"SPARKNET_COMM_CODEC": "none"}):
+            tr = round_trainer(dev, tau=BRIDGE_TAU)
+        ck.reset_launch_counts()
+        with cudnn_deterministic():
+            loss = tr.train_round(rounds[name])
+        launches[name] = dict(ck.launch_counts)
+        if launches[name] != BRIDGE_WANT or not math.isfinite(loss):
+            fail(f"data_tier: bridge round {name}: loss {loss}, launches "
+                 f"{launches[name]}, want {BRIDGE_WANT}")
+        params[name] = host_params(tr)
+        del tr
+        torch.cuda.empty_cache()
+    for name in ("from_items", "from_records"):
+        if any(rounds[name][k].tobytes() != rounds["bridge"][k].tobytes()
+               for k in ("data", "label")):
+            fail(f"data_tier: the {name} round differs from the bridge's")
+        bad = differing(params[name], params["bridge"])
+        if bad:
+            fail(f"data_tier: the {name} round's params differ from the "
+                 f"bridge round's: {bad[:5]}")
+    # planted: a spill file rots
+    path = os.path.join(spill, "part-00001.pkl")
+    with open(path, "r+b") as f:
+        f.seek(4096)
+        byte = f.read(1)[0]
+        f.seek(4096)
+        f.write(bytes([byte ^ 0x01]))
+    try:
+        SparkPartitionBridge(FakeRDD(parts), ROUND_WORKERS) \
+            .to_local_dataset(spill_dir=spill)
+        fail("data_tier: a rotted spill file was read")
+    except DataCorruptionError as e:
+        if "crc32" not in str(e) or e.key != 1:
+            fail(f"data_tier: the rotted spill is misattributed: {e}")
+        rot = str(e)[:160]
+    return {"launches": launches, "bridge_s": bridge_s,
+            "planted_spill_rot": rot}
+
+
+def hdf5_classification(ck, dev, d: str) -> dict:
+    """(f) Caffe's nonlinear hdf5_classification net through ``caffe_cli
+    train`` from the committed gzip-chunked, shuffled ``.h5`` fixtures,
+    read by the port's own reader (no h5py on this machine): no hand
+    kernel launched, the loss falling (the mean of the last ten
+    iterations under that of the first ten, the last test's accuracy
+    above the first's: from the published std-0.01 init the loss leaves
+    ln 2 slowly, and 200 of the published 10,000 iterations do not halve
+    it), and 5 iterations on the card against the CPU within 1e-5
+    relative."""
+    from sparknet_tpu_torch.data.hdf5 import hdf5_feed
+    from sparknet_tpu_torch.proto import (load_net_prototxt,
+                                          load_solver_prototxt_with_net)
+    from sparknet_tpu_torch.tools import caffe_cli
+    model = os.path.join(d, "hdf5_classification.prototxt")
+    with open(model, "w") as f:
+        f.write(HDF5_NET)
+    prefix = os.path.join(d, "hdf5_classification")
+    solver = os.path.join(d, "hdf5_classification_solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(f'net: "{model}"\nsnapshot_prefix: "{prefix}"\n'
+                + HDF5_SOLVER)
+    ck.reset_launch_counts()
+    log, train_s = run_cli(caffe_cli.main, ["train", "--solver", solver,
+                                            "--device", str(dev)])
+    launches = dict(ck.launch_counts)
+    loss_at, stamp, tests = cli_losses(log)
+    acc = [v for k, v in tests if k == "accuracy"]
+    snapshot = f"{prefix}_iter_{HDF5_ITERS}.caffemodel"
+    if launches != NO_KERNELS or sorted(loss_at) != list(
+            range(1, HDF5_ITERS + 1)) or len(acc) != 3 or \
+            not os.path.exists(snapshot):
+        print(log[-3000:])
+        fail(f"data_tier: hdf5_classification launches {launches}, "
+             f"{len(loss_at)} iterations, tests {tests}")
+    first = float(np.mean([loss_at[i] for i in range(1, 11)]))
+    last = float(np.mean([loss_at[i] for i in range(HDF5_ITERS - 9,
+                                                    HDF5_ITERS + 1)]))
+    if not (last < first and acc[-1] > acc[0]):
+        fail(f"data_tier: hdf5_classification did not learn: loss "
+             f"{first} -> {last}, test accuracy {acc}")
+    sp = load_solver_prototxt_with_net(HDF5_SOLVER.replace(
+        "display: 1", "display: 0"), load_net_prototxt(HDF5_NET))
+    feed = hdf5_feed(os.path.join(HDF5_FIXTURES, "train.txt"),
+                     ["data", "label"], 10)
+    batches = [next(feed) for _ in range(CARD_VS_CPU_ITERS)]
+    card, _ = solver_run(sp, snapshot, batches, dev, torch.float32)
+    cpu, _ = solver_run(sp, snapshot, batches, "cpu", torch.float32)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    if rel > HDF5_CARD_VS_CPU_REL:
+        fail(f"data_tier: hdf5_classification card {card} against CPU "
+             f"{cpu}: {rel} relative")
+    after_test = {1, 101}
+    steady = [(stamp[i] - stamp[i - 1]) * 1e3
+              for i in range(3, HDF5_ITERS + 1) if i not in after_test]
+    return {"launches": launches, "first_loss_10": first,
+            "last_loss_10": last, "test_accuracy": acc,
+            "card_vs_cpu_rel": rel, "train_s": train_s,
+            "iter_ms_median": float(np.median(steady))}
+
+
+def data_tier(ck, dev, smi: str, d5c: str, data_path: dict) -> dict:
+    """Phase 5i: SparkNet's data tier on full-width CaffeNet, over phase
+    5c's LMDBs, mean and train_val in ``d5c``."""
+    t_phase = time.perf_counter()
+    fx = {"train_db": os.path.join(d5c, "train_lmdb"),
+          "test_db": os.path.join(d5c, "test_lmdb")}
+    text_path = os.path.join(d5c, "train_val.prototxt")
+    with open(text_path) as f:
+        text = f.read()
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="data_tier_smoke_") as d:
+        conv = convert_and_plant(d, fx)
+        shards = conv["dirs"]
+        feeds = feeds_equal(d, text, shards)
+        trained = train_from_records(ck, dev, d, text, shards, text_path,
+                                     data_path)
+        bridge = bridge_rounds(ck, dev, d, {"shards": shards["train"]})
+        h5c = hdf5_classification(ck, dev, d)
+    report = {"convert": {k: v for k, v in conv.items() if k != "dirs"},
+              "feeds": feeds, "train": trained, "bridge": bridge,
+              "hdf5_classification": h5c,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"data_tier [{smi}] " + json.dumps(report, default=str),
+          flush=True)
+    print(f"data_tier wall [{smi}] {report['phase_s']:.1f} s", flush=True)
+    return report
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
                  rows: list[dict], main: list[dict]) -> dict:
     """One kernel's entry: launches per main path, the worst error over
@@ -5498,6 +6160,12 @@ def main() -> int:
         round_report = the_round(ck, dev, smi, {
             "dir": d5c, "model": os.path.join(d5c, "train_val.prototxt")})
 
+        # phase 5i: SparkNet's data tier over 5c's LMDBs: record shards
+        # through the convert tool, the verifying store and the tiered
+        # cache, CaffeNet from them through caffe_cli with HDF5
+        # snapshots, the Spark bridge in a round, HDF5Data
+        tier = data_tier(ck, dev, smi, d5c, data_path)
+
     # phase 5f: the bench at its defaults, its CLI, profile_step on
     # CaffeNet b256 and the telemetry plane on the card
     bench_report = the_bench(ck, dev, smi,
@@ -5560,7 +6228,20 @@ def main() -> int:
         "caffe_cli_train_cifar10_full_sigmoid_bn_local_sgd2":
             bn["local_sgd2"]["launches"],
         "solver_cifar10_full_sigmoid_bn_card_vs_cpu":
-            bn["single"]["card_vs_cpu_launches"]}
+            bn["single"]["card_vs_cpu_launches"],
+        # phase 5i: CaffeNet from record shards through caffe_cli (and the
+        # same-seed LMDB run, the HDF5 and binary weights scored, the
+        # resume from the .solverstate.h5), the bridge's rounds, HDF5Data
+        "caffe_cli_train_records": tier["train"]["launches"],
+        "caffe_cli_train_lmdb_same_seed": tier["train"]["lmdb5_launches"],
+        "caffe_cli_test_hdf5_and_binary_weights":
+            tier["train"]["test_launches"],
+        "caffe_cli_train_resume_solverstate_h5":
+            tier["train"]["resume_launches"],
+        **{f"round_{name}_local_sgd": n
+           for name, n in tier["bridge"]["launches"].items()},
+        "caffe_cli_train_hdf5_classification":
+            tier["hdf5_classification"]["launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}
@@ -5606,7 +6287,9 @@ def main() -> int:
              **solver_launches("max_pool_bwd"),
              # a path without a pool: its count stays 0
              "caffe_cli_train_mnist_autoencoder":
-                 graph["autoencoder"]["launches"]["max_pool_bwd"]},
+                 graph["autoencoder"]["launches"]["max_pool_bwd"],
+             "caffe_cli_train_hdf5_classification":
+                 tier["hdf5_classification"]["launches"]["max_pool_bwd"]},
             pool_rows, rows_of(pool_rows)),
         # no TPU counterpart: they take the place of the JAX package's
         # native libjpeg decode and its resize.  Main path: CaffeNet from

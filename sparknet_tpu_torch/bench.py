@@ -45,8 +45,21 @@ Tiers (each a key of the line):
   served answer held bit for bit against its solo run.  The paced sweep
   and the overload leg are ROADMAP A13's rest (``null``, the reasons
   under ``not_ported_legs``).
-- ``feed_records`` (ROADMAP A6, records) and ``shard_round`` (ROADMAP
-  A12) are reported as ``{"not_ported": ...}``.
+- **Records** (``feed_records``): the convert-once leg, the JAX line's
+  keys.  Sustained host feed img/s from record shards
+  (``data/records.py``) through a warm ``ShardCache`` against the
+  per-epoch decode of encoded Datums through ``db_feed`` on one decode
+  thread, the same transform and batch, and the one-time ``convert_s``.
+  The Datums carry the committed ImageNet-sized JPEG fixtures
+  (``data/jpeg_fixtures/imagenet_*.jpg``), cycled to ``BENCH_RECORDS_N``
+  and force-resized to ``BENCH_RECORDS_EDGE`` (the JAX bench encodes
+  random pixels with PIL, which the card's machine cannot do); they
+  decode on the port's own path, nvJPEG and the resize kernel on the
+  card.  The defaults are CaffeNet's feed: 1,024 records at its stored
+  256² (``create_imagenet.sh``'s resize), batch 256, 5 epochs, so that
+  the timed records window holds 5,120 images (the JAX bench's are 96
+  of 64², batch 32, 3 epochs).
+- ``shard_round`` (ROADMAP A12) is reported as ``{"not_ported": ...}``.
 
 Env knobs, the JAX bench's names where they apply: BENCH_MODEL
 (caffenet | googlenet | vgg16 | lenet), BENCH_BATCH, BENCH_ITERS,
@@ -55,7 +68,8 @@ BENCH_FEED=0, BENCH_FEED_BATCH, BENCH_FEED_ITERS, BENCH_FEED_DELAY_S,
 BENCH_FEED_U8; BENCH_ROUND=0, BENCH_ROUND_N, BENCH_ROUND_TAU,
 BENCH_ROUND_LAG, BENCH_ROUND_BATCH, BENCH_ROUND_EVERY; BENCH_SERVING=0,
 BENCH_SERVE_MODEL, BENCH_SERVE_CLIENTS, BENCH_SERVE_WINDOW,
-BENCH_SERVE_SECONDS.  The JAX bench's ``BENCH_PLATFORM=cpu`` is
+BENCH_SERVE_SECONDS; BENCH_FEED_RECORDS=0, BENCH_RECORDS_N,
+BENCH_RECORDS_EDGE, BENCH_RECORDS_BATCH, BENCH_RECORDS_EPOCHS.  The JAX bench's ``BENCH_PLATFORM=cpu`` is
 ``--device cpu`` here; ``BENCH_SCAN`` does not apply (a block is a
 plain loop); ``BENCH_FUSE`` other than ``off`` and ``BENCH_SHARD``
 raise (ROADMAP A8, A12).
@@ -87,7 +101,6 @@ _BASELINES = {
 }
 
 NOT_PORTED = {
-    "feed_records": {"not_ported": "ROADMAP A6, records"},
     "shard_round": {"not_ported": "ROADMAP A12"},
 }
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -131,6 +144,11 @@ class BenchConfig:
     serve_clients: int = 8
     serve_window: int = 16
     serve_seconds: float = 1.5
+    feed_records: bool = True
+    records_n: int = 1024
+    records_edge: int = 256
+    records_batch: int = 256
+    records_epochs: int = 5
 
     @classmethod
     def from_env(cls) -> "BenchConfig":
@@ -169,7 +187,12 @@ class BenchConfig:
             serve_model=env.get("BENCH_SERVE_MODEL") or None,
             serve_clients=_env_int("BENCH_SERVE_CLIENTS", 8),
             serve_window=_env_int("BENCH_SERVE_WINDOW", 16),
-            serve_seconds=_env_float("BENCH_SERVE_SECONDS", 1.5))
+            serve_seconds=_env_float("BENCH_SERVE_SECONDS", 1.5),
+            feed_records=env.get("BENCH_FEED_RECORDS", "1") != "0",
+            records_n=_env_int("BENCH_RECORDS_N", 1024),
+            records_edge=_env_int("BENCH_RECORDS_EDGE", 256),
+            records_batch=_env_int("BENCH_RECORDS_BATCH", 256),
+            records_epochs=_env_int("BENCH_RECORDS_EPOCHS", 5))
 
 
 def timed_windows(run: Callable[[], Any], reps: int, windows: int,
@@ -194,12 +217,13 @@ def run(cfg: BenchConfig, device: str = "cuda",
     line as a dict.  ``on_phase(name)`` is called as each phase that
     runs the port's kernels starts (``bench_<model>_train_<dtype>``,
     ``bench_<model>_eval_<dtype>``, ``bench_feed_compute``,
-    ``bench_feed_loop``, ``bench_round_<leg>``, ``bench_serving``) and
-    with None after the last.  A failing tier raises."""
+    ``bench_feed_loop``, ``bench_feed_records``, ``bench_round_<leg>``,
+    ``bench_serving``) and with None after the last.  A failing tier raises."""
     import numpy as np
     import torch
 
-    from .data.pipeline import FeedStats, feed_depth, feed_workers
+    from .data.pipeline import (FeedStats, ShardCache, feed_depth,
+                                feed_workers)
     from .data.prefetch import device_feed
     from .proto.caffe_pb import load_solver_prototxt_with_net
     from .solvers.solver import Solver
@@ -381,6 +405,117 @@ def run(cfg: BenchConfig, device: str = "cuda",
              f"{out['overlap_pct']}%)")
         return out
 
+    def measure_feed_records() -> dict:
+        """The decode-once leg: host feed img/s from record shards behind
+        a warm tiered ``ShardCache`` against the per-epoch decode of
+        encoded Datums through ``db_feed`` on one decode thread (the JAX
+        bench's serial ``workers=0``), the same transform and batch; the
+        records leg pays the decode once, at convert (``convert_s``)."""
+        import tempfile
+
+        from .data.db import datum_to_array, db_feed, open_db
+        from .data.lmdb_io import write_lmdb
+        from .data.records import convert_to_shards, records_feed
+        from .models.dsl import layer
+        from .proto.caffe_pb import Phase
+        from .proto.textformat import PMessage
+        from .proto.wireformat import encode
+        phase("bench_feed_records")
+        n, edge = cfg.records_n, cfg.records_edge
+        rbatch, epochs = cfg.records_batch, cfg.records_epochs
+        rrng = np.random.default_rng(0)
+        fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "data", "jpeg_fixtures")
+        jpegs = []
+        for i in range(8):
+            with open(os.path.join(fixtures, f"imagenet_{i}.jpg"),
+                      "rb") as f:
+                jpegs.append(f.read())
+
+        def encoded_datum(raw: bytes, label: int) -> bytes:
+            # force-resized to edge x edge on decode (ReadImageToDatum
+            # with a new height and width, encoded)
+            m = PMessage()
+            for k, v in (("channels", 3), ("height", edge), ("width", edge),
+                         ("data", raw), ("label", label), ("encoded", True)):
+                m.add(k, v)
+            return encode(m, "Datum")
+
+        def mk_lp(source: str, backend: str):
+            return layer("d", "Data", [], ["data", "label"],
+                         data_param={"source": source, "batch_size": rbatch,
+                                     "backend": backend},
+                         transform_param={"scale": 1.0 / 255})
+
+        n_batches = max(1, epochs * n // rbatch)
+        with tempfile.TemporaryDirectory() as tmp:
+            db_path = os.path.join(tmp, "lmdb")
+            write_lmdb(db_path, [
+                (b"%08d" % i, encoded_datum(jpegs[i % len(jpegs)],
+                                            int(rrng.integers(10))))
+                for i in range(n)])
+
+            # the per-epoch decode: every image decoded in every epoch
+            stats_s = FeedStats()
+            feedg = db_feed(mk_lp(db_path, "LMDB"), Phase.TRAIN, seed=0,
+                            workers=1, stats=stats_s, device=dev)
+            for _ in range(2):
+                next(feedg)   # warm the LMDB pages and the decoder
+            t0 = time.perf_counter()
+            for _ in range(n_batches):
+                next(feedg)
+            serial_s = time.perf_counter() - t0
+            feedg.close()
+
+            # convert once: the decode paid here, never again
+            shards_dir = os.path.join(tmp, "shards")
+            reader = open_db(db_path, "LMDB")
+
+            def decoded():
+                for key, val in reader.items():
+                    img, label = datum_to_array(val, key=key,
+                                                source=db_path, device=dev)
+                    yield (np.clip(np.round(img), 0, 255).astype(np.uint8),
+                           label)
+
+            t0 = time.perf_counter()
+            conv = convert_to_shards(decoded(), shards_dir)
+            convert_s = time.perf_counter() - t0
+            reader.close()
+
+            # the warm records leg: one epoch fills the cache, then timed
+            cache = ShardCache(max_shards=max(4, len(conv["shards"])))
+            stats_r = FeedStats()
+            rfeed = records_feed(mk_lp(shards_dir, "RECORDS"), Phase.TRAIN,
+                                 seed=0, stats=stats_r, cache=cache)
+            for _ in range(max(1, n // rbatch)):
+                next(rfeed)
+            t0 = time.perf_counter()
+            for _ in range(n_batches):
+                next(rfeed)
+            records_s = time.perf_counter() - t0
+            rfeed.close()
+
+        images = n_batches * rbatch
+        out = {
+            "feed_source": "records",
+            "records": n,
+            "edge": edge,
+            "batch": rbatch,
+            "epochs": epochs,
+            "images_per_sec": round(images / records_s, 1),
+            "serial_img_s": round(images / serial_s, 1),
+            "speedup_x": round(serial_s / records_s, 2),
+            "convert_s": round(convert_s, 3),
+            "read_s": stats_r.per_batch()["read_s"],
+            "serial_decode_s": stats_s.per_batch()["decode_s"],
+            "cache": cache.tier_counts(),
+        }
+        _log(f"feed_records: warm {out['images_per_sec']} img/s vs serial "
+             f"decode {out['serial_img_s']} img/s ({out['speedup_x']}x, "
+             f"convert paid once: {convert_s:.2f}s)")
+        return out
+
     def measure_round_overhead() -> dict:
         """Bare rounds against rounds with checkpoints and the guard, the
         synchronous outer loop against the asynchronous one (the
@@ -535,6 +670,7 @@ def run(cfg: BenchConfig, device: str = "cuda",
     best = max(cfg.dtypes, key=lambda d: runs[d]["images_per_sec"])
     b = runs[best]
     feed = measure_feed(best) if cfg.feed else None
+    feed_records = measure_feed_records() if cfg.feed_records else None
     round_overhead = measure_round_overhead() if cfg.round else None
     serving = measure_serving() if cfg.serving else None
     if serving is not None and not serving["verdicts"]["bit_identical"]:
@@ -546,7 +682,8 @@ def run(cfg: BenchConfig, device: str = "cuda",
     fp = perfledger.fingerprint(
         model=cfg.model, dtype=best, batch=batch_n, world=1,
         device=device_name, fuse_plan=b["fuse_plan"],
-        tune_plan=b["tune_plan"], feed_source="lmdb")
+        tune_plan=b["tune_plan"],
+        feed_source="records" if feed_records else "lmdb")
     return {
         "metric": f"{cfg.model}_train_images_per_sec",
         "value": b["images_per_sec"],
@@ -574,6 +711,7 @@ def run(cfg: BenchConfig, device: str = "cuda",
         "windows": windows,
         "by_dtype": runs,
         "feed_in_loop": feed,
+        "feed_records": feed_records,
         "round_overhead": round_overhead,
         "serving": serving,
         **NOT_PORTED,

@@ -31,8 +31,12 @@ no native library: every record takes the numpy path, and the batches
 equal the JAX feed's byte for byte (the crop only copies, the mean is one
 f32 subtract).
 
-Refused by name: ``HDF5Data`` (ROADMAP A6, HDF5: no ``h5py`` there) and
-record shards, ``backend: RECORDS`` or ``*.rec`` (ROADMAP A6, records).
+Record shards (``backend: RECORDS``, a ``*.rec`` file or a directory of
+them, written once by ``tools/convert.py``) go to
+``data/records.py::records_feed``: the same batches, transform,
+quarantine and determinism, with no decode (:271-329).  ``HDF5Data`` is
+fed by ``data/hdf5.py::hdf5_feed`` (:610-619), over the port's own HDF5
+reader.
 """
 
 from __future__ import annotations
@@ -53,9 +57,6 @@ from .integrity import DataCorruptionError, Quarantine, QuarantinePolicy
 
 REFUSED_JPEG_ITEM = "ROADMAP A15, images libjpeg refuses"
 NOT_JPEG_ITEM = "ROADMAP A15, non-JPEG images on the card"
-HDF5_ITEM = "ROADMAP A6, HDF5: the port reads no HDF5 yet"
-RECORDS_ITEM = "ROADMAP A6, records: record shards are not ported yet"
-SHARD_SUFFIX = ".rec"
 
 
 # ---------------------------------------------------------------------------
@@ -63,7 +64,9 @@ SHARD_SUFFIX = ".rec"
 # ---------------------------------------------------------------------------
 
 def open_db(source: str, backend: str = "LMDB"):
-    """db.cpp GetDB analog: backend enum -> reader."""
+    """db.cpp GetDB analog: backend enum -> reader.  Record shards have
+    no Datum cursor: ``db_feed`` streams ``backend: RECORDS`` through
+    ``records_feed``."""
     backend = str(backend).upper()
     if backend in ("LMDB", "1"):
         from .lmdb_io import LmdbReader
@@ -71,9 +74,6 @@ def open_db(source: str, backend: str = "LMDB"):
     if backend in ("LEVELDB", "0"):
         from .leveldb_io import LeveldbReader
         return LeveldbReader(source)
-    if backend == "RECORDS":
-        raise NotImplementedError(f"{source}: backend RECORDS "
-                                  f"({RECORDS_ITEM})")
     raise ValueError(f"unknown DB backend {backend!r}")
 
 
@@ -352,16 +352,6 @@ def _cycle_items(reader):
             raise ValueError("empty database")
 
 
-def _is_records(source: str) -> bool:
-    """True when ``source`` names record shards: a ``*.rec`` file or a
-    directory holding one (sparknet_tpu/data/records.py:444)."""
-    if source.endswith(SHARD_SUFFIX):
-        return True
-    if not os.path.isdir(source):
-        return False
-    return any(n.endswith(SHARD_SUFFIX) for n in os.listdir(source))
-
-
 def corrupt_record(seq: int, value: bytes) -> bytes | None:
     """The fault injector's seam: the bytes to hand the decoder in place
     of the feed's record number ``seq``, or None to leave it.
@@ -401,15 +391,24 @@ def db_feed(lp, phase: Phase, seed: int = 0,
     ``stats``: an optional ``pipeline.FeedStats`` receiving per-stage
     decode and transform seconds.  ``device``: where encoded Datums are
     decoded (each pool thread with its own nvJPEG state and stream on
-    the card)."""
+    the card).
+
+    A record-shard source (``backend: RECORDS``, a ``*.rec`` path or a
+    directory of them) goes to ``records.records_feed``: the same batch,
+    transform, quarantine and determinism contract without the decode
+    stage (``device`` unused)."""
     from .pipeline import DecodePool, feed_workers
+    from .records import is_records_source, records_feed
     p = lp.sub("data_param")
     source = str(p.get("source"))
     batch = int(p.get("batch_size", 1))
     backend = p.get("backend", "LEVELDB")
-    if str(backend).upper() == "RECORDS" or _is_records(source):
-        raise NotImplementedError(f"Data layer {lp.name!r} source "
-                                  f"{source!r} ({RECORDS_ITEM})")
+    if str(backend).upper() == "RECORDS" or is_records_source(source):
+        # yield from, not return: db_feed is a generator
+        yield from records_feed(lp, phase, seed=seed,
+                                quarantine=quarantine, workers=workers,
+                                stats=stats)
+        return
     reader = open_db(source, str(backend))
     tf = DataTransformer(lp.sub("transform_param"), phase, seed)
     tops = list(lp.top) or ["data", "label"]
@@ -663,8 +662,11 @@ def feed_for_layer(lp, phase: Phase, seed: int = 0,
     if lp.type == "WindowData":
         return window_data_feed(lp, phase, seed=seed, device=device)
     if lp.type == "HDF5Data":
-        raise NotImplementedError(
-            f"layer {lp.name!r} (HDF5Data) ({HDF5_ITEM})")
+        from .hdf5 import hdf5_feed
+        p = lp.sub("hdf5_data_param")
+        return hdf5_feed(str(p.get("source")), list(lp.top),
+                         int(p.get("batch_size", 1)),
+                         shuffle=bool(p.get("shuffle", False)), seed=seed)
     raise ValueError(f"layer {lp.name!r} ({lp.type}) has no host feed")
 
 

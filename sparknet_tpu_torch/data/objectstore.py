@@ -1,8 +1,9 @@
 """Object-store abstraction for dataset ingestion: the local half.
 
 The port's own copy of ``sparknet_tpu/data/objectstore.py``'s
-``ObjectStore`` (:31-50), ``_PooledFd`` (:53) and ``LocalStore``
-(:65-158), and ``get_store`` (:297-307) for bare paths and ``file://``.
+``ObjectStore`` (:31-50), ``_PooledFd`` (:53), ``LocalStore``
+(:65-158), ``VerifyingStore`` (:233-294) and ``get_store`` (:297-307)
+for bare paths and ``file://``.
 The reference's workers stream training tars from S3 (reference:
 src/main/scala/loaders/ImageNetLoader.scala:25-38 list objects, :56-86
 stream-untar); here a store lists keys under a prefix and opens a key as
@@ -17,6 +18,8 @@ from __future__ import annotations
 import os
 import threading
 from typing import BinaryIO
+
+from ..utils.retry import io_retry
 
 OBJECT_STORE_ITEM = ("ROADMAP A6, object store: the port reads local "
                      "paths and file:// only")
@@ -150,6 +153,65 @@ class LocalStore(ObjectStore):
 
     def size(self, key: str) -> int:
         return os.path.getsize(os.path.join(self.root, key))
+
+
+class VerifyingStore(ObjectStore):
+    """Per-record integrity tier over any store: ``open_range`` reads go
+    through bounded transient-I/O retry (``utils.retry.io_retry``) and,
+    when a checksum is registered for the (key, offset) range, the
+    payload's crc32 is verified, with one fresh re-read before declaring
+    corruption, so a torn read is told apart from rot on the medium.  A
+    lasting mismatch raises ``DataCorruptionError`` carrying the key and
+    byte offset (the quarantine's attribution unit).  The checksums are
+    registered at ingest time (``add_checksum``, or ``checksum_range``
+    which reads the range and registers its crc)."""
+
+    def __init__(self, inner: ObjectStore,
+                 checksums: dict[tuple[str, int], int] | None = None):
+        self.inner = inner
+        self.checksums = dict(checksums or {})
+
+    def add_checksum(self, key: str, offset: int, crc: int) -> None:
+        self.checksums[(key, offset)] = crc & 0xFFFFFFFF
+
+    def checksum_range(self, key: str, offset: int, length: int) -> int:
+        """Read a range and register its crc32 (the ingest-time half)."""
+        from .integrity import crc32
+        raw = io_retry(self.inner.open_range, key, offset, length,
+                       describe=f"open_range {key}@{offset}")
+        crc = crc32(raw)
+        self.add_checksum(key, offset, crc)
+        return crc
+
+    def open_range(self, key: str, offset: int, length: int) -> bytes:
+        from .integrity import DataCorruptionError, crc32
+        raw = io_retry(self.inner.open_range, key, offset, length,
+                       describe=f"open_range {key}@{offset}")
+        expect = self.checksums.get((key, offset))
+        if expect is None or crc32(raw) == expect:
+            return raw
+        # one fresh read: a transient torn read heals, real rot does not
+        raw = io_retry(self.inner.open_range, key, offset, length,
+                       describe=f"re-read {key}@{offset}")
+        got = crc32(raw)
+        if got != expect:
+            raise DataCorruptionError(
+                f"record checksum mismatch: crc32 {got:#010x} != "
+                f"expected {expect:#010x} ({length} bytes)",
+                source=key, key=key, offset=offset)
+        return raw
+
+    def list_keys(self, prefix: str = "") -> list[str]:
+        return self.inner.list_keys(prefix)
+
+    def open(self, key: str):
+        return self.inner.open(key)
+
+    def size(self, key: str) -> int:
+        return self.inner.size(key)
+
+    def close(self) -> None:
+        self.inner.close()
 
 
 def get_store(url: str) -> tuple[ObjectStore, str]:

@@ -1,7 +1,6 @@
-"""The pieces of the feed pipeline that the device feed runs on.
+"""The feed pipeline: decode pool, buffers, the tiered shard cache.
 
-The port's own copy of the part of ``sparknet_tpu/data/pipeline.py`` that
-``data/prefetch.py::DeviceFeed`` needs:
+The port's own copy of ``sparknet_tpu/data/pipeline.py``:
 
 - :func:`feed_workers` (:69) and :func:`feed_depth` (:80), the
   ``SPARKNET_FEED_WORKERS`` and ``SPARKNET_FEED_DEPTH`` knobs (a width of
@@ -15,7 +14,15 @@ The port's own copy of the part of ``sparknet_tpu/data/pipeline.py`` that
   ported);
 - :class:`BufferRing` (:395), preallocated rotating buffers, as torch
   tensors, pinned when the feed's target is a CUDA device, the whole
-  rotation allocated at once.
+  rotation allocated at once;
+- :class:`ShardCache` (:459-592), the tiered cache of materialized
+  shards: a RAM LRU of ``SPARKNET_CACHE_SHARDS`` entries whose evictees
+  spill to ``SPARKNET_CACHE_SPILL_DIR`` (at most
+  ``SPARKNET_CACHE_SPILL_SHARDS`` files, the oldest deleted first), then
+  the origin, counting each lookup by tier (``tier_counts`` and the
+  ``feed_cache_total`` counter); and :class:`CachedPartition`
+  (:595-621), a partition materialized through it
+  (``PartitionedDataset.cached``).
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import os
 import queue
 import threading
 import time
-from typing import Any, Callable, Iterator
+from collections import OrderedDict
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
 
@@ -41,11 +49,14 @@ def _env_int(name: str, default: int) -> int:
         raise ValueError(f"{name} must be an integer, got {raw!r}") from None
 
 
-def feed_workers() -> int:
-    """Decode-pool width: ``SPARKNET_FEED_WORKERS``, else the CPU count
-    capped at 8.  The port's pool has threads only; 0, the JAX package's
-    serial path, takes one thread, which gives the same ordered stream."""
-    n = _env_int("SPARKNET_FEED_WORKERS", min(os.cpu_count() or 1, 8))
+def feed_workers(default: int | None = None) -> int:
+    """Decode-pool width: ``SPARKNET_FEED_WORKERS``, else ``default``,
+    else the CPU count capped at 8.  The port's pool has threads only; 0,
+    the JAX package's serial path, takes one thread, which gives the same
+    ordered stream."""
+    if default is None:
+        default = min(os.cpu_count() or 1, 8)
+    n = _env_int("SPARKNET_FEED_WORKERS", default)
     if n < 0:
         raise ValueError(f"SPARKNET_FEED_WORKERS must be >= 0, got {n}")
     return max(n, 1)
@@ -350,3 +361,192 @@ class BufferRing:
     def nbytes(self) -> int:
         """Host bytes the ring holds now."""
         return sum(b.numel() * b.element_size() for b in self.buffers)
+
+
+def cache_shards(default: int = 4) -> int:
+    """RAM-tier capacity: ``SPARKNET_CACHE_SHARDS``, else ``default``."""
+    n = _env_int("SPARKNET_CACHE_SHARDS", default)
+    if n < 1:
+        raise ValueError(f"SPARKNET_CACHE_SHARDS must be >= 1, got {n}")
+    return n
+
+
+def cache_spill_dir() -> str | None:
+    """Disk-tier directory: ``SPARKNET_CACHE_SPILL_DIR`` (empty: no spill
+    tier, an evicted shard is dropped)."""
+    return knobs.get_str("SPARKNET_CACHE_SPILL_DIR", "") or None
+
+
+def cache_spill_shards(default: int = 16) -> int:
+    """Disk-tier capacity: ``SPARKNET_CACHE_SPILL_SHARDS``."""
+    n = _env_int("SPARKNET_CACHE_SPILL_SHARDS", default)
+    if n < 1:
+        raise ValueError(
+            f"SPARKNET_CACHE_SPILL_SHARDS must be >= 1, got {n}")
+    return n
+
+
+class ShardCache:
+    """Tiered bounded cache of materialized shards: a host-RAM LRU whose
+    evictees spill to local-disk files instead of being dropped.
+
+    Multi-epoch training reads every shard once an epoch; a lazy
+    partition decodes it again each time and a record shard re-reads it
+    from its store.  The RAM tier keeps up to ``max_shards`` values
+    (default: the ``SPARKNET_CACHE_SHARDS`` knob); with
+    ``spill_dir`` set (default: the ``SPARKNET_CACHE_SPILL_DIR`` knob), up
+    to ``max_spill`` RAM evictees land as pickle files on local disk, the
+    oldest deleted first.  Lookup order: RAM, disk (a hit moves back to
+    RAM), then ``materialize()``.  Values are stored as ``materialize``
+    returns them: decoded record lists (``CachedPartition``) or whole-shard
+    ``bytes`` (``records.RecordShard.attach_cache``).  Each lookup is
+    counted by the tier that served it (``tier_counts``) and in the
+    ``feed_cache_total`` counter.  Thread-safe; one cache serves every
+    partition of a ``PartitionedDataset.cached()`` view."""
+
+    def __init__(self, max_shards: int | None = None,
+                 spill_dir: str | None = None,
+                 max_spill: int | None = None):
+        if max_shards is None:
+            max_shards = cache_shards()
+        if max_shards < 1:
+            raise ValueError(f"max_shards must be >= 1, got {max_shards}")
+        self.max_shards = max_shards
+        self._lock = threading.Lock()
+        self._cache: "OrderedDict[Any, Any]" = OrderedDict()
+        self.spill_dir = cache_spill_dir() if spill_dir is None else (
+            spill_dir or None)
+        self.max_spill = (cache_spill_shards() if max_spill is None
+                          else int(max_spill))
+        self._spilled: "OrderedDict[Any, str]" = OrderedDict()  # key->path
+        self.hits = 0
+        self.disk_hits = 0
+        self.misses = 0
+        self.spills = 0
+
+    # -- disk tier --------------------------------------------------------
+    def _spill_path(self, key: Any) -> str:
+        import zlib
+        tag = zlib.crc32(repr(key).encode()) & 0xFFFFFFFF
+        return os.path.join(self.spill_dir, f"shard-{tag:08x}.pkl")
+
+    def _spill(self, key: Any, value: Any) -> None:
+        """Write one RAM evictee to the disk tier (a temporary file
+        renamed into place, so a torn spill is never loaded), under the
+        lock so the disk tier's LRU order stays exact."""
+        import pickle
+        os.makedirs(self.spill_dir, exist_ok=True)
+        path = self._spill_path(key)
+        tmp = path + ".tmp"
+        try:
+            with open(tmp, "wb") as f:
+                pickle.dump((key, value), f, protocol=4)
+            os.replace(tmp, path)
+        except OSError:
+            # a full or unwritable spill disk degrades to no spill; it
+            # must not stop the feed
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            return
+        self._spilled.pop(key, None)
+        self._spilled[key] = path
+        self.spills += 1
+        while len(self._spilled) > self.max_spill:
+            _, old = self._spilled.popitem(last=False)
+            try:
+                os.unlink(old)
+            except OSError:
+                pass
+
+    def _load_spilled(self, key: Any) -> Any | None:
+        """The disk tier's value for ``key``, or None: the stored key is
+        checked (crc32 tags can collide) and an unreadable file is a
+        miss."""
+        import pickle
+        path = self._spilled.get(key)
+        if path is None:
+            return None
+        try:
+            with open(path, "rb") as f:
+                stored_key, value = pickle.load(f)
+        except (OSError, pickle.UnpicklingError, EOFError, ValueError):
+            self._spilled.pop(key, None)
+            return None
+        if stored_key != key:
+            return None
+        return value
+
+    def _insert(self, key: Any, value: Any) -> None:
+        """RAM-tier insert and LRU eviction (under the lock); evictees go
+        to the disk tier when there is one."""
+        self._cache[key] = value
+        self._cache.move_to_end(key)
+        while len(self._cache) > self.max_shards:
+            old_key, old_value = self._cache.popitem(last=False)
+            if self.spill_dir:
+                self._spill(old_key, old_value)
+
+    @staticmethod
+    def _count(tier: str) -> None:
+        telemetry.get_registry().counter(
+            "feed_cache_total", "shard cache lookups by outcome and tier"
+        ).inc(result="miss" if tier == "none" else "hit", tier=tier)
+
+    def get(self, key: Any, materialize: Callable[[], Any]) -> Any:
+        with self._lock:
+            if key in self._cache:
+                self._cache.move_to_end(key)
+                self.hits += 1
+                self._count("ram")
+                return self._cache[key]
+            if self.spill_dir:
+                value = self._load_spilled(key)
+                if value is not None:
+                    self.disk_hits += 1
+                    self._count("disk")
+                    self._insert(key, value)   # back to RAM
+                    return value
+        # materialize outside the lock: shard A's read must not block a
+        # hit on shard B
+        value = materialize()
+        with self._lock:
+            self.misses += 1
+            self._count("none")
+            self._insert(key, value)
+            return value
+
+    def tier_counts(self) -> dict[str, int]:
+        with self._lock:
+            return {"ram_hits": self.hits, "disk_hits": self.disk_hits,
+                    "misses": self.misses, "spills": self.spills,
+                    "ram_shards": len(self._cache),
+                    "disk_shards": len(self._spilled)}
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._cache)
+
+
+class CachedPartition:
+    """A partition view that materializes its backing partition through
+    a shared :class:`ShardCache` on first access; it keeps the
+    ``__len__``/``__getitem__`` contract of lazy partitions."""
+
+    def __init__(self, base: Sequence, key: Any, cache: ShardCache):
+        self._base = base
+        self._key = key
+        self._cache = cache
+
+    def _records(self) -> Sequence:
+        return self._cache.get(self._key, lambda: self._base[:])
+
+    def __len__(self) -> int:
+        return len(self._base)
+
+    def __getitem__(self, idx):
+        return self._records()[idx]
+
+    def __iter__(self):
+        return iter(self._records())

@@ -3,12 +3,13 @@
 Counterparts of ``sparknet_tpu/ops/data.py`` (reference:
 java_data_layer.cpp, caffe InputLayer, memory_data_layer.cpp,
 data_layer.cpp, image_data_layer.cpp, window_data_layer.cpp,
-dummy_data_layer.cpp).  ``JavaData``, ``Input``, ``MemoryData``,
-``Data``, ``ImageData`` and ``WindowData`` are graph inputs: their tops
-are bound by the caller of ``Net.apply`` (for the last three, from
-``data/db.py``'s feeds), and they compute nothing.  ``DummyData``
-computes its tops from fillers.  ``HDF5Data`` and ``HDF5Output`` are
-registered so that a net naming them fails with its ROADMAP item.
+dummy_data_layer.cpp, hdf5_data_layer.cpp, hdf5_output_layer.cpp).
+``JavaData``, ``Input``, ``MemoryData``, ``Data``, ``ImageData``,
+``WindowData`` and ``HDF5Data`` are graph inputs: their tops are bound
+by the caller of ``Net.apply`` (for the last four, from ``data/db.py``'s
+feeds), and they compute nothing.  ``DummyData`` computes its tops from
+fillers.  ``HDF5Output`` consumes its bottoms and writes nothing in the
+graph.
 """
 
 from __future__ import annotations
@@ -73,17 +74,26 @@ class DataLayer(InputLikeLayer):
     """LMDB/LevelDB-backed data layer (data_layer.cpp).  Shape inference
     peeks the first Datum, as DataLayer::DataLayerSetUp does (an encoded
     one's shape read from its fields or its JPEG header, not decoded),
-    and applies ``crop_size``; the host feed is ``data/db.py::db_feed``."""
+    or a record-shard source's header, and applies ``crop_size``; the
+    host feed is ``data/db.py::db_feed``."""
 
     def out_shapes(self, lp, bottom_shapes):
         from ..data.db import datum_shape, open_db
+        from ..data.records import ShardSet, is_records_source
         p = lp.sub("data_param")
         source = p.get("source")
         if source is None:
             raise ValueError(f"Data layer {lp.name!r} missing source")
         batch = int(p.get("batch_size", 1))
-        with open_db(str(source), str(p.get("backend", "LEVELDB"))) as db:
-            c, h, w = datum_shape(db.first()[1], source=str(source))
+        backend = str(p.get("backend", "LEVELDB"))
+        if backend.upper() == "RECORDS" or is_records_source(str(source)):
+            # record shards: the geometry from the shards' headers
+            shards = ShardSet.open(str(source))
+            c, h, w = shards.c, shards.h, shards.w
+            shards.close()
+        else:
+            with open_db(str(source), backend) as db:
+                c, h, w = datum_shape(db.first()[1], source=str(source))
         crop = int(lp.sub("transform_param").get("crop_size", 0))
         if crop:
             h = w = crop
@@ -145,25 +155,38 @@ class WindowDataLayer(InputLikeLayer):
         return shapes
 
 
-class HDF5NotPortedLayer(InputLikeLayer):
-    """An HDF5 layer, refused by name: building a net with it raises
-    ``NotImplementedError`` naming ROADMAP A6."""
+@register_layer("HDF5Data")
+class HDF5DataLayer(InputLikeLayer):
+    """Host-fed data layer whose shapes come from the first listed .h5
+    file (hdf5_data_layer.cpp); the host feed is
+    ``data/hdf5.py::hdf5_feed``."""
 
     def out_shapes(self, lp, bottom_shapes):
-        from ..data.db import HDF5_ITEM
-        raise NotImplementedError(
-            f"layer {lp.name!r} ({lp.type}) ({HDF5_ITEM})")
-
-
-@register_layer("HDF5Data")
-class HDF5DataLayer(HDF5NotPortedLayer):
-    pass
+        from ..data.hdf5 import load_hdf5_blobs, read_source_list
+        p = lp.sub("hdf5_data_param")
+        source = p.get("source")
+        batch = int(p.get("batch_size", 1))
+        if source is None:
+            raise ValueError(f"HDF5Data layer {lp.name!r} missing source")
+        blobs = load_hdf5_blobs(read_source_list(str(source))[0],
+                                list(lp.top))
+        return [(batch,) + blobs[t].shape[1:] for t in lp.top]
 
 
 @register_layer("HDF5Output")
-class HDF5OutputLayer(HDF5NotPortedLayer):
+class HDF5OutputLayer(LayerImpl):
+    """Consumes its bottoms and writes nothing inside the graph: the file
+    is written on the host (``data/hdf5.py::save_hdf5_blobs``) from any
+    blob the net hands back (hdf5_output_layer.cpp)."""
+
     def min_bottoms(self) -> int:
         return 1
+
+    def out_shapes(self, lp, bottom_shapes):
+        return []
+
+    def apply(self, lp, params, bottoms, train, gen=None):
+        return []
 
 
 @register_layer("DummyData")

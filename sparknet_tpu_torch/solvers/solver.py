@@ -22,15 +22,17 @@ nets run their steps and test passes in full f32 (TF32 off,
 Weights and state on disk: ``snapshot``/``restore`` write and read the
 JAX package's npz layout (``utils/checkpoint.py``);
 ``snapshot_caffe``/``restore_caffe`` the ``.caffemodel`` + ``.solverstate``
-pair Caffe writes; ``load_weights`` reads npz or ``.caffemodel`` (V1 zoo
-files included).  ``debug_info`` prints the JAX Solver's ``[Forward]``
+pair Caffe writes, or with ``snapshot_format: HDF5`` the
+``.caffemodel.h5`` + ``.solverstate.h5`` pair (``data/hdf5.py``, the
+port's own HDF5 reader and writer; restore sniffs the magic);
+``load_weights`` reads npz, ``.caffemodel`` (V1 zoo files included) or
+``.caffemodel.h5``.  ``debug_info`` prints the JAX Solver's ``[Forward]``
 and ``[Update]`` lines (mean |x| of every top blob and param) at each
 display boundary.  Params shared across layers (``ParamSpec.name``) are
 stored once, by their owner (``graph/net.py``): weight files are read
 through the sharing map and written with every layer's full blob list,
 as Caffe writes them.  Not ported yet, and refused by name:
-``set_augment`` (ROADMAP A14), ``snapshot_format: HDF5`` and HDF5 weight
-files (A6).
+``set_augment`` (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -53,12 +55,6 @@ from .step import make_step_fns
 from .update_rules import make_update_rule
 
 _HDF5_MAGIC = b"\x89HDF"
-
-
-def _refuse_hdf5(what: str) -> None:
-    raise NotImplementedError(
-        f"{what}: HDF5 weights and snapshots are not ported yet (ROADMAP "
-        f"A6); use the BINARYPROTO .caffemodel/.solverstate pair")
 
 
 def load_weights_into(net: Net, params: Params, path: str) -> Params:
@@ -122,8 +118,6 @@ class Solver:
     def __init__(self, sp: SolverParameter, *, seed: int | None = None,
                  device: str | torch.device = "cuda",
                  compute_dtype: torch.dtype | None = None):
-        if sp.snapshot_format == "HDF5":
-            _refuse_hdf5("snapshot_format: HDF5")
         net_param = sp.net_param or sp.train_net_param
         if net_param is None:
             raise ValueError("SolverParameter carries no net definition")
@@ -445,14 +439,16 @@ class Solver:
         """Copy the blobs of a weight file into the layers of the same
         name, leaving the rest initialized.  The file type is sniffed: npz
         (``PK``: a checkpoint's ``params``, or a bare weight tree), HDF5
-        (refused, ROADMAP A6), else a binary ``.caffemodel`` (V1 zoo files
+        (a ``.caffemodel.h5``, CopyTrainedLayersFromHDF5, net.cpp:
+        889-924), else a binary ``.caffemodel`` (V1 zoo files
         included).  Raises on a file that carries no weights and on a
         blob count or shape the net does not accept."""
         with open(path, "rb") as f:
             magic = f.read(4)
         if magic == _HDF5_MAGIC:
-            _refuse_hdf5(path)
-        if magic[:2] == b"PK":
+            from ..data.hdf5 import load_model_hdf5
+            saved = load_model_hdf5(path)
+        elif magic[:2] == b"PK":
             from ..utils.checkpoint import load_checkpoint
             blob = load_checkpoint(path)
             saved = blob["params"] if "params" in blob else blob
@@ -536,34 +532,46 @@ class Solver:
 
     def snapshot_caffe(self, prefix: str | None = None) -> tuple[str, str]:
         """Write ``<prefix>_iter_N.caffemodel`` and ``.solverstate`` as
-        Solver::Snapshot names them (reference: solver.cpp:461-476), the
-        state recording the model file as ``learned_net``.  Returns the
-        two paths."""
+        Solver::Snapshot names them (reference: solver.cpp:461-476), or
+        the ``.caffemodel.h5`` and ``.solverstate.h5`` pair when
+        ``snapshot_format: HDF5`` (solver.cpp:449-459, sgd_solver.cpp:
+        275-298), the state recording the model file as ``learned_net``.
+        Returns the two paths."""
         from ..proto.caffemodel import save_caffemodel, save_solverstate
-        if self.sp.snapshot_format == "HDF5":
-            _refuse_hdf5("snapshot_format: HDF5")
         prefix = prefix if prefix is not None else self.sp.snapshot_prefix
         base = f"{prefix}_iter_{self.iter}"
-        model_path, state_path = base + ".caffemodel", base + ".solverstate"
+        hdf5 = self.sp.snapshot_format == "HDF5"
+        model_path = base + (".caffemodel.h5" if hdf5 else ".caffemodel")
+        state_path = base + (".solverstate.h5" if hdf5 else ".solverstate")
         # Net::ToProto writes every layer with its full blob list (a
         # sharer repeats its owner's), which CopyTrainedLayersFrom's blob
         # count check needs
-        save_caffemodel(model_path, self.train_net.full_params(self.params),
-                        self.sp.net_param or self.sp.train_net_param)
-        save_solverstate(state_path, self.iter, self._history_flat(),
-                         learned_net=model_path)
+        full = self.train_net.full_params(self.params)
+        if hdf5:
+            from ..data.hdf5 import save_model_hdf5, save_state_hdf5
+            save_model_hdf5(model_path, {
+                k: [b.detach().cpu().numpy() for b in v]
+                for k, v in full.items() if v})
+            save_state_hdf5(state_path, self.iter, [
+                b.detach().cpu().numpy() for b in self._history_flat()],
+                learned_net=model_path)
+        else:
+            save_caffemodel(model_path, full,
+                            self.sp.net_param or self.sp.train_net_param)
+            save_solverstate(state_path, self.iter, self._history_flat(),
+                             learned_net=model_path)
         return model_path, state_path
 
     def restore_caffe(self, state_path: str) -> None:
-        """Restore from a ``.solverstate`` and the ``learned_net`` model it
-        names (reference: solver.cpp:510-530, sgd_solver.cpp:280-296).
-        The history count and every shape are checked, and the model file
-        must exist, before anything is written."""
+        """Restore from a ``.solverstate`` or ``.solverstate.h5`` and the
+        ``learned_net`` model it names (reference: solver.cpp:510-530,
+        sgd_solver.cpp:280-296, :321-338 for HDF5, told apart by the
+        magic).  The history count and every shape are checked, and the
+        model file must exist, before anything is written."""
+        from ..data.hdf5 import is_hdf5_file, load_state_hdf5
         from ..proto.caffemodel import load_solverstate
-        with open(state_path, "rb") as f:
-            if f.read(4) == _HDF5_MAGIC:
-                _refuse_hdf5(state_path)
-        st = load_solverstate(state_path)
+        st = (load_state_hdf5(state_path) if is_hdf5_file(state_path)
+              else load_solverstate(state_path))
         history = st["history"]
         slots = self._HISTORY_SLOTS[self.rule.name]
         n_blobs = sum(len(v) for v in self.params.values())

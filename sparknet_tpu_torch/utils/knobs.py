@@ -3,6 +3,7 @@
 The port's own copy of the read half of ``sparknet_tpu/utils/knobs.py``
 (``raw``, ``is_set``, ``get_str``, ``get_int``, ``get_bool``, :106-157),
 for the knobs of the serving path, the training feed, the DB readers,
+the record shards and their tiered cache,
 the trainer's round shape (``comm_config_from_env``), the checkpoint
 writer, the fault injector and the telemetry plane
 (``utils/telemetry.py``).  Reading a name that is not declared here
@@ -30,6 +31,18 @@ KNOBS: dict[str, str] = {
     "SPARKNET_FEED_DEPTH": "host batches the device feed stages ahead",
     "SPARKNET_FEED_PUTTERS": "device feed's host-to-device copy threads",
     "SPARKNET_FEED_WORKERS": "DB feed's decode threads",
+    "SPARKNET_RECORD_READERS": "record-shard feed's ranged-read threads; "
+                               "0 = one thread; unset = "
+                               "SPARKNET_FEED_WORKERS",
+    "SPARKNET_RECORD_SHARD_MB": "record-shard converter's roll size in "
+                                "MiB; default 64",
+    "SPARKNET_CACHE_SHARDS": "ShardCache RAM tier: resident shards before "
+                             "LRU eviction; default 4",
+    "SPARKNET_CACHE_SPILL_DIR": "ShardCache disk tier directory for RAM "
+                                "evictees; unset (the default) drops them",
+    "SPARKNET_CACHE_SPILL_SHARDS": "ShardCache disk tier: most spilled "
+                                   "shards, the oldest deleted first; "
+                                   "default 16",
     "SPARKNET_IO_RETRIES": "attempts for data-plane file and DB opens",
     "SPARKNET_IO_BACKOFF": "base backoff in seconds between those attempts",
     "SPARKNET_QUARANTINE_FRACTION": "bad records an epoch may skip, as a "

@@ -17,7 +17,15 @@ gradients at rtol 2e-4, atol 2e-5 (the bound of
 tests/test_torch_trainer.py), on every blob, the running statistics
 included (the full-width net's gradients at batch 4 miss the layer bound
 by 1.9e-6 in 11 of conv1's 2400 values); bf16 at atol 2e-2
-(tests/test_torch_zoo_layers.py).  Weights
+(tests/test_torch_zoo_layers.py), with no relative term and not scaled
+by the values.  In the code: ``LAYER_RTOL, LAYER_ATOL = 1e-5, 1e-6``
+for the layer's forward, gradients and updated blobs, and the narrow
+net's updated BatchNorm blobs; ``RTOL, ATOL = 2e-4, 2e-5`` for the
+Solver's and the rounds' losses, params and statistics and the whole
+net's gradients; a fresh layer's stored variance and the whole net's
+loss at rtol 1e-5; the ``sync`` round's statistics against the mean of
+the two workers' forwards at rtol 1e-6, atol 1e-7; ``BF16_ATOL =
+2e-2`` for the bf16 forward.  Weights
 go from the JAX ``Solver`` to the port's through a ``.caffemodel``, bit
 for bit; ``.caffemodel`` and ``.solverstate`` carry BatchNorm's three
 blobs in Caffe's order both ways bit for bit.

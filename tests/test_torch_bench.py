@@ -4,7 +4,9 @@
 - ``python -m sparknet_tpu_torch.bench --device cpu`` (lenet, 2
   iterations, short tiers) prints exactly one JSON line on stdout, whose
   keys cover those of the JAX bench line committed in ``BENCH_r05.json``
-  (``parsed``) plus the tiers the port names as not ported; without a
+  (``parsed``) plus the tiers the port names as not ported, and its
+  ``feed_records`` tier (16 records of 32x32) carries the JAX records
+  line's keys; without a
   CUDA device and without ``--device cpu`` it exits non-zero with an
   ``error`` line.  ``BENCH_FUSE`` and ``BENCH_SHARD`` refuse by ROADMAP
   item.
@@ -55,7 +57,9 @@ _SHORT = {"BENCH_MODEL": "lenet", "BENCH_BATCH": "16", "BENCH_ITERS": "2",
           "BENCH_REPS": "1", "BENCH_WINDOWS": "1", "BENCH_FEED_ITERS": "2",
           "BENCH_ROUND_N": "1", "BENCH_ROUND_TAU": "2",
           "BENCH_SERVE_SECONDS": "0.3", "BENCH_SERVE_CLIENTS": "2",
-          "BENCH_SERVE_WINDOW": "2", "OMP_NUM_THREADS": "1"}
+          "BENCH_SERVE_WINDOW": "2", "BENCH_RECORDS_N": "16",
+          "BENCH_RECORDS_EDGE": "32", "BENCH_RECORDS_BATCH": "8",
+          "BENCH_RECORDS_EPOCHS": "1", "OMP_NUM_THREADS": "1"}
 
 
 def _bench(args: list[str], **env) -> subprocess.CompletedProcess:
@@ -87,6 +91,16 @@ def test_cpu_bench_prints_one_line_with_the_jax_keys():
     assert line["round_overhead"]["audit"] is None
     assert line["round_overhead"]["async"]["rounds"] == 2
     assert line["feed_in_loop"]["staged_dtype"] == "uint8"
+    # the records tier at a tiny size: the JAX line's keys
+    rec = line["feed_records"]
+    assert set(rec) == {"feed_source", "records", "edge", "batch",
+                        "epochs", "images_per_sec", "serial_img_s",
+                        "speedup_x", "convert_s", "read_s",
+                        "serial_decode_s", "cache"}
+    assert (rec["records"], rec["edge"], rec["batch"]) == (16, 32, 8)
+    assert rec["images_per_sec"] > 0 and rec["serial_img_s"] > 0
+    assert rec["cache"]["misses"] >= 1 and rec["cache"]["ram_hits"] > 0
+    assert line["provenance"]["fingerprint"]["feed_source"] == "records"
 
 
 def test_bench_refuses_the_cpu_in_the_cards_place():

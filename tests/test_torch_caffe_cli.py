@@ -21,8 +21,9 @@ Caffe's finetune path) drawn by the port.
   instead of running on the CPU.
 - ``compute_image_mean`` writes the JAX tool's binaryproto byte for
   byte; ``extract_features`` writes records equal to the net's blob.
-- Refusals name their ROADMAP item: an encoded Datum and ImageData/
-  WindowData/HDF5Data (A15, A6), ``backend: RECORDS`` (A6).
+- ``train`` from record shards (``backend: RECORDS``) and from an
+  HDF5Data list equals the JAX CLI trained from the LMDB and the same
+  list.
   ``time_net --trace`` prints a per-layer row for every layer of the net.
   ``--hosts`` misused exits with the JAX CLI's usage
   errors (``--strategy hierarchical`` itself: test_torch_hierarchical.py).
@@ -334,21 +335,44 @@ def test_image_layers_without_their_params_raise_as_the_jax_cli(
     assert str(ours.value) == str(theirs.value)
 
 
-@pytest.mark.parametrize("case,item", [
-    ("records", "ROADMAP A6, records"), ("HDF5Data", "ROADMAP A6, HDF5")])
-def test_refusals_name_their_item(tool, tmp_path, case, item):
-    d, model, _ = tool
-    model = tmp_path / f"{case}.prototxt"
+@pytest.mark.parametrize("case", ["records", "HDF5Data"])
+def test_train_from_records_and_hdf5data_as_the_jax_cli(tool, tmp_path,
+                                                      capsys, case):
+    """``caffe_cli train`` from record shards converted from the LMDB
+    (``backend: RECORDS``) and from an HDF5Data layer over the same
+    images: the losses and test outputs of the JAX CLI trained from the
+    LMDB (the JAX Data layer cannot build a RECORDS net: its shape
+    inference opens the source as a DB) and from the same HDF5 list."""
+    d, model, imgs = tool
+    init = str(d / "init.caffemodel")
     if case == "records":
-        model.write_text(NET.format(db=d / "train_lmdb").replace(
+        from sparknet_tpu_torch.data.records import convert_to_shards
+        convert_to_shards(((imgs[i], i % 3) for i in range(12)),
+                          str(tmp_path / "shards"), shard_bytes=5 * 200)
+        ours_model = tmp_path / "records.prototxt"
+        ours_model.write_text(NET.format(db=tmp_path / "shards").replace(
             "backend: LMDB", "backend: RECORDS"))
+        theirs_model = model
     else:
-        model.write_text(NET.format(db=d / "train_lmdb").replace(
-            'type: "Data"', f'type: "{case}"'))
-    with pytest.raises(NotImplementedError, match=item):
-        caffe_cli.main(["train", "--solver",
-                        _solver(tmp_path, model, "refused"), "--device",
-                        "cpu"])
+        h5py = pytest.importorskip("h5py")
+        with h5py.File(tmp_path / "train.h5", "w") as f:
+            f["data"] = imgs.astype(np.float32)
+            f["label"] = (np.arange(12) % 3).astype(np.float32)
+        (tmp_path / "list.txt").write_text("train.h5\n")
+        ours_model = theirs_model = tmp_path / "hdf5.prototxt"
+        ours_model.write_text(NET.format(db="").replace(
+            'type: "Data"', 'type: "HDF5Data"').replace(
+            f'data_param {{ source: "" batch_size: 4 backend: LMDB }}',
+            f'hdf5_data_param {{ source: "{tmp_path / "list.txt"}" '
+            f'batch_size: 4 }}'))
+    ours = _run(capsys, caffe_cli.main,
+                ["train", "--solver", _solver(tmp_path, ours_model, "p"),
+                 "--weights", init, "--device", "cpu"])
+    theirs = _run(capsys, jax_cli.main,
+                  ["train", "--solver", _solver(tmp_path, theirs_model, "j"),
+                   "--weights", init])
+    assert "Optimization Done." in ours
+    _assert_same_numbers(ours, theirs)
 
 
 @pytest.mark.parametrize("extra", [

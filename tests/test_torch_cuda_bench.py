@@ -27,7 +27,7 @@ def test_bench_on_the_card_reports_mfu_in_range():
            if not k.startswith(("BENCH_", "SPARKNET_"))}
     env.update(BENCH_BATCH="64", BENCH_ITERS="2", BENCH_REPS="1",
                BENCH_WINDOWS="1", BENCH_FEED="0", BENCH_ROUND="0",
-               BENCH_SERVING="0")
+               BENCH_SERVING="0", BENCH_FEED_RECORDS="0")
     p = subprocess.run([sys.executable, "-m", "sparknet_tpu_torch.bench"],
                        cwd=_ROOT, env=env, capture_output=True, text=True,
                        timeout=600)

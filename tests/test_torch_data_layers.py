@@ -25,7 +25,10 @@ its fillers against the JAX package's, on the CPU.
   scale) through both Solvers from one ``.caffemodel`` for 10 steps:
   losses within rtol 2e-4, atol 2e-5 (tests/test_torch_solver.py's
   bound).
-- HDF5Data and HDF5Output refuse by ROADMAP item; ImageData and
+- Record shards converted from the LMDB feed the JAX LMDB feed's
+  batches through ``db_feed`` (``backend: RECORDS`` or a ``*.rec``
+  source); HDF5Data builds from its first file and feeds the JAX
+  ``hdf5_feed``'s batches, and HDF5Output builds; ImageData and
   WindowData without a ``source`` raise as the JAX package's do (their
   feeds: tests/test_torch_image_data.py).
 """
@@ -158,6 +161,8 @@ def test_db_feed_workers_keep_the_batches(dbs, monkeypatch):
     _assert_batches_equal(runs[0], runs[1])
     _assert_batches_equal(runs[0], runs[2])
     assert feed_workers() == 1
+    monkeypatch.delenv("SPARKNET_FEED_WORKERS")
+    assert feed_workers(default=5) == 5   # the JAX signature's default
     monkeypatch.setenv("SPARKNET_FEED_WORKERS", "-1")
     with pytest.raises(ValueError, match="SPARKNET_FEED_WORKERS"):
         feed_workers()
@@ -208,14 +213,32 @@ def test_mean_file_of_the_wrong_shape_raises(dbs, tmp_path):
         next(db.db_feed(lp, Phase.TEST))
 
 
-def test_records_and_unknown_backends_refuse(tmp_path):
-    for source, backend in ((str(tmp_path / "x.rec"), "LMDB"),
-                            (str(tmp_path), "RECORDS")):
-        lp, _ = _layers(_data_layer_txt(source, backend))
-        with pytest.raises(NotImplementedError, match="ROADMAP A6, records"):
-            next(db.db_feed(lp, Phase.TRAIN))
-    with pytest.raises(ValueError, match="unknown DB backend"):
-        db.open_db(str(tmp_path), "ROCKSDB")
+def test_records_and_unknown_backends(dbs, tmp_path):
+    """Record shards converted from the LMDB (a ``*.rec`` file under an
+    LMDB backend, and a directory under ``backend: RECORDS``) feed the
+    JAX LMDB feed's batches, and their Data layer the LMDB's shapes; an
+    unknown backend still raises, and ``open_db``, whose readers have a
+    Datum cursor, names ``RECORDS`` unknown too."""
+    from sparknet_tpu_torch.data.records import convert_to_shards
+    with db.open_db(dbs["LMDB"], "LMDB") as r:
+        recs = [(img.astype(np.uint8), label) for img, label in
+                (db.datum_to_array(v) for _, v in r.items())]
+    out = convert_to_shards(iter(recs), str(tmp_path / "s"))
+    tf = TRANSFORMS["crop_mirror_mean_file"].format(mean=dbs["mean"])
+    _, jlp = _layers(_data_layer_txt(dbs["LMDB"], "LMDB", tf))
+    want = _take(jdb.db_feed(jlp, JaxPhase.TRAIN, seed=3, workers=0), 4)
+    for source, backend in ((out["shards"][0], "LMDB"),
+                            (str(tmp_path / "s"), "RECORDS")):
+        txt = _data_layer_txt(source, backend, tf)
+        lp, _ = _layers(txt)
+        feed = db.db_feed(lp, Phase.TRAIN, seed=3)
+        _assert_batches_equal(_take(feed, 4), want)
+        feed.close()
+        assert Net(load_net_prototxt(txt), NetState(Phase.TRAIN)) \
+            .blob_shapes["data"] == (8, 3, 6, 6)
+    for backend in ("ROCKSDB", "RECORDS"):
+        with pytest.raises(ValueError, match="unknown DB backend"):
+            db.open_db(str(tmp_path), backend)
 
 
 SHAPES_NET = """
@@ -379,12 +402,38 @@ def test_image_layers_without_a_source_raise_as_jax(kind):
     assert str(ours.value) == str(theirs.value)
 
 
-@pytest.mark.parametrize("kind,item", [
-    ("HDF5Data", "ROADMAP A6, HDF5"), ("HDF5Output", "ROADMAP A6, HDF5")])
-def test_unported_data_layers_name_their_item(kind, item):
-    txt = f'layer {{ name: "x" type: "{kind}" top: "data" }}'
-    with pytest.raises(NotImplementedError, match=item):
-        Net(load_net_prototxt(txt), NetState(Phase.TRAIN))
-    if kind != "HDF5Output":
-        with pytest.raises(NotImplementedError, match=item):
-            db.feed_for_layer(load_net_prototxt(txt).layer[0], Phase.TRAIN)
+@pytest.mark.parametrize("kind", ["HDF5Data", "HDF5Output"])
+def test_hdf5_data_layers_build_and_feed(tmp_path, kind):
+    """HDF5Data takes its shapes from the first listed file and its feed
+    gives the JAX feed's batches; HDF5Output consumes its bottom and
+    gives no top; both nets' blob shapes equal the JAX package's."""
+    h5py = pytest.importorskip("h5py")
+    rng = np.random.default_rng(4)
+    paths = []
+    for i in range(2):
+        path = tmp_path / f"part{i}.h5"
+        with h5py.File(path, "w") as f:
+            f["data"] = rng.normal(size=(6, 2, 3, 3)).astype(np.float32)
+            f["label"] = rng.integers(0, 3, size=6).astype(np.float64)
+        paths.append(path.name)
+    (tmp_path / "list.txt").write_text("\n".join(paths) + "\n")
+    txt = (f'layer {{ name: "h" type: "HDF5Data" top: "data" top: "label" '
+           f'hdf5_data_param {{ source: "{tmp_path / "list.txt"}" '
+           f'batch_size: 4 shuffle: true }} }}\n')
+    if kind == "HDF5Output":
+        txt += ('layer { name: "out" type: "HDF5Output" bottom: "data" '
+                'bottom: "label" hdf5_output_param { file_name: "o.h5" } }\n')
+    net = Net(load_net_prototxt(txt), NetState(Phase.TRAIN))
+    jnet = JaxNet(jax_load_net(txt), JaxNetState(JaxPhase.TRAIN))
+    assert net.blob_shapes == jnet.blob_shapes
+    assert net.blob_shapes["data"] == (4, 2, 3, 3)
+    if kind == "HDF5Output":
+        assert net.apply(net.init(torch.Generator().manual_seed(0),
+                                  device="cpu"),
+                         {"data": torch.zeros(4, 2, 3, 3),
+                          "label": torch.zeros(4)}) is not None
+        return
+    lp, jlp = _layers(txt)
+    ours = _take(db.feed_for_layer(lp, Phase.TRAIN, seed=5), 5)
+    theirs = _take(jdb.feed_for_layer(jlp, JaxPhase.TRAIN, seed=5), 5)
+    _assert_batches_equal(ours, theirs)

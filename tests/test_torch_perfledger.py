@@ -52,7 +52,11 @@ def _port_line() -> dict:
         "audit": None, "not_ported_legs": {"audit": "ROADMAP A12"}}
     serving = _load("BENCH_serving_r07.json")
     doc["serving"] = dict(serving, device=_CARD, overload=None, sweep=None)
-    doc["feed_records"] = {"not_ported": "ROADMAP A6, records"}
+    doc["feed_records"] = {
+        "feed_source": "records", "records": 96, "edge": 64, "batch": 32,
+        "epochs": 3, "images_per_sec": 5000.0, "serial_img_s": 400.0,
+        "speedup_x": 12.5, "convert_s": 0.4, "read_s": 0.001,
+        "serial_decode_s": 0.07, "cache": {"ram_hits": 90, "misses": 1}}
     doc["shard_round"] = {"not_ported": "ROADMAP A12"}
     return doc
 

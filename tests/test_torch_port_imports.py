@@ -1,8 +1,11 @@
 """The PyTorch port stands alone: every module of ``sparknet_tpu_torch``
-imports with ``jax``, ``google.protobuf`` and ``h5py`` blocked, and
-neither the package nor ``chip_smoke.py`` names ``jax`` or
-``sparknet_tpu`` in an import, nor ``google.protobuf`` or ``h5py`` (the
-card's machine has neither: the wire codec is the port's own).  PIL is
+imports with ``jax``, ``google.protobuf``, ``h5py`` and ``pyspark``
+blocked, and neither the package nor ``chip_smoke.py`` names ``jax`` or
+``sparknet_tpu`` in an import, nor ``google.protobuf``, ``h5py`` or
+``pyspark`` (the card's machine has none of them: the wire codec and the
+HDF5 reader and writer are the port's own, and the Spark bridge runs on
+the minimal RDD protocol).  The data tier (record shards, the convert
+tool, HDF5 snapshots, the Spark bridge) runs with all of them blocked.  PIL is
 imported only inside the CPU paths of ``data/jpeg.py``, and
 ``imagenet_app --tar-dir`` trains with ``jax`` and ``sparknet_tpu``
 blocked."""
@@ -38,6 +41,7 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['sparknet_tpu'] = None\n"
         "sys.modules['google.protobuf'] = None\n"
         "sys.modules['h5py'] = None\n"
+        "sys.modules['pyspark'] = None\n"
         f"for name in {_module_names()!r}:\n"
         "    importlib.import_module(name)\n"
         "leaked = sorted(m for m in sys.modules if m == 'jax' or "
@@ -63,7 +67,7 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return (top in ("jax", "jaxlib", "sparknet_tpu", "h5py")
+    return (top in ("jax", "jaxlib", "sparknet_tpu", "h5py", "pyspark")
             or name == "google.protobuf"
             or name.startswith("google.protobuf."))
 
@@ -86,7 +90,82 @@ def test_forbidden_matches_exact_module_names():
 def test_forbidden_covers_protobuf_and_h5py():
     assert _forbidden("google.protobuf") and _forbidden("h5py")
     assert _forbidden("google.protobuf.text_format")
+    assert _forbidden("pyspark") and _forbidden("pyspark.sql")
     assert not _forbidden("google") and not _forbidden("h5pyx")
+
+
+DATA_TIER_MODULES = ["data/records.py", "data/spark_bridge.py",
+                     "data/hdf5.py", "data/hdf5_format.py",
+                     "data/mnist.py", "data/minibatch.py",
+                     "data/synthgen.py", "data/partition.py",
+                     "data/objectstore.py", "data/pipeline.py",
+                     "tools/convert.py"]
+
+
+def test_data_tier_is_scanned_and_runs_with_jax_and_h5py_blocked(
+        tmp_path):
+    """The data tier's modules are among the files the scans above
+    cover, and with ``jax``, ``sparknet_tpu``, ``h5py`` and ``pyspark``
+    blocked an LMDB converts to record shards through the convert tool, a
+    net trains from them through ``caffe_cli`` and snapshots to HDF5, the
+    HDF5 pair restores, and a fake RDD goes through the Spark bridge's
+    spill."""
+    for rel in DATA_TIER_MODULES:
+        assert PKG / rel in SOURCES
+    net = tmp_path / "net.prototxt"
+    net.write_text(
+        'layer { name: "d" type: "Data" top: "data" top: "label"\n'
+        f'  data_param {{ source: "{tmp_path / "shards"}" batch_size: 4\n'
+        '    backend: RECORDS } }\n'
+        'layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip"\n'
+        '  inner_product_param { num_output: 3 } }\n'
+        'layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip"\n'
+        '  bottom: "label" }\n')
+    solver = tmp_path / "solver.prototxt"
+    solver.write_text(f'net: "{net}"\nbase_lr: 0.1\nmax_iter: 3\n'
+                      f'display: 1\nsnapshot_format: HDF5\n'
+                      f'snapshot_prefix: "{tmp_path / "s"}"\n')
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'sparknet_tpu', 'h5py', 'pyspark'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from sparknet_tpu_torch.data.db import array_to_datum\n"
+        "from sparknet_tpu_torch.data.lmdb_io import write_lmdb\n"
+        "from sparknet_tpu_torch.data.spark_bridge import "
+        "SparkPartitionBridge\n"
+        "from sparknet_tpu_torch.tools import caffe_cli, convert\n"
+        "rng = np.random.default_rng(0)\n"
+        f"write_lmdb({str(tmp_path / 'lmdb')!r}, [(b'%08d' % i, "
+        "array_to_datum(rng.integers(0, 256, (3, 4, 4)).astype(np.uint8), "
+        "i % 3)) for i in range(12)])\n"
+        f"assert convert.main(['--source', {str(tmp_path / 'lmdb')!r}, "
+        f"'--out', {str(tmp_path / 'shards')!r}]) == 0\n"
+        f"assert caffe_cli.main(['train', '--solver', {str(solver)!r}, "
+        "'--device', 'cpu']) == 0\n"
+        f"assert caffe_cli.main(['train', '--solver', {str(solver)!r}, "
+        f"'--snapshot', {str(tmp_path / 's_iter_3.solverstate.h5')!r}, "
+        "'--device', 'cpu']) == 0\n"
+        "class RDD:\n"
+        "    def __init__(self, p): self.p = p\n"
+        "    def getNumPartitions(self): return len(self.p)\n"
+        "    def coalesce(self, n): return RDD([sum(self.p, [])[i::n] "
+        "for i in range(n)])\n"
+        "    def mapPartitionsWithIndex(self, f): return RDD([list(f(i, "
+        "iter(x))) for i, x in enumerate(self.p)])\n"
+        "    def collect(self): return sum(self.p, [])\n"
+        "ds = SparkPartitionBridge(RDD([list(range(10))]), 2)"
+        f".to_local_dataset(spill_dir={str(tmp_path / 'spill')!r})\n"
+        "assert ds.partition_sizes() == [5, 5]\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.', 'h5py', 'pyspark')) for m in sys.modules "
+        "if sys.modules[m])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "Iteration 3, loss" in out.stdout
+    assert "Resuming from" in out.stdout
+    assert (tmp_path / "s_iter_3.caffemodel.h5").exists()
 
 
 def test_tools_are_scanned_and_caffe_cli_runs_with_jax_blocked(tmp_path):

@@ -30,10 +30,11 @@ weights moved through a ``.caffemodel``.
 - Serving: ``ModelHouse.load(name, weights=)`` serves the JAX engine's
   probabilities for the same ``.caffemodel`` (rtol 1e-4, atol 1e-6, the
   serving tests' bound).
-- Refusals: HDF5 weights and snapshots (ROADMAP A6) and
-  ``set_augment`` (A14) raise ``NotImplementedError`` naming their
-  item; a history one blob short, a transposed weight and a file without
-  weights raise.  A V0 net and a shared param load.
+- HDF5 weights and snapshots (``snapshot_format: HDF5``) write and
+  restore bit for bit; across the two packages: tests/test_torch_hdf5.py.
+- Refusals: ``set_augment`` (A14) raises ``NotImplementedError`` naming
+  its item; a history one blob short, a transposed weight and a file
+  without weights raise.  A V0 net and a shared param load.
 """
 
 from __future__ import annotations
@@ -373,19 +374,38 @@ def _small_solver(extra=""):
         RULE_SOLVERS["AdaDelta"] + extra, lenet(2, 2)), device="cpu")
 
 
-def test_hdf5_weights_and_snapshots_are_refused(tmp_path):
-    h5 = tmp_path / "w.caffemodel.h5"
-    h5.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
-    s = _small_solver()
-    with pytest.raises(NotImplementedError, match="A6"):
-        s.load_weights(str(h5))
-    with pytest.raises(NotImplementedError, match="A6"):
-        s.restore_caffe(str(h5))
-    with pytest.raises(NotImplementedError, match="A6"):
-        _small_solver("snapshot_format: HDF5\n")
-    s.sp.snapshot_format = "HDF5"
-    with pytest.raises(NotImplementedError, match="A6"):
-        s.snapshot_caffe(str(tmp_path / "x"))
+def test_hdf5_weights_and_snapshots(tmp_path):
+    """``snapshot_format: HDF5`` writes the ``.caffemodel.h5`` and
+    ``.solverstate.h5`` pair; a fresh Solver restores it (params, history
+    and iter bit for bit, the model found through ``learned_net``), and
+    ``load_weights`` reads the ``.caffemodel.h5``.  The files' layout
+    against h5py and the JAX package: tests/test_torch_hdf5.py."""
+    s = _small_solver("snapshot_format: HDF5\n")
+    s.set_train_data(iter(_lenet_batches(2)))
+    s.step(2)
+    model, state = s.snapshot_caffe(str(tmp_path / "x"))
+    assert model.endswith("x_iter_2.caffemodel.h5")
+    assert state.endswith("x_iter_2.solverstate.h5")
+    back = _small_solver()
+    back.restore_caffe(state)
+    assert back.iter == 2
+    for k in s.params:
+        for a, b in zip(s.params[k], back.params[k]):
+            assert torch.equal(a, b), k
+        for slot in s.state:
+            for a, b in zip(s.state[slot][k], back.state[slot][k]):
+                assert torch.equal(a, b), (slot, k)
+    w = _small_solver()
+    w.load_weights(model)
+    for k in s.params:
+        assert all(torch.equal(a, b) for a, b in zip(s.params[k],
+                                                      w.params[k])), k
+
+
+def _lenet_batches(n):
+    return [{"data": np.random.default_rng(i).normal(
+        size=(2, 1, 28, 28)).astype(np.float32),
+        "label": np.arange(2, dtype=np.float32)} for i in range(n)]
 
 
 def test_debug_info_set_augment_v0_and_shared_params_are_refused():

@@ -12,8 +12,13 @@ the gradients alike.  bf16 at atol 2e-2 (the bf16 bound of
 tests/test_torch_zoo_layers.py) times max(1, max|want|): 2e-2 is under
 one bf16 step of a value above 4, and Bias's and Scale's values reach
 14; the worst reading is Scale's scale gradient, 0.156 off at a
-largest value of 9.56 (0.0163 of the scale, 0.82 of the bound).  Index
-outputs (ArgMax without values, Embed's gather) agree exactly in f32.
+largest value of 9.56 (0.0163 of the scale, 0.82 of the bound).  The
+bounds in the code: f32 forwards and gradients ``RTOL, ATOL = 1e-5,
+1e-6``; bf16 forwards and gradients ``BF16_ATOL * max(1, max|want|)``
+with ``BF16_ATOL = 2e-2`` and no relative term; BatchNorm's stored
+variance against m/(m-1) times the biased one at rtol 1e-5; the
+BatchNorm net's ``y`` at rtol 1e-5, atol 1e-6.  Index outputs (ArgMax
+without values, Embed's gather) agree exactly in f32.
 The registry: the port registers the JAX package's 54 types.
 """
 

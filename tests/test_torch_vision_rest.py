@@ -13,9 +13,14 @@ the bound; Deconvolution's, 0.0625 off at 11.5), the forwards against the JAX la
 bf16 and the gradients against its f32 gradients of the same
 bf16-rounded inputs: the JAX layer's bf16 backward sums a bias gradient
 of 240 terms in bf16, 9% from the f32 sum, which the port's CPU
-accumulation is not.  Im2col's rows are F.unfold's, which
-must be channel-major (C, kh, kw) as ``conv_general_dilated_patches``'s
-are: the f32 forwards agree exactly.
+accumulation is not.  The bounds in the code: ``RTOL, ATOL = 1e-5,
+1e-6`` and ``BF16_ATOL = 2e-2`` (``_close``; gradients under the same
+two as forwards), and STOCHASTIC train mode's input gradient at rtol
+1e-6, atol 1e-7 (a pixel two windows sampled sums two cotangents in
+either order; its forward is exact).  Im2col's rows are F.unfold's,
+which must be channel-major (C, kh, kw) as
+``conv_general_dilated_patches``'s are: the f32 forwards agree
+exactly.
 """
 
 from __future__ import annotations
@@ -319,3 +324,4 @@ layer { name: "p" type: "Pooling" bottom: "r" top: "p"
     got = net.apply({}, x, train=True,
                     generator=torch.Generator().manual_seed(0))["p"]
     assert got.shape == (2, 3, 4, 4)
+
