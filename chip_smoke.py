@@ -98,7 +98,23 @@ round equal bit for bit to the same round from
 hdf5_classification net through ``caffe_cli train`` from the committed
 HDF5 fixtures (read by the port's own reader), against the CPU.  Phase
 5f's bench line carries the records tier (``feed_records``, at
-CaffeNet's 256², batch 256).
+CaffeNet's 256², batch 256).  Phase 5j runs Caffe's tools and pycaffe's
+classifiers: ``tools/train_cifar.py`` on cifar10_quick at its published
+widths and batch from seeded CIFAR-10 binaries (``--data-dir``) and
+``--synthetic --workers 2 --strategy local_sgd --tau 10``, the pool
+backward exactly once a worker iteration and never in a test pass, its
+log through ``parse_log`` (the CSV's losses those printed), 5 iterations
+on the card against the CPU; ``upgrade_net_proto`` and ``draw_net`` on a
+V0 and a V1 prototxt; every committed PNG fixture through ``load_image``
+and an encoded Datum equal to its PIL pixels bit for bit without PIL,
+the Adobe CMYK fixture through nvJPEG within 2 of PIL's (mean under
+0.05), the corrupt ones refused (planted: a flipped IDAT byte, Paeth
+undone as Sub, 16-bit gray scaled, CMYK without the inversion);
+full-width CaffeNet through ``caffe_cli train`` over an ImageData list
+of JPEGs and PNGs; ``classify_cli`` (10-crop and ``--center_only``, JPEG,
+PNG and CMYK inputs) and ``detect_cli`` on CaffeNet's deploy net with
+``.caffemodel`` weights, the LRN inference kernel twice a forward, the
+probabilities against the CPU forward of the same crops.
 Prints the card, timings, a
 ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Every failed check
@@ -116,6 +132,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import json
 import math
 import os
@@ -5975,6 +5992,668 @@ def data_tier(ck, dev, smi: str, d5c: str, data_path: dict) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 5j: Caffe's tools and pycaffe's classifiers: train_cifar on
+# cifar10_quick and its log through parse_log, upgrade_net_proto and
+# draw_net, PNG and CMYK images without PIL, Classifier and Detector on
+# full-width CaffeNet through classify_cli and detect_cli
+# ---------------------------------------------------------------------------
+
+PNG_FIXTURES = os.path.join(os.path.dirname(FIXTURES), "png_fixtures")
+# caffe/examples/cifar10/cifar10_quick_solver.prototxt, max_iter cut from
+# 4,000 to 200 and its test every 500 of 100 batches to every 100 of 10
+# (1,000 test records at the published batch of 100)
+CIFAR_QUICK_SOLVER = """net: "{net}"
+test_iter: {test_iter}
+test_interval: {test_interval}
+base_lr: 0.001
+momentum: 0.9
+weight_decay: 0.004
+lr_policy: "fixed"
+display: 10
+max_iter: {max_iter}
+"""
+CIFAR_ITERS, CIFAR_TEST_INTERVAL, CIFAR_TEST_ITER = 200, 100, 10
+CIFAR_RECORDS = 1000        # each of the 5 train binaries, and the test one
+CIFAR_LOCAL_TAU = 10
+# a V0 net (a padding layer folded into its convolution by the upgrade)
+# and a V1 net (enum layer types, blobs_lr/weight_decay, phase rules)
+V0_NET = """name: "v0"
+input: "data"
+input_dim: 10 input_dim: 3 input_dim: 227 input_dim: 227
+layers { layer { name: "pad1" type: "padding" pad: 2 }
+         bottom: "data" top: "p1" }
+layers { layer { name: "conv1" type: "conv" num_output: 96 kernelsize: 11
+                 stride: 4 weight_filler { type: "gaussian" std: 0.01 } }
+         bottom: "p1" top: "conv1" }
+layers { layer { name: "relu1" type: "relu" } bottom: "conv1"
+         top: "conv1" }
+layers { layer { name: "norm1" type: "lrn" local_size: 5 alpha: 0.0001
+                 beta: 0.75 } bottom: "conv1" top: "norm1" }
+"""
+V1_NET = """name: "v1"
+layers { name: "data" type: DATA top: "data" top: "label"
+  data_param { source: "train_lmdb" batch_size: 256 }
+  transform_param { crop_size: 227 mirror: true } include { phase: TRAIN } }
+layers { name: "data" type: DATA top: "data" top: "label"
+  data_param { source: "val_lmdb" batch_size: 50 } include { phase: TEST } }
+layers { name: "conv1" type: CONVOLUTION bottom: "data" top: "conv1"
+  blobs_lr: 1 blobs_lr: 2 weight_decay: 1 weight_decay: 0
+  convolution_param { num_output: 96 kernel_size: 11 stride: 4 } }
+layers { name: "pool1" type: POOLING bottom: "conv1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layers { name: "fc8" type: INNER_PRODUCT bottom: "pool1" top: "fc8"
+  inner_product_param { num_output: 1000 } }
+layers { name: "loss" type: SOFTMAX_LOSS bottom: "fc8" bottom: "label" }
+layers { name: "accuracy" type: ACCURACY bottom: "fc8" bottom: "label"
+  top: "accuracy" include { phase: TEST } }
+"""
+# the ImageData list: the eight JPEG fixtures and, one entry in
+# PNG_EVERY, the 375x500 PNG fixture (resized by pil_resample)
+PNG_EVERY = 32
+PNG_CMYK_BOUND = (2, 0.05)      # nvJPEG against PIL: max, mean
+CLASSIFY_TOL = 1e-4             # the card's probabilities against the CPU's
+ARGMAX_MARGIN = 1e-3
+CLASSIFY_PNGS = ["photo_375x500.png", "pil_rgb.png", "pil_l.png",
+                 "pil_rgba.png", "t0_d16.png", "t3_d4_adam7.png",
+                 "t6_d16_adam7.png"]
+CLASSIFY_WANT = {"lrn_across_channels": 2}     # a CaffeNet forward
+
+
+def tool_main(main_fn):
+    """A tool's ``main`` as ``run_cli`` takes it: exit code 0 when it
+    returns without raising (``train_cifar.main`` returns its
+    trajectory)."""
+    def run(argv):
+        main_fn(argv)
+        return 0
+    return run
+
+
+def write_cifar_binaries(d: str) -> str:
+    """5 x CIFAR_RECORDS train and CIFAR_RECORDS test records in CIFAR-10's
+    binary format, seeded class-banded 32x32 images."""
+    from sparknet_tpu_torch.apps.cifar_app import synthetic_cifar
+    from sparknet_tpu_torch.data import write_cifar10_binary
+    out = os.path.join(d, "cifar10")
+    os.makedirs(out)
+    for i, name in enumerate([f"data_batch_{k}.bin" for k in range(1, 6)]
+                             + ["test_batch.bin"]):
+        x, y = synthetic_cifar(CIFAR_RECORDS, seed=SEED + 60 + i)
+        write_cifar10_binary(os.path.join(out, name),
+                             np.round(x).astype(np.uint8), y)
+    return out
+
+
+def timed_solvers():
+    """A patch of the port's ``Solver`` that keeps every instance and its
+    seconds inside ``step`` (which ends on the loss's host read), and the
+    list of instances."""
+    from sparknet_tpu_torch import solvers
+    made = []
+
+    class Timed(solvers.Solver):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.step_s = 0.0
+            made.append(self)
+
+        def step(self, n):
+            t0 = time.perf_counter()
+            out = super().step(n)
+            self.step_s += time.perf_counter() - t0
+            return out
+    return mock.patch.object(solvers, "Solver", Timed), made
+
+
+def train_cifar_tool(ck, dev, smi: str, d: str) -> dict:
+    """``tools/train_cifar.py`` on cifar10_quick at its published widths
+    and batch: the Solver path from CIFAR-10 binaries (``--data-dir``),
+    then ``--synthetic --workers 2 --strategy local_sgd --tau 10``, each
+    with the pool backward exactly once a worker iteration and never in a
+    test pass; the Solver run's log through ``parse_log``, its losses
+    those it printed; 5 iterations on the card against the CPU."""
+    from sparknet_tpu_torch.models import cifar10_quick
+    from sparknet_tpu_torch.proto import save_net_prototxt
+    from sparknet_tpu_torch.tools import parse_log, train_cifar
+    data_dir = write_cifar_binaries(d)
+    net = os.path.join(d, "cifar10_quick_train_test.prototxt")
+    save_net_prototxt(cifar10_quick(CIFAR_BATCH, CIFAR_BATCH), net)
+    solver = os.path.join(d, "cifar10_quick_solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(CIFAR_QUICK_SOLVER.format(
+            net=net, test_iter=CIFAR_TEST_ITER,
+            test_interval=CIFAR_TEST_INTERVAL, max_iter=CIFAR_ITERS))
+    run = tool_main(train_cifar.main)
+    idle = {k: 0 for k in ck.launch_counts}
+    report: dict = {"launches": {}}
+    patch, made = timed_solvers()
+    out = os.path.join(d, "solver.json")
+    with patch:
+        ck.reset_launch_counts()
+        log, wall = run_cli(run, ["--solver", solver, "--data-dir", data_dir,
+                                  "--device", str(dev), "--out", out])
+        launches = dict(ck.launch_counts)
+    want = {**idle, "max_pool_bwd": CIFAR_ITERS}
+    with open(out) as f:
+        traj = json.load(f)
+    pts = traj["points"]
+    if launches != want or [p["iter"] for p in pts] != list(range(
+            CIFAR_TEST_INTERVAL, CIFAR_ITERS + 1, CIFAR_TEST_INTERVAL)) \
+            or traj["data"] != "cifar10" or traj["batch"] != CIFAR_BATCH \
+            or not all(math.isfinite(p["loss"]) and 0 <= p["accuracy"] <= 1
+                       for p in pts):
+        print(log[-3000:])
+        fail(f"train_cifar (Solver path): launches {launches}, want {want};"
+             f" trajectory {traj}")
+    report["launches"]["train_cifar_cifar10_quick"] = launches
+    report["solver"] = {
+        "ms_per_iter": made[-1].step_s / CIFAR_ITERS * 1e3, "wall_s": wall,
+        "points": pts}
+    # its log through parse_log: the CSV's losses are those printed
+    log_path = os.path.join(d, "train_cifar.log")
+    with open(log_path, "w") as f:
+        f.write(log)
+    train_csv, _ = parse_log.write_csvs(log_path, d)
+    printed = [(int(m.group(1)), m.group(2)) for m in re.finditer(
+        r"Iteration (\d+), loss = (\S+)", log)]
+    with open(train_csv) as f:
+        rows = list(csv.reader(f))
+    parsed = [(int(r[0]), float(r[3])) for r in rows[1:]]
+    if not printed or parsed != [(i, float(v)) for i, v in printed]:
+        fail(f"parse_log: CSV losses {parsed[:5]} differ from the printed "
+             f"{printed[:5]}")
+    report["parse_log_rows"] = len(parsed)
+    # the synthetic stand-in on two workers, tau 10
+    out2 = os.path.join(d, "local_sgd.json")
+    ck.reset_launch_counts()
+    _, wall2 = run_cli(run, ["--solver", solver, "--synthetic", "--workers",
+                             "2", "--strategy", "local_sgd", "--tau",
+                             str(CIFAR_LOCAL_TAU), "--device", str(dev),
+                             "--out", out2])
+    launches = dict(ck.launch_counts)
+    want = {**idle, "max_pool_bwd": 2 * CIFAR_ITERS}
+    with open(out2) as f:
+        traj2 = json.load(f)
+    if launches != want or traj2["strategy"] != "local_sgd" or not all(
+            math.isfinite(p["loss"]) for p in traj2["points"]):
+        fail(f"train_cifar --workers 2: launches {launches}, want {want}; "
+             f"trajectory {traj2}")
+    report["launches"]["train_cifar_local_sgd2"] = launches
+    report["local_sgd2"] = {"wall_s": wall2, "points": traj2["points"]}
+    # 5 iterations on the card against the CPU, deterministic cuDNN
+    runs = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        patch, made = timed_solvers()
+        ck.reset_launch_counts()
+        with patch, cudnn_deterministic():
+            log5, _ = run_cli(run, [
+                "--solver", solver, "--data-dir", data_dir, "--max-iter",
+                str(CARD_VS_CPU_ITERS), "--test-interval",
+                str(CARD_VS_CPU_ITERS), "--device", str(where),
+                "--out", os.path.join(d, f"five_{key}.json")])
+        runs[key] = (made[-1], log5, dict(ck.launch_counts))
+    card, cpu = runs["card"][0], runs["cpu"][0]
+    err = max_rel({k: [b.cpu() for b in v] for k, v in card.params.items()},
+                  cpu.params)
+    loss = [float(re.search(r"loss=(\S+)", runs[k][1]).group(1))
+            for k in ("card", "cpu")]
+    loss_rel = abs(loss[0] - loss[1]) / abs(loss[1])
+    report["launches"]["train_cifar_card_vs_cpu"] = runs["card"][2]
+    report["card_vs_cpu"] = {"params_max_rel": err, "loss_rel": loss_rel,
+                             "losses": loss}
+    if err > 1e-3 or loss_rel > 1e-4 or \
+            runs["card"][2]["max_pool_bwd"] != CARD_VS_CPU_ITERS:
+        fail(f"train_cifar: {CARD_VS_CPU_ITERS} iterations on the card "
+             f"against the CPU: {report['card_vs_cpu']}, launches "
+             f"{runs['card'][2]}")
+    return report
+
+
+def upgrade_and_draw(d: str) -> dict:
+    """``upgrade_net_proto`` (text and ``--binary``) and ``draw_net`` on a
+    V0 and a V1 prototxt: each output byte for byte what the same tool
+    writes again in this process, the V0 padding folded into its
+    convolution, the V1 enums upgraded to type names."""
+    from sparknet_tpu_torch.proto import load_net_prototxt
+    from sparknet_tpu_torch.tools import draw_net, upgrade_net_proto
+    report = {}
+    for name, text in (("v0", V0_NET), ("v1", V1_NET)):
+        src = os.path.join(d, f"{name}.prototxt")
+        with open(src, "w") as f:
+            f.write(text)
+        outs = {}
+        for tool, args, suffix in (
+                (upgrade_net_proto.main, [], ".prototxt"),
+                (upgrade_net_proto.main, ["--binary"], ".caffemodel"),
+                (draw_net.main, ["--rankdir", "TB"], ".dot")):
+            got = []
+            for i in range(2):
+                out = os.path.join(d, f"{name}_{len(outs)}_{i}{suffix}")
+                run_cli(tool, [src, out] + args)
+                with open(out, "rb") as f:
+                    got.append(f.read())
+            if got[0] != got[1]:
+                fail(f"{name}: {suffix} differs between two runs")
+            outs[suffix] = got[0]
+        upgraded = load_net_prototxt(outs[".prototxt"].decode())
+        types = [lp.type for lp in upgraded.layer]
+        if b"layers {" in outs[".prototxt"] or "Convolution" not in types \
+                or (name == "v0" and "padding" in " ".join(types)) or \
+                not outs[".dot"].startswith(f'digraph "{name}"'.encode()):
+            fail(f"upgrade_net_proto/draw_net on {name}: types {types}")
+        report[name] = {"types": types, "bytes": {k: len(v) for k, v in
+                                                  outs.items()}}
+    return report
+
+
+def _manifest_png() -> dict:
+    with open(os.path.join(PNG_FIXTURES, "manifest.json")) as f:
+        return json.load(f)
+
+
+def _pixels_sha(arr: np.ndarray) -> str:
+    """sha256 of (C, H, W) float32 0-255 pixels as PIL's uint8 (H, W, C),
+    or (H, W) for one channel."""
+    import hashlib
+    u8 = arr.astype(np.uint8)
+    u8 = u8[0] if u8.shape[0] == 1 else u8.transpose(1, 2, 0)
+    return hashlib.sha256(np.ascontiguousarray(u8).tobytes()).hexdigest()
+
+
+def png_and_cmyk_on_card(dev, d: str) -> dict:
+    """Every committed PNG fixture through ``load_image`` and an encoded
+    Datum on the card's host path equals its PIL pixels bit for bit; the
+    CMYK fixture through nvJPEG within PNG_CMYK_BOUND of PIL's; the
+    corrupt ones refused; and the planted faults fail these checks."""
+    from sparknet_tpu_torch.data import db, jpeg, png
+    from sparknet_tpu_torch.data.integrity import DataCorruptionError
+    manifest = _manifest_png()
+    checked = 0
+
+    def png_ok(name: str) -> bool:
+        e = manifest["images"][name]
+        path = os.path.join(PNG_FIXTURES, name)
+        return all(_pixels_sha(db.load_image(path, 0, 0, color, dev))
+                   == e[f"{'rgb' if color else 'l'}_sha256"]
+                   for color in (True, False))
+
+    for name in manifest["images"]:
+        if not name.endswith(".png"):
+            continue
+        if not png_ok(name):
+            fail(f"png: {name} differs from PIL's pixels on the card")
+        with open(os.path.join(PNG_FIXTURES, name), "rb") as f:
+            raw = f.read()
+        img, _ = db.datum_to_array(db.array_to_datum(None, 0, encoded=raw),
+                                   device=dev)
+        if _pixels_sha(img) != manifest["images"][name]["rgb_sha256"]:
+            fail(f"png: {name} as an encoded Datum differs from PIL's")
+        checked += 1
+    for name in manifest["corrupt"]:
+        with open(os.path.join(PNG_FIXTURES, name), "rb") as f:
+            raw = f.read()
+        try:
+            db.datum_to_array(db.array_to_datum(None, 0, encoded=raw),
+                              device=dev)
+        except DataCorruptionError:
+            continue
+        fail(f"png: the corrupt {name} decoded")
+    e = manifest["images"]["cmyk_adobe.jpg"]
+    want = np.load(os.path.join(PNG_FIXTURES, e["rgb_pixels"])).astype(int)
+    cmyk_path = os.path.join(PNG_FIXTURES, "cmyk_adobe.jpg")
+
+    def cmyk_diff():
+        got = db.load_image(cmyk_path, 0, 0, True, dev).transpose(1, 2, 0)
+        diff = np.abs(got.astype(int) - want)
+        return int(diff.max()), float(diff.mean())
+
+    cmyk = cmyk_diff()
+    with open(cmyk_path, "rb") as f:
+        datum, _ = db.datum_to_array(db.array_to_datum(
+            None, 0, encoded=f.read()), device=dev)
+    datum_diff = np.abs(datum.transpose(1, 2, 0).astype(int) - want)
+    if cmyk[0] > PNG_CMYK_BOUND[0] or cmyk[1] >= PNG_CMYK_BOUND[1] or \
+            datum_diff.max() > PNG_CMYK_BOUND[0]:
+        fail(f"cmyk: nvJPEG's pixels {cmyk} from PIL's (bound "
+             f"{PNG_CMYK_BOUND}); as a Datum max {datum_diff.max()}")
+    # planted faults
+    planted = {}
+    photo = os.path.join(PNG_FIXTURES, "photo_375x500.png")
+    with open(photo, "rb") as f:
+        raw = f.read()
+    at = raw.index(b"IDAT") + 4 + 5000
+    try:
+        png.decode_png(raw[:at] + bytes([raw[at] ^ 0x5A]) + raw[at + 1:])
+        fail("planted: a PNG with a flipped IDAT byte decoded")
+    except png.PNGError as err:
+        planted["flipped_idat_byte"] = str(err)
+    unfilter = png.unfilter
+
+    def paeth_as_sub(raw_rows, height, row_bytes, bpp):
+        rows = raw_rows.reshape(height, row_bytes + 1).copy()
+        rows[rows[:, 0] == 4, 0] = 1
+        return unfilter(rows.reshape(-1), height, row_bytes, bpp)
+
+    with mock.patch.object(png, "unfilter", paeth_as_sub):
+        if png_ok("photo_375x500.png"):
+            fail("planted: Paeth undone as Sub passes the pixel check")
+    planted["paeth_as_sub"] = "refused"
+    convert = png.PNGImage.convert
+
+    def scaled_16bit(self, mode):
+        if self.mode == "I;16":
+            g = (self.pixels() >> 8).astype(np.uint8)
+            return g if mode == "L" else np.repeat(g[..., None], 3, 2)
+        return convert(self, mode)
+
+    with mock.patch.object(png.PNGImage, "convert", scaled_16bit):
+        if png_ok("t0_d16.png") or png_ok("pil_i16.png"):
+            fail("planted: 16-bit gray scaled, not clipped, passes")
+    planted["sixteen_bit_scaled"] = "refused"
+    cmyk_to_rgb = jpeg.cmyk_to_rgb
+    with mock.patch.object(jpeg, "cmyk_to_rgb",
+                           lambda c, inverted: cmyk_to_rgb(c, False)):
+        no_inversion = cmyk_diff()
+    if no_inversion[0] <= PNG_CMYK_BOUND[0] and \
+            no_inversion[1] < PNG_CMYK_BOUND[1]:
+        fail(f"planted: CMYK without the Adobe inversion passes: "
+             f"{no_inversion}")
+    planted["cmyk_without_inversion"] = no_inversion
+    return {"png_fixtures": checked, "cmyk_vs_pil": cmyk,
+            "cmyk_datum_max": int(datum_diff.max()), "planted": planted}
+
+
+def image_data_with_pngs(ck, dev, d: str) -> dict:
+    """``caffe_cli train`` for IMAGE_SOLVER_ITERS iterations of full-width
+    CaffeNet over an ImageData list of JPEG fixtures with one entry in
+    PNG_EVERY the 375x500 PNG fixture (new size 256: the PNGs decoded by
+    ``png.py`` and resized by ``pil_resample``): exact launches, PNGs
+    decoded, finite losses."""
+    from sparknet_tpu_torch.data import jpeg, pil_resample, png
+    from sparknet_tpu_torch.tools import caffe_cli
+    import threading
+    img = os.path.join(d, "img")
+    os.makedirs(img)
+    jpegs = [f"imagenet_{i}.jpg" for i in range(8)]
+    for name in jpegs:
+        with open(os.path.join(img, name), "wb") as f:
+            f.write(fixture(name))
+    with open(os.path.join(PNG_FIXTURES, "photo_375x500.png"), "rb") as f:
+        photo = f.read()
+    with open(os.path.join(img, "photo.png"), "wb") as f:
+        f.write(photo)
+    lines = [("photo.png" if i % PNG_EVERY == PNG_EVERY - 1
+              else jpegs[i % 8]) + f" {i % 1000}"
+             for i in range(SOLVER_TRAIN_BATCH)]
+    listfile = os.path.join(d, "mixed.txt")
+    with open(listfile, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    model = os.path.join(d, "image_data.prototxt")
+    with open(model, "w") as f:
+        f.write(image_train_val("ImageData", listfile, listfile, None,
+                                img + "/"))
+    solver = os.path.join(d, "image_data_solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(f'net: "{model}"\n' + IMAGE_SOLVER)
+    counts = {"png": 0, "resize": 0, "jpeg": 0}
+    lock = threading.Lock()
+    decode_png, resize, rgb_cuda = (png.decode_png, pil_resample.resize,
+                                    jpeg._rgb_cuda)
+
+    def counted(fn, key, ok=lambda out: True):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            with lock:
+                counts[key] += ok(out)
+            return out
+        return run
+
+    torch.cuda.empty_cache()
+    ck.reset_launch_counts()
+    with mock.patch.object(png, "decode_png", counted(decode_png, "png")), \
+            mock.patch.object(pil_resample, "resize",
+                              counted(resize, "resize")), \
+            mock.patch.object(jpeg, "_rgb_cuda", counted(
+                rgb_cuda, "jpeg", lambda out: out is not None)):
+        log, wall = run_cli(caffe_cli.main, ["train", "--solver", solver])
+    launches = dict(ck.launch_counts)
+    want = {"lrn_across_channels_fwd": 2 * IMAGE_SOLVER_ITERS,
+            "lrn_across_channels_bwd": 2 * IMAGE_SOLVER_ITERS,
+            "max_pool_bwd": 3 * IMAGE_SOLVER_ITERS,
+            "lrn_across_channels": 2 * IMAGE_SOLVER_TESTS * SOLVER_TEST_ITER,
+            "ycc_to_rgb": counts["jpeg"], "resize_bilinear": counts["jpeg"]}
+    losses = [float(ln.rsplit("= ", 1)[1]) for ln in log.splitlines()
+              if "] Iteration " in ln and ", loss = " in ln]
+    images = IMAGE_SOLVER_ITERS * SOLVER_TRAIN_BATCH
+    if launches != want or counts["png"] < images // PNG_EVERY or \
+            counts["resize"] != counts["png"] or \
+            len(losses) < IMAGE_SOLVER_ITERS or \
+            not all(math.isfinite(v) for v in losses):
+        print(log[-3000:])
+        fail(f"caffe_cli train over JPEGs and PNGs: launches {launches}, "
+             f"want {want}; decodes {counts}; losses {losses}")
+    return {"launches": launches, "wall_s": wall, "decodes": counts,
+            "losses": losses}
+
+
+def caffenet_deploy(d: str) -> tuple[str, str]:
+    """Full-width CaffeNet's deploy net (input 10 x 3 x 227 x 227, Softmax
+    ``prob``) and a ``.caffemodel`` of seeded weights with fc8 scaled so
+    that the logits' std over the JPEG fixtures' center crops is 3 (at
+    its filler the softmax is flat to 1e-5 and no argmax is decided)."""
+    from sparknet_tpu_torch.classify import preprocess_image
+    from sparknet_tpu_torch.graph.net import Net
+    from sparknet_tpu_torch.models import caffenet
+    from sparknet_tpu_torch.parallel.serving import deploy_from
+    from sparknet_tpu_torch.proto import (NetState, Phase, save_caffemodel,
+                                          save_net_prototxt)
+    from sparknet_tpu_torch.pycaffe_io import load_image
+    deploy, _ = deploy_from(caffenet(), 10)
+    net_path = os.path.join(d, "caffenet_deploy.prototxt")
+    save_net_prototxt(deploy, net_path)
+    net = Net(deploy, NetState(Phase.TEST))
+    params = net.init(torch.Generator().manual_seed(SEED + 70), device="cpu")
+    crop = net.input_blobs["data"][-1]
+    crops = np.stack([preprocess_image(
+        load_image(os.path.join(FIXTURES, f"imagenet_{i}.jpg"),
+                   device="cpu"), (crop, crop),
+        channel_swap=(2, 1, 0), raw_scale=255.0) for i in range(8)])
+    with torch.inference_mode():
+        logits = net.apply(params, {"data": torch.from_numpy(crops)},
+                           blobs=["fc8"])["fc8"]
+    params["fc8"] = [b * (3.0 / float(logits.std())) for b in params["fc8"]]
+    weights = os.path.join(d, "caffenet.caffemodel")
+    save_caffemodel(weights, params)
+    return net_path, weights
+
+
+def classify_on_card(ck, dev, smi: str, d: str) -> dict:
+    """``classify_cli`` on CaffeNet's deploy net with ``.caffemodel``
+    weights, 10-crop and ``--center_only``, over the eight JPEG fixtures
+    (``--ext jpg``), over PNG fixtures (``--ext png``) and the CMYK JPEG,
+    and ``detect_cli`` on a windows CSV over the JPEG fixtures: every
+    forward launches the LRN inference kernel twice, and its
+    probabilities are within CLASSIFY_TOL of the CPU forward of the same
+    crops (TF32 off), the argmax equal wherever the top-2 margin exceeds
+    ARGMAX_MARGIN."""
+    from sparknet_tpu_torch import classify
+    from sparknet_tpu_torch.graph.net import Net
+    from sparknet_tpu_torch.proto import NetState, Phase, load_net_prototxt
+    from sparknet_tpu_torch.solvers.solver import load_weights_into
+    from sparknet_tpu_torch.tools import classify_cli, detect_cli
+    os.makedirs(d)
+    model, weights = caffenet_deploy(d)
+    cpu_net = Net(load_net_prototxt(model), NetState(Phase.TEST))
+    cpu_params = load_weights_into(
+        cpu_net, cpu_net.init(device="cpu"), weights)
+    forwards: list = []
+    fwd = classify.Classifier._fwd
+
+    def recorded(self, crops):
+        before = dict(ck.launch_counts)
+        out = fwd(self, crops)
+        forwards.append((np.array(crops, np.float32), out, {
+            k: v - before[k] for k, v in ck.launch_counts.items() if v
+            - before[k]}))
+        return out
+
+    predict = classify.Classifier.predict
+    predict_s = []
+
+    def timed_predict(self, inputs, oversample_crops=True):
+        t0 = time.perf_counter()
+        out = predict(self, inputs, oversample_crops)
+        predict_s.append((len(inputs), time.perf_counter() - t0))
+        return out
+
+    jpg_dir = os.path.join(d, "jpg")
+    png_dir = os.path.join(d, "png")
+    os.makedirs(jpg_dir)
+    os.makedirs(png_dir)
+    for i in range(8):
+        with open(os.path.join(jpg_dir, f"imagenet_{i}.jpg"), "wb") as f:
+            f.write(fixture(f"imagenet_{i}.jpg"))
+    for name in CLASSIFY_PNGS:
+        with open(os.path.join(PNG_FIXTURES, name), "rb") as f, \
+                open(os.path.join(png_dir, name), "wb") as g:
+            g.write(f.read())
+    base = ["--model_def", model, "--pretrained_model", weights,
+            "--mean_file", os.path.join(d, "mean.npy"), "--device", str(dev)]
+    np.save(os.path.join(d, "mean.npy"), np.array([104.0, 117.0, 123.0]))
+    runs = {"classify_cli_10crop_jpeg": [jpg_dir, "--ext", "jpg"],
+            "classify_cli_center_jpeg": [jpg_dir, "--ext", "jpg",
+                                         "--center_only"],
+            "classify_cli_center_png": [png_dir, "--ext", "png",
+                                        "--center_only"],
+            "classify_cli_cmyk": [os.path.join(PNG_FIXTURES,
+                                               "cmyk_adobe.jpg")]}
+    report: dict = {"launches": {}, "runs": {}}
+    with mock.patch.object(classify.Classifier, "_fwd", recorded), \
+            mock.patch.object(classify.Classifier, "predict", timed_predict):
+        for name, args in runs.items():
+            forwards.clear()
+            ck.reset_launch_counts()
+            out = os.path.join(d, f"{name}.npy")
+            _, wall = run_cli(classify_cli.main, [args[0], out] + base
+                              + args[1:])
+            report["launches"][name] = dict(ck.launch_counts)
+            probs = np.load(out)
+            report["runs"][name] = {"wall_s": wall, "inputs": len(probs),
+                                    **check_forwards(forwards, cpu_net,
+                                                     cpu_params, name)}
+        n, secs = predict_s[0]
+        report["classify_10crop_img_per_s"] = n / secs
+        # detect_cli: two windows a JPEG fixture, context padding 16
+        wins = os.path.join(d, "windows.csv")
+        rows = ["filename,ymin,xmin,ymax,xmax"]
+        for i in range(8):
+            h, w = (_manifest_jpeg()[f"imagenet_{i}"][k]
+                    for k in ("height", "width"))
+            path = os.path.join(jpg_dir, f"imagenet_{i}.jpg")
+            rows += [f"{path},0,0,{h - 1},{w - 1}",
+                     f"{path},{h // 4},{w // 4},{3 * h // 4},{3 * w // 4}"]
+        with open(wins, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        forwards.clear()
+        ck.reset_launch_counts()
+        out = os.path.join(d, "detections.csv")
+        _, wall = run_cli(detect_cli.main, [wins, out] + base)
+        report["launches"]["detect_cli"] = dict(ck.launch_counts)
+        with open(out) as f:
+            dets = list(csv.reader(f))
+        if len(dets) != 17 or len(dets[0]) != 5 + 1000:
+            fail(f"detect_cli: {len(dets)} rows of {len(dets[0])}")
+        report["runs"]["detect_cli"] = {
+            "wall_s": wall, "windows": 16,
+            **check_forwards(forwards, cpu_net, cpu_params, "detect_cli")}
+    print(f"classify [{smi}] " + json.dumps(report), flush=True)
+    return report
+
+
+def _manifest_jpeg() -> dict:
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        return json.load(f)["imagenet"]
+
+
+def check_forwards(forwards: list, cpu_net, cpu_params, name: str) -> dict:
+    """Each recorded forward: 2 LRN inference launches; the card's output
+    against the CPU forward of the same crops."""
+    if not forwards:
+        fail(f"{name}: no forward ran")
+    worst, decided, margins = 0.0, 0, []
+    for crops, card, launched in forwards:
+        if launched != CLASSIFY_WANT:
+            fail(f"{name}: a forward launched {launched}, want "
+                 f"{CLASSIFY_WANT}")
+        with torch.inference_mode():
+            cpu = cpu_net.apply(cpu_params, {"data": torch.from_numpy(
+                crops)})[cpu_net.output_blobs[-1]].numpy()
+        card, cpu = card.reshape(len(card), -1), cpu.reshape(len(cpu), -1)
+        worst = max(worst, float(np.abs(card - cpu).max()))
+        top2 = np.sort(cpu, 1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > ARGMAX_MARGIN
+        margins.append(float(np.median(top2[:, 1] - top2[:, 0])))
+        decided += int(sure.sum())
+        if (card.argmax(1) != cpu.argmax(1))[sure].any():
+            fail(f"{name}: the card's argmax differs from the CPU's where "
+                 f"the margin exceeds {ARGMAX_MARGIN}")
+    if worst > CLASSIFY_TOL:
+        fail(f"{name}: probabilities {worst:.3e} from the CPU's (bound "
+             f"{CLASSIFY_TOL})")
+    return {"forwards": len(forwards), "max_abs_vs_cpu": worst,
+            "argmax_decided": decided, "median_top2_margin":
+            float(np.median(margins))}
+
+
+def host_image_times() -> dict:
+    """Host ms of a 375x500 PNG's decode and of its PIL-style resize to
+    256x256 (median of 5 each)."""
+    from sparknet_tpu_torch.data import pil_resample, png
+    with open(os.path.join(PNG_FIXTURES, "photo_375x500.png"), "rb") as f:
+        raw = f.read()
+    rgb = png.decode_png(raw).convert("RGB")
+    out = {}
+    for key, fn in (("png_decode_ms", lambda: png.decode_png(raw)
+                     .convert("RGB")),
+                    ("resample_ms", lambda: pil_resample.resize(
+                        rgb, (TRAIN_RESIZE, TRAIN_RESIZE)))):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[key] = float(np.median(times))
+    return out
+
+
+def tools_and_classifiers(ck, dev, smi: str) -> dict:
+    """Phase 5j."""
+    import tempfile
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tools_smoke_") as d:
+        cifar = train_cifar_tool(ck, dev, smi, os.path.join(d, "cifar"))
+        tools = upgrade_and_draw(d)
+        images = png_and_cmyk_on_card(dev, d)
+        mixed = image_data_with_pngs(ck, dev, os.path.join(d, "mixed"))
+        classified = classify_on_card(ck, dev, smi, os.path.join(d, "cls"))
+    times = host_image_times()
+    report = {"train_cifar": cifar, "tools": tools, "images": images,
+              "image_data_png": mixed, "classify": classified,
+              "host_images": times,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"tools_and_classifiers [{smi}] " + json.dumps(report, default=str),
+          flush=True)
+    print(f"tools_and_classifiers times [{smi}] " + json.dumps({
+        "train_cifar_ms_per_iter": cifar["solver"]["ms_per_iter"],
+        "png_decode_ms": times["png_decode_ms"],
+        "resample_ms": times["resample_ms"],
+        "classify_10crop_img_per_s":
+            classified["classify_10crop_img_per_s"],
+        "phase_s": report["phase_s"]}), flush=True)
+    return report
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
                  rows: list[dict], main: list[dict]) -> dict:
     """One kernel's entry: launches per main path, the worst error over
@@ -6180,6 +6859,14 @@ def main() -> int:
     # workers (sync, local_sgd), BatchNorm's statistics carried
     bn = batchnorm_slice(ck, dev, smi)
 
+    # phase 5j: Caffe's tools and pycaffe's classifiers: train_cifar on
+    # cifar10_quick (the pool backward once a worker iteration) and its log
+    # through parse_log, upgrade_net_proto and draw_net, PNG and CMYK
+    # images without PIL (and CaffeNet over an ImageData list with PNGs),
+    # classify_cli and detect_cli on full-width CaffeNet (LRN inference
+    # twice a forward), each against the CPU
+    tools = tools_and_classifiers(ck, dev, smi)
+
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
     # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
@@ -6241,7 +6928,14 @@ def main() -> int:
         **{f"round_{name}_local_sgd": n
            for name, n in tier["bridge"]["launches"].items()},
         "caffe_cli_train_hdf5_classification":
-            tier["hdf5_classification"]["launches"]}
+            tier["hdf5_classification"]["launches"],
+        # phase 5j: train_cifar's Solver run, its two-worker run and its
+        # card-vs-CPU iterations, CaffeNet over JPEGs and PNGs through
+        # caffe_cli, each classify_cli run and detect_cli
+        **tools["train_cifar"]["launches"],
+        "caffe_cli_train_image_data_png":
+            tools["image_data_png"]["launches"],
+        **tools["classify"]["launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}

@@ -19,10 +19,15 @@ JPEGs (encoded Datums, ``ImageData`` lists, ``WindowData`` images) are
 decoded by ``data/jpeg.py`` on the feed's ``device``: nvJPEG and the
 resize kernel on the card by default, PIL and the plain resize on the
 CPU when asked; the pixels come back to the host as float32, the JAX
-package's arrays.  The JAX package's PIL paths (a natural-size encoded
-Datum, an image libjpeg refuses, a file that is no JPEG) run on the CPU
-only; on the card an image that is no JPEG, or one libjpeg refuses,
-raises naming its ROADMAP A15 item.
+package's arrays.  Where the JAX package takes PIL instead (a
+natural-size encoded Datum, an image libjpeg refuses, a file that is no
+JPEG), the port gives PIL's pixels without PIL for what it decodes: a
+PNG through ``data/png.py`` on either device, a CMYK JPEG through
+nvJPEG and ``jpeg.cmyk_to_rgb`` on the card, each resized as PIL's
+BILINEAR does by ``data/pil_resample.py``.  The CPU keeps PIL for the
+JPEGs and the formats the port does not decode; on the card those
+formats (:data:`FORMATS_LEFT`) and a YCCK JPEG raise naming their
+ROADMAP A15 item.
 
 The JAX package parses a clean batch of raw Datums in one call of its
 native library when that library is built, and falls back to numpy
@@ -52,11 +57,13 @@ from ..proto.caffe_pb import Phase
 from ..proto.wireformat import WireError, decode
 from ..utils.device import resolve_device
 from ..utils.retry import io_retry
-from . import jpeg
+from . import jpeg, pil_resample, png
 from .integrity import DataCorruptionError, Quarantine, QuarantinePolicy
 
 REFUSED_JPEG_ITEM = "ROADMAP A15, images libjpeg refuses"
 NOT_JPEG_ITEM = "ROADMAP A15, non-JPEG images on the card"
+# the image formats Caffe's OpenCV reads that the card does not decode yet
+FORMATS_LEFT = "GIF, BMP, TIFF"
 
 
 # ---------------------------------------------------------------------------
@@ -133,32 +140,53 @@ def datum_to_array(datum_bytes: bytes, *, key: Any = None,
 
 
 def _decode_natural(raw: bytes, device, key, source) -> np.ndarray:
-    """An encoded Datum's image at its own size, RGB: PIL on the CPU, as
-    the JAX package decodes it (``sparknet_tpu/data/db.py:78-88``); nvJPEG
-    on the card."""
-    if resolve_device(device).type == "cpu":
-        try:
+    """An encoded Datum's image at its own size, RGB, as the JAX package's
+    PIL decodes it (``sparknet_tpu/data/db.py:78-88``): a PNG through
+    ``png.py`` on either device; on the CPU anything else through PIL; on
+    the card a JPEG through nvJPEG, a CMYK one through ``decode_cmyk``."""
+    what = f"encoded Datum [source={source!r}, key={key!r}]"
+    try:
+        if png.is_png(raw):
+            return _hwc(png.decode_png(raw).convert("RGB"))
+        if resolve_device(device).type == "cpu":
             return jpeg.pil_image(raw, "RGB")
-        except jpeg.UndecodableImage as e:
-            raise DataCorruptionError(
-                f"undecodable encoded Datum: {e}",
-                source=source, key=key) from e
+    except (png.PNGError, jpeg.UndecodableImage) as e:
+        raise DataCorruptionError(f"undecodable encoded Datum: {e}",
+                                  source=source, key=key) from e
     img = jpeg.decode_jpeg(raw, device)
-    if img is None:
-        if _other_format(raw):
-            raise NotImplementedError(
-                f"encoded Datum [source={source!r}, key={key!r}] is no "
-                f"JPEG ({NOT_JPEG_ITEM})")
+    if img is not None:
+        return img.cpu().numpy()
+    rgb = _other_on_card(raw, device, what)
+    if rgb is None:
         raise DataCorruptionError("undecodable encoded Datum",
                                   source=source, key=key)
-    return img.cpu().numpy()
+    return _hwc(rgb)
+
+
+def _hwc(arr: np.ndarray) -> np.ndarray:
+    """(H, W, 3) or (H, W) uint8 -> (C, H, W) float32."""
+    arr = np.asarray(arr, np.float32)
+    return arr[None] if arr.ndim == 2 else np.ascontiguousarray(
+        arr.transpose(2, 0, 1))
 
 
 def _other_format(raw: bytes) -> bool:
-    """True for the image formats Caffe's OpenCV reads besides JPEG:
-    PNG, GIF, BMP, TIFF."""
-    return raw.startswith((b"\x89PNG", b"GIF8", b"BM", b"II*\x00",
-                           b"MM\x00*"))
+    """True for the image formats Caffe's OpenCV reads besides JPEG and
+    PNG, which the card does not decode: GIF, BMP, TIFF."""
+    return raw.startswith((b"GIF8", b"BM", b"II*\x00", b"MM\x00*"))
+
+
+def _other_on_card(raw: bytes, device, what: str) -> np.ndarray | None:
+    """On the card, the pixels PIL's ``convert("RGB")`` gives of an image
+    nvJPEG's three-component path dropped: a CMYK JPEG's, as (H, W, 3)
+    uint8 on the host; None for bytes that are no image.  GIF, BMP and
+    TIFF raise naming :data:`NOT_JPEG_ITEM`."""
+    if _other_format(raw):
+        raise NotImplementedError(
+            f"{what} is no JPEG or PNG ({NOT_JPEG_ITEM}: {FORMATS_LEFT} are "
+            f"left)")
+    rgb = jpeg.decode_cmyk(raw, device)
+    return None if rgb is None else rgb.cpu().numpy()
 
 
 def datum_shape(datum_bytes: bytes, *,
@@ -183,9 +211,9 @@ def datum_shape(datum_bytes: bytes, *,
 
 def _image_size(raw: bytes, what) -> tuple[int, int]:
     """(height, width) of an encoded image: a JPEG's from its frame
-    header; any other's decoded by PIL on the CPU, as the JAX package
-    takes it."""
-    size = jpeg.jpeg_size(raw)
+    header, a PNG's from its IHDR; any other's decoded by PIL, as the JAX
+    package takes it (PIL is imported only then)."""
+    size = jpeg.jpeg_size(raw) or png.png_size(raw)
     if size is None:
         try:
             size = jpeg.pil_image(raw, "RGB").shape[1:]
@@ -721,25 +749,31 @@ def load_image(path: str, new_h: int, new_w: int, color: bool,
     A JPEG with a new size goes through the JPEG decoder and its
     force-resize (ScaleAndConvert semantics; gray: the mean of the three
     resized channels); at its own size, RGB or, gray, integer ITU-R 601
-    luma.  On the CPU everything else takes the JAX package's PIL path
-    (PIL's own BILINEAR resize); on the card a file that is no JPEG, or
-    one libjpeg refuses, raises naming its ROADMAP A15 item.  The read
-    retries transient I/O errors (SPARKNET_IO_RETRIES/_BACKOFF)."""
+    luma.  Everything else takes the JAX package's PIL path, PIL's
+    ``convert`` and BILINEAR resize (``sparknet_tpu/data/db.py:680-693``):
+    a PNG through ``png.py`` and ``pil_resample.py`` on either device;
+    on the CPU any other image through PIL; on the card a CMYK JPEG
+    through ``decode_cmyk``, while GIF, BMP, TIFF and a JPEG nvJPEG
+    refuses raise naming their ROADMAP A15 item.  The read retries
+    transient I/O errors (SPARKNET_IO_RETRIES/_BACKOFF)."""
 
     def read() -> bytes:
         with open(path, "rb") as f:
             return f.read()
 
+    device = resolve_device(device)
     raw = io_retry(read, describe=f"read {path}")
     sized = bool(new_h and new_w)
+    mode = "RGB" if color else "L"
     if raw[:2] == jpeg.SOI and sized:
         img = jpeg.decode_jpeg_resize(raw, new_h, new_w, device,
                                       gray=not color)
         if img is not None:
             return img.cpu().numpy()
-    if resolve_device(device).type == "cpu":
-        return jpeg.pil_image(raw, "RGB" if color else "L",
-                              (new_h, new_w) if sized else None)
+    if png.is_png(raw):
+        return _pil_sized(png.decode_png(raw).convert(mode), new_h, new_w)
+    if device.type == "cpu":
+        return jpeg.pil_image(raw, mode, (new_h, new_w) if sized else None)
     if raw[:2] == jpeg.SOI and not sized:
         if color:
             img = jpeg.decode_jpeg(raw, device)
@@ -748,11 +782,20 @@ def load_image(path: str, new_h: int, new_w: int, color: bool,
             img = None if rgb is None else jpeg.luma601(rgb)
         if img is not None:
             return img.cpu().numpy()
-    if raw[:2] != jpeg.SOI:
-        raise NotImplementedError(f"{path} is no JPEG ({NOT_JPEG_ITEM})")
-    raise NotImplementedError(
-        f"{path}: a JPEG the native decoder refuses, which the JAX package "
-        f"reads with PIL ({REFUSED_JPEG_ITEM})")
+    rgb = _other_on_card(raw, device, path)
+    if rgb is None:
+        raise NotImplementedError(
+            f"{path}: a JPEG the native decoder refuses, which the JAX "
+            f"package reads with PIL ({REFUSED_JPEG_ITEM})")
+    return _pil_sized(rgb if color else png.luma601(rgb), new_h, new_w)
+
+
+def _pil_sized(pixels: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """PIL's pixels (uint8, (H, W, 3) or (H, W)), resized to new_h x new_w
+    as PIL's BILINEAR does when both are set -> (C, H, W) float32."""
+    if new_h and new_w:
+        pixels = pil_resample.resize(pixels, (new_h, new_w))
+    return _hwc(pixels)
 
 
 def _warp(window: np.ndarray, out_h: int, out_w: int) -> np.ndarray:

@@ -30,7 +30,11 @@ caller drops as the JAX package does.
 
 Both drop what the native pipeline refuses: bytes that do not start with
 a JPEG's SOI marker, JPEGs with four components (CMYK, YCCK: libjpeg's
-``JCS_RGB`` output refuses them), and JPEGs that fail to parse.  A JPEG
+``JCS_RGB`` output refuses them), and JPEGs that fail to parse.  Where
+the JAX package reads a four-component JPEG with PIL instead (an image
+file, a natural-size encoded Datum), ``decode_cmyk`` takes a CMYK one:
+nvJPEG's components as the file stores them, turned into PIL's RGB by
+the plain ``cmyk_to_rgb`` on the card; the CPU keeps PIL for them.  A JPEG
 whose scan is cut short decodes, as libjpeg does (a warning, and the rest
 of the image filled from zeroed coefficients): on the CPU, an EOI marker
 appended after the data makes PIL's libjpeg stop where the native
@@ -52,6 +56,7 @@ from ..ops.cuda_kernels import resize_bilinear_reference
 from ..utils.device import resolve_device
 
 __all__ = ["decode_jpeg", "decode_jpeg_resize", "decode_rgb", "decode_planes",
+           "decode_cmyk", "cmyk_to_rgb", "adobe_transform",
            "resize_bilinear_reference", "jpeg_size", "luma601", "pil_image",
            "UndecodableImage"]
 
@@ -120,6 +125,83 @@ def jpeg_size(data: bytes) -> tuple[int, int] | None:
             return None
         i += 2 + length
     return None
+
+
+def adobe_transform(data: bytes) -> int | None:
+    """The colour transform of a JPEG's Adobe APP14 marker (0: none, so
+    CMYK for four components; 1: YCbCr; 2: YCCK), or None without one."""
+    i = 2
+    while i + 4 <= len(data) and data[i] == 0xFF:
+        marker = data[i + 1]
+        if marker in (0xD8, 0x01, *range(0xD0, 0xD8)) or marker == 0xFF:
+            i += 1 if marker == 0xFF else 2
+            continue
+        length = int.from_bytes(data[i + 2:i + 4], "big")
+        if marker == 0xEE and data[i + 4:i + 9] == b"Adobe" and length >= 12:
+            return data[i + 15]
+        if marker == 0xDA:          # the scan: no marker after it counts
+            return None
+        i += 2 + length
+    return None
+
+
+def cmyk_to_rgb(cmyk: torch.Tensor, inverted: bool) -> torch.Tensor:
+    """(4, H, W) uint8 components as a CMYK JPEG stores them -> (H, W, 3)
+    uint8 RGB, PIL's ``convert("RGB")`` of the image PIL opens, on the
+    tensor's device.  ``inverted``: the components are stored inverted,
+    as Adobe's convention has them and as PIL reads every CMYK JPEG
+    (rawmode ``CMYK;I``, ``PIL/JpegImagePlugin.py``).  Then, as
+    Pillow's ``cmyk2rgb``: with nk = 255 - K, each of R, G, B is
+    nk - C·nk/255 rounded as ``MULDIV255`` does: t = C·nk + 128,
+    ((t >> 8) + t) >> 8."""
+    c = cmyk.to(torch.int32)
+    if inverted:
+        c = 255 - c
+    nk = 255 - c[3]
+    t = c[:3] * nk + 128
+    rgb = (nk - (((t >> 8) + t) >> 8)).clamp_(0, 255)
+    return rgb.to(torch.uint8).permute(1, 2, 0).contiguous()
+
+
+def decode_cmyk(data: bytes, device: str | torch.device = "cuda",
+                ) -> torch.Tensor | None:
+    """A CMYK JPEG's bytes -> (H, W, 3) uint8 RGB on the CUDA ``device``,
+    PIL's ``convert("RGB")`` pixels within the IDCTs' rounding; None for
+    bytes that are no decodable four-component JPEG.  A YCCK JPEG (Adobe
+    transform 2), or one whose components are subsampled, raises naming
+    ROADMAP A15.  (The CPU paths read CMYK JPEGs with PIL, as the JAX
+    package does.)"""
+    data = bytes(data)
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_cmyk runs on a CUDA device, not {dev}")
+    if data[:2] != SOI:
+        return None
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    info = (ctypes.c_int * 6)()
+    rc = ck._function("jpeg", "sparknet_jpeg_info")(data, len(data), info)
+    if rc != _FOUR_COMPONENTS:
+        if rc in (0, _UNDECODABLE):
+            return None
+        raise _nvjpeg_error("nvjpegGetImageInfo", rc)
+    h, w, _, _, ch, cw = tuple(info)
+    transform = adobe_transform(data)
+    if transform == 2 or (ch, cw) != (h, w):
+        raise NotImplementedError(
+            f"a {'YCCK' if transform == 2 else 'subsampled CMYK'} JPEG "
+            f"(ROADMAP A15, images libjpeg refuses)")
+    s = _thread_stream(dev)
+    with torch.cuda.device(dev), torch.cuda.stream(s):
+        planes = torch.empty((4, h, w), dtype=torch.uint8, device=dev)
+        rc = ck._function("jpeg", "sparknet_jpeg_decode_unchanged")(
+            data, len(data), *(planes[i].data_ptr() for i in range(4)), w,
+            s.cuda_stream)
+        if not _checked(rc):
+            return None
+        rgb = cmyk_to_rgb(planes, inverted=True)
+        s.synchronize()
+    return rgb
 
 
 def decode_rgb(data: bytes, device: str | torch.device = "cuda",

@@ -264,6 +264,23 @@ extern "C" int sparknet_jpeg_decode_planes(const void* data, long long len,
   return decode(data, len, NVJPEG_OUTPUT_YUV, &img, stream);
 }
 
+// Decode a four-component JPEG (CMYK or YCCK) into its components as the
+// file stores them (NVJPEG_OUTPUT_UNCHANGED), each a full-size plane of
+// ``pitch``-byte rows, on ``stream``; returns once the card has finished.
+// The conversion to RGB is the caller's (data/jpeg.py::cmyk_to_rgb).
+extern "C" int sparknet_jpeg_decode_unchanged(const void* data, long long len,
+                                              void* c0, void* c1, void* c2,
+                                              void* c3, int pitch,
+                                              void* stream) {
+  nvjpegImage_t img = {};
+  void* planes[4] = {c0, c1, c2, c3};
+  for (int i = 0; i < 4; ++i) {
+    img.channel[i] = (unsigned char*)planes[i];
+    img.pitch[i] = (size_t)pitch;
+  }
+  return decode(data, len, NVJPEG_OUTPUT_UNCHANGED, &img, stream);
+}
+
 // Upsample the chroma planes (ch x cw, every sub_h-th column and sub_v-th
 // row of the h x w image) and convert to interleaved RGB at ``out`` (h
 // rows of ``out_pitch`` bytes), as libjpeg-turbo does.

@@ -99,6 +99,8 @@ _SIGNATURES = {
         "sparknet_jpeg_decode_rgbi": [_P, ctypes.c_longlong, _P, _I, _P],
         "sparknet_jpeg_decode_planes":
             [_P, ctypes.c_longlong, _P, _I, _P, _P, _I, _P],
+        "sparknet_jpeg_decode_unchanged":
+            [_P, ctypes.c_longlong, _P, _P, _P, _P, _I, _P],
         "sparknet_ycc_to_rgb":
             [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
         "sparknet_resize_bilinear": [_P, _I, _I, _I, _P, _I, _I, _I, _P],

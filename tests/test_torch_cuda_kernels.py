@@ -535,3 +535,64 @@ def test_cuda_batchnorm_step_launches_the_pool_backward_once():
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-5)
+
+
+def test_cuda_cmyk_jpeg_decodes_within_the_nvjpeg_bound_of_pil():
+    """The committed Adobe CMYK fixture through nvJPEG's unchanged
+    components and ``cmyk_to_rgb`` on the card: within 2 of the PIL
+    pixels the manifest holds, mean under 0.05."""
+    _need_cuda()
+    import json
+    import pathlib
+    from sparknet_tpu_torch.data import jpeg
+    d = (pathlib.Path(__file__).resolve().parent.parent / "sparknet_tpu_torch"
+         / "data" / "png_fixtures")
+    e = json.loads((d / "manifest.json").read_text())["images"][
+        "cmyk_adobe.jpg"]
+    got = jpeg.decode_cmyk((d / "cmyk_adobe.jpg").read_bytes(), "cuda")
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    diff = np.abs(got.cpu().numpy().astype(int)
+                  - np.load(d / e["rgb_pixels"]).astype(int))
+    assert diff.max() <= 2 and diff.mean() < 0.05, (diff.max(), diff.mean())
+
+
+CLASSIFY_NET = """
+input: "data" input_shape { dim: 1 dim: 3 dim: 16 dim: 16 }
+layer { name: "conv" type: "Convolution" bottom: "data" top: "conv"
+  convolution_param { num_output: 8 kernel_size: 3 pad: 1
+    weight_filler { type: "xavier" } } }
+layer { name: "norm1" type: "LRN" bottom: "conv" top: "norm1"
+  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }
+layer { name: "norm2" type: "LRN" bottom: "norm1" top: "norm2"
+  lrn_param { local_size: 3 alpha: 0.01 beta: 0.75 } }
+layer { name: "ip" type: "InnerProduct" bottom: "norm2" top: "ip"
+  inner_product_param { num_output: 5 weight_filler { type: "xavier" } } }
+layer { name: "prob" type: "Softmax" bottom: "ip" top: "prob" }
+"""
+
+
+def test_cuda_classifier_forward_launches_the_lrn_kernel_per_norm(tmp_path):
+    """``Classifier.predict`` on the card: one forward of the 10-crop
+    batch, the inference LRN kernel once a norm, the probabilities within
+    1e-5 of the CPU's on the same weights (TF32 off)."""
+    _need_cuda()
+    from sparknet_tpu_torch.classify import Classifier
+    from sparknet_tpu_torch.graph.net import Net
+    from sparknet_tpu_torch.proto import (NetState, Phase, load_net_prototxt,
+                                          save_caffemodel)
+    (tmp_path / "deploy.prototxt").write_text(CLASSIFY_NET)
+    net = Net(load_net_prototxt(CLASSIFY_NET), NetState(Phase.TEST))
+    save_caffemodel(str(tmp_path / "w.caffemodel"),
+                    net.init(torch.Generator().manual_seed(1), device="cpu"))
+    imgs = [np.random.default_rng(i).uniform(size=(20, 24, 3))
+            .astype(np.float32) for i in range(3)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        clf = Classifier(str(tmp_path / "deploy.prototxt"),
+                         str(tmp_path / "w.caffemodel"), image_dims=(18, 18),
+                         raw_scale=255.0, device=dev)
+        ck.reset_launch_counts()
+        out[dev] = clf.predict(imgs)
+        assert ck.launch_counts["lrn_across_channels"] == (
+            2 if dev == "cuda" else 0)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-6)

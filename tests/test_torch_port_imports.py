@@ -6,9 +6,13 @@ blocked, and neither the package nor ``chip_smoke.py`` names ``jax`` or
 HDF5 reader and writer are the port's own, and the Spark bridge runs on
 the minimal RDD protocol).  The data tier (record shards, the convert
 tool, HDF5 snapshots, the Spark bridge) runs with all of them blocked.  PIL is
-imported only inside the CPU paths of ``data/jpeg.py``, and
+imported only inside the CPU paths of ``data/jpeg.py``, matplotlib only
+inside ``tools/plot_training_log.py``'s ``plot``, and
 ``imagenet_app --tar-dir`` trains with ``jax`` and ``sparknet_tpu``
-blocked."""
+blocked.  Caffe's tools and pycaffe's classifiers (``train_cifar``,
+``parse_log``, ``upgrade_net_proto``, ``draw_net``, ``classify_cli`` and
+``detect_cli`` on PNGs, ``pycaffe_io``, ``pycaffe_pb2``) run with all of
+those and PIL and matplotlib blocked, as on the card's machine."""
 
 from __future__ import annotations
 
@@ -358,3 +362,128 @@ def test_python_layer_is_scanned_and_runs_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+SLICE_MODULES = ["tools/upgrade_net_proto.py", "tools/draw_net.py",
+                 "tools/parse_log.py", "tools/plot_training_log.py",
+                 "tools/train_cifar.py", "data/png.py",
+                 "data/pil_resample.py", "data/jpeg.py", "data/db.py",
+                 "pycaffe_pb2.py", "pycaffe_io.py", "classify.py",
+                 "tools/classify_cli.py", "tools/detect_cli.py"]
+
+
+def _imports_of(path: pathlib.Path, top: str) -> list[tuple[int, str]]:
+    """(line, enclosing function or "") of each import of ``top``."""
+    tree = ast.parse(path.read_text(), str(path))
+    owner = {}
+    for f in ast.walk(tree):
+        if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for n in ast.walk(f):
+                owner.setdefault(id(n), f.name)
+    found = []
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 and node.level == 0 else [])
+        if any(n.split(".")[0] == top for n in names):
+            found.append((node.lineno, owner.get(id(node), "")))
+    return found
+
+
+def test_matplotlib_is_imported_only_inside_plot_training_logs_plot():
+    for path in SOURCES:
+        found = _imports_of(path, "matplotlib")
+        if path == PKG / "tools" / "plot_training_log.py":
+            assert found and {f for _, f in found} == {"plot"}, found
+        else:
+            assert not found, f"{path.relative_to(ROOT)} imports matplotlib"
+
+
+def test_tools_and_classifiers_run_with_pil_and_matplotlib_blocked(
+        tmp_path):
+    """The slice's modules are among the files the scans above cover, and
+    with ``jax``, ``sparknet_tpu``, ``google.protobuf``, ``h5py``,
+    ``pyspark``, PIL and matplotlib blocked: ``upgrade_net_proto`` and
+    ``draw_net`` run, ``train_cifar --synthetic`` trains on the Solver
+    path and on two workers and its log parses, ``classify_cli`` and
+    ``detect_cli`` score the committed PNG fixtures, and ``pycaffe_io``
+    and ``pycaffe_pb2`` load, resize and serialize."""
+    for rel in SLICE_MODULES:
+        assert PKG / rel in SOURCES
+    (tmp_path / "net.prototxt").write_text(
+        'layer { name: "d" type: "MemoryData" top: "data" top: "label"\n'
+        '  memory_data_param { batch_size: 4 channels: 3 height: 32\n'
+        '  width: 32 } }\n'
+        'layer { name: "pool" type: "Pooling" bottom: "data" top: "pool"\n'
+        '  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }\n'
+        'layer { name: "ip" type: "InnerProduct" bottom: "pool" top: "ip"\n'
+        '  inner_product_param { num_output: 10 } }\n'
+        'layer { name: "acc" type: "Accuracy" bottom: "ip" bottom: "label"\n'
+        '  top: "accuracy" include { phase: TEST } }\n'
+        'layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip"\n'
+        '  bottom: "label" }\n')
+    (tmp_path / "solver.prototxt").write_text(
+        f'net: "{tmp_path / "net.prototxt"}"\ntest_iter: 2\n'
+        'test_interval: 4\nbase_lr: 0.001\nlr_policy: "fixed"\n'
+        'display: 2\nmax_iter: 8\n')
+    (tmp_path / "deploy.prototxt").write_text(
+        'input: "data" input_shape { dim: 1 dim: 3 dim: 8 dim: 8 }\n'
+        'layer { name: "n" type: "LRN" bottom: "data" top: "n" }\n'
+        'layer { name: "ip" type: "InnerProduct" bottom: "n" top: "ip"\n'
+        '  inner_product_param { num_output: 3 } }\n'
+        'layer { name: "prob" type: "Softmax" bottom: "ip" top: "prob" }\n')
+    pngs = PKG / "data" / "png_fixtures"
+    (tmp_path / "pngs").mkdir()
+    for name in ("pil_rgb.png", "pil_l.png", "t3_d4_adam7.png",
+                 "t6_d16.png", "photo_375x500.png"):
+        (tmp_path / "pngs" / name).write_bytes((pngs / name).read_bytes())
+    (tmp_path / "windows.csv").write_text(
+        "filename,ymin,xmin,ymax,xmax\n"
+        f"{pngs / 'pil_rgb.png'},0,0,20,30\n"
+        f"{pngs / 't0_d16_adam7.png'},2,2,12,15\n")
+    t = str(tmp_path)
+    code = (
+        "import sys, contextlib, io\n"
+        "for m in ('jax', 'sparknet_tpu', 'google.protobuf', 'h5py', "
+        "'pyspark', 'PIL', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from sparknet_tpu_torch import pycaffe_io, pycaffe_pb2\n"
+        "from sparknet_tpu_torch.tools import (classify_cli, detect_cli, "
+        "draw_net, parse_log, train_cifar, upgrade_net_proto)\n"
+        f"t = {t!r}\n"
+        "assert upgrade_net_proto.main([t + '/net.prototxt', "
+        "t + '/up.prototxt']) == 0\n"
+        "assert draw_net.main([t + '/net.prototxt', t + '/n.dot']) == 0\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    train_cifar.main(['--solver', t + '/solver.prototxt', "
+        "'--synthetic', '--device', 'cpu', '--out', t + '/a.json'])\n"
+        "    train_cifar.main(['--solver', t + '/solver.prototxt', "
+        "'--synthetic', '--device', 'cpu', '--workers', '2', '--tau', "
+        "'2', '--out', t + '/b.json'])\n"
+        "open(t + '/train.log', 'w').write(buf.getvalue())\n"
+        "train, test = parse_log.parse_log(t + '/train.log')\n"
+        "assert [r.iter for r in train][-1] == 8\n"
+        "assert classify_cli.main([t + '/pngs', t + '/p.npy', "
+        "'--model_def', t + '/deploy.prototxt', '--ext', 'png', "
+        "'--images_dim', '10,10', '--device', 'cpu']) == 0\n"
+        "assert np.load(t + '/p.npy').shape == (5, 3)\n"
+        "assert detect_cli.main([t + '/windows.csv', t + '/d.csv', "
+        "'--model_def', t + '/deploy.prototxt', '--context_pad', '2', "
+        "'--device', 'cpu']) == 0\n"
+        f"im = pycaffe_io.load_image({str(pngs / 'pil_la.png')!r}, "
+        "device='cpu')\n"
+        "assert pycaffe_io.resize_image(im, (5, 7)).shape == (5, 7, 3)\n"
+        "d = pycaffe_io.array_to_datum(np.zeros((3, 2, 2), np.uint8), 1)\n"
+        "m = pycaffe_pb2.Datum()\n"
+        "m.ParseFromString(d.SerializeToString())\n"
+        "assert m.label == 1\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.', 'PIL', 'matplotlib', 'h5py', 'pyspark', "
+        "'google.protobuf')) for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
