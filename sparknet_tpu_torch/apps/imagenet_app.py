@@ -78,15 +78,18 @@ def synthetic_imagenet(n: int, size: int, classes: int, seed: int = 0):
 def mean_image(dataset: PartitionedDataset, chunk: int = 64) -> np.ndarray:
     """Per-pixel mean over every partition (the distributed ComputeMean,
     one partition at a time), read ``chunk`` records at a time so a lazy
-    partition never decodes whole, each image added in turn to a float64
-    sum, as the JAX package's native ``accumulate_mean`` adds them."""
+    partition never decodes whole, each chunk added image by image into
+    a float64 sum by ``native.accumulate_mean`` (JAX
+    imagenet_app.py:127-134)."""
+    from .. import native
     acc, count = None, 0
     for p in dataset.partitions:
         for i in range(0, len(p), chunk):
-            for x, _ in p[i:i + chunk]:
-                if acc is None:
-                    acc = np.zeros(np.shape(x), np.float64)
-                acc += x
+            imgs = np.stack([x for x, _ in p[i:i + chunk]]).astype(
+                np.float32)
+            if acc is None:
+                acc = np.zeros(imgs.shape[1:], np.float64)
+            native.accumulate_mean(imgs, acc)
         count += len(p)
     return (acc / max(count, 1)).astype(np.float32)
 

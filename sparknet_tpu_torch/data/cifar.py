@@ -4,10 +4,9 @@ The port's own copy of ``sparknet_tpu/data/cifar.py``.  Reads the
 standard CIFAR-10 binary batches — one record is a label byte followed by
 3072 CHW pixel bytes — as the reference's loader does (reference:
 src/main/scala/loaders/CifarLoader.scala:65 readBatch; train-set shuffle
-via random permutation at :34).  Records are decoded with numpy, the JAX
-package's own path where its native library is not built
-(sparknet_tpu/native/__init__.py:102-105).  A writer makes format-exact
-fixtures, so tests need no download.
+via random permutation at :34).  Records are decoded by the native
+pipeline (``native.decode_cifar``; numpy where it is not built).  A
+writer makes format-exact fixtures, so tests need no download.
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from .. import native
 
 CIFAR_SHAPE = (3, 32, 32)
 _REC = 1 + 3 * 32 * 32
@@ -37,10 +38,9 @@ def load_cifar10_binary(paths: list[str] | str, shuffle: bool = False,
         if raw.size % _REC:
             raise ValueError(
                 f"{path}: size {raw.size} not a multiple of {_REC}")
-        recs = raw.reshape(-1, _REC)
-        labels.append(recs[:, 0].astype(np.int32))
-        images.append(recs[:, 1:].reshape((-1,) + CIFAR_SHAPE)
-                      .astype(np.float32))
+        x, y = native.decode_cifar(raw.reshape(-1, _REC))
+        images.append(x)
+        labels.append(y)
     x = np.concatenate(images)
     y = np.concatenate(labels)
     if shuffle:

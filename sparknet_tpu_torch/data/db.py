@@ -328,9 +328,12 @@ class DataTransformer:
         np.subtract(x, self.mean, out=self._scratch)
         return self._scratch
 
-    def batch(self, imgs: np.ndarray) -> np.ndarray:
-        """Transform an [n, c, h, w] batch in one pass: the feed's
-        transform."""
+    def batch(self, imgs: np.ndarray,
+              out: np.ndarray | None = None) -> np.ndarray:
+        """Transform an [n, c, h, w] batch in one pass, the crop and
+        mirror one ``native.crop_batch`` call: the feed's transform.
+        ``out``: a buffer for the cropped batch (``native.crop_batch``)."""
+        from .. import native
         x = np.asarray(imgs, np.float32)   # no copy when already f32
         n, c, h, w = x.shape
         if self.crop:
@@ -347,10 +350,7 @@ class DataTransformer:
             flips = (self.rng.integers(0, 2, size=n)
                      if self.mirror and self.phase == Phase.TRAIN
                      else np.zeros(n, np.int64))
-            res = np.empty((n, c, crop, crop), np.float32)
-            for i in range(n):
-                img = x[i, :, ys[i]:ys[i] + crop, xs[i]:xs[i] + crop]
-                res[i] = img[:, :, ::-1] if flips[i] else img
+            res = native.crop_batch(x, crop, ys, xs, flips, out=out)
             if self.scale != 1.0:
                 np.multiply(res, self.scale, out=res)
             return res
@@ -397,10 +397,14 @@ def db_feed(lp, phase: Phase, seed: int = 0,
             workers: int | None = None, stats=None,
             device: str | torch.device = "cuda",
             ) -> Iterator[dict[str, np.ndarray]]:
-    """Batch stream for a ``Data`` layer (LMDB/LevelDB backed).  Decode
-    and the integrity checks fan out over a ``pipeline.DecodePool`` of
-    ``workers`` threads (default ``SPARKNET_FEED_WORKERS``), and the batch
-    is transformed in one vectorized ``DataTransformer.batch`` pass.
+    """Batch stream for a ``Data`` layer (LMDB/LevelDB backed).  A batch
+    of raw Datums of the source's shape is parsed in one native call
+    (``native.parse_datum_batch``); otherwise (encoded or mismatched
+    records, which turn the native parse off for the source, an
+    injected fault, or no native library) decode and the integrity
+    checks fan out over a ``pipeline.DecodePool`` of ``workers`` threads
+    (default ``SPARKNET_FEED_WORKERS``).  The batch is transformed in one
+    vectorized ``DataTransformer.batch`` pass.
 
     Determinism: records are pulled serially on the consumer thread (DB
     cursor order, the fault seam and the quarantine's epoch accounting
@@ -425,6 +429,7 @@ def db_feed(lp, phase: Phase, seed: int = 0,
     directory of them) goes to ``records.records_feed``: the same batch,
     transform, quarantine and determinism contract without the decode
     stage (``device`` unused)."""
+    from .. import native
     from .pipeline import DecodePool, feed_workers
     from .records import is_records_source, records_feed
     p = lp.sub("data_param")
@@ -450,18 +455,20 @@ def db_feed(lp, phase: Phase, seed: int = 0,
                                   device=device)
     c, h, w = first_img.shape
     tf.check_mean((c, h, w), source)
-    state = {"seq": 0}   # feed-lifetime record counter
+    # feed-lifetime record counter; whether batches still try the
+    # native parse (one refusal turns it off for the source)
+    state = {"seq": 0, "native": True}
 
-    def pull() -> tuple[Any, bytes]:
-        """(key, value) of the next record; rolls the quarantine's epoch
-        budget at each full pass over the source."""
+    def pull() -> tuple[Any, bytes, bool]:
+        """(key, value, injected) of the next record; rolls the
+        quarantine's epoch budget at each full pass over the source."""
         key, val = next(cursor)
         seq = state["seq"]
         state["seq"] += 1
         if seq and seq % epoch_size == 0:
             quarantine.start_epoch()
         bad = corrupt_record(seq, val)
-        return key, (val if bad is None else bad)
+        return key, (val if bad is None else bad), bad is not None
 
     def decode_one(kv) -> tuple[np.ndarray, int]:
         """Decode and geometry-check one record (on a pool thread); the
@@ -481,9 +488,9 @@ def db_feed(lp, phase: Phase, seed: int = 0,
                       name=f"db:{source}", stats=stats, stage="decode",
                       window=batch + 2)
 
-    def transform(imgs: list[np.ndarray]) -> np.ndarray:
+    def transform(imgs) -> np.ndarray:
         t0 = time.perf_counter()
-        data = tf.batch(np.stack(imgs))
+        data = tf.batch(np.stack(imgs) if isinstance(imgs, list) else imgs)
         if stats is not None:
             stats.note("transform", time.perf_counter() - t0)
             stats.count_batch(len(imgs))
@@ -500,16 +507,40 @@ def db_feed(lp, phase: Phase, seed: int = 0,
         imgs_l.append(img)
         labels_l.append(label)
 
+    def parse_batch(records: list) -> tuple | None:
+        """The batch in one native parse (JAX db.py:400-420), or None:
+        no library, an encoded or mismatched record, or an injected
+        fault, which take the per-record path and the quarantine."""
+        if not state["native"] or any(inj for _, _, inj in records):
+            return None
+        t0 = time.perf_counter()
+        parsed = native.parse_datum_batch([v for _, v, _ in records],
+                                          c, h, w)
+        if stats is not None:
+            stats.note("decode", time.perf_counter() - t0)
+        if parsed is None:   # sticky: the source is not all raw Datums
+            state["native"] = False
+        return parsed
+
     try:
         while True:
-            for _ in range(batch):
-                pool.submit(pull())
+            records = [pull() for _ in range(batch)]
+            parsed = parse_batch(records)
+            if parsed is not None:
+                out = {tops[0]: transform(parsed[0])}
+                if len(tops) > 1:
+                    out[tops[1]] = parsed[1].astype(np.float32)
+                yield out
+                continue
+            for key, val, _ in records:
+                pool.submit((key, val))
             imgs_l: list[np.ndarray] = []
             labels_l: list[int] = []
             for _ in range(batch):
                 collect_one(imgs_l, labels_l)
             while len(imgs_l) < batch:   # replace quarantined records
-                pool.submit(pull())
+                key, val, _ = pull()
+                pool.submit((key, val))
                 collect_one(imgs_l, labels_l)
             out = {tops[0]: transform(imgs_l)}
             if len(tops) > 1:

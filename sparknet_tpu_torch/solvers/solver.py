@@ -31,8 +31,10 @@ and ``[Update]`` lines (mean |x| of every top blob and param) at each
 display boundary.  Params shared across layers (``ParamSpec.name``) are
 stored once, by their owner (``graph/net.py``): weight files are read
 through the sharing map and written with every layer's full blob list,
-as Caffe writes them.  Not ported yet, and refused by name:
-``set_augment`` (ROADMAP A14).
+as Caffe writes them.  ``set_augment`` runs Caffe's DataTransformer on
+the raw uint8 feed (``records_feed(raw=True)``) in front of each step:
+``ops/augment.py`` on the device, or its numpy half on the host, the
+same bits either way.
 """
 
 from __future__ import annotations
@@ -154,6 +156,11 @@ class Solver:
         # the one test passes' random DummyData tops draw from (Dropout
         # draws nothing at test)
         self.test_generator = torch.Generator().manual_seed(seed * 7919 + 2)
+        # the crop offsets and flips of set_augment draw from a generator
+        # of their own, saved with the Dropout one
+        self.augment_generator = torch.Generator().manual_seed(
+            seed * 7919 + 3)
+        self._augment = None    # (spec, on the device?, blob, device spec)
         self._lr_mults = self.train_net.lr_mult_tree(self.params)
         self._decay_mults = self.train_net.decay_mult_tree(self.params)
         _, self._local_update, _ = make_step_fns(
@@ -185,9 +192,49 @@ class Solver:
 
     def set_augment(self, spec, device: bool | None = None,
                     blob: str = "data") -> None:
-        raise NotImplementedError(
-            "set_augment (crop/mirror/mean folded into the train step, "
-            "ops/augment.py) is not ported yet (ROADMAP A14)")
+        """Run Caffe's DataTransformer (``ops.augment.AugmentSpec``:
+        crop, mirror, mean, scale) on the train feed's ``blob`` in front
+        of each step, so the feed ships raw uint8
+        (``records_feed(raw=True)``) and has no host transform.
+
+        ``device=True`` (default: the ``SPARKNET_AUG_DEVICE`` knob, on)
+        runs ``ops.augment.augment_batch`` on the Solver's device;
+        ``device=False`` runs ``data.transforms.augment_batch_host`` on
+        the host.  Both draw from ``augment_generator`` (saved by
+        ``snapshot``), and give the same bits.  ``spec=None`` removes
+        the augmentation."""
+        from ..utils import knobs
+        if device is None:
+            device = knobs.get_bool("SPARKNET_AUG_DEVICE", True)
+        if spec is None:
+            self._augment = None
+            return
+        dev_spec = spec
+        if device and spec.mean is not None:
+            # the mean goes to the device once, not every step
+            dev_spec = spec._replace(mean=torch.from_numpy(
+                np.array(spec.mean, np.float32)).to(self.device))
+        self._augment = (spec, bool(device), blob, dev_spec)
+
+    def _augmented(self, blobs: list) -> torch.Tensor:
+        """The ``iter_size`` minibatches of the augmented blob, flattened
+        into one batch, augmented with one draw and restacked (the JAX
+        Solver's step, solver.py:159-165)."""
+        from ..data.transforms import augment_batch_host
+        from ..ops.augment import augment_batch
+        spec, on_device, _, dev_spec = self._augment
+        i = len(blobs)
+        if on_device:
+            data = torch.stack([self._to_device(b) for b in blobs])
+            flat = data.reshape((-1,) + tuple(data.shape[2:]))
+            out = augment_batch(flat, self.augment_generator, dev_spec)
+        else:
+            data = np.stack([b.cpu().numpy() if isinstance(b, torch.Tensor)
+                             else np.asarray(b) for b in blobs])
+            flat = data.reshape((-1,) + data.shape[2:])
+            out = self._to_device(augment_batch_host(
+                flat, self.augment_generator, spec))
+        return out.reshape((i, -1) + tuple(out.shape[1:]))
 
     def _ensure_test_factory(self, net_id: int = 0) -> None:
         if self._test_iter_factories[net_id] is None:
@@ -203,7 +250,9 @@ class Solver:
         """``iter_size`` minibatches stacked on a leading axis."""
         batches = [dict(next(self._train_iter))
                    for _ in range(self.sp.iter_size)]
-        return {k: torch.stack([self._to_device(b[k]) for b in batches])
+        aug = self._augment[2] if self._augment is not None else None
+        return {k: self._augmented([b[k] for b in batches]) if k == aug
+                else torch.stack([self._to_device(b[k]) for b in batches])
                 for k in batches[0]}
 
     # -- Solver::Step (reference: solver.cpp:193-283) -----------------------
@@ -401,11 +450,14 @@ class Solver:
     def snapshot(self, path: str) -> None:
         """Params, rule state and iteration as a checksummed npz in the
         JAX Solver's layout, plus the Dropout generator's state under
-        ``torch_generator`` (which the JAX package ignores)."""
+        ``torch_generator`` and ``set_augment``'s under
+        ``augment_generator`` (which the JAX package ignores)."""
         from ..utils.checkpoint import save_checkpoint
         save_checkpoint(path, {
             "params": self.params, "state": self.state, "iter": self.iter,
-            "torch_generator": self.generator.get_state().numpy()})
+            "torch_generator": self.generator.get_state().numpy(),
+            "augment_generator":
+                self.augment_generator.get_state().numpy()})
 
     def restore(self, path: str) -> None:
         """Read a snapshot written by either package's ``snapshot``."""
@@ -430,9 +482,11 @@ class Solver:
                              f"{self.rule.name} rule's {sorted(self.state)}")
         self.params, self.state = params, state
         self.iter = int(blob["iter"])
-        if "torch_generator" in blob:
-            self.generator.set_state(torch.from_numpy(
-                np.array(blob["torch_generator"], np.uint8)))
+        for key, gen in (("torch_generator", self.generator),
+                         ("augment_generator", self.augment_generator)):
+            if key in blob:
+                gen.set_state(torch.from_numpy(np.array(blob[key],
+                                                        np.uint8)))
 
     # -- weights (Net::CopyTrainedLayersFrom; reference: net.cpp:805-848) ---
     def load_weights(self, path: str) -> None:

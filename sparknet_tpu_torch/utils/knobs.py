@@ -31,6 +31,9 @@ KNOBS: dict[str, str] = {
     "SPARKNET_FEED_DEPTH": "host batches the device feed stages ahead",
     "SPARKNET_FEED_PUTTERS": "device feed's host-to-device copy threads",
     "SPARKNET_FEED_WORKERS": "DB feed's decode threads",
+    "SPARKNET_AUG_DEVICE": "Solver.set_augment's default: 1 (default) runs "
+                           "the crop, mirror, mean and scale on the "
+                           "device, 0 on the host (the same bits)",
     "SPARKNET_RECORD_READERS": "record-shard feed's ranged-read threads; "
                                "0 = one thread; unset = "
                                "SPARKNET_FEED_WORKERS",

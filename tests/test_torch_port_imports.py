@@ -390,11 +390,19 @@ def _imports_of(path: pathlib.Path, top: str) -> list[tuple[int, str]]:
     return found
 
 
+# file -> the functions that may import matplotlib
+MATPLOTLIB_INSIDE = {PKG / "tools" / "plot_training_log.py": {"plot"},
+                     PKG / "tools" / "plot_learning_proxy.py":
+                         {"render", "render_sweep"}}
+
+
 def test_matplotlib_is_imported_only_inside_plot_training_logs_plot():
+    """... and inside ``plot_learning_proxy``'s two drawing functions."""
     for path in SOURCES:
         found = _imports_of(path, "matplotlib")
-        if path == PKG / "tools" / "plot_training_log.py":
-            assert found and {f for _, f in found} == {"plot"}, found
+        if path in MATPLOTLIB_INSIDE:
+            assert found and {f for _, f in found} == \
+                MATPLOTLIB_INSIDE[path], found
         else:
             assert not found, f"{path.relative_to(ROOT)} imports matplotlib"
 
@@ -479,6 +487,66 @@ def test_tools_and_classifiers_run_with_pil_and_matplotlib_blocked(
         "m = pycaffe_pb2.Datum()\n"
         "m.ParseFromString(d.SerializeToString())\n"
         "assert m.label == 1\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.', 'PIL', 'matplotlib', 'h5py', 'pyspark', "
+        "'google.protobuf')) for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+DATA_PLANE_MODULES = ["native/__init__.py", "ops/augment.py",
+                      "data/transforms.py", "tools/learning_proxy.py",
+                      "tools/tausweep.py", "tools/plot_learning_proxy.py"]
+
+
+def test_data_plane_and_proxy_run_with_jax_pil_and_matplotlib_blocked(
+        tmp_path):
+    """The native pipeline, the augmentation and the learning proxy's
+    tools are among the files the scans above cover, and with ``jax``,
+    ``sparknet_tpu``, ``google.protobuf``, ``h5py``, ``pyspark``, PIL and
+    matplotlib blocked the native library builds and crops, a Solver
+    trains through ``set_augment`` on the host and on the device path,
+    and the learning proxy and the τ sweep run a few iterations on the
+    CPU; the plot tool imports."""
+    for rel in DATA_PLANE_MODULES:
+        assert PKG / rel in SOURCES
+    t = str(tmp_path)
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'sparknet_tpu', 'google.protobuf', 'h5py', "
+        "'pyspark', 'PIL', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from sparknet_tpu_torch import native\n"
+        "from sparknet_tpu_torch.models import lenet\n"
+        "from sparknet_tpu_torch.ops.augment import AugmentSpec\n"
+        "from sparknet_tpu_torch.proto import "
+        "load_solver_prototxt_with_net\n"
+        "from sparknet_tpu_torch.solvers import Solver\n"
+        "from sparknet_tpu_torch.tools import (learning_proxy, "
+        "plot_learning_proxy, tausweep)\n"
+        "assert native.available(), native.build_error()\n"
+        "assert native.crop_batch(np.ones((1, 1, 3, 3), np.float32), 2, "
+        "[1], [0], [1]).shape == (1, 1, 2, 2)\n"
+        "sp = load_solver_prototxt_with_net('base_lr: 0.01\\n', "
+        "lenet(2, 2))\n"
+        "b = {'data': np.full((2, 1, 30, 30), 9, np.uint8), "
+        "'label': np.zeros(2, np.float32)}\n"
+        "for dev in (True, False):\n"
+        "    s = Solver(sp, device='cpu')\n"
+        "    s.set_augment(AugmentSpec(crop=28, mirror=True), device=dev)\n"
+        "    s.set_train_data(iter([b]))\n"
+        "    assert np.isfinite(s.step(1))\n"
+        f"t = {t!r}\n"
+        "args = ['--scale', '35000', '--n-train', '200', '--n-test', "
+        "'100', '--workers', '2', '--eval-every', '2', '--device', 'cpu', "
+        "'--out', t + '/r.json']\n"
+        "assert learning_proxy.main(args + ['--tau', '1']) == 0\n"
+        "assert tausweep.main(args + ['--taus', '1', '--codecs', "
+        "'none,int8', '--band', '1']) == 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', "
         "'sparknet_tpu.', 'PIL', 'matplotlib', 'h5py', 'pyspark', "
         "'google.protobuf')) for m in sys.modules if sys.modules[m])\n"

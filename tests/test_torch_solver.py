@@ -32,9 +32,10 @@ weights moved through a ``.caffemodel``.
   serving tests' bound).
 - HDF5 weights and snapshots (``snapshot_format: HDF5``) write and
   restore bit for bit; across the two packages: tests/test_torch_hdf5.py.
-- Refusals: ``set_augment`` (A14) raises ``NotImplementedError`` naming
-  its item; a history one blob short, a transposed weight and a file
-  without weights raise.  A V0 net and a shared param load.
+- Refusals: a history one blob short, a transposed weight and a file
+  without weights raise.  A V0 net and a shared param load, and
+  ``set_augment`` takes a spec and ``None`` (its parity:
+  tests/test_torch_augment.py).
 """
 
 from __future__ import annotations
@@ -413,9 +414,17 @@ def test_debug_info_set_augment_v0_and_shared_params_are_refused():
     # against the JAX Solver's), and so do V0 nets, a bare input_dim and
     # shared params (tests/test_torch_proto_upgrade.py and
     # test_torch_shared_params.py hold them against the JAX package);
-    # set_augment still refuses
-    with pytest.raises(NotImplementedError, match="A14"):
-        _small_solver().set_augment(object())
+    # set_augment runs (tests/test_torch_augment.py holds it against the
+    # JAX package) and spec=None takes it off again
+    from sparknet_tpu_torch.ops.augment import AugmentSpec
+    aug = _small_solver()
+    aug.set_augment(AugmentSpec(crop=28, mirror=True))
+    aug.set_train_data(iter([{"data": np.full((2, 1, 32, 32), 7, np.uint8),
+                              "label": np.arange(2, dtype=np.float32)}]))
+    assert np.isfinite(aug.step(1))
+    aug.set_augment(None)
+    aug.set_train_data(iter(_lenet_batches(1)))
+    assert np.isfinite(aug.step(1))
     v0 = ('name: "v0" layers { layer { name: "ip" type: "innerproduct" '
           'num_output: 2 } bottom: "data" top: "ip" }')
     lp = load_net_prototxt(v0).layer[0]
