@@ -14,9 +14,11 @@ weights through the port's ``.caffemodel`` reader, and runs its forward
 under ``torch.inference_mode()`` with TF32 off, so on the card an
 ACROSS_CHANNELS LRN launches the inference kernel ``lrn_across_channels``
 (CaffeNet's norm1 and norm2: two launches a forward).  Preprocessing is
-the JAX module's, in numpy on the host.  The serving plane that
-``RemoteClassifier`` talks to (``tools/serve.py``) is not ported: it
-raises naming its ROADMAP item.
+the JAX module's, in numpy on the host.  ``RemoteClassifier`` runs the
+same preprocessing and posts each crop to a running
+``python -m sparknet_tpu_torch.tools.serve`` (``http_json``,
+``remote_classify``: stdlib ``urllib``), whose engine batches the crops
+on the server's device.
 """
 
 from __future__ import annotations
@@ -27,9 +29,6 @@ import numpy as np
 import torch
 
 from .utils.device import full_f32, resolve_device
-
-SERVING_ITEM = "ROADMAP A11, serving plane (tools/serve.py)"
-
 
 def preprocess_image(img: np.ndarray, image_dims: tuple[int, int], *,
                      channel_swap: tuple[int, ...] | None = None,
@@ -219,18 +218,117 @@ class Detector(Classifier):
 
 
 # ---------------------------------------------------------------------------
-# Remote (served) classification — the --server path of classify_cli.  The
-# client (``http_json``, ``remote_classify``, ``RemoteClassifier.predict``)
-# comes with the serving plane it talks to.
+# Remote (served) classification — the --server path of classify_cli
 # ---------------------------------------------------------------------------
 
-class RemoteClassifier:
-    """Classifier.predict against a running inference server
-    (``tools/serve.py``), the same preprocessing run client-side.  The
-    port has no such server yet: constructing one raises
-    ``NotImplementedError`` naming :data:`SERVING_ITEM`."""
+def http_json(url: str, payload: dict | None = None,
+              timeout: float = 30.0, *, with_status: bool = False):
+    """One JSON request against the serving plane (stdlib urllib — the
+    client must not need more than the server ships).  HTTP errors with
+    a JSON body surface as RuntimeError carrying the server's typed
+    ``error``/``reason`` fields; with ``with_status`` the call returns
+    (HTTP status, JSON body) instead, errors included."""
+    import json
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        url, data=data,
+        headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            body = json.loads(resp.read().decode())
+            return (resp.status, body) if with_status else body
+    except urllib.error.HTTPError as e:
+        try:
+            body = json.loads(e.read().decode())
+        except (OSError, ValueError):
+            body = {}
+        if with_status:
+            return e.code, body
+        raise RuntimeError(
+            f"{url}: HTTP {e.code} "
+            f"({body.get('reason') or ''} {body.get('error') or e.reason})"
+        ) from None
 
-    def __init__(self, url: str, model: str, **kwargs):
-        raise NotImplementedError(
-            f"RemoteClassifier talks to the serving plane, which the port "
-            f"does not have yet ({SERVING_ITEM})")
+
+def remote_classify(url: str, model: str, arr: np.ndarray,
+                    tenant: str = "classify",
+                    timeout: float = 30.0, *, with_status: bool = False,
+                    **fields):
+    """Submit ONE (C,H,W) float32 example to a running server
+    (``tools/serve.py``) and return its JSON (probs + latency stamps).
+    ``fields`` ride along in the request (``version=`` pins a registry
+    version); ``with_status`` as :func:`http_json`."""
+    import base64
+    arr = np.ascontiguousarray(arr, np.float32)
+    return http_json(f"{url}/v1/classify", {
+        "model": model, "tenant": tenant,
+        "shape": list(arr.shape), "dtype": "float32",
+        "data_b64": base64.b64encode(arr.tobytes()).decode(),
+        "timeout_s": timeout, **fields,
+    }, timeout=timeout + 10.0, with_status=with_status)
+
+
+class RemoteClassifier:
+    """Classifier.predict against a running inference server instead of a
+    local compile: the SAME preprocessing (:func:`preprocess_image` /
+    :func:`transform_crops` / :func:`oversample`) runs client-side, then
+    each crop is submitted as its own request — the server's dynamic
+    micro-batching coalesces the 10-crop fan-out back into one padded
+    forward.  Net geometry (crop size, channels) comes from the server's
+    ``/v1/models``, so client and server can never disagree about it."""
+
+    def __init__(self, url: str, model: str,
+                 image_dims: tuple[int, int] | None = None,
+                 mean: np.ndarray | float | None = None,
+                 input_scale: float | None = None,
+                 raw_scale: float | None = None,
+                 channel_swap=None, tenant: str = "classify",
+                 timeout: float = 30.0):
+        self.url = url.rstrip("/")
+        self.model = model
+        self.tenant = tenant
+        self.timeout = timeout
+        models = http_json(f"{self.url}/v1/models",
+                           timeout=timeout).get("models", {})
+        if model not in models:
+            raise ValueError(
+                f"server {url} has no model {model!r} "
+                f"(loaded: {sorted(models)})")
+        in_shape = models[model]["in_shape"]
+        self.channels, self.crop = int(in_shape[0]), int(in_shape[-1])
+        self.image_dims = tuple(image_dims or (self.crop, self.crop))
+        self.mean = mean
+        self.input_scale = input_scale
+        self.raw_scale = raw_scale
+        self.channel_swap = tuple(channel_swap) if channel_swap else None
+
+    def predict(self, inputs: Sequence[np.ndarray],
+                oversample_crops: bool = True) -> np.ndarray:
+        """Class probabilities, (N, classes) — Classifier.predict
+        semantics over the wire; crop requests are posted concurrently so
+        the server micro-batches them."""
+        from concurrent.futures import ThreadPoolExecutor
+        batch = np.stack([
+            preprocess_image(im, self.image_dims,
+                             channel_swap=self.channel_swap,
+                             raw_scale=self.raw_scale) for im in inputs])
+        n = len(batch)
+        if oversample_crops:
+            crops = oversample(batch, self.crop)
+        else:
+            y = (batch.shape[2] - self.crop) // 2
+            x = (batch.shape[3] - self.crop) // 2
+            crops = batch[:, :, y:y + self.crop, x:x + self.crop]
+        crops = transform_crops(crops, self.mean, self.input_scale)
+        with ThreadPoolExecutor(max_workers=min(32, len(crops))) as ex:
+            rows = list(ex.map(
+                lambda c: remote_classify(self.url, self.model, c,
+                                          tenant=self.tenant,
+                                          timeout=self.timeout)["probs"],
+                crops))
+        out = np.asarray(rows, np.float32)
+        if oversample_crops:
+            out = out.reshape(10, n, -1).mean(axis=0)
+        return out

@@ -129,11 +129,14 @@ class _LayerNode:
 
 
 class Net:
-    """A phase-filtered, shape-inferred, executable network."""
+    """A phase-filtered, shape-inferred, executable network.
+    ``input_overrides`` ({input blob: shape}) replaces the declared
+    shapes of inputs, as pycaffe's ``Net.reshape`` does."""
 
     def __init__(self, net_param: NetParameter,
                  state: NetState | None = None, *,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None,
+                 input_overrides: Mapping[str, Sequence[int]] | None = None):
         state = state or net_param.state or NetState()
         self.state = state
         self.param = net_param.filtered(state)
@@ -142,10 +145,15 @@ class Net:
         self.nodes: list[_LayerNode] = []
         self.blob_shapes: dict[str, Shape] = {}
         self.input_blobs: dict[str, Shape] = {}
+        # {input blob: shape} replacing the declared shape of a net-level
+        # input or an input layer's top, downstream shapes re-inferred
+        # from it: pycaffe's Net.reshape (net.cpp Reshape)
+        overrides = {k: tuple(int(d) for d in v)
+                     for k, v in (input_overrides or {}).items()}
 
         # net-level input declarations (legacy `input:` + `input_shape:`)
         for i, name in enumerate(self.param.input):
-            shape = tuple(self.param.input_shape[i].dim)
+            shape = overrides.get(name, tuple(self.param.input_shape[i].dim))
             self.blob_shapes[name] = shape
             self.input_blobs[name] = shape
 
@@ -175,6 +183,8 @@ class Net:
             tops = list(lp.top) or ([lp.name] if oshapes else [])
             while len(tops) < len(oshapes):
                 tops.append(f"{lp.name}_top{len(tops)}")
+            if impl.is_input() and overrides:
+                oshapes = [overrides.get(t, s) for t, s in zip(tops, oshapes)]
             for t, s in zip(tops, oshapes):
                 self.blob_shapes[t] = tuple(int(d) for d in s)
                 if impl.is_input():
@@ -214,6 +224,10 @@ class Net:
                 order[t] = None
         self.output_blobs = [t for t in order
                              if t in available and t not in self.input_blobs]
+        unknown = set(overrides) - set(self.input_blobs)
+        if unknown:
+            raise ValueError(
+                f"input_overrides for non-input blobs: {sorted(unknown)}")
 
     def _blob_shapes_of(self, node: _LayerNode) -> list[Shape]:
         return [tuple(s) for s in node.impl.param_shapes(
@@ -425,7 +439,8 @@ class Net:
     def apply_all(self, params: Mapping[str, Sequence[torch.Tensor]],
                   inputs: Mapping[str, torch.Tensor], *,
                   train: bool = False,
-                  generator: torch.Generator | None = None,
+                  generator: torch.Generator
+                  | Mapping[str, torch.Generator] | None = None,
                   device: str | torch.device | None = None,
                   upto: str | None = None, start: str | None = None,
                   eps: Mapping[str, torch.Tensor] | None = None
@@ -435,10 +450,12 @@ class Net:
         Solver's ``debug_info`` reads it).  ``upto`` stops after the named
         layer (pycaffe's ``forward(end=)``); ``start`` begins at it
         (``forward(start=)``), every bottom a skipped layer would have
-        made then supplied in ``inputs``.  ``eps`` maps blob names to
-        zero perturbations added where the run last assigns each blob:
-        the gradient of an output with respect to one is the blob's diff
-        (pycaffe ``backward(diffs=)``)."""
+        made then supplied in ``inputs``.  ``generator`` may map layer
+        names to generators of their own, so that a ranged rerun draws
+        what the full run drew (pycaffe's ranged ``backward``).  ``eps``
+        maps blob names to zero perturbations added where the run last
+        assigns each blob: the gradient of an output with respect to one
+        is the blob's diff (pycaffe ``backward(diffs=)``)."""
         for name, which in ((upto, "upto"), (start, "start")):
             if name is not None and name not in self._node_by_name:
                 raise ValueError(f"unknown layer {name!r} for {which}= "
@@ -523,8 +540,10 @@ class Net:
                          or node.lp.type == "Accuracy" or stateful else cd)
                 bots = self._cast(bots, dtype)
                 p = self._cast(p, dtype)
+            gen = (generator.get(node.lp.name)
+                   if isinstance(generator, Mapping) else generator)
             with layer_scope(node.lp.name):
-                tops = node.impl.apply(node.lp, p, bots, train, generator)
+                tops = node.impl.apply(node.lp, p, bots, train, gen)
             if stateful:
                 tops, updated = tops
                 self._scatter_node_params(new_params, node, updated)

@@ -28,9 +28,11 @@ by a ``torch.autograd.Function``.  Its backward re-runs the user's
 belongs to this cotangent) and then calls the user's ``backward``, as
 the JAX package's custom VJP does.  Such a layer runs on the host
 whatever the device, as in Caffe; its tops come back f32 on the
-bottoms' device.  A user module that does ``import caffe`` needs the
-``caffe`` module shim (``pycaffe_compat``), which is not ported yet
-(ROADMAP A11): it raises, naming that item.
+bottoms' device.  A user module that does ``import caffe`` gets the
+port's ``caffe`` module shim: the module is imported inside
+``pycaffe_compat.bound_as_caffe()``, which binds ``caffe`` to the shim
+for the import unless a real caffe is bound or importable, and binds
+back what was there before (another package's shim, or nothing).
 
 Each net gets its own instance of each user layer (``per_net_copy``),
 as Caffe makes layer objects per net.
@@ -59,17 +61,15 @@ def register_python_layer(name: str, cls: type) -> None:
 def _resolve(module: str, layer: str) -> type:
     # the module wins where it imports (the pycaffe contract); the
     # programmatic registry is the fallback, so a registered name never
-    # shadows a real import
+    # shadows a real import.  A module that does `import caffe` gets the
+    # port's shim.
+    from .. import pycaffe_compat
     try:
-        mod = importlib.import_module(module)
+        with pycaffe_compat.bound_as_caffe():
+            mod = importlib.import_module(module)
     except ImportError as e:
         if layer in _PROGRAMMATIC:
             return _PROGRAMMATIC[layer]
-        if getattr(e, "name", None) == "caffe":
-            raise ImportError(
-                f"Python layer module {module!r} imports caffe: the caffe "
-                f"module shim (pycaffe_compat) is not ported yet (ROADMAP "
-                f"A11)") from e
         raise ImportError(
             f"Python layer module {module!r} not importable (pycaffe "
             f"resolves it from $PYTHONPATH; register_python_layer() is the "

@@ -17,6 +17,18 @@ The port's counterpart of ``sparknet_tpu/parallel/serving.py``:
   unloaded model is a typed error.
 - Admission control — a bounded queue (typed :class:`Overloaded`) and
   per-tenant QPS token buckets.
+- :class:`SLOMonitor` — declared SLOs (a p99 bound and a rejection-rate
+  budget) evaluated burn-rate-style over a fast and a slow window of
+  snapshots of the engine's counters, from a sampler thread with an
+  injectable clock; a healthy-to-breach transition dumps the telemetry
+  flight recorder.
+- Liveness beacons — with ``SPARKNET_HEARTBEAT_DIR`` set the engine
+  writes a heartbeat (``parallel/health.py``) every ``beat_every_s`` with
+  queue depth, in-flight work, latency percentiles and the SLO summary.
+- Registry versions — :meth:`ModelHouse.load_version` serves a version
+  published in the model registry (``parallel/registry.py``) under its
+  versioned name ``model@version``, its manifest's declared SLO kept as
+  ``LoadedModel.declared_slo``.
 - :func:`run_closed_loop` / :func:`solo_references` — the closed-loop load
   harness and the bit-identity oracle.
 
@@ -40,10 +52,12 @@ plane (``utils/telemetry.py``) under the JAX package's names: the
 spans, ``serve_request_seconds``, ``serve_infer_seconds``,
 ``serve_completed_total``, ``serve_failed_total``,
 ``serve_rejected_total{reason}`` and, at scrape time, the queue, in-flight,
-latency and liveness gauges.  ``serve.batch`` spans the harvester's wait
-for a batch, which the harvester makes anyway.  Not ported yet: the SLO
-monitor, health beacons, fault injection, registry versions, and the
-HTTP shell (``tools/serve.py``), ROADMAP A11.
+latency and liveness gauges, and the SLO monitor's ``slo_breach_total``
+and ``slo_healthy``.  ``serve.batch`` spans the harvester's wait for a
+batch, which the harvester makes anyway.  A batch whose rows are not
+finite fails typed and never reaches a caller; the ``bad_canary`` fault
+(``utils/faults.py``) plants such rows.  The HTTP shell over this module
+is ``tools/serve.py``.
 """
 
 from __future__ import annotations
@@ -184,7 +198,25 @@ class ServeConfig:
     # tenant without an explicit entry)
     tenant_qps: Mapping[str, float] = dataclasses.field(
         default_factory=lambda: _env_quotas("SPARKNET_SERVE_QUOTAS"))
+    beat_every_s: float = 1.0
     seed: int = 0
+    # declared SLOs (see SLOMonitor): a p99 bound (None = latency SLO
+    # undeclared) and a rejection-rate error budget, evaluated over a
+    # fast and a slow burn window
+    slo_p99_ms: float | None = dataclasses.field(
+        default_factory=lambda: (
+            _env_float("SPARKNET_SLO_P99_MS", 0.0) or None))
+    slo_reject_budget: float = dataclasses.field(
+        default_factory=lambda: _env_float("SPARKNET_SLO_REJECT_BUDGET",
+                                           0.02))
+    slo_window_s: float = dataclasses.field(
+        default_factory=lambda: _env_float("SPARKNET_SLO_WINDOW_S", 60.0))
+    slo_fast_window_s: float = dataclasses.field(
+        default_factory=lambda: _env_float("SPARKNET_SLO_FAST_S", 5.0))
+    slo_burn_fast: float = 4.0    # fast-window burn-rate trip point
+    slo_burn_slow: float = 1.0    # slow-window burn-rate trip point
+    slo_min_requests: int = 20    # no breach on a handful of requests
+    slo_sample_every_s: float = 0.5
 
     def __post_init__(self):
         shapes = tuple(sorted(set(int(s) for s in self.batch_shapes)))
@@ -204,6 +236,17 @@ class ServeConfig:
         for t, q in dict(self.tenant_qps).items():
             if q <= 0:
                 raise ValueError(f"tenant {t!r}: qps cap must be > 0")
+        if self.slo_p99_ms is not None and self.slo_p99_ms <= 0:
+            raise ValueError(f"slo_p99_ms must be > 0, "
+                             f"got {self.slo_p99_ms}")
+        if not 0.0 < self.slo_reject_budget <= 1.0:
+            raise ValueError(f"slo_reject_budget must be in (0, 1], "
+                             f"got {self.slo_reject_budget}")
+        if self.slo_fast_window_s <= 0 or (self.slo_window_s
+                                           < self.slo_fast_window_s):
+            raise ValueError(
+                f"SLO windows need 0 < fast ({self.slo_fast_window_s}) "
+                f"<= slow ({self.slo_window_s})")
 
 
 # ---------------------------------------------------------------------------
@@ -277,20 +320,25 @@ class LoadedModel:
     loss) are ignored by name, as Net::CopyTrainedLayersFrom does, and a
     layer it shares must match in blob count and shape.  ``params`` are
     in-memory weights (``convert.params_from_jax``; ``drop_extra`` lets
-    them carry layers the deploy net lacks)."""
+    them carry layers the deploy net lacks).  ``version`` is the registry
+    version id of a :meth:`ModelHouse.load_version` load (None by name),
+    and ``declared_slo`` its manifest's SLO."""
 
     def __init__(self, name: str, net_param: NetParameter, cfg: ServeConfig,
                  *, device: str | torch.device = "cuda",
                  weights: str | None = None,
                  params: Mapping[str, Sequence[Any]] | None = None,
                  drop_extra: bool = False,
-                 max_param_mb: float | None = None):
+                 max_param_mb: float | None = None,
+                 version: str | None = None):
         if weights and params is not None:
             raise ValueError("pass weights (a file) or params, not both")
         t0 = time.perf_counter()
         self.device = resolve_device(device)
         deploy, self.in_shape = deploy_from(net_param, cfg.batch_shapes[-1])
         self.name = name
+        self.version = version
+        self.declared_slo: Mapping[str, Any] | None = None
         self.dtype = cfg.dtype
         self.batch_shapes = cfg.batch_shapes
         compute = torch.bfloat16 if cfg.dtype == "bf16" else None
@@ -377,7 +425,8 @@ class LoadedModel:
         return self.harvest(self.infer_async(batch))
 
     def info(self) -> dict[str, Any]:
-        return {"name": self.name, "in_shape": list(self.in_shape),
+        return {"name": self.name, "version": self.version,
+                "in_shape": list(self.in_shape),
                 "classes": self.classes, "dtype": self.dtype,
                 "device": str(self.device),
                 "param_mb": round(self.param_bytes / 2**20, 3),
@@ -426,6 +475,45 @@ class ModelHouse:
             self._models[name] = lm
             self._models.move_to_end(name)
             self._evict_over_budget(keep=name)
+        return lm
+
+    def load_version(self, model: str, version: str, registry=None,
+                     force: bool | None = None) -> LoadedModel:
+        """Load one published registry version under its versioned name
+        ``model@version``: the manifest resolves the weights (their sha256
+        checked against the bundle).  ``registry`` defaults to the
+        ``SPARKNET_REGISTRY_DIR`` one; none configured is an error, never a
+        by-name fallback."""
+        from .registry import active_registry, versioned
+        if registry is None:
+            registry = active_registry()
+        if registry is None:
+            raise ValueError(
+                f"cannot load {model!r} version {version!r}: no model "
+                f"registry configured — set SPARKNET_REGISTRY_DIR (or "
+                f"pass one) so version ids resolve to artifact bundles")
+        manifest = registry.manifest(model, version)  # typed when absent
+        key = versioned(model, version)
+        with self._lock:
+            hit = self._models.get(key)
+            if hit is not None:
+                self._models.move_to_end(key)
+                return hit
+        zoo = zoo_models()
+        if model not in zoo:
+            raise UnknownModel(
+                f"model {model!r} not in the zoo (known: {sorted(zoo)})")
+        if force is None:
+            force = knobs.raw("SPARKNET_SERVE_FORCE_ADMIT") == "1"
+        lm = LoadedModel(key, zoo[model](), self.cfg, device=self.device,
+                         weights=registry.weights_path(model, version),
+                         max_param_mb=None if force
+                         else self.cfg.hbm_budget_mb, version=version)
+        lm.declared_slo = manifest.get("slo")
+        with self._lock:
+            self._models[key] = lm
+            self._models.move_to_end(key)
+            self._evict_over_budget(keep=key)
         return lm
 
     def _evict_over_budget(self, keep: str) -> None:
@@ -506,6 +594,10 @@ class ServeResult:
     batch_n: int               # real requests in the coalesced batch
     padded_to: int             # batch shape the batch ran at
 
+    @property
+    def top(self) -> int:
+        return int(np.argmax(self.probs))
+
 
 class _Request:
     __slots__ = ("id", "model", "x", "tenant", "t_submit", "event",
@@ -554,6 +646,210 @@ class ServeFuture:
         if self._req.result is None:
             raise ServingError(f"request #{self._req.id} completed empty")
         return self._req.result
+
+
+# ---------------------------------------------------------------------------
+# SLO monitor — declared objectives evaluated burn-rate-style
+# ---------------------------------------------------------------------------
+
+class SLOMonitor:
+    """Evaluate declared serving SLOs over periodic snapshots of the
+    engine's counters (completed / rejected / failed totals and the
+    trailing p99).
+
+    Two objectives:
+
+    - **availability**: rejections + failures may consume at most
+      ``reject_budget`` of offered requests.  Evaluated as a burn rate
+      (observed bad-fraction / budget) over a fast AND a slow window —
+      the multi-window pattern: the fast window (default 5 s) must burn
+      at ``burn_fast``× (default 4×) and the slow window (default 60 s)
+      at ``burn_slow``× before a breach is declared, so a one-batch
+      blip never pages but a sustained overload does within seconds.
+    - **latency**: the windowed p99 (max of sampled trailing p99s) must
+      stay under the declared ``p99_ms`` bound in both windows.  The
+      bound is ``None`` by default — an undeclared latency SLO is
+      honestly not evaluated, never silently passed.
+
+    ``p99_ms`` is runtime-declarable (``monitor.p99_ms = bound``) so a
+    load harness can pin the bound it just measured.  On a healthy →
+    breach transition the breaching windows are dumped through the
+    telemetry FlightRecorder (the crash black box picks up SLO context
+    even when nothing crashes); the transition back is recorded too.
+
+    Deliberately engine-agnostic: ``stats_fn`` is any callable
+    returning ``{"completed": int, "rejected": {reason: int},
+    "failed": int, "p99_ms": float}`` — the tests drive it with a
+    scripted fake and a fake clock."""
+
+    def __init__(self, stats_fn: Callable[[], Mapping[str, Any]],
+                 cfg: ServeConfig | None = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.cfg = cfg or ServeConfig()
+        self.stats_fn = stats_fn
+        self.p99_ms = self.cfg.slo_p99_ms
+        self._clock = clock
+        keep = int(max(self.cfg.slo_window_s
+                       / max(self.cfg.slo_sample_every_s, 0.05) * 2, 16))
+        self._samples: deque[dict] = deque(maxlen=keep)
+        self._lock = threading.Lock()
+        self.state = "ok"
+        self.breaches = 0
+        self.dumps = 0
+        self.sample_errors = 0
+        self.last_sample_error: str | None = None
+        self._since: float | None = None
+        reg = telemetry.get_registry()
+        self._m_breach = reg.counter(
+            "slo_breach_total", "SLO breach transitions by kind")
+        self._m_ok = reg.gauge(
+            "slo_healthy", "1 while every declared SLO holds")
+        self._m_ok.set(1.0)
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    # -- sampling ---------------------------------------------------------
+    def start(self) -> None:
+        """Run the background sampler (idempotent)."""
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(target=self._loop,
+                                        name="slo-monitor", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=self.cfg.slo_sample_every_s + 5.0)
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.cfg.slo_sample_every_s):
+            try:
+                self.evaluate()
+            except Exception as e:
+                # a broken scrape must not kill the sampler — park it
+                # where summary() carries it out instead of swallowing
+                with self._lock:
+                    self.sample_errors += 1
+                    self.last_sample_error = f"{type(e).__name__}: {e}"
+
+    def _snapshot(self) -> dict:
+        st = self.stats_fn()
+        rejected = st.get("rejected") or {}
+        if isinstance(rejected, Mapping):
+            rejected = sum(rejected.values())
+        return {"t": self._clock(),
+                "completed": int(st.get("completed", 0)),
+                "rejected": int(rejected),
+                "failed": int(st.get("failed", 0)),
+                "p99_ms": float(st.get("p99_ms", 0.0) or 0.0)}
+
+    def _window(self, samples: list[dict], seconds: float) -> dict:
+        newest = samples[-1]
+        cutoff = newest["t"] - seconds
+        oldest = samples[0]
+        for s in samples:
+            if s["t"] >= cutoff:
+                oldest = s
+                break
+        d_done = newest["completed"] - oldest["completed"]
+        d_rej = newest["rejected"] - oldest["rejected"]
+        d_fail = newest["failed"] - oldest["failed"]
+        total = max(d_done + d_rej + d_fail, 0)
+        bad = max(d_rej + d_fail, 0)
+        frac = bad / total if total else 0.0
+        p99 = max((s["p99_ms"] for s in samples if s["t"] >= cutoff),
+                  default=0.0)
+        return {"seconds": round(newest["t"] - oldest["t"], 2),
+                "requests": total, "bad": bad,
+                "bad_frac": round(frac, 4),
+                "burn": round(frac / self.cfg.slo_reject_budget, 2),
+                "p99_ms": round(p99, 3)}
+
+    # -- evaluation -------------------------------------------------------
+    def evaluate(self) -> dict[str, Any]:
+        """Take a fresh snapshot, evaluate both windows, handle state
+        transitions (recorder events + flight dump on breach).  The
+        returned doc is the ``GET /slo`` body."""
+        snap = self._snapshot()
+        with self._lock:
+            self._samples.append(snap)
+            samples = list(self._samples)
+        fast = self._window(samples, self.cfg.slo_fast_window_s)
+        slow = self._window(samples, self.cfg.slo_window_s)
+        breaches: list[str] = []
+        if (fast["requests"] >= self.cfg.slo_min_requests
+                and fast["burn"] >= self.cfg.slo_burn_fast
+                and slow["burn"] >= self.cfg.slo_burn_slow):
+            breaches.append("availability")
+        if (self.p99_ms is not None and fast["requests"] > 0
+                and fast["p99_ms"] > self.p99_ms
+                and slow["p99_ms"] > self.p99_ms):
+            breaches.append("latency")
+        new_state = "breach" if breaches else "ok"
+        dump_doc = None
+        with self._lock:
+            old_state = self.state
+            self.state = new_state
+            if new_state == "breach" and old_state == "ok":
+                self.breaches += 1
+                self._since = snap["t"]
+            elif new_state == "ok":
+                self._since = None
+            since = self._since
+        if new_state == "breach" and old_state == "ok":
+            for kind in breaches:
+                self._m_breach.inc(kind=kind)
+            rec = telemetry.get_recorder()
+            rec.record("slo_breach", kinds=breaches, fast=fast,
+                       slow=slow, p99_bound_ms=self.p99_ms,
+                       reject_budget=self.cfg.slo_reject_budget)
+            dump_doc = rec.dump("slo_" + "_".join(breaches))
+            with self._lock:
+                self.dumps += 1
+        elif new_state == "ok" and old_state == "breach":
+            telemetry.get_recorder().record(
+                "slo_recovered", fast=fast, slow=slow)
+        self._m_ok.set(0.0 if breaches else 1.0)
+        return {
+            "state": new_state,
+            "breaches": breaches,
+            "declared": {
+                "p99_ms": self.p99_ms,
+                "reject_budget": self.cfg.slo_reject_budget,
+                "window_s": self.cfg.slo_window_s,
+                "fast_window_s": self.cfg.slo_fast_window_s,
+                "burn_fast": self.cfg.slo_burn_fast,
+                "burn_slow": self.cfg.slo_burn_slow,
+            },
+            "windows": {"fast": fast, "slow": slow},
+            "breach_count": self.breaches,
+            "flight_dumps": self.dumps,
+            "breach_since_s": (round(snap["t"] - since, 1)
+                               if since is not None else None),
+        }
+
+    def reset(self) -> None:
+        """Forget windowed history (a deployment/measurement fence):
+        the next evaluation starts from fresh windows.  Load harnesses
+        use it to keep a deliberate saturation probe — whose engine-
+        level rejections are real but intentional — from burning the
+        budget of the leg that follows.  Cumulative counters are
+        untouched; only the window samples and breach state clear."""
+        with self._lock:
+            self._samples.clear()
+            self.state = "ok"
+            self._since = None
+        self._m_ok.set(1.0)
+
+    def summary(self) -> dict[str, Any]:
+        """The cheap, lock-light view the health beacons carry."""
+        with self._lock:
+            out = {"state": self.state, "breaches": self.breaches}
+            if self.sample_errors:
+                out["sample_errors"] = self.sample_errors
+                out["last_sample_error"] = self.last_sample_error
+            return out
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +911,10 @@ class InferenceEngine:
         self._m_rej = reg.counter(
             "serve_rejected_total", "admission rejections by reason")
         reg.add_collector(self._publish_gauges)
+        # SLO monitor: burn-rate evaluation over snapshots of the counters
+        # above, sampled from a daemon thread of its own
+        self.slo = SLOMonitor(self.stats, self.cfg, clock=clock)
+        self.slo.start()
         self._harvest_q: "queue.Queue[Any]" = queue.Queue(
             maxsize=self.cfg.inflight_batches)
         self._harvester = threading.Thread(
@@ -623,6 +923,11 @@ class InferenceEngine:
         self._dispatcher = threading.Thread(
             target=self._loop, name="serve-dispatch", daemon=True)
         self._dispatcher.start()
+        self._beacon: threading.Thread | None = None
+        if knobs.is_set("SPARKNET_HEARTBEAT_DIR"):
+            self._beacon = threading.Thread(
+                target=self._beat_loop, name="serve-beacon", daemon=True)
+            self._beacon.start()
 
     # -- liveness ---------------------------------------------------------
     @property
@@ -828,8 +1133,12 @@ class InferenceEngine:
                 self._batches_in_flight -= 1
             self._fail_batch(reqs, model, e)
             return
+        from ..utils import faults
+        if faults.get_injector().bad_canary(model):
+            probs = np.full_like(probs, np.nan)
         if not np.isfinite(probs[:n]).all():
-            # non-finite rows must never reach a caller: fail the batch typed
+            # non-finite rows must never reach a caller: fail the batch
+            # typed (the SLO monitor sees the availability burn)
             with self._cond:
                 self._batches_in_flight -= 1
             self._fail_batch(reqs, model, ServingError(
@@ -934,7 +1243,43 @@ class InferenceEngine:
                 "max_queue": self.cfg.max_queue,
             }
         out["models"] = self.models.loaded()
+        out["slo"] = self.slo.summary()
         return out
+
+    # -- liveness beacons (parallel/health.py) -----------------------------
+    def _beat_extras(self) -> dict[str, Any]:
+        with self._cond:
+            return {
+                "serving": True,
+                "queue_depth": self._depth,
+                "in_flight_batches": self._batches_in_flight,
+                "in_flight": self._in_flight,
+                "completed": self.completed,
+                "rejected": dict(self.rejected),
+                **self._percentiles(self._lat_ms),
+                "models": sorted(self.models.loaded()),
+                "slo": self.slo.summary(),
+            }
+
+    def _beat_loop(self) -> None:
+        from . import health
+        directory = knobs.raw("SPARKNET_HEARTBEAT_DIR")
+        rank = knobs.get_int("SPARKNET_PROC_ID", 0)
+        attempt = knobs.get_int("SPARKNET_FAULT_ATTEMPT", 0)
+        while True:
+            with self._cond:
+                self._cond.wait(self.cfg.beat_every_s)
+                stopping = self._stopping or self._dead
+                round_idx = self.dispatches
+            try:
+                health.write_beat(directory, rank, round_idx,
+                                  "final" if stopping else "serving",
+                                  attempt=attempt,
+                                  extras=self._beat_extras())
+            except OSError:
+                pass  # an unwritable beacon dir must not kill serving
+            if stopping:
+                return
 
     # -- shutdown ---------------------------------------------------------
     def stop(self) -> None:
@@ -955,6 +1300,9 @@ class InferenceEngine:
             r.event.set()
         self._dispatcher.join(timeout=10.0)
         self._harvester.join(timeout=10.0)
+        self.slo.stop()
+        if self._beacon is not None:
+            self._beacon.join(timeout=self.cfg.beat_every_s + 5.0)
 
     def __enter__(self) -> "InferenceEngine":
         return self
@@ -992,6 +1340,8 @@ def run_closed_loop(engine: InferenceEngine, model: str,
                     tenant: str = "loadgen",
                     timeout_s: float = 30.0,
                     refs: Mapping[int, Mapping[int, np.ndarray]] | None
+                    = None,
+                    submit: Callable[[int, np.ndarray], ServeFuture] | None
                     = None) -> dict[str, Any]:
     """Drive ``clients`` closed-loop workers for ``duration_s``, each
     keeping up to ``window`` requests outstanding (total concurrency =
@@ -1002,7 +1352,9 @@ def run_closed_loop(engine: InferenceEngine, model: str,
     ``t0 + (j + k*clients)/qps`` and sleeps to it (offered > capacity shows
     up as ``rejected``).  ``refs`` (from :func:`solo_references`) turns on
     the exactness audit: every completed request is compared bit for bit
-    against its solo reference at the shape it actually rode."""
+    against its solo reference at the shape it actually rode.
+    ``submit(idx, x) -> ServeFuture`` overrides the transport (the load
+    over HTTP)."""
     t0 = time.monotonic()
     t_end = t0 + duration_s
     lat_ms: list[list[float]] = [[] for _ in range(clients)]
@@ -1010,6 +1362,11 @@ def run_closed_loop(engine: InferenceEngine, model: str,
     rejected = [0] * clients
     errors = [0] * clients
     mismatches = [0] * clients
+
+    def do_submit(idx: int, x: np.ndarray) -> ServeFuture:
+        if submit is not None:
+            return submit(idx, x)
+        return engine.submit(model, x, tenant=tenant)
 
     def client(j: int) -> None:
         pend: "deque[tuple[float, int, ServeFuture]]" = deque()
@@ -1050,8 +1407,7 @@ def run_closed_loop(engine: InferenceEngine, model: str,
             k += 1
             t_s = time.monotonic()
             try:
-                pend.append((t_s, idx, engine.submit(model, inputs[idx],
-                                                     tenant=tenant)))
+                pend.append((t_s, idx, do_submit(idx, inputs[idx])))
             except Overloaded:
                 if offered_qps:
                     rejected[j] += 1     # paced: the rejection IS the datum

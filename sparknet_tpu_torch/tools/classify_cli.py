@@ -9,9 +9,11 @@ run).
 The port's own copy of ``sparknet_tpu/tools/classify_cli.py``, with the
 port's ``--device`` (cuda unless the caller asks for the CPU): images are
 decoded there by ``pycaffe_io.load_image`` (JPEG, PNG, CMYK JPEG on the
-card without PIL) and classified by ``classify.Classifier``.  ``--server``
-needs the serving plane, which the port does not have yet: it raises
-naming its ROADMAP item.
+card without PIL) and classified by ``classify.Classifier``.  With
+``--server URL --model NAME`` the same preprocessing runs here and
+``classify.RemoteClassifier`` posts each crop to a running
+``python -m sparknet_tpu_torch.tools.serve``, which batches them on its
+own device.
 
 Usage:
   python -m sparknet_tpu_torch.tools.classify_cli INPUT OUT.npy \
@@ -19,6 +21,8 @@ Usage:
       [--center_only] [--images_dim 256,256] [--mean_file mean.npy]
       [--input_scale S] [--raw_scale 255] [--channel_swap 2,1,0]
       [--ext jpg] [--device cuda|cpu]
+  python -m sparknet_tpu_torch.tools.classify_cli INPUT OUT.npy \
+      --server http://127.0.0.1:8100 --model caffenet [...]
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ def main(argv=None) -> int:
                         help="Trained model weights file.")
     parser.add_argument("--server", default=None, metavar="URL",
                         help="Submit to a running tools/serve.py instead "
-                             "of compiling locally (e.g. "
+                             "of running the net locally (e.g. "
                              "http://127.0.0.1:8100); preprocessing is "
                              "the same shared pipeline either way.")
     parser.add_argument("--model", default=None,

@@ -1,10 +1,11 @@
 """The ``SPARKNET_*`` environment knobs the port reads.
 
 The port's own copy of the read half of ``sparknet_tpu/utils/knobs.py``
-(``raw``, ``is_set``, ``get_str``, ``get_int``, ``get_bool``, :106-157),
-for the knobs of the serving path, the training feed, the DB readers,
-the record shards and their tiered cache,
-the trainer's round shape (``comm_config_from_env``), the checkpoint
+(``raw``, ``is_set``, ``get_str``, ``get_int``, ``get_float``,
+``get_bool``, :106-157), for the knobs of the serving path, its SLO
+monitor, the model registry, the health beacons, the training feed, the
+DB readers, the record shards and their tiered cache, the trainer's
+round shape (``comm_config_from_env``), the checkpoint
 writer, the fault injector and the telemetry plane
 (``utils/telemetry.py``).  Reading a name that is not declared here
 raises :class:`UnknownKnob`, so a typo'd knob fails loudly instead of
@@ -16,7 +17,8 @@ from __future__ import annotations
 import os
 
 # name -> one-line doc (defaults live with the readers: ServeConfig,
-# data/pipeline.py, parallel/trainer.py, utils/checkpoint.py,
+# parallel/registry.py, parallel/health.py, data/pipeline.py,
+# parallel/trainer.py, utils/checkpoint.py,
 # utils/faults.py, utils/telemetry.py; each doc names the JAX package's
 # default)
 KNOBS: dict[str, str] = {
@@ -28,6 +30,17 @@ KNOBS: dict[str, str] = {
     "SPARKNET_SERVE_DTYPE": "serving compute dtype, bf16 or f32",
     "SPARKNET_SERVE_QUOTAS": "tenant=qps[,tenant=qps...] caps",
     "SPARKNET_SERVE_FORCE_ADMIT": "1 admits models larger than the budget",
+    "SPARKNET_SLO_P99_MS": "declared p99 latency SLO in ms; unset or 0 (the "
+                           "default) leaves the latency SLO undeclared",
+    "SPARKNET_SLO_REJECT_BUDGET": "rejection-rate error budget of the SLO "
+                                  "burn accounting; default 0.02",
+    "SPARKNET_SLO_WINDOW_S": "slow burn-rate window in seconds; default 60",
+    "SPARKNET_SLO_FAST_S": "fast burn-rate window in seconds; default 5",
+    "SPARKNET_REGISTRY_DIR": "root of the model registry (version bundles "
+                             "and per-model channel files); unset (the "
+                             "default) serves by name only",
+    "SPARKNET_HEARTBEAT_DIR": "directory for liveness beat files; unset "
+                              "(the default) writes no beats",
     "SPARKNET_FEED_DEPTH": "host batches the device feed stages ahead",
     "SPARKNET_FEED_PUTTERS": "device feed's host-to-device copy threads",
     "SPARKNET_FEED_WORKERS": "DB feed's decode threads",
@@ -129,6 +142,17 @@ def get_int(name: str, default: int) -> int:
     except ValueError:
         raise InvalidKnobValue(
             f"{name} must be an integer, got {val!r}") from None
+
+
+def get_float(name: str, default: float) -> float:
+    val = raw(name)
+    if val is None or val == "":
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        raise InvalidKnobValue(
+            f"{name} must be a number, got {val!r}") from None
 
 
 def get_bool(name: str, default: bool) -> bool:

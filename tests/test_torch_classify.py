@@ -24,8 +24,9 @@ its own decoder, so ``load_image`` is held against the JAX one on every
 PNG fixture too, and on the CMYK JPEG.  ``resize_image`` (PIL's mode "F"
 resize), ``Transformer``, the blobproto and Datum helpers, and
 ``pycaffe_pb2`` messages (bytes, text, presence, enums) equal the JAX
-module's.  ``RemoteClassifier`` and ``--server`` raise naming ROADMAP
-A11, and without ``device="cpu"`` and without a card nothing runs.
+module's.  ``RemoteClassifier`` and ``--server`` classify through the
+port's HTTP shell as the JAX client does, and without ``device="cpu"``
+and without a card nothing runs.
 """
 
 from __future__ import annotations
@@ -373,14 +374,48 @@ def test_pb2_messages_serialize_as_jax_ones_do():
         ours["solver"].solver_mode = "TPU"
 
 
-def test_remote_classifier_and_server_raise_naming_a11(model, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11, serving"):
-        classify.RemoteClassifier("http://127.0.0.1:8100", "caffenet")
-    np.save(tmp_path / "b.npy", np.zeros((1, 8, 8, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11, serving"):
-        classify_cli.main([str(tmp_path / "b.npy"), str(tmp_path / "o.npy"),
-                           "--server", "http://127.0.0.1:8100", "--model",
-                           "caffenet", "--device", "cpu"])
+def test_remote_classifier_and_server_raise_naming_a11(tmp_path):
+    """They no longer raise: ``RemoteClassifier`` and ``classify_cli
+    --server`` classify through the port's HTTP shell (served from this
+    process on the CPU), equal within 1e-5 to the JAX package's
+    ``RemoteClassifier`` against the same server."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from sparknet_tpu_torch.parallel import serving
+    from sparknet_tpu_torch.tools import serve
+    cfg = serving.ServeConfig(batch_shapes=(1, 4, 16), dtype="f32",
+                              max_delay_ms=5.0)
+    house = serving.ModelHouse(cfg, device="cpu")
+    house.load("lenet")
+    engine = serving.InferenceEngine(house)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                serve.make_handler(engine, house))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = "http://127.0.0.1:%d" % httpd.server_address[1]
+    try:
+        imgs = [np.random.default_rng(i).uniform(size=(32, 32)).astype(
+            np.float32) for i in range(2)]
+        ours = classify.RemoteClassifier(
+            url, "lenet", image_dims=(32, 32)).predict(imgs)
+        theirs = jax_classify.RemoteClassifier(
+            url, "lenet", image_dims=(32, 32)).predict(imgs)
+        assert ours.shape == (2, 10)
+        np.testing.assert_allclose(ours, theirs, rtol=RTOL, atol=ATOL)
+        np.save(tmp_path / "b.npy", np.stack(imgs)[..., None])
+        assert classify_cli.main(
+            [str(tmp_path / "b.npy"), str(tmp_path / "o.npy"), "--server",
+             url, "--model", "lenet", "--images_dim", "32,32",
+             "--channel_swap", "", "--raw_scale", "1"]) == 0
+        np.testing.assert_allclose(np.load(tmp_path / "o.npy"), ours,
+                                   rtol=RTOL, atol=ATOL)
+        with pytest.raises(SystemExit):
+            classify_cli.main([str(tmp_path / "b.npy"),
+                               str(tmp_path / "o.npy"), "--server", url])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
 
 
 def test_nothing_leaves_the_card_unasked(model, monkeypatch, tmp_path):

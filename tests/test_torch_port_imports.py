@@ -12,7 +12,9 @@ inside ``tools/plot_training_log.py``'s ``plot``, and
 blocked.  Caffe's tools and pycaffe's classifiers (``train_cifar``,
 ``parse_log``, ``upgrade_net_proto``, ``draw_net``, ``classify_cli`` and
 ``detect_cli`` on PNGs, ``pycaffe_io``, ``pycaffe_pb2``) run with all of
-those and PIL and matplotlib blocked, as on the card's machine."""
+those and PIL and matplotlib blocked, as on the card's machine, and so do
+the serving plane's ``tools/serve.py --help``, the model registry, the
+beacons and ``import caffe`` through the port's shim."""
 
 from __future__ import annotations
 
@@ -553,5 +555,75 @@ def test_data_plane_and_proxy_run_with_jax_pil_and_matplotlib_blocked(
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+SERVING_MODULES = ["parallel/registry.py", "parallel/health.py",
+                   "parallel/serving.py", "tools/serve.py",
+                   "pycaffe_compat.py", "pycaffe_netspec.py",
+                   "classify.py", "ops/python_layer.py"]
+
+
+def test_serving_plane_and_caffe_shim_run_with_jax_blocked(tmp_path):
+    """The serving plane's and the ``caffe`` shim's modules are among the
+    files the scans above cover, and with ``jax``, ``sparknet_tpu``,
+    ``google.protobuf``, ``h5py``, ``pyspark``, PIL and matplotlib
+    blocked: ``tools/serve.py --help`` runs, ``import caffe`` binds the
+    port's shim, a NetSpec net runs forward and backward through
+    ``caffe.Net`` on the CPU, a registry version publishes and a beat is
+    written and read back."""
+    for rel in SERVING_MODULES:
+        assert PKG / rel in SOURCES
+    help_out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys\n"
+         "for m in ('jax', 'sparknet_tpu', 'PIL', 'matplotlib'):\n"
+         "    sys.modules[m] = None\n"
+         "sys.argv = ['serve', '--help']\n"
+         "from sparknet_tpu_torch.tools import serve\n"
+         "serve.main()\n"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    assert help_out.returncode == 0, help_out.stderr
+    assert "--device" in help_out.stdout and "--fleet" in help_out.stdout
+    t = str(tmp_path)
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'sparknet_tpu', 'google.protobuf', 'h5py', "
+        "'pyspark', 'PIL', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from sparknet_tpu_torch import pycaffe_compat\n"
+        "pycaffe_compat.install()\n"
+        "import caffe\n"
+        "from caffe.proto import caffe_pb2\n"
+        "assert caffe is pycaffe_compat\n"
+        "caffe.set_mode_cpu()\n"
+        "L, P = caffe.layers, caffe.params\n"
+        "n = caffe.NetSpec()\n"
+        "n.data = L.Input(shape=dict(dim=[2, 1, 8, 8]))\n"
+        "n.conv = L.Convolution(n.data, num_output=3, kernel_size=3, "
+        "weight_filler=dict(type='xavier'))\n"
+        "n.pool = L.Pooling(n.conv, pool=P.Pooling.MAX, kernel_size=2, "
+        "stride=2)\n"
+        "n.ip = L.InnerProduct(n.pool, num_output=2)\n"
+        "net = caffe.Net(str(n.to_proto()), phase=caffe.TEST)\n"
+        "out = net.forward(data=np.ones((2, 1, 8, 8), np.float32))\n"
+        "d = net.backward(ip=np.ones((2, 2), np.float32))\n"
+        "assert out['ip'].shape == (2, 2) and d['data'].shape == "
+        "(2, 1, 8, 8)\n"
+        "from sparknet_tpu_torch.parallel import health, registry\n"
+        f"net.save({t!r} + '/w.caffemodel')\n"
+        f"reg = registry.ModelRegistry({t!r} + '/reg')\n"
+        f"v = reg.publish('lenet', weights={t!r} + '/w.caffemodel')\n"
+        "assert reg.weights_path('lenet', v).endswith('.caffemodel')\n"
+        f"health.write_beat({t!r} + '/beats', 0, 1, 'serving')\n"
+        f"assert health.read_all({t!r} + '/beats')[0].phase == 'serving'\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.', 'PIL', 'matplotlib', 'h5py', 'pyspark', "
+        "'google.protobuf')) for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")

@@ -12,7 +12,8 @@
   ``Solver`` move.
 - One instance a net (``per_net_copy``), resolution from ``sys.path``
   before the programmatic registry, a clear error for a missing module,
-  and a module that does ``import caffe`` refused naming ROADMAP A11.
+  and a module that does ``import caffe`` given the port's ``caffe``
+  shim.
 """
 
 from __future__ import annotations
@@ -299,7 +300,9 @@ def test_each_net_gets_its_own_instance():
 
 def test_resolution_and_its_errors(tmp_path, monkeypatch):
     """A module on sys.path wins over the registry; a missing module names
-    itself; a module that imports caffe is refused naming ROADMAP A11."""
+    itself; a module that imports caffe gets the port's shim (once
+    refused naming ROADMAP A11) for its import, its ``caffe.Layer`` the
+    port's."""
     (tmp_path / "user_layers_mod.py").write_text(
         "class TimesTen:\n"
         "    def out_shapes(self, s):\n        return [tuple(s[0])]\n"
@@ -307,7 +310,11 @@ def test_resolution_and_its_errors(tmp_path, monkeypatch):
     (tmp_path / "needs_caffe_mod.py").write_text(
         "import caffe\n\nclass L(caffe.Layer):\n    pass\n")
     monkeypatch.syspath_prepend(str(tmp_path))
-    monkeypatch.delitem(sys.modules, "caffe", raising=False)
+    for name in ("caffe", "caffe.proto", "caffe.proto.caffe_pb2",
+                 "needs_caffe_mod"):
+        # recorded first, so the binding the test makes is undone after
+        monkeypatch.setitem(sys.modules, name, None)
+        monkeypatch.delitem(sys.modules, name)
 
     def net(module, layer):
         return Net(load_net_prototxt(f"""
@@ -319,5 +326,10 @@ def test_resolution_and_its_errors(tmp_path, monkeypatch):
     np.testing.assert_allclose(y.numpy(), 3.0)
     with pytest.raises(ImportError, match="no_such_module_xyz"):
         net("no_such_module_xyz", "Nope")
-    with pytest.raises(ImportError, match="ROADMAP A11"):
-        net("needs_caffe_mod", "L")
+    from sparknet_tpu_torch import pycaffe_compat
+    caffe_net = net("needs_caffe_mod", "L")
+    assert sys.modules["needs_caffe_mod"].caffe is pycaffe_compat
+    assert "caffe" not in sys.modules      # bound for the import only
+    user = caffe_net.nodes[0].impl._binding(caffe_net.nodes[0].lp,
+                                            [(2,)]).inst
+    assert isinstance(user, pycaffe_compat.Layer)
