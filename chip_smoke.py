@@ -145,7 +145,16 @@ against the CPU (and the ms of a forward with its mirror copies), the
 train net's ``forward()``/``backward()`` at batch 64, and ``get_solver``
 on a NetSpec-built CaffeNet from an LMDB, each of its 10 steps, against
 f64 runs on the CPU that take the card's ReLU and MAX pool decisions,
-with B3 planted.  A ``timeline`` line gives each phase's seconds.
+with B3 planted.  Phase 5m runs the fusion pass and the lowering tuner:
+``tools/fusebench.py`` on the card in f32 and bf16 (planted: an epilogue
+that drops the ReLU fold, swapped horizontal slices), GoogLeNet's round
+(2 workers x 32, τ=2) under the committed fusion plan against the
+unfused round (params within 1e-5, the ReLU-folded launches exact), its
+deploy net served at 64 with horizontal fusion on and off (rows within
+1e-5, device ms and launches of each), and ``tools/tune.py staleness
+--budget-s 20`` on the committed tuning table.  The kernels line counts
+the launches with the ReLU folded in apart (``relu_launches``).  A
+``timeline`` line gives each phase's seconds.
 Prints the card, timings, a
 ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": ...}``.  Every failed check
@@ -189,6 +198,22 @@ SEED = 0
 L2_FLUSH_BYTES = 128 * 2**20     # > the card's 50 MB L2
 # the image kernels' counts on a path that decodes no JPEG
 IMAGE_KERNELS_IDLE = {"ycc_to_rgb": 0, "resize_bilinear": 0}
+# the LRN kernels' launches with the ReLU folded in (a relu+lrn chain of
+# the fusion plan), counted under keys of their own
+RELU_FOLD_KEYS = ("lrn_across_channels_relu", "lrn_across_channels_fwd_relu",
+                  "lrn_across_channels_bwd_relu")
+
+
+def launched(ck) -> dict:
+    """The kernels' launch counts, the ReLU-folded ones only where a path
+    launched them: a path without a relu+lrn chain reads as before."""
+    return {k: v for k, v in ck.launch_counts.items()
+            if v or k not in RELU_FOLD_KEYS}
+
+
+def folded(want: dict) -> dict:
+    """``want`` without its ReLU-folded keys at 0 (as :func:`launched`)."""
+    return {k: v for k, v in want.items() if v or k not in RELU_FOLD_KEYS}
 
 
 def fail(msg: str) -> None:
@@ -253,6 +278,8 @@ LRN_CASES = [
     *((f"googlenet_{norm}_b{b}", (b, c, 56, 56), 5, False)
       for norm, c in (("norm1", 64), ("norm2", 192)) for b in (1, 4, 16, 64)),
     ("googlenet_conv2_norm2_b16", (16, 192, 56, 56), 5, True),
+    # the fused relu+lrn chain served at 64 (phase 5m)
+    ("googlenet_conv2_norm2_relu_b64", (64, 192, 56, 56), 5, True),
     ("odd_size3", (3, 7, 5, 9), 3, False),
     ("odd_size4_relu", (3, 7, 5, 9), 4, True),
     ("odd_size5", (3, 7, 5, 9), 5, False),
@@ -355,6 +382,9 @@ LRN_TRAIN_CASES = [
     *((f"googlenet_{norm}_b{GN_BATCH}", (GN_BATCH, c, 56, 56), 5, False)
       for norm, c in (("norm1", 64), ("norm2", 192))),
     ("googlenet_conv2_norm2_b16", (16, 192, 56, 56), 5, True),
+    # the fused relu+lrn chain GoogLeNet's training path runs
+    (f"googlenet_conv2_norm2_relu_b{GN_BATCH}", (GN_BATCH, 192, 56, 56), 5,
+     True),
     ("odd_size3", (3, 7, 5, 9), 3, False),
     ("odd_size4", (3, 7, 5, 9), 4, False),
     ("odd_size4_relu", (3, 7, 5, 9), 4, True),
@@ -786,6 +816,10 @@ def check_against_cpu(lm, blob: str) -> tuple[float, float, tuple]:
     return rel(got), rel(planted), tf32
 
 
+# seconds of each closed-loop leg of phase 4
+SERVE_LEG_S = 0.5
+
+
 def serve_both(dev, smi: str, model: str, blob: str) -> dict:
     """``model`` served in bf16 and in f32 on the same weights: the f32
     logits on the card within 1e-4 of the CPU forward (TF32 off), with
@@ -793,10 +827,10 @@ def serve_both(dev, smi: str, model: str, blob: str) -> dict:
     throughput at batch 64; p50/p99 per batch shape.  Returns the two
     reports and their loaded models."""
     tag = "" if model == "caffenet" else f"_{model}"
-    bf16, lm16 = serve("bf16", dev, model=model, duration_s=1.0,
+    bf16, lm16 = serve("bf16", dev, model=model, duration_s=SERVE_LEG_S,
                        n_inputs=16, tag=tag)
-    f32, lm32 = serve("f32", dev, model=model, duration_s=1.0, n_inputs=8,
-                      tag=f"{tag}_f32")
+    f32, lm32 = serve("f32", dev, model=model, duration_s=SERVE_LEG_S,
+                      n_inputs=8, tag=f"{tag}_f32")
     for k, blobs in lm16.params.items():
         if not all(torch.equal(a, b) for a, b in zip(blobs, lm32.params[k])):
             fail(f"{model}: bf16 and f32 houses drew different weights "
@@ -1205,7 +1239,7 @@ def train_app(ck, dev, smi: str, label: str, main_fn, argv: list[str], *,
             stack.enter_context(prof.hooks())
         run = main_fn(argv)
     wall_s = time.perf_counter() - t0
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     tr = run.trainer
     losses = [tr.round_losses[r] for r in range(rounds)]
     if not all(math.isfinite(v) for v in losses):
@@ -1304,6 +1338,10 @@ def train_imagenet(ck, dev, smi: str, label: str, model: str, *,
     batch = TRAIN_BATCH if model == "caffenet" else GN_BATCH
     pools = 3 if model == "caffenet" else 13
     steps = TRAIN_WORKERS * TRAIN_TAU * rounds
+    # the ReLU-folded LRNs of the committed auto plan (train and test nets
+    # fuse the same chains)
+    folds = relu_folds(model)
+    evals = eval_batches(TRAIN_WORKERS, batch)
     extra = list(extra) + (["--device-preprocess"] if mode == "device"
                            else [])
     score_keys = ({"loss", "accuracy"} if model == "caffenet" else
@@ -1316,11 +1354,13 @@ def train_imagenet(ck, dev, smi: str, label: str, model: str, *,
         score_keys=score_keys,
         loop="synchronous" if mode == "synchronous" else None,
         profile_path=profile_path,
-        want={"lrn_across_channels_fwd": 2 * steps,
-              "lrn_across_channels_bwd": 2 * steps,
-              "max_pool_bwd": pools * steps,
-              "lrn_across_channels": 2 * eval_batches(TRAIN_WORKERS,
-                                                      batch)})
+        want=folded({"lrn_across_channels_fwd": (2 - folds) * steps,
+                     "lrn_across_channels_bwd": (2 - folds) * steps,
+                     "lrn_across_channels_fwd_relu": folds * steps,
+                     "lrn_across_channels_bwd_relu": folds * steps,
+                     "max_pool_bwd": pools * steps,
+                     "lrn_across_channels": (2 - folds) * evals,
+                     "lrn_across_channels_relu": folds * evals}))
     tr = out["trainer"]
     crop = TRAIN_CROP if model == "caffenet" else GN_CROP
     if tr.train_net.blob_shapes["data"][-1] != crop:
@@ -1805,7 +1845,7 @@ def solver_caffenet(ck, dev, smi: str, d: str) -> dict:
         final = a.solve()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    training = dict(ck.launch_counts)
+    training = launched(ck)
     want = {"lrn_across_channels_fwd": 2 * SOLVER_ITERS,
             "lrn_across_channels_bwd": 2 * SOLVER_ITERS,
             "max_pool_bwd": 3 * SOLVER_ITERS,
@@ -1849,7 +1889,7 @@ def solver_caffenet(ck, dev, smi: str, d: str) -> dict:
     # the test pass alone: the inference kernel, 2 a forward
     ck.reset_launch_counts()
     scores = a.test(SOLVER_TEST_ITER)
-    test_launches = dict(ck.launch_counts)
+    test_launches = launched(ck)
     want_test = {k: 0 for k in want}
     want_test["lrn_across_channels"] = 2 * SOLVER_TEST_ITER
     if test_launches != want_test or set(scores) != {"loss", "accuracy"} \
@@ -2145,7 +2185,7 @@ def solver_rules_cifar(ck, dev, smi: str, d: str) -> dict:
                 traj.append((host_f64(card.params),
                              {s: host_f64(t)
                               for s, t in card.state.items()}))
-        launches[rule] = dict(ck.launch_counts)
+        launches[rule] = launched(ck)
         want = {"lrn_across_channels_fwd": 0, "lrn_across_channels_bwd": 0,
                 "max_pool_bwd": RULE_ITERS, "lrn_across_channels": 0,
                 **IMAGE_KERNELS_IDLE}
@@ -2562,7 +2602,7 @@ def caffe_data_path(ck, dev, smi: str, solver_ms_b256: float,
     torch.cuda.reset_peak_memory_stats(dev)
     ck.reset_launch_counts()
     log, train_s = run_cli(caffe_cli.main, ["train", "--solver", solver])
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     if launches != DATA_PATH_WANT:
         fail(f"data_path: caffe_cli train launches {launches}, want "
              f"{DATA_PATH_WANT}")
@@ -2622,7 +2662,7 @@ def caffe_data_path(ck, dev, smi: str, solver_ms_b256: float,
     with cudnn_deterministic():
         _, extract_s = run_cli(extract_features.main, [
             snapshot, model, "fc7", feat_db, str(SOLVER_TEST_ITER)])
-        extract_launches = dict(ck.launch_counts)
+        extract_launches = launched(ck)
         from sparknet_tpu_torch.data.db import db_feed
         net = Net(load_net_prototxt(text), NetState(Phase.TEST))
         params = load_weights_into(net, net.init(
@@ -3146,7 +3186,7 @@ def cli_image_paths(ck, dev, smi: str) -> dict:
         decoded["n"] = 0
         _, report["compute_image_mean_s"] = run_cli(
             compute_image_mean.main, [db_path, mean_file])
-        report["launches"]["compute_image_mean"] = dict(ck.launch_counts)
+        report["launches"]["compute_image_mean"] = launched(ck)
         mean = load_mean_binaryproto(mean_file)
         err = float(np.abs(mean.reshape(3, -1).mean(1)
                            - e["channel_mean"]).max())
@@ -3171,7 +3211,7 @@ def cli_image_paths(ck, dev, smi: str) -> dict:
             decoded["n"] = 0
             log, wall = run_cli(caffe_cli.main, ["train", "--solver",
                                                  solver])
-            launches = dict(ck.launch_counts)
+            launches = launched(ck)
             want = {"lrn_across_channels_fwd": 2 * IMAGE_SOLVER_ITERS,
                     "lrn_across_channels_bwd": 2 * IMAGE_SOLVER_ITERS,
                     "max_pool_bwd": 3 * IMAGE_SOLVER_ITERS,
@@ -3243,7 +3283,7 @@ def window_batch(ck, dev, smi: str) -> dict:
         got = next(db.window_data_feed(lp, Phase.TRAIN, seed=SEED,
                                        device=dev))
         wall = time.perf_counter() - t0
-        launches = dict(ck.launch_counts)
+        launches = launched(ck)
         with mock.patch.object(ck, "resize_bilinear",
                                ck.resize_bilinear_reference), \
                 mock.patch.object(ck, "ycc_to_rgb",
@@ -3251,7 +3291,7 @@ def window_batch(ck, dev, smi: str) -> dict:
             ck.reset_launch_counts()
             want = next(db.window_data_feed(lp, Phase.TRAIN, seed=SEED,
                                             device=dev))
-            plain_launches = dict(ck.launch_counts)
+            plain_launches = launched(ck)
     if got.keys() != want.keys() or any(
             got[k].tobytes() != want[k].tobytes() for k in want) or \
             got["data"].shape != (128, 3, 227, 227) or \
@@ -3484,7 +3524,7 @@ def hierarchical_cli(ck, dev, smi: str, fx: dict) -> dict:
             "train", "--solver", solver, "--devices", str(HIER_DEVICES),
             "--strategy", "hierarchical", "--hosts", str(HIER_HOSTS),
             "--tau", str(HIER_TAU)])
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     if launches != HIER_WANT:
         fail(f"round: hierarchical caffe_cli launches {launches}, want "
              f"{HIER_WANT}")
@@ -3545,7 +3585,7 @@ def codec_rounds(ck, dev, rounds: list) -> dict:
         torch.cuda.synchronize()
         ck.reset_launch_counts()
         losses = [tr.train_round(b) for b in rounds]
-        launches = dict(ck.launch_counts)
+        launches = launched(ck)
         if launches != ROUND_WANT:
             fail(f"round {label}: launches {launches}, want {ROUND_WANT}")
         if not all(math.isfinite(v) for v in losses):
@@ -3616,7 +3656,7 @@ def hierarchical_rounds(ck, dev, rounds: list) -> dict:
     torch.cuda.synchronize()
     ck.reset_launch_counts()
     losses = [tr.train_round(b) for b in wide]
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     want = {k: 2 * v for k, v in ROUND_WANT.items()}
     if launches != want or len(tr.state) != 2 or \
             not all(math.isfinite(v) for v in losses):
@@ -3924,7 +3964,7 @@ def bench_in_process(ck, dev, smi: str, solver_ms_b256: float) -> dict:
 
     def on_phase(name):
         if current[0] is not None:
-            launches[current[0]] = dict(ck.launch_counts)
+            launches[current[0]] = launched(ck)
         ck.reset_launch_counts()
         current[0] = name
 
@@ -4113,7 +4153,8 @@ def profile_faults(tables: dict, launched: dict, event_step_ms: float,
                 if re.search(pat, r["op"]))
         if n != launched[k]:
             bad.append(f"{k}: {n} kernel events, {launched[k]} launches")
-    rows = {r["op"]: r for r in tables["by_layer"]}
+    # a fused chain's row (a+b+...) stands for each of its layers
+    rows = {m: r for r in tables["by_layer"] for m in r["op"].split("+")}
     for name in PROFILE_LAYERS:
         r = rows.get(name)
         if r is None or r["total_ms"] <= r["backward_ms"] or \
@@ -4131,17 +4172,17 @@ def profile_faults(tables: dict, launched: dict, event_step_ms: float,
 
 def profile_caffenet(ck, dev, smi: str, event_step_ms: float) -> dict:
     """``tools/profile_step`` on CaffeNet b256 f32: warm-up block, one
-    profiled block of 20 steps, the op tables checked (and a planted
+    profiled block of 10 steps, the op tables checked (and a planted
     lost kernel rejected)."""
     import tempfile
     from sparknet_tpu_torch.tools import profile_step
     from sparknet_tpu_torch.utils import trace_tables
-    iters = 20
+    iters = 10
     ck.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="profile_step_") as d:
         summary, tables, prof = profile_step.profile(
             "caffenet", 256, iters, "f32", d, device=str(dev), top=None)
-        launches = dict(ck.launch_counts)
+        launches = launched(ck)
         if launches != want_steps(2 * iters):
             fail(f"profile_step launches {launches}")
         profiled = want_steps(iters)
@@ -4156,7 +4197,7 @@ def profile_caffenet(ck, dev, smi: str, event_step_ms: float) -> dict:
         if not profile_faults(planted, profiled, event_step_ms, iters):
             fail("profile_step: a profile without the LRN backward's "
                  "kernels passed")
-    rows = {r["op"]: r for r in tables["by_layer"]}
+    rows = {m: r for r in tables["by_layer"] for m in r["op"].split("+")}
     print(f"profile_step [{smi}] " + json.dumps({
         "summary": summary, "total_ms": tables["total_ms"],
         "by_layer": tables["by_layer"][:12],
@@ -4236,7 +4277,7 @@ def telemetry_on_card(ck, dev, smi: str) -> dict:
                 with cudnn_deterministic():
                     run = imagenet_app.main(argv)
                 label = f"telemetry_caffenet_{'on' if on else 'off'}"
-                launches[label] = dict(ck.launch_counts)
+                launches[label] = launched(ck)
                 if launches[label] != want:
                     fail(f"{label}: launches {launches[label]} != {want}")
                 params[on] = host_params(run.trainer)
@@ -4661,7 +4702,7 @@ def train_graph_net(ck, dev, label: str, d: str, net_text: str,
     with mock.patch.object(solvers, "Solver", Recorded):
         log, train_s = run_cli(caffe_cli.main, ["train", "--solver", solver,
                                                 "--device", str(dev)])
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     if launches != want_launches:
         fail(f"{label}: caffe_cli train launches {launches}, want "
              f"{want_launches}")
@@ -4781,7 +4822,7 @@ def graph_compiler_rest(ck, dev, smi: str) -> dict:
     from sparknet_tpu_torch.tools import caffe_cli
     t_phase = time.perf_counter()
     report = {"layers": check_layers_on_card(dev)}
-    idle = {k: 0 for k in ck.launch_counts}
+    idle = {k: 0 for k in ck.launch_counts if k not in RELU_FOLD_KEYS}
     with tempfile.TemporaryDirectory(prefix="graph_smoke_") as d:
         t0 = time.perf_counter()
         pairs = (os.path.join(d, "pairs_train_leveldb"),
@@ -4840,7 +4881,7 @@ def graph_compiler_rest(ck, dev, smi: str) -> dict:
         sm["card_vs_cpu"] = graph_against_cpu(
             dev, "mnist_siamese", siamese_text, SIAMESE_SOLVER,
             sm["snapshot"], sharer_clones())
-        sm["card_vs_cpu_launches"] = dict(ck.launch_counts)
+        sm["card_vs_cpu_launches"] = launched(ck)
         if sm["card_vs_cpu_launches"] != {
                 **idle, "max_pool_bwd": 4 * CARD_VS_CPU_ITERS}:
             fail(f"mnist_siamese card vs CPU: launches "
@@ -5268,7 +5309,7 @@ def train_bn_devices(ck, dev, label: str, d: str, model: str,
         log, train_s = run_cli(caffe_cli.main, [
             "train", "--solver", solver, "--devices", "2", "--strategy",
             strategy, "--tau", str(tau), "--device", str(dev)])
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     if launches != want:
         fail(f"{label}: caffe_cli train launches {launches}, want {want}")
     loss_at, stamp, tests = cli_losses(log)
@@ -5337,7 +5378,7 @@ def batchnorm_slice(ck, dev, smi: str) -> dict:
     from sparknet_tpu_torch.tools import caffe_cli, compute_image_mean
     t_phase = time.perf_counter()
     report = {"layers": slice_layers_on_card(dev)}
-    idle = {k: 0 for k in ck.launch_counts}
+    idle = {k: 0 for k in ck.launch_counts if k not in RELU_FOLD_KEYS}
     with tempfile.TemporaryDirectory(prefix="bn_smoke_") as d:
         t0 = time.perf_counter()
         dbs = (os.path.join(d, "cifar_train_lmdb"),
@@ -5400,7 +5441,7 @@ def batchnorm_slice(ck, dev, smi: str) -> dict:
             dev, "cifar10_full_sigmoid_bn", text,
             bn_solver(BN_ITERS, BN_TEST_INTERVAL), one["snapshot"],
             bn_state_dropped())
-        one["card_vs_cpu_launches"] = dict(ck.launch_counts)
+        one["card_vs_cpu_launches"] = launched(ck)
         if one["card_vs_cpu_launches"] != {
                 **idle, "max_pool_bwd": CARD_VS_CPU_ITERS}:
             fail(f"cifar10_full_sigmoid_bn card vs CPU: launches "
@@ -5720,7 +5761,7 @@ def train_from_records(ck, dev, d: str, text: str, shards: dict,
     with cudnn_deterministic():
         log, train_s, s = recorded_cli(["train", "--solver", solver],
                                        gens=gens)
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     if launches != DATA_PATH_WANT:
         fail(f"data_tier: caffe_cli train from records launches "
              f"{launches}, want {DATA_PATH_WANT}")
@@ -5742,7 +5783,7 @@ def train_from_records(ck, dev, d: str, text: str, shards: dict,
     ck.reset_launch_counts()
     with cudnn_deterministic():
         _, _, s_lmdb = recorded_cli(["train", "--solver", lmdb_solver])
-    lmdb_launches = dict(ck.launch_counts)
+    lmdb_launches = launched(ck)
     ours, theirs = loss_bits(s, LMDB_ITERS), loss_bits(s_lmdb, LMDB_ITERS)
     if ours != theirs:
         fail(f"data_tier: the records run's first losses {ours} differ "
@@ -5774,7 +5815,7 @@ def train_from_records(ck, dev, d: str, text: str, shards: dict,
                 str(SOLVER_TEST_ITER)])
             scores[name] = [ln for ln in tlog.splitlines()
                             if " = " in ln and not ln.startswith("Batch")]
-    test_launches = dict(ck.launch_counts)
+    test_launches = launched(ck)
     if not scores["hdf5"] or scores["hdf5"] != scores["binary"]:
         fail(f"data_tier: caffe_cli test on the HDF5 weights scores "
              f"{scores['hdf5']}, on the binary ones {scores['binary']}")
@@ -5807,7 +5848,7 @@ def train_from_records(ck, dev, d: str, text: str, shards: dict,
         rlog, _, s_res = recorded_cli(
             ["train", "--solver", resume_solver, "--snapshot", state10],
             resume_gen=gens[RECORD_RESUME_AT], skip_batches=RECORD_RESUME_AT)
-    resume_launches = dict(ck.launch_counts)
+    resume_launches = launched(ck)
     uninterrupted = [float(v).hex() for v in list(s._smoothed)[
         RECORD_RESUME_AT:RECORD_RESUME_AT + RECORD_RESUME_ITERS]]
     resumed = loss_bits(s_res, RECORD_RESUME_ITERS)
@@ -5916,7 +5957,7 @@ def bridge_rounds(ck, dev, d: str, fx: dict) -> dict:
         ck.reset_launch_counts()
         with cudnn_deterministic():
             loss = tr.train_round(rounds[name])
-        launches[name] = dict(ck.launch_counts)
+        launches[name] = launched(ck)
         if launches[name] != BRIDGE_WANT or not math.isfinite(loss):
             fail(f"data_tier: bridge round {name}: loss {loss}, launches "
                  f"{launches[name]}, want {BRIDGE_WANT}")
@@ -5975,7 +6016,7 @@ def hdf5_classification(ck, dev, d: str) -> dict:
     ck.reset_launch_counts()
     log, train_s = run_cli(caffe_cli.main, ["train", "--solver", solver,
                                             "--device", str(dev)])
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     loss_at, stamp, tests = cli_losses(log)
     acc = [v for k, v in tests if k == "accuracy"]
     snapshot = f"{prefix}_iter_{HDF5_ITERS}.caffemodel"
@@ -6172,7 +6213,7 @@ def train_cifar_tool(ck, dev, smi: str, d: str) -> dict:
             net=net, test_iter=CIFAR_TEST_ITER,
             test_interval=CIFAR_TEST_INTERVAL, max_iter=CIFAR_ITERS))
     run = tool_main(train_cifar.main)
-    idle = {k: 0 for k in ck.launch_counts}
+    idle = {k: 0 for k in ck.launch_counts if k not in RELU_FOLD_KEYS}
     report: dict = {"launches": {}}
     patch, made = timed_solvers()
     out = os.path.join(d, "solver.json")
@@ -6180,7 +6221,7 @@ def train_cifar_tool(ck, dev, smi: str, d: str) -> dict:
         ck.reset_launch_counts()
         log, wall = run_cli(run, ["--solver", solver, "--data-dir", data_dir,
                                   "--device", str(dev), "--out", out])
-        launches = dict(ck.launch_counts)
+        launches = launched(ck)
     want = {**idle, "max_pool_bwd": CIFAR_ITERS}
     with open(out) as f:
         traj = json.load(f)
@@ -6218,7 +6259,7 @@ def train_cifar_tool(ck, dev, smi: str, d: str) -> dict:
                              "2", "--strategy", "local_sgd", "--tau",
                              str(CIFAR_LOCAL_TAU), "--device", str(dev),
                              "--out", out2])
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     want = {**idle, "max_pool_bwd": 2 * CIFAR_ITERS}
     with open(out2) as f:
         traj2 = json.load(f)
@@ -6239,7 +6280,7 @@ def train_cifar_tool(ck, dev, smi: str, d: str) -> dict:
                 str(CARD_VS_CPU_ITERS), "--test-interval",
                 str(CARD_VS_CPU_ITERS), "--device", str(where),
                 "--out", os.path.join(d, f"five_{key}.json")])
-        runs[key] = (made[-1], log5, dict(ck.launch_counts))
+        runs[key] = (made[-1], log5, launched(ck))
     card, cpu = runs["card"][0], runs["cpu"][0]
     err = max_rel({k: [b.cpu() for b in v] for k, v in card.params.items()},
                   cpu.params)
@@ -6464,7 +6505,7 @@ def image_data_with_pngs(ck, dev, d: str) -> dict:
             mock.patch.object(jpeg, "_rgb_cuda", counted(
                 rgb_cuda, "jpeg", lambda out: out is not None)):
         log, wall = run_cli(caffe_cli.main, ["train", "--solver", solver])
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     want = {"lrn_across_channels_fwd": 2 * IMAGE_SOLVER_ITERS,
             "lrn_across_channels_bwd": 2 * IMAGE_SOLVER_ITERS,
             "max_pool_bwd": 3 * IMAGE_SOLVER_ITERS,
@@ -6538,11 +6579,11 @@ def classify_on_card(ck, dev, smi: str, d: str) -> dict:
     fwd = classify.Classifier._fwd
 
     def recorded(self, crops):
-        before = dict(ck.launch_counts)
+        before = launched(ck)
         out = fwd(self, crops)
         forwards.append((np.array(crops, np.float32), out, {
-            k: v - before[k] for k, v in ck.launch_counts.items() if v
-            - before[k]}))
+            k: v - before.get(k, 0) for k, v in launched(ck).items()
+            if v - before.get(k, 0)}))
         return out
 
     predict = classify.Classifier.predict
@@ -6584,7 +6625,7 @@ def classify_on_card(ck, dev, smi: str, d: str) -> dict:
             out = os.path.join(d, f"{name}.npy")
             _, wall = run_cli(classify_cli.main, [args[0], out] + base
                               + args[1:])
-            report["launches"][name] = dict(ck.launch_counts)
+            report["launches"][name] = launched(ck)
             probs = np.load(out)
             report["runs"][name] = {"wall_s": wall, "inputs": len(probs),
                                     **check_forwards(forwards, cpu_net,
@@ -6606,7 +6647,7 @@ def classify_on_card(ck, dev, smi: str, d: str) -> dict:
         ck.reset_launch_counts()
         out = os.path.join(d, "detections.csv")
         _, wall = run_cli(detect_cli.main, [wins, out] + base)
-        report["launches"]["detect_cli"] = dict(ck.launch_counts)
+        report["launches"]["detect_cli"] = launched(ck)
         with open(out) as f:
             dets = list(csv.reader(f))
         if len(dets) != 17 or len(dets[0]) != 5 + 1000:
@@ -6902,7 +6943,7 @@ def solver_feed(ck, dev, lp, spec, mode: str) -> dict:
             t0 = time.perf_counter()
             losses.append(s.step(1))
             times.append(time.perf_counter() - t0)
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     feed.close()
     del s
     torch.cuda.empty_cache()
@@ -6991,7 +7032,7 @@ def proxy_card_vs_cpu(ck, dev) -> dict:
             loss[name] = float(l)
         params[name] = p
         if name == "card":
-            launches = dict(ck.launch_counts)
+            launches = launched(ck)
             params0 = {k: [b.cpu() for b in v]
                        for k, v in px.params0.items()}
     rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
@@ -7031,7 +7072,7 @@ def learning_proxy_runs(ck, dev, d: str) -> dict:
     rc = learning_proxy.main(["--scale", str(PROXY_SCALE), "--workers",
                               str(PROXY_WORKERS), "--out", out])
     proxy_s = time.perf_counter() - t0
-    launches = dict(ck.launch_counts)
+    launches = launched(ck)
     with open(out) as f:
         res = json.load(f)
     curves = [res[f"curve_{t}"] for t in ("1x", "8way", "hier")]
@@ -7049,7 +7090,7 @@ def learning_proxy_runs(ck, dev, d: str) -> dict:
         ",".join(SWEEP_CODECS), "--scale", str(SWEEP_SCALE), "--workers",
         str(PROXY_WORKERS), "--out", out])
     sweep_s = time.perf_counter() - t0
-    sweep_launches = dict(ck.launch_counts)
+    sweep_launches = launched(ck)
     with open(out) as f:
         sweep = json.load(f)["sweep"]
     cells = len(SWEEP_TAUS) * len(SWEEP_CODECS)
@@ -7129,7 +7170,7 @@ def data_plane_and_proxy(ck, dev, smi: str, d5c: str,
 MODEL_5L = "caffenet"                  # the zoo model served
 SERVE_SHAPES = (1, 4, 16, 64)          # the serving default
 HTTP_INPUTS = 8
-HTTP_LOOP_S, HTTP_CLIENTS, HTTP_WINDOW = 3.0, 4, 4
+HTTP_LOOP_S, HTTP_CLIENTS, HTTP_WINDOW = 1.5, 4, 4
 HTTP_BATCH1_REPS = 20
 HTTP_ROW_TOL = 1e-6            # a served row against the solo reference
 PLANTED_GOOD, PLANTED_CANARY = 5, 25   # requests to the planted server
@@ -7163,7 +7204,7 @@ def serve_child(out: str, argv: list[str]) -> int:
     with cudnn_deterministic():
         rc = serve.main(argv)
     with open(out, "w") as f:
-        json.dump({"rc": rc, "launches": dict(ck.launch_counts)}, f)
+        json.dump({"rc": rc, "launches": launched(ck)}, f)
     return rc
 
 
@@ -7383,7 +7424,7 @@ def serve_over_http(ck, dev, smi: str, d: str, model: str,
                 common[0], os.path.join(d, "local.npy"), "--model_def",
                 model, "--pretrained_model", weights, "--device",
                 str(dev)] + common[1:])
-        report["launches_local_cli"] = dict(ck.launch_counts)
+        report["launches_local_cli"] = launched(ck)
         remote = np.load(os.path.join(d, "remote.npy"))
         local = np.load(os.path.join(d, "local.npy"))
         report["cli_server_vs_local"] = float(np.abs(remote - local).max())
@@ -7527,8 +7568,8 @@ def recorder(store: dict):
     a host f32 copy of what it decided on in ``store[layer]`` (a ReLU's
     top, a MAX pool's bottom)."""
     def make(node, impl):
-        def apply(lp, p, bots, train, gen=None):
-            tops = impl.apply(lp, p, bots, train, gen)
+        def apply(lp, p, bots, train, gen=None, **seam):
+            tops = impl.apply(lp, p, bots, train, gen, **seam)
             src = tops[0] if lp.type == "ReLU" else bots[0]
             store[lp.name] = src.detach().float().cpu()
             return tops
@@ -7548,7 +7589,9 @@ def replayer(decided: dict, flips: dict):
     def make(node, impl):
         dec = decided[node.lp.name]
 
-        def apply(lp, p, bots, train, gen=None):
+        def apply(lp, p, bots, train, gen=None, **seam):
+            # the pool replays the recorded decisions whatever its seam
+            # names
             x = bots[0]
             if lp.type == "ReLU":
                 mask = (dec > 0).to(x.device)
@@ -7712,8 +7755,7 @@ def pycaffe_on_card(ck, dev, smi: str, d: str, model: str,
             fail(f"caffe.set_mode_gpu(): the net is on {net.device}")
         ck.reset_launch_counts()
         out = net.forward(data=crops)["prob"].copy()
-        report["launches"]["pycaffe_net_deploy_forward"] = dict(
-            ck.launch_counts)
+        report["launches"]["pycaffe_net_deploy_forward"] = launched(ck)
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -7749,15 +7791,13 @@ def pycaffe_on_card(ck, dev, smi: str, d: str, model: str,
         t0 = time.perf_counter()
         loss = float(net.forward(data=x, label=y)["loss"])
         fwd_s = time.perf_counter() - t0
-        report["launches"]["pycaffe_net_train_forward"] = dict(
-            ck.launch_counts)
+        report["launches"]["pycaffe_net_train_forward"] = launched(ck)
         ck.reset_launch_counts()
         net.blobs["loss"].diff[...] = 1.0
         t0 = time.perf_counter()
         net.backward()
         bwd_s = time.perf_counter() - t0
-        report["launches"]["pycaffe_net_train_backward"] = dict(
-            ck.launch_counts)
+        report["launches"]["pycaffe_net_train_backward"] = launched(ck)
         card = net_diffs(net)
         # the same backward again (the same Dropout seed, deterministic
         # cuDNN: the same values), its decisions recorded
@@ -7923,7 +7963,7 @@ def get_solver_on_card(ck, dev, d: str, deploy_weights: str) -> dict:
                           "decided": {}})
             with applying(inner.train_net, recorder(steps[-1]["decided"])):
                 steps[-1]["loss"] = float(solver.step(1))
-        launches = dict(ck.launch_counts)
+        launches = launched(ck)
         history = [s["history"] for s in steps[1:]] + [
             on_host(inner.state["history"])]
         pulled = differing(mirrors(solver), on_host(inner.params))
@@ -8048,16 +8088,274 @@ def serving_and_pycaffe(ck, dev, smi: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 5m: the fusion pass and the lowering tuner — fusebench on the card
+# with planted faults, GoogLeNet trained under the committed plan against
+# the same round per layer, GoogLeNet served at 64 with horizontal fusion
+# on and off, and the committed tuning table's staleness check
+# ---------------------------------------------------------------------------
+
+FUSE_TAU = 2            # 5m's GoogLeNet round, 2 workers x batch 32
+FUSE_SERVE_BATCH = 64
+FUSE_BOUND = 1e-5       # fused against per-layer params and served rows
+# horizontal fusion's step against per-layer: each blob's gradient within
+# this share of its largest element.  The card reads 3.24e-5 (another
+# summation order flips a few ReLU and pool branches); swapping a
+# group's slices reads 2.112 in fusebench (both H100 80GB HBM3, 700 W)
+HFUSE_GRAD_BOUND = 1e-3
+STALENESS_BUDGET_S = 20
+
+
+def committed_plan(model: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "sparknet_tpu_torch", "profiles", model,
+                        "fusion_plan.json")
+
+
+def relu_folds(model: str, plan: str | None = None) -> int:
+    """How many relu+lrn chains ``model``'s train net fuses under
+    ``plan`` (a plan file, else ``SPARKNET_FUSE`` as set)."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.graph import Net
+    from sparknet_tpu_torch.proto import NetState, Phase
+    env = {"SPARKNET_FUSE": plan} if plan else {}
+    with mock.patch.dict(os.environ, env):
+        net = Net(getattr(models, model)(2, 2), NetState(Phase.TRAIN))
+    return sum(ch.epilogue == "relu+lrn" for ch in net._vfuse_head.values())
+
+
+def fusebench_on_card(dev, d: str) -> dict:
+    """``tools/fusebench.py`` on the card (f32 forward and gradients, the
+    bf16 forward, horizontal fusion, the refusals), then with a planted
+    epilogue that drops the ReLU fold and a planted horizontal split
+    whose slices are swapped: both must fail."""
+    from sparknet_tpu_torch.graph import net as netmod
+    from sparknet_tpu_torch.ops import vision
+    from sparknet_tpu_torch.tools import fusebench
+
+    def run(label: str) -> tuple[int, dict]:
+        out = os.path.join(d, f"fusebench_{label}.json")
+        # --iters 0: its timing leg times a 14x14 net's host dispatch,
+        # which moved 4.5 to 7.2 ms between two runs of one call
+        rc = fusebench.main(["--device", str(dev), "--iters", "0",
+                             "--out", out])
+        with open(out) as f:
+            return rc, json.load(f)
+
+    rc, clean = run("clean")
+    if rc != 0:
+        fail(f"fusebench on the card: {clean['failures']}")
+    real = vision.lrn_chain_epilogue
+    with mock.patch.object(
+            vision, "lrn_chain_epilogue",
+            lambda x, *a, relu, **kw: real(x, *a, relu=False, **kw)):
+        rc, fold = run("dropped_fold")
+    if rc == 0 or "forward not bit-identical" not in fold["failures"][0]:
+        fail(f"fusebench passed an epilogue without its ReLU: {fold}")
+    with mock.patch.object(netmod, "_split_channels",
+                           lambda y, sizes: tuple(reversed(
+                               torch.split(y, list(sizes), dim=1)))):
+        rc, swap = run("swapped_slices")
+    if rc == 0 or "horizontal fusion" not in swap["failures"][0]:
+        fail(f"fusebench passed swapped horizontal slices: {swap}")
+    return {"clean": clean, "planted_refused": {
+        "dropped_fold": fold["failures"], "swapped_slices": swap["failures"]}}
+
+
+def googlenet_fused_round(ck, dev) -> dict:
+    """GoogLeNet's round (2 workers x batch 32, τ=2) under the committed
+    plan against the same round unfused (``SPARKNET_FUSE=off``, the same
+    horizontal groups): the first forward bit for bit, every master
+    param within FUSE_BOUND (max|Δ|/max|ref| per blob; the chains run the
+    same arithmetic, so they come out equal), exact launches (the
+    relu+lrn chain's under the ``_relu`` keys).  Horizontal fusion
+    against per-layer (``SPARKNET_NO_HFUSE=1``) on one step: the loss
+    within FUSE_BOUND, each blob's gradient within HFUSE_GRAD_BOUND of
+    its largest element, so a gradient sent to the wrong member of a
+    group fails at full width.  The wider convolution sums in another
+    order, and where a ReLU input or a pool window's two largest values
+    lie within that rounding of each other the gradient takes the other
+    branch: on the CPU one step moved a few
+    elements of inception_4e/3x3_reduce's gradient by 3.9e-3 of the
+    blob's largest, the loss by 9.5e-8.  Deterministic cuDNN, TF32 off."""
+    from sparknet_tpu_torch.apps.imagenet_app import SOLVER
+    from sparknet_tpu_torch.graph import Net
+    from sparknet_tpu_torch.models import googlenet
+    from sparknet_tpu_torch.proto import (NetState, Phase,
+                                          load_solver_prototxt_with_net)
+    from sparknet_tpu_torch.utils.device import full_f32
+    plan = committed_plan("googlenet")
+    folds = relu_folds("googlenet", plan)
+    if folds < 1:
+        fail(f"5m: the committed GoogLeNet plan {plan} folds no ReLU")
+    netp = googlenet(GN_BATCH, GN_BATCH, crop=GN_CROP)
+    sp = load_solver_prototxt_with_net(SOLVER, netp)
+    batches = image_batches(SEED + 11, 2 * GN_BATCH, GN_CROP, 1000,
+                            tau=FUSE_TAU)
+    steps = 2 * FUSE_TAU
+    rounds, launches = {}, {}
+    with cudnn_deterministic(), full_f32():
+        for label, fuse in (("fused", plan), ("unfused", "off")):
+            with mock.patch.dict(os.environ, {"SPARKNET_FUSE": fuse}):
+                ck.reset_launch_counts()
+                rounds[label] = one_round(sp, batches, dev)
+                torch.cuda.synchronize()
+                launches[label] = launched(ck)
+        inputs = {"data": torch.from_numpy(
+            batches["data"][0, :GN_BATCH]).to(dev), "label":
+            torch.from_numpy(batches["label"][0, :GN_BATCH]).to(dev)}
+        steps_of, params = {}, None
+        for label, env in (("plan", {"SPARKNET_FUSE": plan}),
+                           ("unfused", {"SPARKNET_FUSE": "off"}),
+                           ("per_layer", {"SPARKNET_FUSE": "off",
+                                          "SPARKNET_NO_HFUSE": "1"})):
+            with mock.patch.dict(os.environ, env):
+                net = Net(netp, NetState(Phase.TRAIN))
+            params = params or net.init(torch.Generator().manual_seed(SEED),
+                                        device=dev)
+            p = {k: [b.detach().clone().requires_grad_(True) for b in v]
+                 for k, v in params.items()}
+            loss = net.forward(p, inputs, generator=torch.Generator(
+            ).manual_seed(SEED)).loss
+            loss.backward()
+            steps_of[label] = (loss.detach(), {
+                k: [b.grad.cpu().double() for b in v] for k, v in p.items()})
+            del p, net
+    want = {"fused": folded({
+                **IMAGE_KERNELS_IDLE,
+                "lrn_across_channels_fwd": (2 - folds) * steps,
+                "lrn_across_channels_bwd": (2 - folds) * steps,
+                "lrn_across_channels_fwd_relu": folds * steps,
+                "lrn_across_channels_bwd_relu": folds * steps,
+                "max_pool_bwd": 13 * steps, "lrn_across_channels": 0}),
+            "unfused": {**IMAGE_KERNELS_IDLE,
+                        "lrn_across_channels_fwd": 2 * steps,
+                        "lrn_across_channels_bwd": 2 * steps,
+                        "max_pool_bwd": 13 * steps,
+                        "lrn_across_channels": 0}}
+    if launches != want:
+        fail(f"5m GoogLeNet round launches {launches}, want {want}")
+    errs = rel_errors(rounds["fused"][1], rounds["unfused"][1])
+    worst = max(errs.values())
+    hgrad = rel_errors(steps_of["plan"][1], steps_of["per_layer"][1])
+    hloss = abs(float(steps_of["plan"][0] - steps_of["per_layer"][0])) / \
+        abs(float(steps_of["per_layer"][0]))
+    if worst > FUSE_BOUND or not torch.equal(steps_of["plan"][0],
+                                             steps_of["unfused"][0]):
+        fail(f"5m GoogLeNet: fused params {worst:.3e} from unfused "
+             f"(bound {FUSE_BOUND}); first forward "
+             f"{float(steps_of['plan'][0])!r} vs "
+             f"{float(steps_of['unfused'][0])!r}")
+    hworst = max(hgrad.values())
+    if hloss > FUSE_BOUND or hworst > HFUSE_GRAD_BOUND:
+        fail(f"5m GoogLeNet: horizontal fusion's loss {hloss:.3e} from "
+             f"per-layer (bound {FUSE_BOUND}), gradients {hworst:.3e} "
+             f"(bound {HFUSE_GRAD_BOUND}, worst "
+             f"{max(hgrad, key=hgrad.get)})")
+    return {"plan": plan, "relu_folds": folds, "launches": launches,
+            "losses": {k: v[0] for k, v in rounds.items()},
+            "params_max_rel": worst,
+            "hfuse_step": {"loss_rel": hloss,
+                           "grad_max_rel": hworst,
+                           "grad_top": dict(sorted(
+                               hgrad.items(), key=lambda kv: -kv[1])[:3])},
+            "first_forward_loss": float(steps_of["plan"][0])}
+
+
+def googlenet_served_hfuse(ck, dev, smi: str) -> dict:
+    """GoogLeNet's deploy net loaded through ``ModelHouse`` at batch 64,
+    f32, under the committed plan (its conv2 chain folds the ReLU into
+    B2), with horizontal fusion on and off: the rows within FUSE_BOUND
+    of each other, each forward's device ms and launches."""
+    from sparknet_tpu_torch.parallel.serving import ModelHouse, ServeConfig
+    gen = np.random.default_rng(SEED + 12)
+    batch = (IMAGE_STD * gen.normal(size=(FUSE_SERVE_BATCH, 3, GN_CROP,
+                                          GN_CROP))).astype(np.float32)
+    folds = relu_folds("googlenet", committed_plan("googlenet"))
+    out = {}
+    with cudnn_deterministic():
+        for label, env in (("hfuse", {}), ("no_hfuse",
+                                           {"SPARKNET_NO_HFUSE": "1"})):
+            with mock.patch.dict(os.environ, {
+                    "SPARKNET_FUSE": committed_plan("googlenet"), **env}):
+                lm = ModelHouse(ServeConfig(
+                    dtype="f32", batch_shapes=(FUSE_SERVE_BATCH,),
+                    seed=SEED), device=dev).load("googlenet")
+            ck.reset_launch_counts()
+            rows = lm.infer(batch)
+            torch.cuda.synchronize()
+            out[label] = {"rows": rows, "launches": launched(ck),
+                          "groups": len(lm.net._hfuse_first)
+                          if lm.net._hfuse_enabled else 0,
+                          "device_ms": device_forward_ms(
+                              lm, FUSE_SERVE_BATCH, 10)}
+            del lm
+    want = {**IMAGE_KERNELS_IDLE, "lrn_across_channels_fwd": 0,
+            "lrn_across_channels_bwd": 0, "max_pool_bwd": 0,
+            "lrn_across_channels": 2 - folds,
+            "lrn_across_channels_relu": folds}
+    a, b = out["hfuse"]["rows"], out["no_hfuse"]["rows"]
+    gap = float(np.abs(a - b).max() / np.abs(b).max())
+    if any(r["launches"] != want for r in out.values()) or \
+            gap > FUSE_BOUND or out["hfuse"]["groups"] != 9:
+        fail(f"5m served GoogLeNet: rows {gap:.3e} apart (bound "
+             f"{FUSE_BOUND}), launches "
+             f"{[r['launches'] for r in out.values()]}, want {want}, "
+             f"groups {out['hfuse']['groups']}")
+    report = {"rows_max_rel": gap, **{
+        k: {kk: v for kk, v in r.items() if kk != "rows"}
+        for k, r in out.items()}}
+    print(f"fused_serving [{smi}] " + json.dumps(report), flush=True)
+    return report
+
+
+def fusion_on_card(ck, dev, smi: str) -> dict:
+    """Phase 5m."""
+    import tempfile
+    from sparknet_tpu_torch.tools import tune
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fusion_5m_") as d:
+        report = {"fusebench": fusebench_on_card(dev, d)}
+        report["train"] = googlenet_fused_round(ck, dev)
+        report["serve"] = googlenet_served_hfuse(ck, dev, smi)
+        stale = os.path.join(d, "staleness.json")
+        rc = tune.main(["staleness", "--budget-s", str(STALENESS_BUDGET_S),
+                        "--device", str(dev), "--json", stale])
+        with open(stale) as f:
+            st = json.load(f)
+    if rc != 0 or not st["ok"] or not st["checked"]:
+        fail(f"5m: the committed tuning table's staleness check: rc {rc}, "
+             f"{st['rotten']}")
+    report["staleness"] = {k: st[k] for k in ("ok", "checked",
+                                               "total_entries", "budget_s")}
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"fusion [{smi}] " + json.dumps({
+        "fusebench": {k: report["fusebench"]["clean"].get(k) for k in (
+            "plan_id", "grad_max_rel", "hfuse_loss_rel",
+            "hfuse_grad_max_rel")},
+        "planted_refused": report["fusebench"]["planted_refused"],
+        "train": report["train"], "staleness": report["staleness"],
+        "phase_s": report["phase_s"]}), flush=True)
+    return report
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
-                 rows: list[dict], main: list[dict]) -> dict:
-    """One kernel's entry: launches per main path, the worst error over
-    every check, and times, bounds and library times summed over the
-    main-path rows (one launch of each per step or forward)."""
+                 rows: list[dict], main: list[dict],
+                 relu_launches: dict | None = None) -> dict:
+    """One kernel's entry: launches per main path (those with the ReLU
+    folded in, under the ``_relu`` keys, counted in ``launches`` and
+    listed apart), the worst error over every check, and times, bounds
+    and library times summed over the main-path rows (one launch of each
+    per step or forward)."""
     libs = [r["library_ms"] for r in main]
+    relu_launches = relu_launches or {}
     return {
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": sum(launches.values()),
+        "replaces": replaces,
+        "launches": sum(launches.values()) + sum(relu_launches.values()),
         "launches_by_path": launches,
+        "relu_launches": sum(relu_launches.values()),
+        "relu_launches_by_path": relu_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in main),
         "plain_ms": sum(r["plain_ms"] for r in main),
@@ -8305,6 +8603,14 @@ def main() -> int:
     serving_5l = serving_and_pycaffe(ck, dev, smi)
     mark("5l serving and pycaffe")
 
+    # phase 5m: the fusion pass and the lowering tuner: fusebench on the
+    # card (planted: a dropped ReLU fold, swapped horizontal slices),
+    # GoogLeNet's round under the committed plan against per-layer, its
+    # deploy net served at 64 with horizontal fusion on and off, and the
+    # committed tuning table's staleness check
+    fused = fusion_on_card(ck, dev, smi)
+    mark("5m fusion and tuner")
+
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
     # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
@@ -8397,15 +8703,31 @@ def main() -> int:
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}
     def rows_of(rows, kernel=None, dtype="float32", batch=GN_BATCH):
+        # norm1 and norm2 without the fold, as the per-layer path runs
+        # them: the folded norm2 (same shape, one max an element more)
+        # is checked and timed in per_shape, and no single library call
+        # computes ReLU + LRN
         return [r for r in rows if r["case"].startswith("googlenet_")
                 and r["case"].endswith(f"_b{batch}")
-                and r["dtype"] == dtype
+                and r["dtype"] == dtype and not r.get("relu")
                 and (kernel is None or r["kernel"] == kernel)]
     fwd_rows = [r for r in lrn_train_rows
                 if r["kernel"] == "lrn_across_channels_fwd"]
     bwd_rows = [r for r in lrn_train_rows
                 if r["kernel"] == "lrn_across_channels_bwd"]
     lrn_paths = [m for m in tl if m.startswith(("caffenet", "googlenet"))]
+    # the ReLU-folded launches, by path: GoogLeNet's app runs under the
+    # committed auto plan (phase 5) and phase 5m's fused round and
+    # fused serving
+    fz = fused["train"]["launches"]["fused"]
+    fs = {k: r["launches"] for k, r in fused["serve"].items()
+          if isinstance(r, dict) and "launches" in r}
+
+    def folds_of(key: str, suffix: str, extra: dict) -> dict:
+        return {p: n for p, n in {
+            **{f"{m}_training{suffix}": tl[m].get(key, 0)
+               for m in lrn_paths}, **extra}.items() if n}
+
     kernels = [
         kernel_entry(
             "lrn_across_channels", "sparknet_tpu_torch/ops/csrc/lrn.cu",
@@ -8414,28 +8736,43 @@ def main() -> int:
                 for m in served for d in ("bf16", "f32")},
              **{f"{m}_training_eval": tl[m]["lrn_across_channels"]
                 for m in lrn_paths},
-             **solver_launches("lrn_across_channels")},
-            lrn_rows, rows_of(lrn_rows, dtype="bfloat16", batch=64)),
+             **solver_launches("lrn_across_channels"),
+             **{f"googlenet_serving_f32_b64_{k}_5m":
+                r["lrn_across_channels"] for k, r in fs.items()}},
+            lrn_rows, rows_of(lrn_rows, dtype="bfloat16", batch=64),
+            folds_of("lrn_across_channels_relu", "_eval", {
+                f"googlenet_serving_f32_b64_{k}_5m":
+                    r.get("lrn_across_channels_relu", 0)
+                for k, r in fs.items()})),
         kernel_entry(
             "lrn_across_channels_fwd", "sparknet_tpu_torch/ops/csrc/lrn.cu",
             "sparknet_tpu/ops/pallas_kernels.py:56",
             {**{f"{m}_training": tl[m]["lrn_across_channels_fwd"]
                 for m in lrn_paths},
-             **solver_launches("lrn_across_channels_fwd")},
-            fwd_rows, rows_of(fwd_rows)),
+             **solver_launches("lrn_across_channels_fwd"),
+             "googlenet_fused_round_5m": fz["lrn_across_channels_fwd"]},
+            fwd_rows, rows_of(fwd_rows),
+            folds_of("lrn_across_channels_fwd_relu", "", {
+                "googlenet_fused_round_5m":
+                    fz.get("lrn_across_channels_fwd_relu", 0)})),
         kernel_entry(
             "lrn_across_channels_bwd",
             "sparknet_tpu_torch/ops/csrc/lrn_bwd.cu",
             "sparknet_tpu/ops/pallas_kernels.py:83",
             {**{f"{m}_training": tl[m]["lrn_across_channels_bwd"]
                 for m in lrn_paths},
-             **solver_launches("lrn_across_channels_bwd")},
-            bwd_rows, rows_of(bwd_rows)),
+             **solver_launches("lrn_across_channels_bwd"),
+             "googlenet_fused_round_5m": fz["lrn_across_channels_bwd"]},
+            bwd_rows, rows_of(bwd_rows),
+            folds_of("lrn_across_channels_bwd_relu", "", {
+                "googlenet_fused_round_5m":
+                    fz.get("lrn_across_channels_bwd_relu", 0)})),
         kernel_entry(
             "max_pool_bwd", "sparknet_tpu_torch/ops/csrc/maxpool_bwd.cu",
             "sparknet_tpu/ops/pallas_kernels.py:203",
             {**{f"{m}_training": tl[m]["max_pool_bwd"] for m in tl},
              **solver_launches("max_pool_bwd"),
+             "googlenet_fused_round_5m": fz["max_pool_bwd"],
              # a path without a pool: its count stays 0
              "caffe_cli_train_mnist_autoencoder":
                  graph["autoencoder"]["launches"]["max_pool_bwd"],

@@ -71,8 +71,10 @@ BENCH_SERVE_MODEL, BENCH_SERVE_CLIENTS, BENCH_SERVE_WINDOW,
 BENCH_SERVE_SECONDS; BENCH_FEED_RECORDS=0, BENCH_RECORDS_N,
 BENCH_RECORDS_EDGE, BENCH_RECORDS_BATCH, BENCH_RECORDS_EPOCHS.  The JAX bench's ``BENCH_PLATFORM=cpu`` is
 ``--device cpu`` here; ``BENCH_SCAN`` does not apply (a block is a
-plain loop); ``BENCH_FUSE`` other than ``off`` and ``BENCH_SHARD``
-raise (ROADMAP A8, A12).
+plain loop); ``BENCH_FUSE`` (off | auto | all | a plan file) sets
+``SPARKNET_FUSE`` for every net the child builds, and the line's
+``fuse_plan`` and ``tune_plan`` are the train net's ids;
+``BENCH_SHARD`` raises (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -153,9 +155,11 @@ class BenchConfig:
     @classmethod
     def from_env(cls) -> "BenchConfig":
         env = os.environ
-        if env.get("BENCH_FUSE", "off") != "off":
-            raise NotImplementedError(
-                "BENCH_FUSE: the port has no fusion pass (ROADMAP A8)")
+        fuse = env.get("BENCH_FUSE")
+        if fuse and fuse not in ("off", "0", "auto", "all") \
+                and not os.path.isfile(fuse):
+            raise ValueError(f"BENCH_FUSE={fuse!r}: not off|auto|all and "
+                             f"no such plan file")
         if env.get("BENCH_SHARD", "0") != "0" or any(
                 env.get(k) for k in ("BENCH_SHARD_N", "BENCH_SHARD_TAU",
                                      "BENCH_SHARD_BATCH")):
@@ -732,6 +736,10 @@ def run_child(device: str) -> int:
     """Measure in this process and print the line; a failure prints the
     error line and returns 1."""
     model = os.environ.get("BENCH_MODEL") or "caffenet"
+    # the plan source for every net this child builds (graph/fusion.py);
+    # unset keeps the ambient SPARKNET_FUSE.  Nets latch it when built.
+    if os.environ.get("BENCH_FUSE"):
+        os.environ["SPARKNET_FUSE"] = os.environ["BENCH_FUSE"]
     try:
         result = run(BenchConfig.from_env(), device)
     except Exception as e:   # the boundary: the line names the failure

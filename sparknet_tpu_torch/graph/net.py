@@ -24,8 +24,26 @@ owns the blob, and only owners store it, in the JAX package's compacted
 layout (a layer that shares every blob has no entry; one that shares
 some keeps its own blobs in order).  Every layer that shares a blob is
 handed the owner's very tensor, so autograd sums all their gradients
-into it before the solver regularizes and steps.  Not ported:
-horizontal and vertical fusion and the lowering tuner (ROADMAP A8).
+into it before the solver regularizes and steps.
+
+Fusion (the JAX package's ``net.py:214-317``, ``:580-779``), latched at
+construction with the lowering table (``graph/tuner.py``), and run on
+full runs only (``forward``, ``apply`` of output blobs): a ranged run,
+an ``eps`` run or one that returns intermediate blobs (``apply_all``,
+``apply(blobs=...)``) runs each layer by itself and is counted in
+``fusion_unfused_runs_total``.
+
+- **Horizontal** (``SPARKNET_NO_HFUSE``, on by default): sibling 1x1
+  convolutions over the same version of one blob (an inception block's
+  ``1x1``, ``3x3_reduce``, ``5x5_reduce``) run as one wider convolution
+  whose output is split by channels.  The members' weights and biases
+  are concatenated at every run, so autograd hands each member its own
+  gradient and the solver's in-place updates are seen.
+- **Vertical** (``SPARKNET_FUSE``, ``graph/fusion.py``): each planned
+  Conv -> [ReLU] -> [Pool] -> [LRN] chain runs as one block under one
+  ``L[a+b+...]`` scope, its LRN tail through
+  ``ops.vision.lrn_chain_epilogue`` (a zero-slope ReLU folded into the
+  hand LRN kernels where the chain allows it).
 
 Forward state: a layer with ``has_state`` (BatchNorm) hands back its
 blobs as the forward rewrote them (its running statistics), and
@@ -48,10 +66,13 @@ from typing import Mapping, Sequence
 import torch
 
 from .. import ops  # noqa: F401  (registers the layer implementations)
+from ..ops import vision
 from ..ops.registry import LayerImpl, Shape, get_layer_impl
 from ..proto.caffe_pb import LayerParameter, NetParameter, NetState, Phase
+from ..utils import knobs, telemetry
 from ..utils.device import resolve_device
 from ..utils.profiling import layer_scope
+from . import fusion, tuner
 
 Params = dict[str, list[torch.Tensor]]
 
@@ -63,6 +84,13 @@ class NetOutputs:
     blobs: dict[str, torch.Tensor]   # the net's output blobs
     loss: torch.Tensor               # sum of loss_weight x top, f32
     params: dict[str, list[torch.Tensor]]   # with the forward's state
+
+
+def _split_channels(y: torch.Tensor,
+                    sizes: Sequence[int]) -> tuple[torch.Tensor, ...]:
+    """A horizontally fused convolution's output, cut back into its
+    members' outputs along the channels."""
+    return torch.split(y, list(sizes), dim=1)
 
 
 def _check_batch_insensitive(lp: LayerParameter, impl: LayerImpl,
@@ -98,7 +126,7 @@ class _LayerNode:
     with the layers that share them."""
 
     __slots__ = ("lp", "impl", "bottoms", "tops", "lr_mults", "decay_mults",
-                 "shared_refs", "own_map", "n_blobs")
+                 "shared_refs", "own_map", "n_blobs", "tune")
 
     def __init__(self, lp: LayerParameter, impl: LayerImpl,
                  bottoms: list[str], tops: list[str]):
@@ -111,6 +139,19 @@ class _LayerNode:
         self.shared_refs: dict[int, tuple[str, int]] = {}
         self.own_map: dict[int, int] = {}
         self.n_blobs = 0
+        # a tuner seam's {(shape, dtype): lowering} from the Net's table
+        # (empty: the built-in lowering); None for a layer with no seam
+        self.tune: dict[tuple, str] | None = None
+
+    def seam(self, bottoms: Sequence[torch.Tensor]) -> dict:
+        """The keyword a seam layer's ``apply`` takes: the lowering the
+        Net's table names for this input, None for the built-in one.
+        Nothing for a layer with no seam."""
+        if self.tune is None:
+            return {}
+        x = bottoms[0]
+        return {"lowering": self.tune.get((tuple(x.shape), x.dtype))
+                if self.tune else None}
 
     def owner_keys(self) -> set[str]:
         """The storage keys that hold any of this layer's blobs."""
@@ -228,6 +269,111 @@ class Net:
         if unknown:
             raise ValueError(
                 f"input_overrides for non-input blobs: {sorted(unknown)}")
+        self._detect_hfuse_groups()
+        self._detect_vfuse_chains()
+        self._latch_tune_plan()
+        self._fuse_skip_noted: set[str] = set()
+
+    def _detect_hfuse_groups(self) -> None:
+        """Horizontal fusion of sibling 1x1 convolutions (default on,
+        ``SPARKNET_NO_HFUSE=1`` turns it off; the JAX package's
+        ``_detect_hfuse_groups``): conv(x, W1) || conv(x, W2) ==
+        split(conv(x, cat(W1, W2))), each output channel's reduction
+        untouched.  Members read the same version of their bottom (an
+        in-place layer reassigns a name), share bias_term, and have one
+        bottom and one top.  The toggle is read once, here."""
+        self._hfuse_enabled = knobs.raw("SPARKNET_NO_HFUSE") != "1"
+        ver: dict[str, int] = {}
+        groups: dict[tuple, list[_LayerNode]] = {}
+        for node in self.nodes:
+            if (node.lp.type == "Convolution" and len(node.bottoms) == 1
+                    and len(node.tops) == 1):
+                kh, kw, sh, sw, ph, pw, dh, dw, _, group, bias = \
+                    vision.conv_geometry(node.lp)
+                if (kh, kw, sh, sw, ph, pw, dh, dw, group) == (
+                        1, 1, 1, 1, 0, 0, 1, 1, 1):
+                    b = node.bottoms[0]
+                    groups.setdefault((b, ver.get(b, 0), bias),
+                                      []).append(node)
+            for t in node.tops:
+                ver[t] = ver.get(t, 0) + 1
+        # first member name -> all member nodes; later members -> stash
+        self._hfuse_first: dict[str, list[_LayerNode]] = {}
+        self._hfuse_member: set[str] = set()
+        for members in groups.values():
+            if len(members) >= 2:
+                self._hfuse_first[members[0].lp.name] = members
+                self._hfuse_member.update(m.lp.name for m in members[1:])
+
+    def _detect_vfuse_chains(self) -> None:
+        """Vertical chains, planned by ``graph/fusion.py`` from
+        ``SPARKNET_FUSE`` (latched here).  Runs after the horizontal
+        detection: horizontal groups keep their members, vertical
+        chains take what is left."""
+        self._fuse_plan = fusion.resolve_plan(self)
+        self._vfuse_head: dict[str, fusion.FusedChain] = {}
+        self._vfuse_member: set[str] = set()
+        if self._fuse_plan is None:
+            return
+        for ch in self._fuse_plan.chains:
+            if not all(m in self._node_by_name for m in ch.members):
+                continue   # plan from another net's namespace
+            self._vfuse_head[ch.members[0]] = ch
+            self._vfuse_member.update(ch.members[1:])
+
+    def fuse_plan_id(self) -> str:
+        """Short id of the vertical-fusion plan (``off`` when none), the
+        perf-ledger fingerprint field that keeps fused and unfused
+        captures out of each other's baseline bands."""
+        return (self._fuse_plan.plan_id() if self._fuse_plan is not None
+                else "off")
+
+    def _latch_tune_plan(self) -> None:
+        """Resolve ``SPARKNET_TUNE`` once, here: a typo'd path or a
+        drifted or wrong-backend table fails at construction, and each
+        seam node and chain epilogue keeps what the table names for it,
+        so a run does no key work and none at all where the table names
+        only the built-in lowerings."""
+        table = self._tune_table = tuner.active_table()
+        self._tune_plan_id = (table.table_id() if table is not None
+                              else "off")
+
+        def overrides(op: str, extra: str) -> dict:
+            return table.overrides(op, extra) if table is not None else {}
+        for node in self.nodes:
+            seam = tuner.seam_of(node.lp, self.blob_shapes.get(
+                node.bottoms[0]) if node.bottoms else None)
+            node.tune = overrides(*seam) if seam is not None else None
+        self._epilogue_tune: dict[str, dict] = {}
+        for head, ch in self._vfuse_head.items():
+            if ch.epilogue in ("lrn", "relu+lrn"):
+                size = vision.lrn_geometry(
+                    self._node_by_name[ch.members[-1]].lp)[0]
+                self._epilogue_tune[head] = overrides(
+                    "lrn_epilogue", tuner.epilogue_extra(
+                        size, ch.epilogue == "relu+lrn"))
+
+    def tune_plan_id(self) -> str:
+        """Short id of the lowering table latched at construction
+        (``off`` when none), the perf-ledger ``tune_plan`` field."""
+        return self._tune_plan_id
+
+    def _note_unfused_run(self, reason: str) -> None:
+        """A fusable net running unfused (ranged, ``eps`` or
+        introspected run): the always-on counter, and one instant event
+        per (net, reason), so a capture of such a run is not mistaken
+        for the fused program's."""
+        telemetry.get_registry().counter(
+            "fusion_unfused_runs_total",
+            "runs of a fusable net that skipped fusion").inc(
+                reason=reason)
+        if reason not in self._fuse_skip_noted:
+            self._fuse_skip_noted.add(reason)
+            telemetry.instant(
+                "fusion.unfused_run", cat="graph", reason=reason,
+                net=self.name or "?",
+                hfuse_groups=len(self._hfuse_first),
+                vfuse_chains=len(self._vfuse_head))
 
     def _blob_shapes_of(self, node: _LayerNode) -> list[Shape]:
         return [tuple(s) for s in node.impl.param_shapes(
@@ -432,9 +578,11 @@ class Net:
         DummyData draw from.  ``device`` is where source layers
         (DummyData) put their tops; by default the device of the inputs,
         else of the params, else the CPU."""
-        values, _, _ = self._run(params, inputs, train, generator, device)
-        return {b: values[b] for b in (self.output_blobs if blobs is None
-                                       else blobs)}
+        names = self.output_blobs if blobs is None else list(blobs)
+        values, _, _ = self._run(
+            params, inputs, train, generator, device,
+            introspect=not set(names) <= set(self.output_blobs))
+        return {b: values[b] for b in names}
 
     def apply_all(self, params: Mapping[str, Sequence[torch.Tensor]],
                   inputs: Mapping[str, torch.Tensor], *,
@@ -461,7 +609,8 @@ class Net:
                 raise ValueError(f"unknown layer {name!r} for {which}= "
                                  f"(layers: {self.layer_names()})")
         values, _, _ = self._run(params, inputs, train, generator, device,
-                                 upto=upto, start=start, eps=eps)
+                                 upto=upto, start=start, eps=eps,
+                                 introspect=True)
         return values
 
     def forward(self, params: Mapping[str, Sequence[torch.Tensor]],
@@ -494,7 +643,7 @@ class Net:
         return torch.device("cpu")
 
     def _run(self, params, inputs, train, generator, device=None, *,
-             upto=None, start=None, eps=None):
+             upto=None, start=None, eps=None, introspect=False):
         names = self.layer_names()
         start_i = names.index(start) if start is not None else 0
         stop_i = names.index(upto) if upto is not None else len(names) - 1
@@ -515,43 +664,82 @@ class Net:
         # eps goes in where the executed range last assigns each blob
         last_producer = {t: n.lp.name for n in active for t in n.tops
                          if eps and t in eps}
+        # fusion on full runs only: a ranged, eps or introspected run
+        # must surface every layer's real blobs
+        full_run = (start is None and upto is None and not eps
+                    and not introspect)
+        hfuse_on = bool(self._hfuse_first) and self._hfuse_enabled
+        vfuse_on = bool(self._vfuse_head)
+        if not full_run and (hfuse_on or vfuse_on):
+            self._note_unfused_run(
+                "ranged" if (start is not None or upto is not None)
+                else "eps" if eps else "introspect")
+        hfuse_on = hfuse_on and full_run
+        vfuse_on = vfuse_on and full_run
         dev = (torch.device(device) if device is not None
                else self._device_of(params, inputs))
         values: dict[str, torch.Tensor] = dict(inputs)
         new_params: Params = dict(params)
         loss = None
         cd = self.compute_dtype
+        hstash: dict[str, torch.Tensor] = {}
         for node in active:
             if node.impl.is_input():
+                continue
+            if vfuse_on and node.lp.name in self._vfuse_member:
+                # runs inside its chain head's block; its blob has
+                # that member as its one consumer (graph/fusion.py)
                 continue
             missing = [b for b in node.bottoms if b not in values]
             if missing:
                 raise ValueError(
-                    f"layer {node.lp.name!r} needs blobs {missing}; with "
-                    f"start={start!r} every bottom made before the start "
-                    f"layer must be fed in inputs")
-            p = self.node_params(new_params, node)
-            bots = [values[b] for b in node.bottoms]
+                    f"layer {node.lp.name!r} needs blobs {missing}; "
+                    f"with start={start!r} every bottom made before "
+                    f"the start layer must be fed in inputs")
+            if vfuse_on and node.lp.name in self._vfuse_head:
+                ch = self._vfuse_head[node.lp.name]
+                members = [self._node_by_name[m] for m in ch.members]
+                values[members[-1].tops[0]] = self._apply_fused_chain(
+                    ch, members, new_params, values, cd, train)
+                continue
             stateful = node.impl.has_state
-            if cd is not None:
-                # numerics-critical layers stay f32: losses, accuracy,
-                # BatchNorm's batch statistics
-                dtype = (torch.float32 if node.impl.is_loss()
-                         or node.lp.type == "Accuracy" or stateful else cd)
-                bots = self._cast(bots, dtype)
-                p = self._cast(p, dtype)
-            gen = (generator.get(node.lp.name)
-                   if isinstance(generator, Mapping) else generator)
-            with layer_scope(node.lp.name):
-                tops = node.impl.apply(node.lp, p, bots, train, gen)
-            if stateful:
-                tops, updated = tops
-                self._scatter_node_params(new_params, node, updated)
-            if not node.bottoms:
-                # a source layer (DummyData) draws its tops on the CPU
-                tops = [t.to(dev) for t in tops]
+            if hfuse_on and node.lp.name in self._hfuse_member:
+                # its slice of the group's convolution, stashed when
+                # the group's first member ran
+                tops = [hstash.pop(node.lp.name)]
+            elif hfuse_on and node.lp.name in self._hfuse_first:
+                members = self._hfuse_first[node.lp.name]
+                parts = self._apply_hfused(members, new_params, values,
+                                           cd, train)
+                for m, part in zip(members[1:], parts[1:]):
+                    hstash[m.lp.name] = part
+                tops = [parts[0]]
+            else:
+                p = self.node_params(new_params, node)
+                bots = [values[b] for b in node.bottoms]
+                if cd is not None:
+                    # numerics-critical layers stay f32: losses,
+                    # accuracy, BatchNorm's batch statistics
+                    dtype = (torch.float32 if node.impl.is_loss()
+                             or node.lp.type == "Accuracy" or stateful
+                             else cd)
+                    bots = self._cast(bots, dtype)
+                    p = self._cast(p, dtype)
+                gen = (generator.get(node.lp.name)
+                       if isinstance(generator, Mapping) else generator)
+                with layer_scope(node.lp.name):
+                    tops = node.impl.apply(node.lp, p, bots, train, gen,
+                                           **node.seam(bots))
+                if stateful:
+                    tops, updated = tops
+                    self._scatter_node_params(new_params, node, updated)
+                if not node.bottoms:
+                    # a source layer (DummyData) draws its tops on the
+                    # CPU
+                    tops = [t.to(dev) for t in tops]
             if last_producer:
-                tops = [v + eps[t] if last_producer.get(t) == node.lp.name
+                tops = [v + eps[t]
+                        if last_producer.get(t) == node.lp.name
                         else v for t, v in zip(node.tops, tops)]
             for t, v in zip(node.tops, tops):
                 values[t] = v
@@ -562,6 +750,73 @@ class Net:
         if loss is None:
             loss = torch.zeros((), dtype=torch.float32, device=dev)
         return values, loss, new_params
+
+    def _apply_hfused(self, members: list[_LayerNode], params, values, cd,
+                      train) -> tuple[torch.Tensor, ...]:
+        """One horizontal group as one convolution: the members' weights
+        (and biases) concatenated along the output channels, the output
+        split back, all under one ``L[a+b+...]`` scope.  Members are
+        stateless convolutions that draw no random numbers."""
+        head = members[0]
+        mp = [self.node_params(params, m) for m in members]
+        fused = [torch.cat([p[0] for p in mp], dim=0)]
+        if len(mp[0]) > 1:   # bias_term, the same within a group
+            fused.append(torch.cat([p[1] for p in mp], dim=0))
+        bots = [values[head.bottoms[0]]]
+        if cd is not None:
+            bots = self._cast(bots, cd)
+            fused = self._cast(fused, cd)
+        with layer_scope("+".join(m.lp.name for m in members)):
+            (y,) = head.impl.apply(head.lp, fused, bots, train, None,
+                                   **head.seam(bots))
+            return _split_channels(y, [p[0].shape[0] for p in mp])
+
+    def _apply_fused_chain(self, ch: fusion.FusedChain,
+                           members: list[_LayerNode], params, values, cd,
+                           train) -> torch.Tensor:
+        """One planned vertical chain as one block under one
+        ``L[a+b+...]`` scope (the JAX package's ``_apply_fused_chain``).
+        The head convolution and every in-block member run their own
+        layer code; an LRN tail with an epilogue runs as
+        ``ops.vision.lrn_chain_epilogue``, a ReLU just before it folded
+        in under ``relu+lrn``."""
+        head = members[0]
+        x = values[head.bottoms[0]]
+        p = self.node_params(params, head)
+        if cd is not None:
+            x = self._cast([x], cd)[0]
+            p = self._cast(p, cd)
+        epi = self._epilogue_tune.get(head.lp.name)
+
+        def epilogue(y, lrn, relu):
+            size, alpha, beta, k, _ = vision.lrn_geometry(lrn.lp)
+            return vision.lrn_chain_epilogue(
+                y, size, alpha, beta, k, relu=relu, lowering=epi.get(
+                    (tuple(y.shape), y.dtype)) if epi else None)
+        with layer_scope(ch.scope()):
+            (y,) = head.impl.apply(head.lp, p, [x], train, None,
+                                   **head.seam([x]))
+            i = 1
+            while i < len(members):
+                m = members[i]
+                nxt = members[i + 1] if i + 1 < len(members) else None
+                if (ch.epilogue == "relu+lrn" and m.lp.type == "ReLU"
+                        and nxt is not None and nxt.lp.type == "LRN"):
+                    y = epilogue(y, nxt, True)
+                    i += 2
+                    continue
+                if (ch.epilogue in ("lrn", "relu+lrn")
+                        and m.lp.type == "LRN" and nxt is None):
+                    y = epilogue(y, m, False)
+                    i += 1
+                    continue
+                mp = self.node_params(params, m)
+                if cd is not None:
+                    mp = self._cast(mp, cd)
+                (y,) = m.impl.apply(m.lp, mp, [y], train, None,
+                                    **m.seam([y]))
+                i += 1
+        return y
 
     # -- introspection (reference: ccaffe.cpp:86-139, Net.scala:64-66) -----
     @property

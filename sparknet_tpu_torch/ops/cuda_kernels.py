@@ -9,7 +9,10 @@ at first use, into ``sparknet_tpu_torch/_build/``, and loaded with
 - on a CUDA tensor, checks device, dtype, shape and contiguity, allocates
   the outputs, launches the kernel on the current stream and raises if
   the launch fails.  It never falls back to the plain version;
-- adds one to its entry in :data:`launch_counts` for each launch.
+- adds one to its entry in :data:`launch_counts` for each launch; an
+  LRN kernel launched with its ReLU folded in (``relu=True``) counts
+  under its own ``<wrapper>_relu`` entry, so a run shows that the fold
+  ran.
 
 Kernels, all of ``sparknet_tpu/ops/pallas_kernels.py``'s TPU kernels:
 
@@ -111,7 +114,8 @@ _SIGNATURES = {
 launch_counts: dict[str, int] = {
     "lrn_across_channels": 0, "lrn_across_channels_fwd": 0,
     "lrn_across_channels_bwd": 0, "max_pool_bwd": 0, "ycc_to_rgb": 0,
-    "resize_bilinear": 0}
+    "resize_bilinear": 0, "lrn_across_channels_relu": 0,
+    "lrn_across_channels_fwd_relu": 0, "lrn_across_channels_bwd_relu": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
@@ -497,9 +501,10 @@ def lrn_across_channels(x: torch.Tensor, size: int, alpha: float,
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    _launch("lrn_across_channels", "lrn", "sparknet_lrn_across_channels",
-            x.device, x.data_ptr(), y.data_ptr(), n, c, h * w, size,
-            alpha / size, beta, k, int(relu), int(x.dtype == torch.bfloat16),
+    _launch("lrn_across_channels" + ("_relu" if relu else ""), "lrn",
+            "sparknet_lrn_across_channels", x.device, x.data_ptr(),
+            y.data_ptr(), n, c, h * w, size, alpha / size, beta, k,
+            int(relu), int(x.dtype == torch.bfloat16),
             lrn_plan(n, c, h * w).chunk)
     return y
 
@@ -531,7 +536,7 @@ def lrn_across_channels_fwd(x: torch.Tensor, size: int, alpha: float,
     scale = torch.empty_like(x)
     if x.numel() == 0:
         return y, scale
-    _launch("lrn_across_channels_fwd", "lrn",
+    _launch("lrn_across_channels_fwd" + ("_relu" if relu else ""), "lrn",
             "sparknet_lrn_across_channels_fwd", x.device, x.data_ptr(),
             y.data_ptr(), scale.data_ptr(), n, c, h * w, size, alpha / size,
             beta, k, int(relu), int(x.dtype == torch.bfloat16),
@@ -578,7 +583,8 @@ def lrn_across_channels_bwd(x: torch.Tensor, scale: torch.Tensor,
     if x.numel() == 0:
         return dx
     plan = lrn_bwd_plan(n, c, h * w)
-    _launch(what, "lrn_bwd", "sparknet_lrn_across_channels_bwd", x.device,
+    _launch(what + ("_relu" if relu else ""), "lrn_bwd",
+            "sparknet_lrn_across_channels_bwd", x.device,
             x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), n,
             c, h * w, size, 2.0 * alpha * beta / size, beta, int(relu),
             int(x.dtype == torch.bfloat16), plan.threads // LRN_BWD_LANES)

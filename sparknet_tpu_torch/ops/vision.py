@@ -25,6 +25,14 @@ Deconvolution is ``F.conv_transpose2d`` (cuDNN): Caffe's weight blob
 ``F.unfold``, whose rows are channel-major (C, kh, kw) as the JAX
 package's ``conv_general_dilated_patches``; SPP pools each level with
 the MAX pool above (its backward the kernel) or the AVE pool.
+
+Convolution, MAX pooling and ACROSS_CHANNELS LRN take a lowering from
+the tuner (``graph/tuner.py``): the one their Net resolved at
+construction (``lowering=``), or for a layer called on its own what
+``SPARKNET_TUNE``'s table names.  A lowering the layer does not know,
+one the geometry cannot take, or on a CUDA tensor one that takes a hand
+kernel off the path, is refused with an error.  A fused conv chain's
+[ReLU +] LRN tail runs through :func:`lrn_chain_epilogue`.
 """
 
 from __future__ import annotations
@@ -37,9 +45,28 @@ import torch.nn.functional as F
 
 from ..proto.caffe_pb import LayerParameter
 from .cuda_kernels import (lrn_across_channels, lrn_across_channels_bwd,
-                           lrn_across_channels_fwd, max_pool_bwd)
+                           lrn_across_channels_fwd,
+                           lrn_across_channels_reference, max_pool_bwd)
 from .fillers import fill_weight_bias
 from .registry import LayerImpl, Shape, register_layer
+
+
+# a seam's ``lowering`` when no Net passed one: read SPARKNET_TUNE now
+CONSULT = object()
+
+
+def _lowering(op: str, x: torch.Tensor, lowering, extra) -> str | None:
+    """The lowering a seam runs: ``lowering`` as its Net resolved it, or
+    under :data:`CONSULT` what the active table names at ``extra()``;
+    None is the built-in one.  On a CUDA tensor an ``off_kernel``
+    candidate is refused."""
+    from ..graph import tuner
+    if lowering is CONSULT:
+        lowering = tuner.resolve_lowering(op, x.shape, x.dtype,
+                                          extra=extra())
+    if lowering is not None and x.is_cuda:
+        tuner.refuse_off_kernel(op, lowering, "layer seam")
+    return lowering
 
 
 def _pair(p, key: str, default: int, hkey: str | None = None,
@@ -74,6 +101,81 @@ def conv_geometry(lp: LayerParameter):
     return kh, kw, sh, sw, ph, pw, dh, dw, num_output, group, bias_term
 
 
+def s2d_geometry_ok(c_in: int, kh, kw, sh, sw, ph, pw, dh, dw,
+                    group) -> bool:
+    """Where the space-to-depth rewrite applies (the JAX package's
+    ``_s2d_geometry_ok``, vision.py:63)."""
+    return (group == 1 and dh == 1 and dw == 1 and c_in * sh * sw <= 64
+            and (sh > 1 or sw > 1) and kh >= sh and kw >= sw)
+
+
+def space_to_depth_conv(x: torch.Tensor, weight: torch.Tensor, kh, kw, sh,
+                        sw, ph, pw) -> torch.Tensor:
+    """A stride-s convolution as a stride-1 convolution on input whose
+    s x s stride phases are folded into channels (the JAX package's
+    ``_space_to_depth_conv``): the kernel zero-padded up to a stride
+    multiple, the input padded or clipped to exactly the extent the
+    windows read.  Equal up to summation order."""
+    n, c, h, w = x.shape
+    o = weight.shape[0]
+    kph, kpw = -kh % sh, -kw % sw
+    keh, kew = kh + kph, kw + kpw
+    oh = (h + 2 * ph - kh) // sh + 1
+    ow = (w + 2 * pw - kw) // sw + 1
+    hi_h = (oh - 1) * sh + keh - h - ph
+    hi_w = (ow - 1) * sw + kew - w - pw
+    # F.pad takes negative widths as crops
+    x = F.pad(x, (pw, hi_w, ph, hi_h))
+    hp, wp = x.shape[2], x.shape[3]
+    x = x.reshape(n, c, hp // sh, sh, wp // sw, sw).permute(
+        0, 1, 3, 5, 2, 4).reshape(n, c * sh * sw, hp // sh, wp // sw)
+    weight = F.pad(weight, (0, kpw, 0, kph))
+    weight = weight.reshape(o, c, keh // sh, sh, kew // sw, sw).permute(
+        0, 1, 3, 5, 2, 4).reshape(o, c * sh * sw, keh // sh, kew // sw)
+    return F.conv2d(x, weight)
+
+
+def im2col_conv(x: torch.Tensor, weight: torch.Tensor, kh, kw, sh, sw, ph,
+                pw, dh, dw, group) -> torch.Tensor:
+    """Convolution as explicit patches and a grouped matrix product
+    (Caffe's im2col + GEMM, the JAX package's ``_im2col_conv``).  The
+    patch rows are channel-major, so a group's input channels are one
+    contiguous block."""
+    n, c, h, w = x.shape
+    o = weight.shape[0]
+    oh = (h + 2 * ph - (dh * (kh - 1) + 1)) // sh + 1
+    ow = (w + 2 * pw - (dw * (kw - 1) + 1)) // sw + 1
+    patches = F.unfold(x, (kh, kw), dilation=(dh, dw), padding=(ph, pw),
+                       stride=(sh, sw))
+    pg = patches.reshape(n, group, (c // group) * kh * kw, oh * ow)
+    wg = weight.reshape(group, o // group, (c // group) * kh * kw)
+    return torch.matmul(wg, pg).reshape(n, o, oh, ow)
+
+
+def conv_lowering(x: torch.Tensor, weight: torch.Tensor, bias, kh, kw, sh,
+                  sw, ph, pw, dh, dw, group,
+                  choice: str | None) -> torch.Tensor:
+    """One convolution through the tuner's lowering (None: the default,
+    ``F.conv2d``).  A table naming s2d at a geometry the rewrite cannot
+    express, or an unknown lowering, is a drifted table: refused."""
+    if choice in (None, "native"):
+        return F.conv2d(x, weight, bias, stride=(sh, sw), padding=(ph, pw),
+                        dilation=(dh, dw), groups=group)
+    if choice == "s2d":
+        if not s2d_geometry_ok(x.shape[1], kh, kw, sh, sw, ph, pw, dh, dw,
+                               group):
+            raise ValueError(
+                "tuning table selects s2d for a geometry the rewrite "
+                "cannot express — drifted table, re-run tools/tune.py run")
+        y = space_to_depth_conv(x, weight, kh, kw, sh, sw, ph, pw)
+    elif choice == "im2col":
+        y = im2col_conv(x, weight, kh, kw, sh, sw, ph, pw, dh, dw, group)
+    else:
+        raise ValueError(f"tuning table selects unknown conv lowering "
+                         f"{choice!r} — drifted table")
+    return y if bias is None else y + bias.reshape(1, -1, 1, 1)
+
+
 @register_layer("Convolution")
 class ConvolutionLayer(LayerImpl):
     """2-D convolution (reference: caffe/src/caffe/layers/conv_layer.cpp;
@@ -99,12 +201,19 @@ class ConvolutionLayer(LayerImpl):
         return fill_weight_bias(gen, lp.sub("convolution_param"),
                                 self.param_shapes(lp, bottom_shapes))
 
-    def apply(self, lp, params, bottoms, train, gen=None):
-        kh, kw, sh, sw, ph, pw, dh, dw, _, group, bias_term = \
+    def apply(self, lp, params, bottoms, train, gen=None,
+              lowering=CONSULT):
+        from ..graph import tuner
+        kh, kw, sh, sw, ph, pw, dh, dw, num_output, group, bias_term = \
             conv_geometry(lp)
         bias = params[1] if bias_term else None
-        return [F.conv2d(x, params[0], bias, stride=(sh, sw),
-                         padding=(ph, pw), dilation=(dh, dw), groups=group)
+
+        def extra():
+            return tuner.conv_extra(kh, kw, sh, sw, ph, pw, dh, dw,
+                                    num_output, group)
+        return [conv_lowering(x, params[0], bias, kh, kw, sh, sw, ph, pw,
+                              dh, dw, group,
+                              _lowering("conv", x, lowering, extra))
                 for x in bottoms]
 
 
@@ -252,6 +361,28 @@ def max_pool_layer(x: torch.Tensor, kh, kw, sh, sw, ph, pw, oh,
     return max_pool(x, kh, kw, sh, sw, ph, pw, oh, ow)
 
 
+def patches_pool_ok(h, w, kh, kw, sh, sw, ph, pw) -> bool:
+    """Where the patches MAX pool is exact (the JAX package's
+    ``_patches_pool_ok``): no padding (unfold pads with 0, not -inf) and
+    no ceil-mode remainder."""
+    return (ph == 0 and pw == 0 and kh <= h and kw <= w
+            and (h - kh) % sh == 0 and (w - kw) % sw == 0)
+
+
+def max_pool_patches(x: torch.Tensor, kh, kw, sh, sw, oh,
+                     ow) -> torch.Tensor:
+    """MAX pooling as patches, argmax and a gather (the JAX package's
+    ``max_pool_patches``) on :func:`patches_pool_ok`'s geometries: max is
+    association-free, so the forward equals :func:`max_pool` bit for
+    bit, and the gather routes the gradient to each window's first
+    maximum."""
+    n, c = x.shape[:2]
+    p = F.unfold(x, (kh, kw), stride=(sh, sw)).reshape(n, c, kh * kw, oh,
+                                                       ow)
+    idx = p.detach().argmax(dim=2, keepdim=True)
+    return torch.gather(p, 2, idx)[:, :, 0]
+
+
 def stochastic_pool_train(x: torch.Tensor, kh, kw, sh, sw, ph, pw, oh, ow,
                           u: torch.Tensor) -> torch.Tensor:
     """Train-mode STOCHASTIC pooling (pooling_layer.cu StoPoolForwardTrain;
@@ -299,7 +430,8 @@ class PoolingLayer(LayerImpl):
         kh, kw, sh, sw, ph, pw, _ = _pool_geometry(lp, bottom_shapes[0])
         return [(n, c) + pool_output_size(h, w, kh, kw, sh, sw, ph, pw)]
 
-    def apply(self, lp, params, bottoms, train, gen=None):
+    def apply(self, lp, params, bottoms, train, gen=None,
+              lowering=CONSULT):
         x = bottoms[0]
         kh, kw, sh, sw, ph, pw, method = _pool_geometry(lp, tuple(x.shape))
         oh, ow = pool_output_size(x.shape[2], x.shape[3], kh, kw, sh, sw,
@@ -307,6 +439,20 @@ class PoolingLayer(LayerImpl):
         if method == "AVE":
             return [ave_pool(x, kh, kw, sh, sw, ph, pw, oh, ow)]
         if method == "MAX":
+            from ..graph import tuner
+            choice = _lowering("pool", x, lowering, lambda: tuner.pool_extra(
+                kh, kw, sh, sw, ph, pw))
+            if choice == "patches_max":
+                if not patches_pool_ok(x.shape[2], x.shape[3], kh, kw, sh,
+                                       sw, ph, pw):
+                    raise ValueError(
+                        "tuning table selects patches_max for a padded/"
+                        "remainder pool geometry it cannot express "
+                        "exactly — drifted table, re-run tools/tune.py")
+                return [max_pool_patches(x, kh, kw, sh, sw, oh, ow)]
+            if choice not in (None, "cuda_bwd"):
+                raise ValueError(f"tuning table selects unknown pool "
+                                 f"lowering {choice!r} — drifted table")
             return [max_pool_layer(x, kh, kw, sh, sw, ph, pw, oh, ow)]
         if method != "STOCHASTIC":
             raise ValueError(f"unknown pool method {method!r}")
@@ -357,7 +503,48 @@ def relu_lrn(x: torch.Tensor, size: int, alpha: float, beta: float,
     (:class:`LRNAcrossChannels`), else the inference kernel."""
     if torch.is_grad_enabled() and x.requires_grad:
         return LRNAcrossChannels.apply(x, size, alpha, beta, k, relu)
-    return lrn_across_channels(x, size, alpha, beta, k, relu)
+    return lrn_across_channels(x.contiguous(), size, alpha, beta, k, relu)
+
+
+def lrn_cumsum(x: torch.Tensor, size: int, alpha: float, beta: float,
+               k: float) -> torch.Tensor:
+    """ACROSS_CHANNELS LRN with the window sum as a difference of channel
+    prefix sums in f32 (the JAX package's ``lrn_window_sum`` with
+    ``use_cumsum``): O(C) reads an element, equal to the shifted-add sum
+    up to association.  A tuner candidate; autograd backward."""
+    c = x.shape[1]
+    pre = (size - 1) // 2
+    post = size - 1 - pre
+    xf = x.float()
+    cs = F.pad(torch.cumsum(xf * xf, dim=1), (0, 0, 0, 0, 1, 0))
+    hi = torch.clamp(torch.arange(c, device=x.device) + post + 1, max=c)
+    lo = torch.clamp(torch.arange(c, device=x.device) - pre, min=0)
+    ssum = cs.index_select(1, hi) - cs.index_select(1, lo)
+    return (xf * (k + (alpha / size) * ssum).pow(-beta)).to(x.dtype)
+
+
+def lrn_chain_epilogue(x: torch.Tensor, size: int, alpha: float, beta: float,
+                       k: float, *, relu: bool,
+                       lowering=CONSULT) -> torch.Tensor:
+    """A fused conv chain's tail: [ReLU +] ACROSS_CHANNELS LRN in one
+    pass over the producer's output (the JAX package's
+    ``lrn_chain_epilogue``, vision.py:562-586).  By default
+    :func:`relu_lrn` with the ReLU folded in: on a CUDA tensor B1/B3
+    under autograd and B2 without, on a CPU tensor their plain versions.
+    The tuning table (op ``lrn_epilogue``) may pick ``per_layer`` (the
+    ReLU, then the kernels with ``relu=0``) or, off the card,
+    ``plain``."""
+    from ..graph import tuner
+    choice = _lowering("lrn_epilogue", x, lowering,
+                       lambda: tuner.epilogue_extra(size, relu))
+    if choice == "per_layer":
+        return relu_lrn(torch.relu(x) if relu else x, size, alpha, beta, k)
+    if choice == "plain":
+        return lrn_across_channels_reference(x, size, alpha, beta, k, relu)
+    if choice not in (None, "cuda"):
+        raise ValueError(f"tuning table selects unknown lrn_epilogue "
+                         f"lowering {choice!r} — drifted table")
+    return relu_lrn(x, size, alpha, beta, k, relu=relu)
 
 
 @register_layer("LRN")
@@ -370,7 +557,8 @@ class LRNLayer(LayerImpl):
     size x size window at stride 1, pad (size-1)/2, output forced to the
     input's size; k is unused and alpha is not divided by size."""
 
-    def apply(self, lp, params, bottoms, train, gen=None):
+    def apply(self, lp, params, bottoms, train, gen=None,
+              lowering=CONSULT):
         size, alpha, beta, k, region = lrn_geometry(lp)
         x = bottoms[0]
         if region == "WITHIN_CHANNEL":
@@ -381,6 +569,16 @@ class LRNLayer(LayerImpl):
         if region != "ACROSS_CHANNELS":
             raise ValueError(f"layer {lp.name!r}: unknown norm_region "
                              f"{region!r}")
+        from ..graph import tuner
+        choice = _lowering("lrn", x, lowering,
+                           lambda: tuner.lrn_extra(size))
+        if choice == "plain":
+            return [lrn_across_channels_reference(x, size, alpha, beta, k)]
+        if choice == "cumsum":
+            return [lrn_cumsum(x, size, alpha, beta, k)]
+        if choice not in (None, "cuda"):
+            raise ValueError(f"tuning table selects unknown lrn lowering "
+                             f"{choice!r} — drifted table")
         return [relu_lrn(x, size, alpha, beta, k, relu=False)]
 
 

@@ -6,8 +6,13 @@ one steady block of the program the bench times (``build_bench_model``,
 under ``utils/profiling.py::trace``, turns the profile into the
 ``op_table.json`` tables (``utils/trace_tables.py``), prints them and the
 summary (step time, img/s, MFU, device busy ms a step), and writes
-``op_table.json`` and the Chrome trace into the directory named by
-``--out``.  It never writes anywhere else.
+``op_table.json``, the Chrome trace, and the net's ``fusion_plan.json``
+and ``tuning.json`` (where it has a plan or a table,
+``profiling.record_fusion_plan``/``record_tuning``) into the directory
+named by ``--out``.  It never writes anywhere else.  On the card the
+``by_layer`` rows carry their byte and FLOP rates
+(``trace_tables.layer_traffic``) and the summary's ``device`` names the
+card and its power limit as ``nvidia-smi`` gives them.
 
 Run:  python -m sparknet_tpu_torch.tools.profile_step --out DIR \\
           [--model caffenet] [--batch 256] [--iters 20] [--dtype f32] \\
@@ -47,6 +52,7 @@ def profile(model: str, batch: int, iters: int, dtype: str, out_dir: str,
                                      .astype(np.float32)).to(dev),
             "label": torch.from_numpy(rng.integers(0, classes, size=batch)
                                       .astype(np.float32)).to(dev)}
+    net = solver.test_net if eval_pass else solver.train_net
     if eval_pass:
         block = profiling.eval_block(solver, iters, data)
         flops = profiling.eval_cost_flops(solver)
@@ -66,16 +72,17 @@ def profile(model: str, batch: int, iters: int, dtype: str, out_dir: str,
         block()
         sync()
     step_s = (time.perf_counter() - t0) / iters
-    tables = trace_tables.op_tables(prof, top=top)
+    tables = trace_tables.op_tables(prof, top=top, net=net, steps=iters)
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    card = profiling.card_line(dev) if dev.type == "cuda" else "cpu"
     peak = profiling.peak_flops(kind, dtype)
     busy_s = tables["total_ms"] / iters / 1e3
     summary = {
         "model": model, "batch": batch, "dtype": dtype,
         "mode": "eval_forward" if eval_pass else "train_step",
-        "fuse_plan": profiling.record_fusion_plan(solver.train_net),
-        "tune_plan": profiling.record_tuning(solver.train_net),
-        "device": f"{dev.type}/{kind}",
+        "fuse_plan": profiling.record_fusion_plan(net, out_dir),
+        "tune_plan": profiling.record_tuning(net, out_dir),
+        "device": f"{dev.type}/{card}",
         "step_ms": round(step_s * 1e3, 2),
         "img_s": round(batch / step_s, 1),
         "mfu": round(flops / step_s / peak, 4) if peak else None,

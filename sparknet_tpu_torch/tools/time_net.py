@@ -152,7 +152,8 @@ def _per_layer(net, params, inputs, gen, dev, iterations) -> dict:
             bots = [blobs[b] for b in node.bottoms]
 
             def one(node=node, p=p, bots=bots):
-                return node.impl.apply(node.lp, p, bots, True, gen)
+                return node.impl.apply(node.lp, p, bots, True, gen,
+                                       **node.seam(bots))
 
             ms = time_fn(one, iterations, dev)
             rows[node.lp.name] = ms

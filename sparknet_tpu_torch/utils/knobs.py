@@ -6,8 +6,9 @@ The port's own copy of the read half of ``sparknet_tpu/utils/knobs.py``
 monitor, the model registry, the health beacons, the training feed, the
 DB readers, the record shards and their tiered cache, the trainer's
 round shape (``comm_config_from_env``), the checkpoint
-writer, the fault injector and the telemetry plane
-(``utils/telemetry.py``).  Reading a name that is not declared here
+writer, the fault injector, the telemetry plane
+(``utils/telemetry.py``), and the fusion pass and lowering tuner
+(``graph/fusion.py``, ``graph/net.py``, ``graph/tuner.py``).  Reading a name that is not declared here
 raises :class:`UnknownKnob`, so a typo'd knob fails loudly instead of
 silently meaning "default".  Values are read live from ``os.environ``.
 """
@@ -19,9 +20,26 @@ import os
 # name -> one-line doc (defaults live with the readers: ServeConfig,
 # parallel/registry.py, parallel/health.py, data/pipeline.py,
 # parallel/trainer.py, utils/checkpoint.py,
-# utils/faults.py, utils/telemetry.py; each doc names the JAX package's
-# default)
+# utils/faults.py, utils/telemetry.py, graph/fusion.py, graph/net.py,
+# graph/tuner.py; each doc names the JAX package's default)
 KNOBS: dict[str, str] = {
+    "SPARKNET_FUSE": "vertical fusion plan: off/0 = unfused, auto (the "
+                     "default) = the port's committed profile worklist, "
+                     "all = every legal chain, else a plan-file path; "
+                     "latched at Net construction",
+    "SPARKNET_NO_HFUSE": "1 turns off the horizontal fusion of sibling 1x1 "
+                         "convolutions (on by default); latched at Net "
+                         "construction",
+    "SPARKNET_TUNE": "lowering table: off = the built-in defaults, auto "
+                     "(the default) = the port's committed "
+                     "profiles/<backend>/tuning.json, else a table path; "
+                     "latched at Net construction",
+    "SPARKNET_TUNE_REPS": "timed repetitions per tuning candidate; "
+                          "default 5",
+    "SPARKNET_TUNE_TARGET_S": "target seconds per timed repetition on the "
+                              "CPU; default 0.1",
+    "SPARKNET_TUNE_WARMUP": "untimed warm-up runs per tuning candidate; "
+                            "default 2",
     "SPARKNET_SERVE_SHAPES": "serving batch shapes, comma-separated",
     "SPARKNET_SERVE_MAX_DELAY_MS": "coalesce deadline in milliseconds",
     "SPARKNET_SERVE_QUEUE": "admission bound on outstanding requests",

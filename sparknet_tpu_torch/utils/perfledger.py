@@ -14,11 +14,11 @@ that its bench and op tables feed:
   sparknet_tpu_torch.bench``'s line, or the driver's ``{"parsed": ...}``
   wrapper), ``entries_from_serving``, ``entries_from_roundbench``,
   ``entries_from_op_table`` (``tools/profile_step.py``'s
-  ``op_table.json``) and ``entries_from_metrics_rollup``
+  ``op_table.json``), ``entries_from_tuning_table`` (``tools/tune.py
+  run``'s ``tuning.json``) and ``entries_from_metrics_rollup``
   (``telemetry.fold_snapshots``).  A bench tier the port marks
   ``{"not_ported": ...}`` yields no entry.  The pod, net and rollout
-  soak readers, ``entries_from_shardbench`` and
-  ``entries_from_tuning_table`` wait for ROADMAP A8 and A12.
+  soak readers and ``entries_from_shardbench`` wait for ROADMAP A12.
 - **Noise-aware baselines** — per (metric, fingerprint key):
   ``median ± k·1.4826·MAD`` over a trailing window; small samples refuse
   to gate, and because device and backend are part of the key, a CPU
@@ -697,6 +697,57 @@ def entries_from_metrics_rollup(folded: Mapping[str, Any],
                        metrics, round_tag=round_tag, t=t)]
 
 
+def entries_from_tuning_table(doc: Mapping[str, Any],
+                              path: str | None = None, *,
+                              round_tag: str | None = None,
+                              t: float | None = None) -> list[dict]:
+    """``sparknet_tpu_torch/profiles/<backend>/tuning.json``
+    (``graph/tuner.py``): every candidate timing at every key becomes a
+    metric, so the next capture of the same key gates against this one.
+    Metric names: ``tune_ms/<key>`` for the winner (``_ms``: lower is
+    better), ``tune_cand_ms/<key>=<candidate>`` for the rest, and
+    ``tune_margin/<key>`` for the winner's lead over the runner-up
+    (higher is better: a shrinking margin is the early rot signal)."""
+    if doc.get("kind") != "tuning_table":
+        return []
+    entries = doc.get("entries") or []
+    if not entries:
+        return []
+    prov = doc.get("provenance") or {}
+    backend = doc.get("backend") or "unknown"
+    device = (prov.get("fingerprint") or {}).get("device")
+    if not device or device == "unknown":
+        device = backend
+    dtypes = {parts[2] for e in entries
+              if len(parts := str(e.get("key", "")).split("/")) >= 3}
+    fp = fingerprint(model="tuner",
+                     dtype=dtypes.pop() if len(dtypes) == 1 else "mixed",
+                     batch=0, world=1, device=device, backend=backend,
+                     tune_plan=doc.get("table_id"))
+    metrics: dict[str, Any] = {}
+    for e in entries:
+        key, winner = e.get("key"), e.get("winner")
+        if not key or not winner:
+            continue
+        for cand, rec in (e.get("timings") or {}).items():
+            if not isinstance(rec, Mapping) or rec.get("ms") is None:
+                continue  # typed skip — no measurement, never 0
+            if cand == winner:
+                metrics[f"tune_ms/{key}"] = rec["ms"]
+            else:
+                metrics[f"tune_cand_ms/{key}={cand}"] = rec["ms"]
+        if e.get("margin") is not None:
+            metrics[f"tune_margin/{key}"] = e["margin"]
+    if not metrics:
+        return []
+    ts = [e.get("measured_at") for e in entries
+          if isinstance(e.get("measured_at"), (int, float))]
+    return [make_entry("tuning", path, fp, metrics, round_tag=round_tag,
+                       t=t if t is not None else (max(ts) if ts else None),
+                       sha=prov.get("git_sha"), run=prov.get("run"),
+                       rank=prov.get("rank"), job=prov.get("job"))]
+
+
 def entries_from_any(doc: Mapping[str, Any], path: str | None = None, *,
                      round_tag: str | None = None, t: float | None = None,
                      device_hint: str | None = None) -> list[dict]:
@@ -710,6 +761,9 @@ def entries_from_any(doc: Mapping[str, Any], path: str | None = None, *,
     if doc.get("metric") == "serving_dynamic_vs_batch1_speedup_x":
         return entries_from_serving(doc, path, round_tag=round_tag, t=t,
                                     device_hint=device_hint)
+    if doc.get("kind") == "tuning_table":
+        return entries_from_tuning_table(doc, path, round_tag=round_tag,
+                                         t=t)
     if "summary" in doc and "by_category" in doc:
         return entries_from_op_table(doc, path, round_tag=round_tag, t=t)
     if "stall_total_sync_s" in doc:

@@ -23,10 +23,9 @@ The JAX package counts FLOPs with XLA's ``cost_analysis``, which also
 counts elementwise work and the update; here they are counted from the
 net's geometry (convolution and inner-product multiply-adds), so the two
 counts differ by that gap (``PERF.md`` §6 states it).  The JAX
-profiler's remote ``server`` has no torch counterpart (ROADMAP A13), and
-the port has neither fusion nor a tuner (ROADMAP A8), so
-:func:`record_fusion_plan` and :func:`record_tuning` return ``"off"``,
-the JAX package's own value when nothing fuses.
+profiler's remote ``server`` has no torch counterpart (ROADMAP A13).
+:func:`record_fusion_plan` and :func:`record_tuning` stamp a capture
+with the net's fusion plan and lowering table.
 """
 
 from __future__ import annotations
@@ -89,6 +88,25 @@ def layer_scope(name: str):
     return contextlib.nullcontext()
 
 
+def card_line(device: torch.device | None = None) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    (``NVIDIA H100 80GB HBM3, 700.00 W``), or the name alone with
+    "power limit not read" where nvidia-smi does not answer."""
+    import subprocess
+    index = (device.index if device is not None
+             and device.index is not None else 0)
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30, check=True).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = []
+    return (out[0].strip() if out else
+            f"{torch.cuda.get_device_name(index)}, power limit not read")
+
+
 def device_memory_summary() -> list[dict]:
     """One row per CUDA device: its name, the bytes PyTorch's allocator
     holds in tensors now and at its peak, the card's free bytes and its
@@ -145,15 +163,25 @@ def build_bench_model(name: str, batch: int):
 
 
 def record_fusion_plan(net, out_dir: str | None = None) -> str:
-    """The net's vertical-fusion plan id: always ``"off"`` in the port,
-    which has no fusion pass (ROADMAP A8); nothing is written."""
-    return "off"
+    """The net's vertical-fusion plan id (``"off"`` when nothing fuses,
+    the perf-ledger fingerprint field) and, given a capture's
+    ``out_dir``, its plan written there as ``fusion_plan.json``, so that
+    ``SPARKNET_FUSE=<that file>`` replays the chains the capture ran
+    (the JAX package's ``record_fusion_plan``).  Shared by ``bench.py``
+    and ``tools/profile_step.py``."""
+    if out_dir is not None and net._fuse_plan is not None:
+        net._fuse_plan.save(os.path.join(out_dir, "fusion_plan.json"))
+    return net.fuse_plan_id()
 
 
 def record_tuning(net, out_dir: str | None = None) -> str:
-    """The net's lowering-tuner table id: always ``"off"`` in the port,
-    which has no tuner (ROADMAP A8); nothing is written."""
-    return "off"
+    """The net's lowering-table id (``"off"`` when none) and, given a
+    capture's ``out_dir``, the table it latched copied there as
+    ``tuning.json``, so ``SPARKNET_TUNE=<that file>`` replays the
+    lowerings the capture ran."""
+    if out_dir is not None and net._tune_table is not None:
+        net._tune_table.save(os.path.join(out_dir, "tuning.json"))
+    return net.tune_plan_id()
 
 
 def fwd_cost_flops(net) -> float:
@@ -167,6 +195,18 @@ def eval_cost_flops(solver) -> float:
     return fwd_cost_flops(solver.test_net)
 
 
+def grad_blobs(net) -> set[str]:
+    """The blobs of ``net`` that depend on a param: autograd computes an
+    input gradient for a layer only where its bottom is one of them."""
+    needs_grad: set[str] = set()
+    shapes = net.param_shapes()
+    for node in net.nodes:
+        if (node.lp.name in shapes or node.shared_refs
+                or any(b in needs_grad for b in node.bottoms)):
+            needs_grad.update(node.tops)
+    return needs_grad
+
+
 def step_cost_flops(solver) -> float:
     """Model FLOPs of one train step of ``solver`` (all ``iter_size``
     micro-batches): each convolution and inner product's forward, its weight gradient
@@ -175,12 +215,7 @@ def step_cost_flops(solver) -> float:
     autograd computes no input gradient.  The update's and the
     elementwise layers' work is not counted."""
     net = solver.train_net
-    needs_grad: set[str] = set()    # blobs that depend on a param
-    shapes = net.param_shapes()
-    for node in net.nodes:
-        if (node.lp.name in shapes or node.shared_refs
-                or any(b in needs_grad for b in node.bottoms)):
-            needs_grad.update(node.tops)
+    needs_grad = grad_blobs(net)
     total = 0
     for node, f in net.layer_flops():
         total += 2 * f + (f if node.bottoms[0] in needs_grad else 0)

@@ -28,15 +28,30 @@ that joins no layer (the update, the loss seed, copies outside the net)
 goes to the row :data:`UNATTRIBUTED`; nothing is dropped, so the
 ``by_layer`` rows sum to ``total_ms``.  Each ``by_layer`` row also
 carries ``backward_ms``, the part of its time joined through a backward
-op.  The profiler gives no per-kernel operation or byte counts, so
-``gflops_per_s`` and ``gb_per_s`` are 0.0, as in the JAX package's CPU
-tables; MFU comes from ``profiling.step_cost_flops``.
+op.
+
+The profiler gives no per-kernel operation or byte counts.  Given the
+net that ran (``op_tables(..., net=, steps=)``), a card capture's
+``by_layer`` rows, a fused ``a+b`` scope's included, carry ``gb_per_s``
+and ``gflops_per_s`` computed from the net's shapes by
+:func:`layer_traffic`: a model of the least traffic, each bottom, top
+and param blob of each of the row's layers read or written once a pass
+at the compute dtype (an in-place layer reads its bottom and writes its
+top, the same blob twice), forward plus backward where the row has
+backward time;
+and the convolution and inner-product multiply-adds ``Net.layer_flops``
+counts, the backward's weight and input gradients included.  The rates
+are those over the row's device time.  CPU captures keep 0.0, as the
+JAX package's CPU tables do: the fusion worklist ranks nothing there.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Any, Callable
+
+import torch
 
 _LAYER_RE = re.compile(r"L\[([^\]]+)\]")
 _BACKWARD_PREFIX = "autograd::engine::evaluate_function"
@@ -158,10 +173,50 @@ def _rows(leaves: list, key: Callable, total_us: float,
     return out
 
 
-def op_tables(prof, *, top: int | None = 30) -> dict:
+def layer_traffic(net, scope: str, backward: bool) -> tuple[int, int]:
+    """(bytes, FLOPs) of one run of the layers of ``scope`` (a layer
+    name, or fused layers joined by ``+``) at ``net``'s declared shapes,
+    by the least-traffic model of the module docstring; (0, 0) for a
+    scope that names no layer of the net."""
+    from .profiling import grad_blobs
+    nodes = [net._node_by_name.get(m) for m in scope.split("+")]
+    if not nodes or any(n is None for n in nodes):
+        return 0, 0
+    elem = (net.compute_dtype or torch.float32).itemsize
+    nbytes = sum(math.prod(net.blob_shapes[b]) for n in nodes
+                 for b in (*n.bottoms, *n.tops)) * elem
+    nbytes += sum(math.prod(s) for n in nodes
+                  for s in net._blob_shapes_of(n)) * elem
+    flops = 0
+    needs_grad = grad_blobs(net) if backward else set()
+    for node, f in net.layer_flops():
+        if node in nodes:
+            flops += f
+            if backward:
+                flops += f + (f if node.bottoms[0] in needs_grad else 0)
+    return nbytes * (2 if backward else 1), flops
+
+
+def _rates(rows: list[dict], net, steps: int) -> None:
+    """Fill each row's ``gb_per_s`` and ``gflops_per_s`` from
+    :func:`layer_traffic` over ``steps`` runs."""
+    for r in rows:
+        if r["total_ms"] <= 0:
+            continue
+        nbytes, flops = layer_traffic(net, r["op"],
+                                      r.get("backward_ms", 0.0) > 0)
+        sec = r["total_ms"] / 1e3
+        r["gb_per_s"] = round(nbytes * steps / sec / 1e9, 1)
+        r["gflops_per_s"] = round(flops * steps / sec / 1e9, 1)
+
+
+def op_tables(prof, *, top: int | None = 30, net=None,
+              steps: int = 1) -> dict:
     """The tables of a finished ``torch.profiler.profile`` (or any object
     with its ``events()``): ``{plane, total_ms, by_category, by_op,
-    by_layer}``, ``by_op`` cut to the ``top`` rows (all with None)."""
+    by_layer}``, ``by_op`` cut to the ``top`` rows (all with None).
+    With the ``net`` that ran ``steps`` times in the profile, a card
+    capture's ``by_layer`` rows carry their rates (module docstring)."""
     events = list(prof.events())
     plane, leaves = _leaves(events)
     joiner = _Joiner([e for e in events if _is_cpu(e)])
@@ -171,13 +226,16 @@ def op_tables(prof, *, top: int | None = 30) -> dict:
     by_op = _rows(leaves, lambda leaf: leaf[1], total_us)
     layer_leaves = [(leaf[0], layer or UNATTRIBUTED, bwd)
                     for leaf, layer, bwd in joined]
+    by_layer = _rows(layer_leaves, lambda leaf: leaf[1], total_us,
+                     backward=lambda leaf: leaf[2])
+    if net is not None and plane.startswith("/device:GPU"):
+        _rates(by_layer, net, steps)
     return {
         "plane": plane,
         "total_ms": round(total_us / 1e3, 3),
         "by_category": _rows(leaves, lambda leaf: leaf[2], total_us),
         "by_op": by_op if top is None else by_op[:top],
-        "by_layer": _rows(layer_leaves, lambda leaf: leaf[1], total_us,
-                          backward=lambda leaf: leaf[2]),
+        "by_layer": by_layer,
     }
 
 

@@ -8,8 +8,9 @@
   ``feed_records`` tier (16 records of 32x32) carries the JAX records
   line's keys; without a
   CUDA device and without ``--device cpu`` it exits non-zero with an
-  ``error`` line.  ``BENCH_FUSE`` and ``BENCH_SHARD`` refuse by ROADMAP
-  item.
+  ``error`` line.  ``BENCH_SHARD`` refuses by ROADMAP item, and a
+  ``BENCH_FUSE`` that names no plan source by name; ``BENCH_FUSE=all``
+  reaches the child's nets as ``SPARKNET_FUSE``.
 - ``step_cost_flops``/``eval_cost_flops`` against the JAX package's XLA
   ``cost_analysis`` on the CPU, lenet and cifar10_quick.  The port counts
   the convolution and inner-product multiply-adds, padding taps
@@ -113,7 +114,7 @@ def test_bench_refuses_the_cpu_in_the_cards_place():
     assert line["value"] == 0.0
 
 
-@pytest.mark.parametrize("env, item", [({"BENCH_FUSE": "all"}, "A8"),
+@pytest.mark.parametrize("env, item", [({"BENCH_FUSE": "onn"}, "BENCH_FUSE"),
                                        ({"BENCH_SHARD": "1"}, "A12"),
                                        ({"BENCH_DTYPE": "f16"}, "f32")])
 def test_unported_bench_knobs_refuse(monkeypatch, env, item):

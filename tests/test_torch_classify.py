@@ -380,7 +380,6 @@ def test_remote_classifier_and_server_raise_naming_a11(tmp_path):
     process on the CPU), equal within 1e-5 to the JAX package's
     ``RemoteClassifier`` against the same server."""
     import threading
-    from http.server import ThreadingHTTPServer
 
     from sparknet_tpu_torch.parallel import serving
     from sparknet_tpu_torch.tools import serve
@@ -389,8 +388,10 @@ def test_remote_classifier_and_server_raise_naming_a11(tmp_path):
     house = serving.ModelHouse(cfg, device="cpu")
     house.load("lenet")
     engine = serving.InferenceEngine(house)
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0),
-                                serve.make_handler(engine, house))
+    # tools/serve.py's own server: a 10-crop burst overflows the default
+    # listen backlog of 5, and the kernel resets the connections
+    httpd = serve.Server(("127.0.0.1", 0),
+                         serve.make_handler(engine, house))
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     url = "http://127.0.0.1:%d" % httpd.server_address[1]
     try:

@@ -65,11 +65,13 @@ def test_cuda_kernel_matches_plain(case, dtype):
     _need_cuda()
     shape, size, relu = case
     x = torch.from_numpy(_input(shape)).to("cuda", dtype)
-    before = ck.launch_counts["lrn_across_channels"]
+    # a launch with the ReLU folded in counts under its own key
+    key = "lrn_across_channels" + ("_relu" if relu else "")
+    before = ck.launch_counts[key]
     got = ck.lrn_across_channels(x, size, ALPHA, BETA, K, relu=relu)
     want = ck.lrn_across_channels_reference(x, size, ALPHA, BETA, K, relu)
     torch.cuda.synchronize()
-    assert ck.launch_counts["lrn_across_channels"] == before + 1
+    assert ck.launch_counts[key] == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     if dtype == torch.float32:
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -157,10 +159,10 @@ def test_cuda_train_lrn_kernels_match_plain(case, dtype):
     wdx = ck.lrn_across_channels_bwd_reference(x, scale, dy, size, ALPHA,
                                                BETA, relu)
     torch.cuda.synchronize()
-    assert ck.launch_counts["lrn_across_channels_fwd"] == \
-        before["lrn_across_channels_fwd"] + 1
-    assert ck.launch_counts["lrn_across_channels_bwd"] == \
-        before["lrn_across_channels_bwd"] + 1
+    fold = "_relu" if relu else ""
+    for key in ("lrn_across_channels_fwd" + fold,
+                "lrn_across_channels_bwd" + fold):
+        assert ck.launch_counts[key] == before[key] + 1
     assert y.dtype == scale.dtype == dx.dtype == dtype
     _assert_close_for(dtype, y, wy)
     _assert_close_for(dtype, scale, wscale)
@@ -324,6 +326,32 @@ def test_cuda_train_wrappers_refuse_what_the_kernels_do_not_take():
                         1, 1, 2, 2, 9, 9)
 
 
+@pytest.mark.parametrize("op, winner", [
+    ("lrn", "plain"), ("lrn", "cumsum"), ("pool", "patches_max"),
+    ("lrn_epilogue", "plain")])
+def test_cuda_seams_refuse_an_off_kernel_lowering(op, winner):
+    """A lowering that takes a hand kernel off the path, handed to a
+    layer on a CUDA tensor, raises instead of running plain PyTorch."""
+    _need_cuda()
+    from sparknet_tpu_torch.ops import vision
+    from sparknet_tpu_torch.ops.registry import get_layer_impl
+    from sparknet_tpu_torch.proto import load_net_prototxt
+    x = torch.ones((2, 8, 13, 13), device="cuda")
+    layer = {"lrn": ('LRN', 'lrn_param { local_size: 5 }'),
+             "pool": ('Pooling', 'pooling_param { pool: MAX kernel_size: 3 '
+                                 'stride: 2 }')}
+    with pytest.raises(ValueError, match="off_kernel candidate never wins"):
+        if op == "lrn_epilogue":
+            vision.lrn_chain_epilogue(x, 5, ALPHA, BETA, K, relu=True,
+                                      lowering=winner)
+        else:
+            t, param = layer[op]
+            lp = load_net_prototxt(
+                f'name: "x"\nlayer {{ name: "l" type: "{t}" bottom: "x" '
+                f'top: "y" {param} }}').layer[0]
+            get_layer_impl(t).apply(lp, [], [x], True, lowering=winner)
+
+
 def test_cuda_training_step_goes_through_every_kernel():
     """One local-SGD round of CaffeNet at a 67x67 crop on the card: 2 LRN
     forward and backward launches and 3 pool-backward launches per
@@ -351,7 +379,10 @@ def test_cuda_training_step_goes_through_every_kernel():
             assert ck.launch_counts == {
                 "lrn_across_channels": 0, "lrn_across_channels_fwd": 8,
                 "lrn_across_channels_bwd": 8, "max_pool_bwd": 12,
-                "ycc_to_rgb": 0, "resize_bilinear": 0}
+                "ycc_to_rgb": 0, "resize_bilinear": 0,
+                "lrn_across_channels_relu": 0,
+                "lrn_across_channels_fwd_relu": 0,
+                "lrn_across_channels_bwd_relu": 0}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
@@ -400,8 +431,9 @@ def test_cuda_lrn_kernels_match_plain_at_googlenet_norms(case, dtype):
 def test_cuda_zoo_training_step_launches_its_kernels(model):
     """One local-SGD step of full-width GoogLeNet (batch 2) or
     cifar10_full (batch 4) on the card: per worker step GoogLeNet launches
-    the LRN forward and backward twice each and the pool backward 13
-    times (4 strided, 9 stride-1); cifar10_full the pool backward once
+    the LRN forward and backward twice each (a relu+lrn chain of its
+    committed fusion plan under the ``_relu`` keys) and the pool backward
+    13 times (4 strided, 9 stride-1); cifar10_full the pool backward once
     (its AVE pools and WITHIN_CHANNEL LRNs are library work).  The loss
     matches the CPU step from the same weights, batch and Dropout masks
     (TF32 off) at rtol 1e-4."""
@@ -410,16 +442,16 @@ def test_cuda_zoo_training_step_launches_its_kernels(model):
     from sparknet_tpu_torch.parallel.trainer import (DistributedTrainer,
                                                      TrainerConfig)
     from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    idle = {"lrn_across_channels": 0, "ycc_to_rgb": 0,
+            "resize_bilinear": 0, "lrn_across_channels_relu": 0}
     if model == "googlenet":
         net, shape, classes = googlenet(2, 2), (1, 2, 3, 224, 224), 1000
-        want = {"lrn_across_channels": 0, "lrn_across_channels_fwd": 2,
-                "lrn_across_channels_bwd": 2, "max_pool_bwd": 13,
-                "ycc_to_rgb": 0, "resize_bilinear": 0}
     else:
         net, shape, classes = cifar10_full(4, 4), (1, 4, 3, 32, 32), 10
-        want = {"lrn_across_channels": 0, "lrn_across_channels_fwd": 0,
+        want = {**idle, "lrn_across_channels_fwd": 0,
                 "lrn_across_channels_bwd": 0, "max_pool_bwd": 1,
-                "ycc_to_rgb": 0, "resize_bilinear": 0}
+                "lrn_across_channels_fwd_relu": 0,
+                "lrn_across_channels_bwd_relu": 0}
     sp = load_solver_prototxt_with_net(
         'base_lr: 0.001\nmomentum: 0.9\nweight_decay: 0.004\n', net)
     rng = np.random.default_rng(0)
@@ -430,6 +462,14 @@ def test_cuda_zoo_training_step_launches_its_kernels(model):
     for dev in ("cuda", "cpu"):
         tr = DistributedTrainer(sp, 1, TrainerConfig(tau=1), seed=0,
                                 device=dev)
+        if model == "googlenet":
+            folds = sum(ch.epilogue == "relu+lrn"
+                        for ch in tr.train_net._vfuse_head.values())
+            want = {**idle, "lrn_across_channels_fwd": 2 - folds,
+                    "lrn_across_channels_bwd": 2 - folds,
+                    "lrn_across_channels_fwd_relu": folds,
+                    "lrn_across_channels_bwd_relu": folds,
+                    "max_pool_bwd": 13}
         ck.reset_launch_counts()
         losses[dev] = tr.train_round(batches)
         if dev == "cuda":

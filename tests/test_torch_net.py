@@ -175,3 +175,123 @@ def test_params_from_jax_refuses_mismatched_weights():
     missing = {k: v for k, v in jparams.items() if k != "conv3"}
     with pytest.raises(ValueError, match="conv3"):
         params_from_jax(missing, tnet, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Horizontal fusion: the JAX package's tests/test_net.py:246-313 net
+# ---------------------------------------------------------------------------
+
+HFUSE_NET = """
+input: "data"
+input_shape { dim: 2 dim: 6 dim: 8 dim: 8 }
+input: "label"
+input_shape { dim: 2 }
+layer { name: "b1x1" type: "Convolution" bottom: "data" top: "b1x1"
+  convolution_param { num_output: 3 kernel_size: 1
+    weight_filler { type: "gaussian" std: 0.1 }
+    bias_filler { type: "constant" value: 0.1 } } }
+layer { name: "b3r" type: "Convolution" bottom: "data" top: "b3r"
+  convolution_param { num_output: 4 kernel_size: 1
+    weight_filler { type: "gaussian" std: 0.1 }
+    bias_filler { type: "constant" value: 0.2 } } }
+layer { name: "b3" type: "Convolution" bottom: "b3r" top: "b3"
+  convolution_param { num_output: 5 kernel_size: 3 pad: 1
+    weight_filler { type: "gaussian" std: 0.1 }
+    bias_filler { type: "constant" value: 0.0 } } }
+layer { name: "b5r" type: "Convolution" bottom: "data" top: "b5r"
+  convolution_param { num_output: 2 kernel_size: 1
+    weight_filler { type: "gaussian" std: 0.1 }
+    bias_filler { type: "constant" value: 0.3 } } }
+layer { name: "cat" type: "Concat" bottom: "b1x1" bottom: "b3"
+  bottom: "b5r" top: "cat" }
+layer { name: "ip" type: "InnerProduct" bottom: "cat" top: "ip"
+  inner_product_param { num_output: 4
+    weight_filler { type: "gaussian" std: 0.1 } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip" bottom: "label" }
+"""
+
+
+def _hfuse_nets(monkeypatch):
+    monkeypatch.setenv("SPARKNET_NO_HFUSE", "1")
+    per_layer = Net(load_net_prototxt(HFUSE_NET), NetState(Phase.TRAIN))
+    monkeypatch.delenv("SPARKNET_NO_HFUSE")
+    return per_layer, Net(load_net_prototxt(HFUSE_NET),
+                          NetState(Phase.TRAIN))
+
+
+def _loss_and_grads(net, params, inputs):
+    p = {k: [b.clone().requires_grad_(True) for b in v]
+         for k, v in params.items()}
+    out = net.forward(p, inputs)
+    out.loss.backward()
+    return out, {k: [b.grad for b in v] for k, v in p.items()}
+
+
+def test_hfuse_groups_and_per_layer_parity(monkeypatch):
+    """The three data-fed 1x1 convolutions form one group (the 3x3 stays
+    out), as in the JAX package.  Fused against ``SPARKNET_NO_HFUSE=1``:
+    the loss and the output bit for bit and the gradients within rtol
+    1e-6 (the JAX test's bound): on the CPU each output channel's
+    reduction gives the same bits in the wider convolution, and the
+    input's gradient sums the members' contributions in another
+    order."""
+    per_layer, fused = _hfuse_nets(monkeypatch)
+    assert not per_layer._hfuse_enabled
+    assert [m.lp.name for m in fused._hfuse_first["b1x1"]] == \
+        ["b1x1", "b3r", "b5r"]
+    jnet = JaxNet(jax_load(HFUSE_NET), JaxNetState(JaxPhase.TRAIN))
+    assert set(jnet._hfuse_first) == set(fused._hfuse_first)
+    params = fused.init(device="cpu")
+    inputs = {"data": torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 6, 8, 8)).astype(np.float32)), "label": torch.zeros(2)}
+    ref, ref_g = _loss_and_grads(per_layer, params, inputs)
+    got, got_g = _loss_and_grads(fused, params, inputs)
+    assert torch.equal(got.loss, ref.loss)
+    for k in ref_g:
+        for a, b in zip(ref_g[k], got_g[k]):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-6,
+                                       atol=1e-7)
+    # introspection runs per layer, and every blob equals the fused run's
+    # members' own
+    blobs = fused.apply_all(params, inputs)
+    assert {"b1x1", "b3r", "b5r"} <= set(blobs)
+
+
+def test_hfuse_against_the_jax_hfused_net(monkeypatch):
+    _, fused = _hfuse_nets(monkeypatch)
+    jnet = JaxNet(jax_load(HFUSE_NET), JaxNetState(JaxPhase.TRAIN))
+    jparams = jax.device_get(jnet.init(jax.random.PRNGKey(0)))
+    params = params_from_jax(jparams, fused, device="cpu")
+    x = np.random.default_rng(1).normal(size=(2, 6, 8, 8)).astype(
+        np.float32)
+    label = np.array([1.0, 3.0], np.float32)
+    rng = jax.random.PRNGKey(0)
+    jl, jg = jax.value_and_grad(lambda p: jnet.apply(
+        p, {"data": jnp.asarray(x), "label": jnp.asarray(label)},
+        rng=rng).loss)(jparams)
+    out, g = _loss_and_grads(fused, params, {
+        "data": torch.from_numpy(x), "label": torch.from_numpy(label)})
+    np.testing.assert_allclose(float(out.loss.detach()), float(jl),
+                               rtol=1e-4, atol=1e-6)
+    for k in jg:
+        for a, b in zip(g[k], jg[k]):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
+
+
+def test_hfuse_inplace_versioning_blocks_cross_version_group():
+    """Two 1x1 convs reading blob 'x' before and after an in-place ReLU
+    read different tensors: they must not fuse (JAX test_net.py:316)."""
+    text = """
+input: "x"
+input_shape { dim: 1 dim: 3 dim: 4 dim: 4 }
+layer { name: "a" type: "Convolution" bottom: "x" top: "a"
+  convolution_param { num_output: 2 kernel_size: 1
+    weight_filler { type: "xavier" } } }
+layer { name: "relu" type: "ReLU" bottom: "x" top: "x" }
+layer { name: "b" type: "Convolution" bottom: "x" top: "b"
+  convolution_param { num_output: 2 kernel_size: 1
+    weight_filler { type: "xavier" } } }
+"""
+    net = Net(load_net_prototxt(text), NetState(Phase.TEST))
+    assert net._hfuse_first == {}

@@ -627,3 +627,37 @@ def test_serving_plane_and_caffe_shim_run_with_jax_blocked(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+FUSION_MODULES = ["graph/fusion.py", "graph/tuner.py", "graph/net.py",
+                  "tools/tune.py", "tools/fusebench.py",
+                  "tools/perfwatch.py", "utils/trace_tables.py"]
+
+
+def test_fusion_and_tuner_tools_run_with_jax_blocked(tmp_path):
+    """The fusion pass's and the tuner's modules are among the files the
+    scans above cover, and with ``jax``, ``sparknet_tpu``, PIL and
+    matplotlib blocked: ``tools/tune.py tunebench`` and
+    ``tools/fusebench.py`` pass on the CPU and ``tools/perfwatch.py
+    --help`` runs."""
+    for rel in FUSION_MODULES:
+        assert PKG / rel in SOURCES
+    block = ("import sys\n"
+             "for m in ('jax', 'sparknet_tpu', 'PIL', 'matplotlib'):\n"
+             "    sys.modules[m] = None\n")
+    for tool, argv, want in (
+            ("tune", ["tunebench", "--device", "cpu"], '"ok": true'),
+            ("fusebench", ["--device", "cpu", "--batch", "2", "--iters",
+                           "0"], '"ok": true'),
+            ("perfwatch", ["--help"], "trajectory")):
+        out = subprocess.run(
+            [sys.executable, "-c",
+             block + f"sys.argv = [{tool!r}, *{argv!r}]\n"
+             f"from sparknet_tpu_torch.tools import {tool}\n"
+             f"rc = {tool}.main()\n"
+             "assert not any(m == 'jax' or m.startswith(('jax.', "
+             "'sparknet_tpu.')) for m in sys.modules if sys.modules[m])\n"
+             "sys.exit(rc)\n"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, (tool, out.stderr[-3000:])
+        assert want in out.stdout, (tool, out.stdout[-2000:])

@@ -128,3 +128,49 @@ def test_card_join_through_correlation_and_sequence_numbers():
     assert {r["op"]: r for r in dropped["by_layer"]}["norm1"][
         "backward_ms"] == 0.0
     assert "by layer" in trace_tables.format_tables(t)
+
+
+_NORM_NET = """
+input: "data"
+input_shape { dim: 2 dim: 4 dim: 5 dim: 5 }
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+  convolution_param { num_output: 4 kernel_size: 3 pad: 1
+    weight_filler { type: "xavier" } } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1" }
+layer { name: "norm1" type: "LRN" bottom: "conv1" top: "norm1"
+  lrn_param { local_size: 3 } }
+"""
+
+
+def test_card_rows_carry_the_least_traffic_rates():
+    """A card capture's rows carry gb_per_s and gflops_per_s from the
+    net's shapes: norm1 reads its bottom and writes its top (2x4x5x5
+    f32 each) in the forward and again in the backward, over the
+    row's 0.08 ms; an in-place layer reads and writes its blob; a CPU
+    capture keeps 0.0."""
+    from sparknet_tpu_torch.graph import Net
+    from sparknet_tpu_torch.proto import (NetState, Phase,
+                                          load_net_prototxt)
+    net = Net(load_net_prototxt(_NORM_NET), NetState(Phase.TRAIN))
+    t = trace_tables.op_tables(_card_profile(), top=None, net=net, steps=3)
+    rows = {r["op"]: r for r in t["by_layer"]}
+    nbytes = 2 * (2 * 2 * 4 * 5 * 5 * 4)
+    assert rows["norm1"]["gb_per_s"] == round(
+        3 * nbytes / 0.08e-3 / 1e9, 1)
+    assert rows["norm1"]["gflops_per_s"] == 0.0
+    assert rows[trace_tables.UNATTRIBUTED]["gb_per_s"] == 0.0
+    # conv1+relu1 in the forward only: data and conv1 (conv1's), conv1
+    # twice (the in-place ReLU's), the 4x4x3x3 weights and 4 biases; 2
+    # FLOPs a multiply-add
+    fwd = trace_tables.layer_traffic(net, "conv1+relu1", backward=False)
+    assert fwd == ((4 * 200 + 144 + 4) * 4, 2 * 200 * 4 * 9)
+    # backward: both passes' bytes; the weight gradient, and no input
+    # gradient below the data blob
+    assert trace_tables.layer_traffic(net, "conv1+relu1", backward=True) \
+        == (2 * fwd[0], 2 * fwd[1])
+    assert trace_tables.layer_traffic(net, "ghost", backward=True) == (0, 0)
+    cpu = trace_tables.op_tables(SimpleNamespace(
+        events=lambda: [e for e in _card_profile().events()
+                        if str(e.device_type).endswith("CPU")]),
+        net=net, steps=3)
+    assert all(r["gb_per_s"] == 0.0 for r in cpu["by_layer"])
