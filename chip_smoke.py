@@ -152,7 +152,22 @@ that drops the ReLU fold, swapped horizontal slices), GoogLeNet's round
 unfused round (params within 1e-5, the ReLU-folded launches exact), its
 deploy net served at 64 with horizontal fusion on and off (rows within
 1e-5, device ms and launches of each), and ``tools/tune.py staleness
---budget-s 20`` on the committed tuning table.  The kernels line counts
+--budget-s 20`` on the committed tuning table.  Phase 5n (the last,
+with 5c's directory kept until it) runs the rest of the observability
+and bench plane:
+``tools/perf_probe.py``'s ``poolbwd`` (GoogLeNet's 13 pools, f32 at 32),
+``lrn`` (the four LRN shapes at 32, f32) and ``hlo`` (the layout census
+of CaffeNet's step at 256), every variant against its plain version and
+each kernel launched exactly once a kernel call the tool made;
+``tools/serveload.py`` on CaffeNet's deploy net in f32 (1 s points, the
+sweep at 0.5x and 1x, overload at 2x: every answer bit for bit its solo
+reference, the SLO breach declared with a flight dump; planted: an
+answer one ulp off); a profiler-server capture of served CaffeNet
+batches that must name B2 and ``L[norm1]``; ``tools/feedbench.py
+--records-leg`` over 5c's LMDB; ``tools/roundbench.py`` at its defaults
+(planted: an asynchronous checkpoint without its generator states);
+``tools/obs.py smoke`` (planted: a span without its run id fails ``merge
+--check``); ``tools/knobs.py --check``.  The kernels line counts
 the launches with the ReLU folded in apart (``relu_launches``).  A
 ``timeline`` line gives each phase's seconds.
 Prints the card, timings, a
@@ -171,6 +186,7 @@ Imports nothing of JAX and nothing of ``sparknet_tpu``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import csv
 import itertools
@@ -4041,8 +4057,14 @@ def bench_in_process(ck, dev, smi: str, solver_ms_b256: float) -> dict:
         if r["flops_per_step"] != 3 * fwd - conv1:
             fail(f"bench {d}: flops_per_step {r['flops_per_step']} != "
                  f"3 x {fwd} - {conv1}")
-    if not line["serving"]["verdicts"]["bit_identical"]:
-        fail(f"bench serving: {line['serving']['verdicts']}")
+    sv = line["serving"]
+    if not sv["verdicts"]["bit_identical"] or \
+            [p["fraction_of_saturation"] for p in sv["sweep"] or []] != \
+            [0.5, 1.0] or sv["overload"] is None or any(
+                p["exact_mismatches"] != 0
+                for p in sv["sweep"] + [sv["overload"]]):
+        fail(f"bench serving: verdicts {sv['verdicts']}, sweep "
+             f"{sv['sweep']}, overload {sv['overload']}")
     if line["feed_in_loop"]["staged_dtype"] != "uint8":
         fail(f"bench feed tier: {line['feed_in_loop']}")
     # timing: every window the bench timed against the CUDA events
@@ -8339,6 +8361,329 @@ def fusion_on_card(ck, dev, smi: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 5n: the rest of the observability and bench plane
+# ---------------------------------------------------------------------------
+
+# perf_probe at the main path's shapes (GoogLeNet's 13 pools and the four
+# LRN shapes at 32, f32; the census on CaffeNet's step at 256), its
+# blocks cut to 10 ms (the tool's default is 2 s; the script took 1,093 s
+# on PR 19's call 11 with 20 ms blocks, 1 s serveload points and a 3 s
+# feedbench serial leg)
+PROBE_ENV = {"PROBE_TARGET_S": "0.01", "PROBE_REPS": "3",
+             "PROBE_POOL_BATCH": str(GN_BATCH), "PROBE_DTYPE": "f32",
+             "PROBE_LRN_BATCH": str(GN_BATCH), "PROBE_LRN_DTYPE": "f32",
+             "PROBE_BATCH": "256"}
+# serveload on CaffeNet's deploy net: 0.5 s points (the tool's 2), the
+# bench's fractions, overload at 2x
+SERVELOAD_5N = dict(model="caffenet", dtype="f32", seconds=0.5,
+                    fractions=(0.5, 1.0), overload_x=2.0)
+SERVELOAD_INPUTS = 32           # run_report's default pool
+CAPTURE_MS = 300
+FEEDBENCH_S = 4.0
+B2_KERNEL = r"lrn_fwd(_generic)?_kernel"
+NO_LAUNCHES = want_steps(0)
+
+
+def counted(ck, fn):
+    """(``fn()``, the kernels' launches during it): the counts set to 0
+    just before it and read just after."""
+    ck.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launched(ck)
+
+
+def probe_part(ck, dev, part: str) -> tuple[list[dict], dict, dict]:
+    """One perf_probe part on the card: (its records, its returned
+    record, the launches during it)."""
+    import io
+    from sparknet_tpu_torch.tools import perf_probe
+    buf = io.StringIO()
+    try:
+        with mock.patch.dict(os.environ, PROBE_ENV), \
+                contextlib.redirect_stdout(buf):
+            rec, got = counted(ck, lambda: perf_probe.PARTS[part](dev))
+    except RuntimeError as e:
+        fail(f"5n perf_probe {part}: {e}")
+    recs = [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+    bad = [r for r in recs if "skipped" in r or r.get("collapsed")]
+    if bad:
+        fail(f"5n perf_probe {part}: skipped or collapsed blocks {bad}")
+    return recs, rec, got
+
+
+def calls_of(recs: list[dict], pattern: str) -> int:
+    return sum(r["calls"] for r in recs if re.fullmatch(pattern, r["exp"]))
+
+
+def probe_on_card(ck, dev, smi: str) -> dict:
+    """``perf_probe poolbwd``, ``lrn`` and ``hlo`` on the card: every
+    variant held against the plain version before timing (inside the
+    tool: pool dx bit for bit, LRN within rtol 1e-4 in f32), no skipped
+    or collapsed block, and each kernel launched exactly once a kernel
+    call the tool made (its checks and every timed call)."""
+    from sparknet_tpu_torch.tools import perf_probe
+    recs, total, got = probe_part(ck, dev, "poolbwd")
+    pools = len(perf_probe.GOOGLENET_POOLS)
+    want = {**NO_LAUNCHES,
+            "max_pool_bwd": pools + calls_of(recs, r"poolbwd_.*_pallas")}
+    if got != want:
+        fail(f"5n perf_probe poolbwd: launches {got}, want {want}")
+    launches = {"perf_probe_poolbwd_googlenet_b32_5n": got}
+    per_pool = {r["exp"]: r["ms_per_iter"] for r in recs
+                if r["exp"].startswith("poolbwd_") and "ms_per_iter" in r}
+    lrecs, verdict, got = probe_part(ck, dev, "lrn")
+    shapes = len(perf_probe.lrn_shapes())
+    fb = shapes + calls_of(lrecs, r"lrn_.*_cuda_fwdbwd")
+    want = {**NO_LAUNCHES,
+            "lrn_across_channels": shapes + calls_of(lrecs,
+                                                     r"lrn_.*_cuda_fwd"),
+            "lrn_across_channels_fwd": fb, "lrn_across_channels_bwd": fb}
+    if got != want:
+        fail(f"5n perf_probe lrn: launches {got}, want {want}")
+    launches["perf_probe_lrn_b32_5n"] = got
+    per_lrn = {r["exp"]: r["ms_per_iter"] for r in lrecs
+               if r["exp"].startswith("lrn_") and "ms_per_iter" in r}
+    _, census, got = probe_part(ck, dev, "hlo")
+    if got != want_steps(2) or not census["layout_kernels"]:
+        fail(f"5n perf_probe hlo: launches {got}, census {census}")
+    launches["perf_probe_hlo_caffenet_b256_5n"] = got
+    report = {"poolbwd_total": total, "poolbwd_ms": per_pool,
+              "lrn_ms": per_lrn, "lrn_verdict": verdict["per_shape"],
+              "census": {k: census[k] for k in (
+                  "device_ms", "layout_kernels", "layout_kernel_ms",
+                  "layout_ops",
+                  "layout_bytes_mb", "n_lines")},
+              "launches": launches}
+    print(f"perf_probe_5n [{smi}] " + json.dumps(
+        {k: v for k, v in report.items() if k != "launches"}), flush=True)
+    return report
+
+
+def serveload_on_card(ck, dev, smi: str) -> dict:
+    """``tools/serveload`` on CaffeNet's deploy net in f32: every served
+    answer bit for bit its solo reference (saturation, the sweep at 0.5x
+    and 1x, overload at 2x), the overload rejecting with its p99 under
+    the bound, the SLO monitor ok after the sweep and in breach with a
+    flight dump under overload, B2 twice a forward; then with one
+    reference one ulp off, which the gate must catch."""
+    from sparknet_tpu_torch.parallel import serving
+    from sparknet_tpu_torch.tools import serveload
+    with cudnn_deterministic():
+        rep, got = counted(ck, lambda: serveload.run_report(
+            **SERVELOAD_5N, device=dev))
+    shapes = rep["batch_shapes"]
+    forwards = (len(shapes) + len(shapes) * SERVELOAD_INPUTS + 1
+                + rep["batch1"]["dispatches"]
+                + rep["engine_stats"]["dispatches"])
+    want = want_steps(0, forwards)
+    bad = serveload.smoke_failures(rep)
+    if bad or got != want or rep["device"] != f"cuda/{CARD}" or \
+            [p["fraction_of_saturation"] for p in rep["sweep"]] != \
+            [0.5, 1.0] or rep["slo_overload"]["flight_dumps"] < 1:
+        fail(f"5n serveload: {bad}, launches {got} (want {want}), "
+             f"verdicts {rep['verdicts']}")
+    solo = serving.solo_references
+
+    def one_ulp_off(lm, inputs):
+        refs = solo(lm, inputs)
+        for by_idx in refs.values():
+            by_idx[0][0] = np.nextafter(by_idx[0][0], np.float32(np.inf))
+        return refs
+
+    with mock.patch.object(serving, "solo_references", one_ulp_off), \
+            cudnn_deterministic():
+        planted = serveload.run_report(
+            **{**SERVELOAD_5N, "seconds": 0.3, "fractions": (0.5,)},
+            shapes=(1, 4), inputs_n=8, device=dev)
+    if not planted["verdicts"]["exact_mismatches"] or \
+            not serveload.smoke_failures(planted):
+        fail(f"5n serveload: an answer one ulp off passed: "
+             f"{planted['verdicts']}")
+    report = {k: rep[k] for k in ("p99_bound_ms", "verdicts", "device")}
+    report.update({
+        leg: {k: rep[leg][k] for k in (
+            "offered_qps", "achieved_qps", "p50_ms", "p99_ms", "rejected",
+            "completed", "exact_mismatches")}
+        for leg in ("batch1", "saturation", "overload")})
+    report["sweep"] = [{k: p[k] for k in (
+        "fraction_of_saturation", "offered_qps", "achieved_qps", "p50_ms",
+        "p99_ms", "rejected", "completed", "exact_mismatches")}
+        for p in rep["sweep"]]
+    report["slo"] = {leg: rep[leg]["state"] for leg in ("slo_paced",
+                                                        "slo_overload")}
+    report["planted_mismatches"] = planted["verdicts"]["exact_mismatches"]
+    report["launches"] = {"serveload_caffenet_f32_5n": got}
+    print(f"serveload_5n [{smi}] " + json.dumps(
+        {k: v for k, v in report.items() if k != "launches"}), flush=True)
+    return report
+
+
+def capture_on_card(ck, dev, smi: str) -> dict:
+    """One profiler-server capture while the engine serves CaffeNet
+    batches in f32: the trace names the inference LRN kernel (B2) and the
+    serving thread's ``L[norm1]`` range."""
+    import threading
+    from sparknet_tpu_torch.parallel.serving import (InferenceEngine,
+                                                     ModelHouse, ServeConfig)
+    from sparknet_tpu_torch.utils import profiling
+    cfg = ServeConfig(batch_shapes=(1, 4), max_delay_ms=1.0, dtype="f32")
+    gen = np.random.default_rng(SEED + 19)
+    stop = threading.Event()
+    ck.reset_launch_counts()
+    house = ModelHouse(cfg, device=dev)
+    lm = house.load("caffenet")
+    x = (IMAGE_STD * gen.normal(size=lm.in_shape)).astype(np.float32)
+    with InferenceEngine(house, cfg) as eng, profiling.server(0) as srv:
+        def load():
+            while not stop.is_set():
+                eng.classify("caffenet", x)
+        t = threading.Thread(target=load, daemon=True)
+        t.start()
+        try:
+            doc = profiling.fetch_capture(srv.url, CAPTURE_MS)
+        finally:
+            stop.set()
+            t.join(timeout=60)
+        dispatches = eng.stats()["dispatches"]
+    torch.cuda.synchronize()
+    got = launched(ck)
+    want = want_steps(0, len(cfg.batch_shapes) + dispatches)
+    names = {e.get("name") for e in doc["traceEvents"] if e.get("name")}
+    b2 = sorted(n for n in names if re.search(B2_KERNEL, n))
+    if not b2 or "L[norm1]" not in names or got != want or \
+            not doc["otherData"]["all_threads"]:
+        cats = collections.Counter(e.get("cat") for e in doc["traceEvents"])
+        fail(f"5n profiler capture: B2 kernels {b2}, L[norm1] "
+             f"{'L[norm1]' in names}, all threads "
+             f"{doc['otherData'].get('all_threads')}, launches {got} "
+             f"(want {want}), events by category {dict(cats)}")
+    report = {"events": len(doc["traceEvents"]), "b2_kernels": b2,
+              "layers": sorted(n for n in names if n.startswith("L[")),
+              "launches": {"profiler_capture_caffenet_f32_5n": got}}
+    print(f"capture_5n [{smi}] " + json.dumps(
+        {k: v for k, v in report.items() if k != "launches"}), flush=True)
+    return report
+
+
+def planted_shard_fails_check(d: str) -> None:
+    """Two ranks' shards from the port's tracer pass ``obs merge
+    --check``; one span stripped of its run id must fail it."""
+    import io
+    from sparknet_tpu_torch.tools import obs
+    from sparknet_tpu_torch.utils import telemetry
+    for rank in (0, 1):
+        with mock.patch.dict(os.environ, {
+                "SPARKNET_RUN_ID": "planted", "SPARKNET_TELEMETRY_RANK":
+                str(rank)}):
+            tr = telemetry.Tracer(os.path.join(d, f"r{rank}"))
+            tr.complete("trainer.round", "trainer", time.time() * 1e6, 10.0)
+            tr.flush()
+    argv = ["merge", d, "--check", "--expect-ranks", "2"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        clean = obs.main(argv)
+        shard = [os.path.join(d, "r1", f) for f in os.listdir(
+            os.path.join(d, "r1")) if f.startswith("trace_")][0]
+        with open(shard) as f:
+            lines = f.read().splitlines()
+        ev = json.loads(lines[-1])
+        del ev["args"]["run"]
+        lines[-1] = json.dumps(ev)
+        with open(shard, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        planted = obs.main(argv)
+    if clean != 0 or planted != 1:
+        fail(f"5n obs merge --check: clean shards rc {clean}, a span "
+             f"without its run id rc {planted}")
+
+
+def observability_and_bench(ck, dev, smi: str, d5c: str) -> dict:
+    """Phase 5n."""
+    import io
+    import tempfile
+    from sparknet_tpu_torch.tools import feedbench
+    from sparknet_tpu_torch.tools import knobs as knobs_tool
+    from sparknet_tpu_torch.tools import obs, roundbench
+    from sparknet_tpu_torch.utils import checkpoint
+    t0 = time.perf_counter()
+    seconds: dict = {}
+
+    def lap(name: str) -> None:
+        seconds[name] = round(time.perf_counter() - t0 - sum(
+            seconds.values()), 1)
+        print(f"5n {name}: {seconds[name]} s", flush=True)
+
+    report = {"probe": probe_on_card(ck, dev, smi)}
+    lap("perf_probe")
+    report["serveload"] = serveload_on_card(ck, dev, smi)
+    lap("serveload")
+    report["capture"] = capture_on_card(ck, dev, smi)
+    lap("capture")
+    # 2 s of serial leg (the tool's default 1): enough batches of 5c's
+    # 256x256 Datums that the cold pass streams past the 2 RAM shards
+    # and the warm pass reads the disk tier
+    fb, got = counted(ck, lambda: feedbench.run(
+        os.path.join(d5c, "train_lmdb"), seconds=FEEDBENCH_S,
+        records=DB_TRAIN, records_leg=True, device=dev))
+    if fb["cache_warm"]["cache_disk_hits"] < 1:
+        fail(f"5n feedbench: the disk tier never served ({fb})")
+    if not fb["ok"] or got != NO_LAUNCHES:
+        fail(f"5n feedbench --records-leg over 5c's LMDB: {fb['errors']}, "
+             f"launches {got}")
+    report["feedbench"] = {k: v for k, v in fb.items() if k != "errors"}
+    lap("feedbench")
+    # roundbench at its defaults: 4 lenet workers (2 pools each), τ=2,
+    # 6 rounds, both loops
+    rb, got = counted(ck, lambda: roundbench.run(device=dev))
+    want = {**NO_LAUNCHES, "max_pool_bwd": 2 * 4 * roundbench.TAU * 6 * 2}
+    if not rb["ok"] or got != want:
+        fail(f"5n roundbench: {rb['failures']}, launches {got} (want "
+             f"{want})")
+    snap = checkpoint.snapshot_tree
+    with mock.patch.object(checkpoint, "snapshot_tree", lambda tree: snap(
+            {k: v for k, v in tree.items() if k != "torch_generators"})):
+        planted = roundbench.run(rounds=2, devices=2, device=dev)
+    if planted["ok"] or not any("'torch_generators'" in f
+                                for f in planted["failures"]):
+        fail(f"5n roundbench: an async checkpoint without its generator "
+             f"states passed: {planted['failures']}")
+    report["roundbench"] = {k: rb[k] for k in (
+        "sync", "async", "stall_total_sync_s", "stall_total_async_s")}
+    lap("roundbench")
+    with tempfile.TemporaryDirectory(prefix="obs_5n_") as d:
+        verdict_path = os.path.join(d, "verdict.json")
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = obs.main(["smoke", "--device", str(dev), "--out",
+                           verdict_path])
+        with open(verdict_path) as f:
+            verdict = json.load(f)
+        if rc != 0 or not verdict["ok"]:
+            fail(f"5n obs smoke: rc {rc}, {verdict['failures']}")
+        planted_shard_fails_check(os.path.join(d, "planted"))
+    report["obs_smoke"] = {k: verdict[k] for k in (
+        "ranks", "spans", "metrics_families", "elapsed_s")}
+    lap("obs_smoke")
+    sink = io.StringIO()
+    with contextlib.redirect_stdout(sink):
+        rc = knobs_tool.main(["--check"])
+    if rc != 0:
+        fail(f"5n tools/knobs --check: {sink.getvalue()}")
+    lap("knobs")
+    report["launches"] = {**report["probe"]["launches"],
+                          **report["serveload"]["launches"],
+                          **report["capture"]["launches"],
+                          "feedbench_records_5n": NO_LAUNCHES,
+                          "roundbench_lenet_5n": want}
+    report["phase_s"] = time.perf_counter() - t0
+    report["seconds"] = seconds
+    print(f"observability [{smi}] " + json.dumps(
+        {k: report[k] for k in ("feedbench", "roundbench", "obs_smoke",
+                                "phase_s", "seconds")}), flush=True)
+    return report
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
                  rows: list[dict], main: list[dict],
                  relu_launches: dict | None = None) -> dict:
@@ -8530,44 +8875,46 @@ def main() -> int:
     mark("5b solver")
 
     import tempfile
-    with tempfile.TemporaryDirectory(prefix="data_path_smoke_") as d5c:
-        # phase 5c: Caffe's data path, CaffeNet trained from an LMDB
-        # through caffe_cli train, tested and timed, its features
-        # extracted
-        data_path = caffe_data_path(
-            ck, dev, smi, solved["caffenet"]["solver_ms_per_iter_b256"],
-            d5c)
-        mark("5c data path")
+    # 5c's LMDBs stay until phase 5n, the last phase, has read them
+    d5c_dir = tempfile.TemporaryDirectory(prefix="data_path_smoke_")
+    d5c = d5c_dir.name
+    # phase 5c: Caffe's data path, CaffeNet trained from an LMDB
+    # through caffe_cli train, tested and timed, its features
+    # extracted
+    data_path = caffe_data_path(
+        ck, dev, smi, solved["caffenet"]["solver_ms_per_iter_b256"],
+        d5c)
+    mark("5c data path")
 
-        # phase 5d: real images, decoded on the card: the image kernels
-        # and nvJPEG against their plain versions and libjpeg, CaffeNet
-        # from tars of JPEGs through imagenet_app --tar-dir, encoded
-        # Datums and ImageData through caffe_cli, a WindowData batch
-        images = real_images(
-            ck, dev, smi, trained["caffenet_device_pre"]["report"]
-            ["steady_medians"])
-        mark("5d real images")
+    # phase 5d: real images, decoded on the card: the image kernels
+    # and nvJPEG against their plain versions and libjpeg, CaffeNet
+    # from tars of JPEGs through imagenet_app --tar-dir, encoded
+    # Datums and ImageData through caffe_cli, a WindowData batch
+    images = real_images(
+        ck, dev, smi, trained["caffenet_device_pre"]["report"]
+        ["steady_medians"])
+    mark("5d real images")
 
-        # phase 5e: the round: hierarchical through caffe_cli over 5c's
-        # LMDB, the codecs, crash/resume, the guard, elastic, the lag
-        round_report = the_round(ck, dev, smi, {
-            "dir": d5c, "model": os.path.join(d5c, "train_val.prototxt")})
-        mark("5e the round")
+    # phase 5e: the round: hierarchical through caffe_cli over 5c's
+    # LMDB, the codecs, crash/resume, the guard, elastic, the lag
+    round_report = the_round(ck, dev, smi, {
+        "dir": d5c, "model": os.path.join(d5c, "train_val.prototxt")})
+    mark("5e the round")
 
-        # phase 5i: SparkNet's data tier over 5c's LMDBs: record shards
-        # through the convert tool, the verifying store and the tiered
-        # cache, CaffeNet from them through caffe_cli with HDF5
-        # snapshots, the Spark bridge in a round, HDF5Data
-        tier = data_tier(ck, dev, smi, d5c, data_path)
-        mark("5i data tier")
+    # phase 5i: SparkNet's data tier over 5c's LMDBs: record shards
+    # through the convert tool, the verifying store and the tiered
+    # cache, CaffeNet from them through caffe_cli with HDF5
+    # snapshots, the Spark bridge in a round, HDF5Data
+    tier = data_tier(ck, dev, smi, d5c, data_path)
+    mark("5i data tier")
 
-        # phase 5k: the training data plane and the learning proxy: the
-        # native pipeline against numpy over 5c's Datums and its feed,
-        # CaffeNet from 5c's LMDB as shards through the Solver with the
-        # host transform and set_augment on the host and the card, the
-        # learning proxy and the τ sweep on cifar10_full
-        plane = data_plane_and_proxy(ck, dev, smi, d5c, data_path)
-        mark("5k data plane and proxy")
+    # phase 5k: the training data plane and the learning proxy: the
+    # native pipeline against numpy over 5c's Datums and its feed,
+    # CaffeNet from 5c's LMDB as shards through the Solver with the
+    # host transform and set_augment on the host and the card, the
+    # learning proxy and the τ sweep on cifar10_full
+    plane = data_plane_and_proxy(ck, dev, smi, d5c, data_path)
+    mark("5k data plane and proxy")
 
     # phase 5f: the bench at its defaults, its CLI, profile_step on
     # CaffeNet b256 and the telemetry plane on the card
@@ -8610,6 +8957,18 @@ def main() -> int:
     # committed tuning table's staleness check
     fused = fusion_on_card(ck, dev, smi)
     mark("5m fusion and tuner")
+
+    # phase 5n: the rest of the observability and bench plane:
+    # perf_probe's poolbwd, lrn and hlo parts, serveload's sweep and
+    # overload on CaffeNet, a profiler-server capture of served
+    # batches, feedbench --records-leg over 5c's LMDB, roundbench,
+    # obs smoke and tools/knobs --check, with planted faults.  It runs
+    # last: run before 5f in one process, it left 5f's profile_step
+    # trace without the first ~5 ms of its block's kernels (B1's first
+    # launch among them) in 3 of 4 profiles (PERF.md §7)
+    obs5n = observability_and_bench(ck, dev, smi, d5c)
+    mark("5n observability and bench plane")
+    d5c_dir.cleanup()
 
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
@@ -8698,7 +9057,10 @@ def main() -> int:
             serving_5l["serve"]["planted"]["launches_child"],
         "classify_cli_local_vs_server":
             serving_5l["serve"]["launches_local_cli"],
-        **serving_5l["pycaffe"]["launches"]}
+        **serving_5l["pycaffe"]["launches"],
+        # phase 5n: perf_probe's parts, serveload, the profiler capture,
+        # feedbench (no kernel) and roundbench
+        **obs5n["launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}

@@ -40,11 +40,11 @@ Tiers (each a key of the line):
   (``SPARKNET_ASYNC_CKPT``, ``harvest_lag``), with the ``stall_s``
   components.  The cross-replica audit leg is ROADMAP A12 (``null``,
   the reason under ``not_ported_legs``).
-- **Serving** (``serving``): closed-loop batch-1 against dynamic
-  saturation through ``InferenceEngine``/``run_closed_loop``, every
-  served answer held bit for bit against its solo run.  The paced sweep
-  and the overload leg are ROADMAP A13's rest (``null``, the reasons
-  under ``not_ported_legs``).
+- **Serving** (``serving``): ``tools/serveload.run_report`` as the JAX
+  bench runs it: closed-loop batch-1 against dynamic saturation through
+  ``InferenceEngine``/``run_closed_loop``, a paced sweep at 0.5x and 1x
+  saturation and a 2x-overload point, every served answer held bit for
+  bit against its solo run, the SLO monitor's verdicts.
 - **Records** (``feed_records``): the convert-once leg, the JAX line's
   keys.  Sustained host feed img/s from record shards
   (``data/records.py``) through a warm ``ShardCache`` against the
@@ -600,75 +600,34 @@ def run(cfg: BenchConfig, device: str = "cuda",
         }
 
     def measure_serving() -> dict:
-        """Closed-loop batch-1 against dynamic saturation through the
-        micro-batching engine, every served answer held bit for bit
-        against its solo run (``solo_references``)."""
-        from .parallel.serving import (InferenceEngine, ModelHouse,
-                                       ServeConfig, run_closed_loop,
-                                       solo_references)
+        """The serving tier: ``tools/serveload.run_report`` in-process, as
+        the JAX bench runs the root ``tools/serveload.py``: batch-1
+        against dynamic saturation through the micro-batching engine, a
+        paced sweep at 0.5x and 1x saturation with every served answer
+        held bit for bit against its solo run, and a 2x-overload point
+        (typed rejections, p99 under its bound, the SLO monitor's
+        breach)."""
+        from .tools import serveload
         phase("bench_serving")
-        model = cfg.serve_model or cfg.model
-        base = ServeConfig()
-        scfg = ServeConfig(batch_shapes=base.batch_shapes,
-                           max_delay_ms=base.max_delay_ms,
-                           max_queue=base.max_queue, dtype=base.dtype,
-                           seed=0)
-        house = ModelHouse(scfg, device=dev)
-        lm = house.load(model)
-        inputs = [rng.normal(size=lm.in_shape).astype(np.float32)
-                  for _ in range(32)]
-        refs = solo_references(lm, inputs)
-        b1cfg = ServeConfig(batch_shapes=(1,), max_delay_ms=0.0,
-                            max_queue=scfg.max_queue, dtype=scfg.dtype,
-                            seed=0)
-        b1house = ModelHouse(b1cfg, device=dev)
-        b1house.load(model)
-        with InferenceEngine(b1house, b1cfg) as b1eng:
-            batch1 = run_closed_loop(b1eng, model, inputs,
-                                     clients=cfg.serve_clients,
-                                     window=cfg.serve_window,
-                                     duration_s=cfg.serve_seconds)
-            b1_dispatches = b1eng.stats()["dispatches"]
-        with InferenceEngine(house, scfg) as engine:
-            sat = run_closed_loop(engine, model, inputs,
-                                  clients=cfg.serve_clients,
-                                  window=cfg.serve_window,
-                                  duration_s=cfg.serve_seconds, refs=refs)
-            stats = engine.stats()
-        speedup = round(sat["achieved_qps"]
-                        / max(batch1["achieved_qps"], 1e-9), 2)
-        mismatches = sat["exact_mismatches"]
-        _log(f"serving[{model}]: dynamic {sat['achieved_qps']} qps vs "
-             f"batch1 {batch1['achieved_qps']} qps ({speedup}x), "
-             f"mismatches {mismatches}")
-        shapes = list(scfg.batch_shapes)
-        return {
-            "metric": "serving_dynamic_vs_batch1_speedup_x", "unit": "x",
-            "model": model, "mode": "in_process",
-            "clients": cfg.serve_clients, "window": cfg.serve_window,
-            "seconds_per_point": cfg.serve_seconds,
-            "batch_shapes": shapes, "max_delay_ms": scfg.max_delay_ms,
-            "max_queue": scfg.max_queue, "dtype": scfg.dtype,
-            "model_info": lm.info(),
-            "batch1": batch1, "saturation": sat,
-            "sweep": None, "overload": None,
-            "not_ported_legs": {
-                "sweep": "ROADMAP A13's rest, serveload's paced sweep",
-                "overload": "ROADMAP A13's rest, serveload's overload leg"},
-            "device": device_name,
-            "value": speedup,
-            "verdicts": {"batching_speedup_x": speedup,
-                         "batching_beats_4x": speedup >= 4.0,
-                         "exact_mismatches": mismatches,
-                         "bit_identical": mismatches == 0},
-            # forwards on the device: each model's warm-up at every
-            # shape, the solo references, and every dispatched batch
-            "device_forwards": (len(shapes) + len(shapes) * len(inputs)
-                                + 1 + b1_dispatches + stats["dispatches"]),
-            "provenance": perfledger.provenance(perfledger.fingerprint(
-                model=model, dtype=scfg.dtype, batch=max(shapes), world=1,
-                device=device_name)),
-        }
+        rep = serveload.run_report(
+            model=cfg.serve_model or cfg.model, clients=cfg.serve_clients,
+            window=cfg.serve_window, seconds=cfg.serve_seconds,
+            fractions=(0.5, 1.0), device=dev)
+        stats = rep.pop("engine_stats")   # the line stays one screen
+        shapes = rep["batch_shapes"]
+        # forwards on the device: each model's warm-up at every shape,
+        # the solo references, and every dispatched batch
+        rep["device_forwards"] = (len(shapes) + len(shapes) * 32 + 1
+                                  + rep["batch1"]["dispatches"]
+                                  + stats["dispatches"])
+        _log(f"serving[{rep['model']}]: dynamic "
+             f"{rep['saturation']['achieved_qps']} qps vs batch1 "
+             f"{rep['batch1']['achieved_qps']} qps "
+             f"({rep['verdicts']['batching_speedup_x']}x), overload p99 "
+             f"{rep['overload']['p99_ms']} ms with "
+             f"{rep['verdicts']['overload_rejected']} rejections, "
+             f"mismatches {rep['verdicts']['exact_mismatches']}")
+        return rep
 
     runs = {d: measure(d) for d in cfg.dtypes}
     best = max(cfg.dtypes, key=lambda d: runs[d]["images_per_sec"])

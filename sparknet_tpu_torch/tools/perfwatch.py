@@ -612,7 +612,7 @@ def cmd_trajectory(args) -> int:
 
 
 # ---------------------------------------------------------------------------
-# perfgate — the SPARKNET_PERFGATE CI gate
+# perfgate — the perf regression gate (the JAX run_tier1.sh gate of that name)
 # ---------------------------------------------------------------------------
 
 _SMOKE_ENV = {

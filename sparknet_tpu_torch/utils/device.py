@@ -23,6 +23,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def device_label(dev: torch.device) -> str:
+    """``cuda/<card name>`` or ``cpu/cpu``: the device a result names
+    (the bench line's spelling)."""
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    return f"{dev.type}/{kind}"
+
+
 # PyTorch's two TF32 flags are process-wide, not per thread, so the scopes
 # that clear them are counted: the first to enter saves and clears them,
 # the last to leave restores them, whatever threads the scopes run on.

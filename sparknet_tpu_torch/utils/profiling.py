@@ -22,8 +22,10 @@ The port's counterpart of ``sparknet_tpu/utils/profiling.py``:
 The JAX package counts FLOPs with XLA's ``cost_analysis``, which also
 counts elementwise work and the update; here they are counted from the
 net's geometry (convolution and inner-product multiply-adds), so the two
-counts differ by that gap (``PERF.md`` §6 states it).  The JAX
-profiler's remote ``server`` has no torch counterpart (ROADMAP A13).
+counts differ by that gap (``PERF.md`` §6 states it).  :func:`server`
+is the counterpart of the JAX profiler's remote server: an HTTP thread
+that records ``torch.profiler`` captures on demand (``GET
+/capture?ms=N``) and refuses one while another profiler records.
 :func:`record_fusion_plan` and :func:`record_tuning` stamp a capture
 with the net's fusion plan and lowering table.
 """
@@ -31,11 +33,32 @@ with the net's fusion plan and lowering table.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import pickle
+import tempfile
+import threading
+import time
 from typing import Callable, Iterator
 
 import torch
+
+# ``torch.profiler.profile`` objects recording now, by id, in any thread:
+# Kineto runs one session a process, and a second one started from
+# another thread kills the process, so :func:`server` checks this set
+# (and claims its place in it) under the lock before it starts one.
+_sessions_lock = threading.Lock()
+_sessions: set[int] = set()
+# set while a server capture records every thread: :func:`layer_scope`
+# opens its ranges on threads whose own profiler flag is off
+_capturing = threading.Event()
+
+
+def _activities() -> list:
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
 
 
 @contextlib.contextmanager
@@ -43,14 +66,18 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """Profile the enclosed block: CPU activity, and CUDA activity when
     a card is present; yields the profiler (``trace_tables.op_tables``
     reads its events) and writes ``trace_<pid>.json`` (a Chrome trace)
-    into ``log_dir`` at exit."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    into ``log_dir`` at exit.  A :func:`server` capture asked for while
+    the block runs is refused."""
     os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=acts)
-    with prof:
-        yield prof
+    prof = torch.profiler.profile(activities=_activities())
+    with _sessions_lock:
+        _sessions.add(id(prof))
+    try:
+        with prof:
+            yield prof
+    finally:
+        with _sessions_lock:
+            _sessions.discard(id(prof))
     prof.export_chrome_trace(os.path.join(log_dir,
                                           f"trace_{os.getpid()}.json"))
 
@@ -81,11 +108,191 @@ class annotate(contextlib.ContextDecorator):
 
 
 def layer_scope(name: str):
-    """``annotate(f"L[{name}]")`` while a profiler records, else a shared
-    no-op: a layer's forward costs nothing extra outside a trace."""
-    if torch._C._autograd._profiler_enabled():
+    """``annotate(f"L[{name}]")`` while a profiler records on this
+    thread or a :func:`server` capture records every thread, else a
+    shared no-op: a layer's forward costs nothing extra outside a
+    trace."""
+    if torch._C._autograd._profiler_enabled() or _capturing.is_set():
         return annotate(f"L[{name}]")
     return contextlib.nullcontext()
+
+
+class ProfilerBusy(RuntimeError):
+    """A capture asked for while another profiler records (HTTP 409)."""
+
+
+CAPTURE_MS_MAX = 60_000
+
+
+def _count_profiler_sessions() -> None:
+    """Make every ``torch.profiler.profile`` started from now on enter
+    :data:`_sessions` while it records, whoever starts it (idempotent;
+    stays for the life of the process)."""
+    cls = torch.profiler.profile
+    if getattr(cls.start, "_sparknet_counted", False):
+        return
+    start, stop = cls.start, cls.stop
+
+    def counted_start(self):
+        with _sessions_lock:
+            _sessions.add(id(self))
+        try:
+            start(self)
+        except BaseException:
+            with _sessions_lock:
+                _sessions.discard(id(self))
+            raise
+
+    def counted_stop(self):
+        try:
+            stop(self)
+        finally:
+            with _sessions_lock:
+                _sessions.discard(id(self))
+
+    counted_start._sparknet_counted = True
+    cls.start, cls.stop = counted_start, counted_stop
+
+
+def _all_threads_config():
+    """Kineto's config that records the CPU ranges of every thread, not
+    only the capturing one; None where this torch lacks it."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return None
+
+
+def capture_trace(ms: float) -> dict:
+    """Record ``torch.profiler`` (CPU and, on the card, CUDA activity)
+    for ``ms`` milliseconds over whatever the process runs, and return
+    the Chrome trace.  Raises :class:`ProfilerBusy` while another
+    profiler records anywhere in the process.
+
+    What a capture sees: every kernel the card runs in the window (CUPTI
+    records the device, whichever thread launched), and, where this torch
+    has Kineto's ``profile_all_threads``, the ATen ops and
+    ``record_function`` ranges of every thread, the serving thread's
+    ``L[layer]`` scopes among them (``otherData.all_threads`` says
+    which).  Without it only the capturing thread's own ranges appear,
+    and that thread only sleeps.  Ranges opened before the window are
+    not in it."""
+    if not 0 < ms <= CAPTURE_MS_MAX:
+        raise ValueError(f"capture ms must be in (0, {CAPTURE_MS_MAX}], "
+                         f"got {ms}")
+    config = _all_threads_config()
+    kw = {"experimental_config": config} if config is not None else {}
+    prof = torch.profiler.profile(activities=_activities(), **kw)
+    with _sessions_lock:
+        if _sessions or torch._C._autograd._profiler_enabled():
+            raise ProfilerBusy(f"another profiler records "
+                               f"({len(_sessions)} session(s))")
+        _sessions.add(id(prof))
+    try:
+        with prof:
+            if config is not None:
+                _capturing.set()
+            try:
+                time.sleep(ms / 1e3)
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+            finally:
+                _capturing.clear()
+        with tempfile.TemporaryDirectory(prefix="capture_") as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                doc = json.load(f)
+    finally:
+        with _sessions_lock:
+            _sessions.discard(id(prof))
+    doc.setdefault("otherData", {})["all_threads"] = config is not None
+    doc["otherData"]["capture_ms"] = ms
+    return doc
+
+
+class ProfilerServer:
+    """The HTTP thread :func:`server` runs; ``url`` is where it listens."""
+
+    def __init__(self, host: str, port: int):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlparse
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _json(self, code: int, body: dict) -> None:
+                data = json.dumps(body).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                url = urlparse(self.path)
+                if url.path != "/capture":
+                    self._json(404, {"error": "NotFound",
+                                     "detail": f"no route {url.path}"})
+                    return
+                try:
+                    ms = float(parse_qs(url.query).get("ms", ["100"])[0])
+                    self._json(200, capture_trace(ms))
+                except ProfilerBusy as e:
+                    self._json(409, {"error": "ProfilerBusy",
+                                     "detail": str(e)})
+                except ValueError as e:
+                    self._json(400, {"error": "BadRequest",
+                                     "detail": str(e)})
+
+        _count_profiler_sessions()
+        self.httpd = ThreadingHTTPServer((host, port), Handler)
+        self.httpd.daemon_threads = True
+        self.port = self.httpd.server_address[1]
+        self.url = f"http://{host}:{self.port}"
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        name="profiler-server", daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=10.0)
+
+
+@contextlib.contextmanager
+def server(port: int = 9999, host: str = "127.0.0.1"
+           ) -> Iterator[ProfilerServer]:
+    """Live profiling server (the JAX package's ``profiling.server``):
+    an HTTP thread on ``host:port`` (0 picks a free port) for the life
+    of the block.  ``GET /capture?ms=N`` answers with the Chrome trace of
+    :func:`capture_trace` over N ms of whatever the process runs; a
+    capture while a profiler already records (another capture,
+    :func:`trace`, ``tools/profile_step.py``, any ``torch.profiler``
+    started since a server first came up) answers 409 with ``{"error":
+    "ProfilerBusy"}``.  :func:`fetch_capture` is the client."""
+    srv = ProfilerServer(host, port)
+    try:
+        yield srv
+    finally:
+        srv.close()
+
+
+def fetch_capture(url: str, ms: float, timeout: float = 120.0) -> dict:
+    """``GET {url}/capture?ms=N``: the trace, or :class:`ProfilerBusy`
+    on a 409."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"{url}/capture?ms={ms}",
+                                    timeout=timeout) as resp:
+            return json.load(resp)
+    except urllib.error.HTTPError as e:
+        body = e.read().decode(errors="replace")
+        if e.code == 409:
+            raise ProfilerBusy(body) from None
+        raise RuntimeError(f"capture failed: HTTP {e.code} {body}") from None
 
 
 def card_line(device: torch.device | None = None) -> str:

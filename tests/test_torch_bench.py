@@ -87,8 +87,14 @@ def test_cpu_bench_prints_one_line_with_the_jax_keys():
     assert line["device"] == "cpu/cpu" and "error" not in line
     assert line["value"] == max(r["images_per_sec"]
                                 for r in line["by_dtype"].values())
-    assert line["serving"]["verdicts"]["bit_identical"]
-    assert line["serving"]["overload"] is None
+    serving = line["serving"]
+    assert serving["verdicts"]["bit_identical"]
+    # the paced sweep at 0.5x and 1x saturation and the 2x overload point
+    assert [p["fraction_of_saturation"] for p in serving["sweep"]] == \
+        [0.5, 1.0]
+    assert all(p["exact_mismatches"] == 0 for p in serving["sweep"])
+    assert serving["overload"]["fraction_of_saturation"] == 2.0
+    assert "not_ported_legs" not in serving
     assert line["round_overhead"]["audit"] is None
     assert line["round_overhead"]["async"]["rounds"] == 2
     assert line["feed_in_loop"]["staged_dtype"] == "uint8"

@@ -14,7 +14,10 @@ blocked.  Caffe's tools and pycaffe's classifiers (``train_cifar``,
 ``detect_cli`` on PNGs, ``pycaffe_io``, ``pycaffe_pb2``) run with all of
 those and PIL and matplotlib blocked, as on the card's machine, and so do
 the serving plane's ``tools/serve.py --help``, the model registry, the
-beacons and ``import caffe`` through the port's shim."""
+beacons and ``import caffe`` through the port's shim, and the
+observability and bench plane's tools (``knobs``, ``serveload``,
+``feedbench``, ``roundbench``, ``obs``, ``perf_probe``) and the
+profiler server."""
 
 from __future__ import annotations
 
@@ -661,3 +664,44 @@ def test_fusion_and_tuner_tools_run_with_jax_blocked(tmp_path):
             cwd=ROOT, capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, (tool, out.stderr[-3000:])
         assert want in out.stdout, (tool, out.stdout[-2000:])
+
+
+A13_TOOLS = ["knobs", "serveload", "feedbench", "roundbench", "obs",
+             "perf_probe"]
+
+
+def test_observability_and_bench_tools_run_with_jax_blocked():
+    """The observability and bench plane's tools are among the files the
+    scans above cover, and with ``jax``, ``sparknet_tpu``, PIL and
+    matplotlib blocked each one's ``--help`` runs, ``tools/knobs
+    --check`` passes and the profiler server answers a capture."""
+    for tool in A13_TOOLS:
+        assert PKG / "tools" / f"{tool}.py" in SOURCES
+    assert PKG / "utils" / "profiling.py" in SOURCES
+    code = (
+        "import sys, contextlib, io\n"
+        "for m in ('jax', 'sparknet_tpu', 'PIL', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for tool in {A13_TOOLS!r}:\n"
+        "    mod = importlib.import_module("
+        "'sparknet_tpu_torch.tools.' + tool)\n"
+        "    out = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(out):\n"
+        "        try:\n"
+        "            mod.main(['--help'])\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, (tool, e.code)\n"
+        "    assert 'usage' in out.getvalue(), tool\n"
+        "from sparknet_tpu_torch.tools import knobs\n"
+        "assert knobs.main(['--check']) == 0\n"
+        "from sparknet_tpu_torch.utils import profiling\n"
+        "with profiling.server(0) as srv:\n"
+        "    assert 'traceEvents' in profiling.fetch_capture(srv.url, 5)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.')) for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
