@@ -125,8 +125,8 @@ CaffeNet from 5c's LMDB as record shards through the Solver at batch 256
 with the host transform, with ``set_augment`` on the host and on the
 card (those two bit for bit; planted: a mirror along the rows), ms an
 iteration beside 5c's ``caffe_cli train`` with the native transform;
-the learning proxy on full-width cifar10_full at ``--scale 700`` (1x,
-8-way, hier 2x4, 100 iterations each) and a τ sweep (τ 2 and 10, codecs
+the learning proxy on full-width cifar10_full at ``--scale 1400`` (1x,
+8-way, hier 2x4, 50 iterations each) and a τ sweep (τ 2 and 10, codecs
 none and int8, 50 iterations), img/s per card, exact launches, and the
 first 10 iterations of 1x on the card against the CPU.  Phase 5l runs
 pycaffe's ``caffe`` module and the serving plane: ``python -m
@@ -143,7 +143,7 @@ canary with typed 400s and ``/slo`` with 503 and a flight dump;
 ``caffe.set_mode_gpu()`` then ``caffe.Net`` on CaffeNet's deploy net
 against the CPU (and the ms of a forward with its mirror copies), the
 train net's ``forward()``/``backward()`` at batch 64, and ``get_solver``
-on a NetSpec-built CaffeNet from an LMDB, each of its 10 steps, against
+on a NetSpec-built CaffeNet from an LMDB, each of its 5 steps, against
 f64 runs on the CPU that take the card's ReLU and MAX pool decisions,
 with B3 planted.  Phase 5m runs the fusion pass and the lowering tuner:
 ``tools/fusebench.py`` on the card in f32 and bf16 (planted: an epilogue
@@ -167,7 +167,21 @@ batches that must name B2 and ``L[norm1]``; ``tools/feedbench.py
 --records-leg`` over 5c's LMDB; ``tools/roundbench.py`` at its defaults
 (planted: an asynchronous checkpoint without its generator states);
 ``tools/obs.py smoke`` (planted: a span without its run id fails ``merge
---check``); ``tools/knobs.py --check``.  The kernels line counts
+--check``); ``tools/knobs.py --check``.  Phase 5o (after 5n) runs the
+fleet on the card: ``tools/serve.py --fleet 2`` on CaffeNet f32 in a
+child (64 requests through the router, each bit for bit its solo
+reference; ``/healthz`` two live replicas), ``serveload``'s fleet legs on
+CaffeNet (a replica SIGKILLed under load, typed failover, healed, a
+drain-based scale-down, 0 wrong answers), a CaffeNet rollout at canary
+fraction 0.25, promoted, then a planted bad canary (weights x 1.01)
+rolled back with every pinned request unchanged, and last, alone, a
+lenet training tenant (2 workers) preempted at round 2 by a job of
+higher priority, requeued and resumed bit for bit an unpreempted run
+(planted: a router that answers a pinned request from the canary, a
+resume fed the wrong round's batch, an orphan left running); every replica, front and driver is a
+``--fleet-child`` of this script that writes its own launch counts, B2
+twice a forward and the pool backward twice a worker step exact in each
+that exits cleanly, and no fleet process is left.  The kernels line counts
 the launches with the ReLU folded in apart (``relu_launches``).  A
 ``timeline`` line gives each phase's seconds.
 Prints the card, timings, a
@@ -196,6 +210,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from typing import Iterator
 from unittest import mock
@@ -1055,12 +1070,12 @@ def check_feed(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_WORKERS, TRAIN_TAU = 2, 5
-# Round 0 warms up and rounds 1-7 are steady.  The feed builds rounds
+# Round 0 warms up and rounds 1-4 are steady.  The feed builds rounds
 # ahead while round 0 runs, so the first steady rounds can take stock
 # the feed built then; by the later ones a feed-bound loop waits for
-# every round it takes.
-TRAIN_ROUNDS = 8
-PROFILE_ROUND = 7         # the steady round that --profile traces
+# every round it takes.  (8 rounds until phase 5o took the time.)
+TRAIN_ROUNDS = 5
+PROFILE_ROUND = 4         # the steady round that --profile traces
 TRAIN_RESIZE, TRAIN_CROP = 256, 227     # bvlc_reference_caffenet's
 GN_CROP = 224                           # bvlc_googlenet's and VGG-16's
 CIFAR_TAU, CIFAR_ROUNDS = 10, 2         # CifarApp.scala:111
@@ -1327,6 +1342,31 @@ def train_app(ck, dev, smi: str, label: str, main_fn, argv: list[str], *,
     return {"report": report, "trainer": tr}
 
 
+class drawn_once:
+    """A scope in which ``imagenet_app.synthetic_imagenet`` draws each
+    set of images once and hands every later call with the same
+    arguments a fresh copy of them: phase 5's runs of one model and 5f's
+    telemetry runs draw the same images, and the draw (~7 s for
+    CaffeNet's 896 + 256 at 256x256 on one host core) is the script's
+    set-up, not the app's work."""
+
+    def __enter__(self):
+        from sparknet_tpu_torch.apps import imagenet_app
+        self.module, self.draw = imagenet_app, imagenet_app.synthetic_imagenet
+        drawn: dict = {}
+
+        def synthetic_imagenet(*args):
+            if args not in drawn:
+                drawn[args] = self.draw(*args)
+            x, y = drawn[args]
+            return x.copy(), y.copy()
+        imagenet_app.synthetic_imagenet = synthetic_imagenet
+        return self
+
+    def __exit__(self, *exc):
+        self.module.synthetic_imagenet = self.draw
+
+
 def imagenet_argv(model: str, dev, *, batch: int, tau: int, rounds: int,
                   workers: int = TRAIN_WORKERS, extra=()) -> list[str]:
     return ["--synthetic", "--model", model, "--workers", str(workers),
@@ -1582,8 +1622,8 @@ def image_batches(seed: int, global_batch: int, crop: int, classes: int,
 
 
 def caffenet_against_cpu(dev, strategy: str = "local_sgd") -> dict:
-    """Full-width CaffeNet, 2 workers x batch 8; identity LRNs
-    planted."""
+    """Full-width CaffeNet, 2 workers x batch 8, one step each (τ=1);
+    identity LRNs planted."""
     from sparknet_tpu_torch.apps.imagenet_app import SOLVER
     from sparknet_tpu_torch.models import caffenet
     from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
@@ -1591,7 +1631,7 @@ def caffenet_against_cpu(dev, strategy: str = "local_sgd") -> dict:
                                                         crop=TRAIN_CROP))
     return train_against_cpu(
         dev, "train" if strategy == "local_sgd" else f"train_{strategy}", sp,
-        image_batches(SEED + 4, 16, TRAIN_CROP, 1000), identity_lrn(),
+        image_batches(SEED + 4, 16, TRAIN_CROP, 1000, tau=1), identity_lrn(),
         strategy=strategy)
 
 
@@ -1741,7 +1781,7 @@ CIFAR_RULES = {
     "AdaDelta": ('type: "AdaDelta"\nbase_lr: 1.0\nmomentum: 0.95\n'
                  'delta: 1e-6\n'),
 }
-RULE_ITERS, RULE_RESUME_ITERS = 10, 3
+RULE_ITERS, RULE_RESUME_ITERS = 5, 3
 
 
 def card_batches(dev, n: int, batch: int, crop: int, seed: int) -> list:
@@ -2143,10 +2183,10 @@ def update_err(got: list, ref: list) -> float:
 def solver_rules_cifar(ck, dev, smi: str, d: str) -> dict:
     """Each of Caffe's six rules through the Solver on cifar10_quick at
     the app's batch 100 and data (pool1, a 3/2 MAX pool: one pool
-    backward an iteration), 10 iterations on the card from a
+    backward an iteration), 5 iterations on the card from a
     ``.caffemodel``, checked two ways against the CPU:
 
-    - free-running: the same 10 iterations on the CPU from the same file,
+    - free-running: the same 5 iterations on the CPU from the same file,
       in f32 and in f64.  The card's per-iteration losses must be within
       max(1e-3, 10x the CPU f32 run's own error) of the f64 run's:
       ``train_against_cpu``'s rule for a blob after a round (within 1e-3,
@@ -2164,7 +2204,7 @@ def solver_rules_cifar(ck, dev, smi: str, d: str) -> dict:
     The card's iterations run on cuDNN's deterministic algorithms: the
     default ones vary from run to run (AdaGrad's free-running error on an
     H100 was 4.1e-4 in one run and 9.3e-4 in another), and the rules
-    amplify that.  Adam and AdaDelta: snapshot_caffe at 10, restore_caffe into a fresh
+    amplify that.  Adam and AdaDelta: snapshot_caffe at 5, restore_caffe into a fresh
     card Solver (bit for bit), 3 more iterations equal to the
     uninterrupted run.  Planted: AdaDelta reading its new sq_update (the
     lockstep update check), Adam resumed at iter 0, swapped history
@@ -3967,13 +4007,15 @@ def bench_solver(dev, cfg, dtype: str):
 
 
 def bench_in_process(ck, dev, smi: str, solver_ms_b256: float) -> dict:
-    """The bench at its defaults but 2 timed windows and 2 epochs of the
-    records tier (the script's time limit), each phase's launches
+    """The bench at its defaults but 1 timed window, 1 epoch of the
+    records tier, 2 rounds a round leg and 1 s serving points (the
+    script's time limit), each phase's launches
     counted from 0 and each of its timed windows also timed by CUDA
     events recorded inside it, around its blocks' launches; every check
     of the line."""
     from sparknet_tpu_torch import bench as bench_mod
-    cfg = bench_mod.BenchConfig(windows=2, records_epochs=2)
+    cfg = bench_mod.BenchConfig(windows=1, records_epochs=1, round_n=2,
+                                serve_seconds=1.0)
     launches: dict[str, dict] = {}
     windows: dict[str, list] = {}
     current: list = [None]
@@ -6776,10 +6818,10 @@ AUG_ITERS, AUG_WARM = 12, 2     # Solver iterations a feed, the first warm
 FEED_BATCHES = 4                # one epoch of 5c's 1,024 records at 256
 NATIVE_JPEGS = ("s420", "s422", "s444", "gray", "progressive", "restart",
                 "truncated")
-# the published cifar10_full schedule (70,000 iterations) divided by 700:
-# 100 iterations, the lr drops at 85 and 92; the tool's defaults
+# the published cifar10_full schedule (70,000 iterations) divided by 1,400:
+# 50 iterations, the lr drops at 42 and 46; the tool's defaults
 # otherwise (10,000 + 2,000 images, batch 100, 8 workers, τ=10, hier 2x4)
-PROXY_SCALE, PROXY_WORKERS = 700, 8
+PROXY_SCALE, PROXY_WORKERS = 1400, 8
 PROXY_ITERS = 70000 // PROXY_SCALE
 # the τ sweep: 2 τ x 2 codecs at 50 iterations (divided by 1,400) on the
 # sweep tool's 2,000 + 400 images
@@ -7083,7 +7125,7 @@ def pool_only(n: int) -> dict:
 
 
 def learning_proxy_runs(ck, dev, d: str) -> dict:
-    """(c) the learning proxy at ``--scale 350`` (1x, 8-way, hier) and the τ
+    """(c) the learning proxy at ``--scale 1400`` (1x, 8-way, hier) and the τ
     sweep, through their ``main``s on the card; exact launches, finite
     curves, img/s per card."""
     from sparknet_tpu_torch.parallel import comms
@@ -7210,7 +7252,7 @@ PYCAFFE_BWD_REL = 1e-3
 LIB_ERR_FACTOR = 3.0
 PLANTED_B3_SCALE = 1.05        # the planted fault: B3's output x 1.05
 NET_TRAIN_BATCH = 64
-SOLVER_5L_BATCH, SOLVER_5L_ITERS, SOLVER_5L_RECORDS = 16, 10, 48
+SOLVER_5L_BATCH, SOLVER_5L_ITERS, SOLVER_5L_RECORDS = 16, 5, 48
 SOLVER_5L_LOSS_REL = 1e-4      # each step's loss against the f64 step's
 B2_ONLY = {"lrn_across_channels_fwd": 0, "lrn_across_channels_bwd": 0,
            "max_pool_bwd": 0}
@@ -7927,15 +7969,15 @@ def get_solver_on_card(ck, dev, d: str, deploy_weights: str) -> dict:
     """get_solver on the NetSpec-built CaffeNet over an LMDB of 256x256
     Datums (crop 227, batch 16, the published solver's lr), from the
     fillers' draw of ``random_seed`` with fc8's bias set through the
-    mirrors (surgery the step must push to the Solver): 10 steps on the
+    mirrors (surgery the step must push to the Solver): 5 steps on the
     card, each step's loss and update (SGD's history, the ``v`` of
     ``p -= v``: the f32 params would round a small update to their own
     ulps) against the same step in f64 from the mirrors, the card's
     history, Dropout generator, batch and decisions, run on the card with
     the plain PyTorch versions in place of the hand kernels (on the 8
-    cores of an H100 host the 10 f64 steps took 23 s); the mirrors
+    cores of an H100 host 10 f64 steps took 23 s); the mirrors
     after the steps equal to the Solver's params; the second step again
-    with B3 planted.  Then 10 steps from the deploy weights, timed, whose
+    with B3 planted.  Then 5 steps from the deploy weights, timed, whose
     losses say why the check starts from the fillers."""
     from sparknet_tpu_torch import pycaffe_compat as caffe
     from sparknet_tpu_torch.data.db import array_to_datum
@@ -8684,6 +8726,664 @@ def observability_and_bench(ck, dev, smi: str, d5c: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 5o: the fleet on one card.  (a) ``tools/serve.py --fleet 2`` on
+# CaffeNet f32 in a child: its two replicas placed by the fleet scheduler,
+# every answer through the router bit for bit its solo reference; (b)
+# serveload's fleet legs on CaffeNet (a replica SIGKILLed under load,
+# healed, a drain-based scale-down); (c) a lenet training tenant (2
+# workers) preempted at round 2 by a higher-priority job, requeued and
+# resumed, bit for bit an unpreempted run; (d) a CaffeNet rollout at
+# canary fraction 0.25, promoted, then a planted bad canary rolled back.
+# (c) runs last, alone, so that no training overlaps the timed legs of
+# the others.  Every replica and driver is a ``--fleet-child`` of this
+# script that writes its own launch counts when it exits cleanly.
+# ---------------------------------------------------------------------------
+
+FLEET_MODEL = "caffenet"                # full width, f32
+FLEET_SHAPES = SERVE_SHAPES             # (a)'s replicas
+FLEET_REQUESTS, FLEET_INPUTS, FLEET_CLIENTS = 64, 8, 4
+FLEET_SPILL_DEPTH = "2"                 # (a): both replicas take requests
+# (b): the JAX tool's legs at 1 s points, 2 replicas in a budget of 3, no
+# bystander model (the isolation leg needs a fourth replica start)
+FLEET_REPORT_5O = dict(model=FLEET_MODEL, replicas=2, devices=3,
+                       shapes=(1, 4, 16), dtype="f32", clients=4,
+                       seconds=1.0, inputs_n=8, isolation_model=None)
+LENET_WORLD, LENET_ROUNDS, LENET_TAU = 2, 4, 2   # the driver's τ
+LENET_POOLS = 2                          # lenet's MAX pools
+# (c): the tenant sleeps 3 s at the start of round 2, the window in which
+# the higher-priority job arrives and preempts it
+LENET_FAULT = "straggle:3s@round:2"
+ROLLOUT_SHAPES = (1, 4)
+ROLLOUT_FRACTION = 0.25
+PLANTED_CANARY_SCALE = 1.01             # (d): the bad canary's weights
+FLEET_B2_ONLY = {"lrn_across_channels_fwd": 0, "lrn_across_channels_bwd": 0,
+                 "max_pool_bwd": 0}
+FLEET_POOL_ONLY = {"lrn_across_channels": 0, "lrn_across_channels_fwd": 0,
+                   "lrn_across_channels_bwd": 0}
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def child_command(kind: str, outdir: str) -> list[str]:
+    """The argv prefix of a ``--fleet-child`` of this script; the tool's
+    own arguments follow it."""
+    return [sys.executable, os.path.abspath(__file__), "--fleet-child",
+            kind, outdir, "--"]
+
+
+def fleet_child(kind: str, outdir: str, argv: list[str]) -> int:
+    """A process the fleet starts (``--fleet-child``), under
+    deterministic cuDNN: ``front`` runs ``serve.main(argv)`` with the
+    fleet's replica command pointed back here, ``serve`` a replica,
+    ``driver`` the lenet driver (``driver-planted`` feeds round r the
+    batch of round r + 1).  Each writes its kernels' launch counts, and
+    what it did (a replica's warm-ups and dispatched batches, a driver's
+    rounds), into ``outdir`` when it exits cleanly; a killed process
+    writes nothing."""
+    from sparknet_tpu_torch.ops import cuda_kernels as ck
+    from sparknet_tpu_torch.parallel import fleet, serving, trainer
+    from sparknet_tpu_torch.tools import multihost_driver, serve
+    record: dict = {"kind": kind, "pid": os.getpid(),
+                    "job": os.environ.get("SPARKNET_FLEET_JOB")}
+    engines, houses, rounds = [], [], [0]
+    if kind == "front":
+        fleet.SERVE_CMD = child_command("serve", outdir)
+        main_fn = serve.main
+    elif kind == "serve":
+        class Engine(serving.InferenceEngine):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                engines.append(self)
+
+        class House(serving.ModelHouse):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                houses.append(self)
+
+        serving.InferenceEngine, serving.ModelHouse = Engine, House
+        main_fn = serve.main
+    else:
+        real_round = trainer.DistributedTrainer.train_round
+
+        def counted_round(self, batches):
+            rounds[0] += 1
+            return real_round(self, batches)
+
+        trainer.DistributedTrainer.train_round = counted_round
+        if kind == "driver-planted":
+            real_batch = multihost_driver.round_batch
+            multihost_driver.round_batch = \
+                lambda r, tau, gb: real_batch(r + 1, tau, gb)
+        main_fn = multihost_driver.main
+    with cudnn_deterministic():
+        rc = main_fn(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    record.update(rc=rc, launches=launched(ck))
+    if kind == "serve":
+        record["warmups"] = sum(len(h.cfg.batch_shapes) * len(h.loaded())
+                                for h in houses)
+        record["dispatches"] = sum(e.stats()["dispatches"] for e in engines)
+    elif kind.startswith("driver"):
+        record["rounds"] = rounds[0]
+        record["workers"] = int(argv[argv.index("--local-devices") + 1])
+    with open(os.path.join(outdir, f"{kind}-{os.getpid()}.json"), "w") as f:
+        json.dump(record, f)
+    return rc
+
+
+def child_records(outdir: str, kind: str) -> list[dict]:
+    out = []
+    for name in sorted(os.listdir(outdir)):
+        if re.fullmatch(rf"{re.escape(kind)}-\d+\.json", name):
+            with open(os.path.join(outdir, name)) as f:
+                out.append(json.load(f))
+    return out
+
+
+def replica_launches(recs: list[dict], what: str) -> dict:
+    """B2 twice a forward in every cleanly exited replica: its warm-ups
+    and its dispatched batches; the other kernels never."""
+    total = dict(FLEET_B2_ONLY, lrn_across_channels=0)
+    for r in recs:
+        want = {"lrn_across_channels": 2 * (r["warmups"] + r["dispatches"]),
+                **FLEET_B2_ONLY}
+        got = {k: r["launches"][k] for k in want}
+        if r["rc"] != 0 or got != want or not r["warmups"]:
+            fail(f"5o {what}: replica pid {r['pid']} ({r['job']}) rc "
+                 f"{r['rc']}, launches {got}, want {want}")
+        for k, v in got.items():
+            total[k] += v
+    return total
+
+
+def journal_pids(workdir: str) -> dict:
+    """Every worker pid the fleet journal recorded, with its job."""
+    from sparknet_tpu_torch.parallel.fleet import FleetJournal
+    pids: dict = {}
+    for ev in FleetJournal.read(os.path.join(workdir,
+                                             "fleet_journal.jsonl")):
+        if ev.get("ev") == "pids":
+            for p in ev.get("pids", []):
+                pids[p] = ev["job"]
+    return pids
+
+
+def fleet_orphans(workdir: str) -> list[int]:
+    """The recorded worker pids still alive with their job's tag."""
+    from sparknet_tpu_torch.parallel.fleet import _pid_is_fleet_job
+    return sorted(p for p, job in journal_pids(workdir).items()
+                  if _pid_is_fleet_job(p, job))
+
+
+def fleet_env(**extra: str) -> dict:
+    """The children's environment: the parent's without its
+    ``SPARKNET_*`` knobs (they find the kernels this process built in
+    the checkout's ``sparknet_tpu_torch/_build``)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("SPARKNET_")}
+    env.update(extra)
+    return env
+
+
+def caffenet_refs(ck, dev, shapes, seed_offset: int):
+    """Solo references of full-width CaffeNet f32 (the seeded weights
+    every replica draws) at ``shapes``, and the launches they took."""
+    from sparknet_tpu_torch.parallel.serving import (LoadedModel,
+                                                     ServeConfig,
+                                                     solo_references,
+                                                     zoo_models)
+    cfg = ServeConfig(batch_shapes=tuple(shapes), dtype="f32")
+    ck.reset_launch_counts()
+    with cudnn_deterministic():
+        lm = LoadedModel(FLEET_MODEL, zoo_models()[FLEET_MODEL](), cfg,
+                         device=dev)
+        gen = np.random.default_rng(SEED + seed_offset)
+        inputs = [(IMAGE_STD * gen.normal(size=lm.in_shape)).astype(
+            np.float32) for _ in range(FLEET_INPUTS)]
+        refs = solo_references(lm, inputs)
+    sync(dev)
+    got = launched(ck)
+    want = {"lrn_across_channels":
+            2 * (len(shapes) + len(shapes) * FLEET_INPUTS), **FLEET_B2_ONLY}
+    if {k: got[k] for k in want} != want:
+        fail(f"5o references: launches {got}, want {want}")
+    del lm
+    return inputs, refs, got
+
+
+def serve_fleet_5o(ck, dev, smi: str, d: str) -> dict:
+    """(a) ``serve --fleet 2 --models caffenet`` (f32) in a child."""
+    from sparknet_tpu_torch.classify import http_json, remote_classify
+    out = os.path.join(d, "a_counts")
+    wd = os.path.join(d, "a_fleet")
+    os.makedirs(out)
+    err = open(os.path.join(d, "a_front.stderr"), "w+")
+    t0 = time.perf_counter()
+    front = subprocess.Popen(
+        child_command("front", out) + [
+            "--models", FLEET_MODEL, "--fleet", "2", "--port", "0",
+            "--dtype", "f32", "--shapes", ",".join(map(str, FLEET_SHAPES)),
+            "--fleet-workdir", wd, "--device", dev.type],
+        stdout=subprocess.PIPE, stderr=err, text=True,
+        env=fleet_env(SPARKNET_ROUTER_SPILL_DEPTH=FLEET_SPILL_DEPTH))
+    report: dict = {}
+    try:
+        inputs, refs, parent = caffenet_refs(ck, dev, FLEET_SHAPES, 31)
+        ready = front.stdout.readline().strip()
+        report["front_ready_s"] = time.perf_counter() - t0
+        if not ready.startswith("serving on http://"):
+            err.seek(0)
+            fail(f"5o serve --fleet: no ready line ({ready!r}): "
+                 f"{err.read()[-3000:]}")
+        url = ready.split()[2]
+        hz = http_json(f"{url}/healthz")
+        live = sorted(r for r, v in hz["router"]["replicas"].items()
+                      if v["state"] == "ACTIVE")
+        report["healthz"] = {"live": live, "devices": hz["devices"]}
+        if len(live) != 2 or hz["devices"] != {"total": 2, "free": 0}:
+            fail(f"5o serve --fleet: /healthz {hz}")
+        answers: list = [None] * FLEET_REQUESTS
+        lat: list = [None] * FLEET_REQUESTS
+
+        def client(k):
+            for i in range(k, FLEET_REQUESTS, FLEET_CLIENTS):
+                t1 = time.perf_counter()
+                answers[i] = remote_classify(url, FLEET_MODEL,
+                                             inputs[i % FLEET_INPUTS],
+                                             tenant=f"c{k}")
+                lat[i] = (time.perf_counter() - t1) * 1e3
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        loop_s = time.perf_counter() - t1
+        bad = [i for i, a in enumerate(answers) if a is None
+               or not np.array_equal(np.asarray(a["probs"], np.float32),
+                                     refs[a["padded_to"]][i % FLEET_INPUTS])]
+        report.update(requests=FLEET_REQUESTS, mismatches=len(bad),
+                      qps=FLEET_REQUESTS / loop_s,
+                      p50_ms=float(np.median(lat)),
+                      p99_ms=float(np.percentile(lat, 99)))
+        if bad:
+            fail(f"5o serve --fleet: {len(bad)} of {FLEET_REQUESTS} answers "
+                 f"not bit for bit their solo references")
+        status = http_json(f"{url}/fleet")
+        report["jobs"] = {r["job"]: r["state"] for r in status["jobs"]}
+    finally:
+        import signal
+        front.send_signal(signal.SIGTERM)
+        try:
+            rc = front.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            front.kill()
+            rc = front.wait()
+        err.close()
+    if rc != 0:
+        fail(f"5o serve --fleet: the front exited {rc}")
+    (fr,) = child_records(out, "front")
+    if any(fr["launches"].values()):
+        fail(f"5o serve --fleet: the front launched {fr['launches']}")
+    reps = child_records(out, "serve")
+    if len(reps) != 2 or not all(r["dispatches"] for r in reps):
+        fail(f"5o serve --fleet: replica records {reps}")
+    report["replica_dispatches"] = [r["dispatches"] for r in reps]
+    report["launches"] = {
+        "serve_fleet_caffenet_f32_replicas_5o":
+            replica_launches(reps, "serve --fleet"),
+        "serve_fleet_caffenet_f32_references_5o": parent}
+    report["orphans"] = fleet_orphans(wd)
+    if report["orphans"]:
+        fail(f"5o serve --fleet: orphans {report['orphans']}")
+    return report
+
+
+def fleet_report_5o(ck, dev, smi: str, d: str) -> dict:
+    """(b) ``run_fleet_report`` on CaffeNet (f32), its replicas children
+    of this script."""
+    from sparknet_tpu_torch.parallel import fleet
+    from sparknet_tpu_torch.tools import serveload
+    out = os.path.join(d, "b_counts")
+    wd = os.path.join(d, "b_fleet")
+    os.makedirs(out)
+    shapes = FLEET_REPORT_5O["shapes"]
+    ck.reset_launch_counts()
+    with mock.patch.object(fleet, "SERVE_CMD", child_command("serve", out)), \
+            cudnn_deterministic():
+        rep = serveload.run_fleet_report(**FLEET_REPORT_5O, workdir=wd,
+                                         device=dev)
+    sync(dev)
+    parent = launched(ck)
+    n = FLEET_REPORT_5O["inputs_n"]
+    want = {"lrn_across_channels": 2 * (len(shapes) + len(shapes) * n),
+            **FLEET_B2_ONLY}
+    if {k: parent[k] for k in want} != want:
+        fail(f"5o fleet report: this process launched {parent}, want "
+             f"{want}")
+    bad = serveload.fleet_failures(rep)
+    v = rep["verdicts"]
+    if bad or v["scaling_gated"] or "share one device" not in \
+            v["scaling_gate_reason"] or not rep["device"].startswith(
+                dev.type):
+        fail(f"5o fleet report: {bad}, verdicts {v}")
+    # every replica process the fleet started: a record from each that
+    # exited cleanly, none from the one SIGKILLed
+    recs = child_records(out, "serve")
+    started = journal_pids(wd)
+    clean = {r["pid"] for r in recs}
+    lost = sorted(set(started) - clean)
+    killed = rep["chaos"]["killed_pid"]
+    if lost != [killed] or not clean <= set(started):
+        fail(f"5o fleet report: started {started}, records from "
+             f"{sorted(clean)}, killed {killed}")
+    orphans = fleet_orphans(wd)
+    if orphans:
+        fail(f"5o fleet report: orphans {orphans}")
+    legs = {leg: {k: rep[leg][k] for k in (
+        "offered_qps", "achieved_qps", "p50_ms", "p99_ms", "completed",
+        "errors", "exact_mismatches") if k in rep[leg]}
+        for leg in ("solo", "saturation", "paced", "chaos", "drain")}
+    report = {
+        "verdicts": v, "legs": legs,
+        "router_counts": rep["router"]["counts"],
+        "heal_s": rep["chaos"]["heal_s"],
+        "lost": [{"pid": killed, "job": started[killed],
+                  "routed": rep["chaos"]["killed_replica_routed"]}],
+        "replica_dispatches": {r["pid"]: r["dispatches"] for r in recs},
+        "launches": {
+            "serveload_fleet_caffenet_f32_replicas_5o":
+                replica_launches(recs, "fleet report"),
+            "serveload_fleet_caffenet_f32_references_5o": parent}}
+    return report
+
+
+def lenet_tenant_5o(dev, d: str) -> dict:
+    """(c) A fleet of 4 slots on the card: an unpreempted lenet run (not
+    preemptible) beside the tenant; when the tenant has checkpointed round
+    2 a job of higher priority arrives and preempts it (SIGTERM: the
+    driver finishes its round, checkpoints and exits cleanly), then the
+    tenant is requeued and resumes.  Its final params must equal the
+    unpreempted run's bit for bit.  Planted: the tenant's checkpoint
+    resumed by a driver fed the next round's batch must differ.  Runs
+    after (a), (b) and (d), so that no training overlaps their timed
+    legs."""
+    import shutil
+    from sparknet_tpu_torch.parallel import fleet as fl
+    out = os.path.join(d, "c_counts")
+    wd = os.path.join(d, "c_fleet")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    with mock.patch.object(fl, "DRIVER_CMD", child_command("driver", out)):
+        sched = fl.FleetScheduler(wd, 2 * LENET_WORLD, device=dev.type,
+                                  preempt_grace_s=60.0,
+                                  extra_env=fleet_env())
+        base = sched.submit(fl.JobSpec(name="lenet-base", world=LENET_WORLD,
+                                       rounds=LENET_ROUNDS,
+                                       preemptible=False))
+        pre = sched.submit(fl.JobSpec(name="lenet-tenant",
+                                      world=LENET_WORLD,
+                                      rounds=LENET_ROUNDS,
+                                      fault=LENET_FAULT))
+        deadline = time.monotonic() + 240
+        while (pre.newest_round() or 0) < 2:
+            if time.monotonic() > deadline or sched.done():
+                fail(f"5o lenet: the tenant never checkpointed round 2 "
+                     f"({pre.state})")
+            sched.step()
+            time.sleep(0.02)
+        t_pre = time.perf_counter()
+        urgent = sched.submit(fl.JobSpec(name="lenet-urgent",
+                                         world=LENET_WORLD, rounds=2,
+                                         priority=50))
+        t_resume = None
+        while not sched.done():
+            if time.monotonic() > deadline:
+                fail("5o lenet: the fleet never finished")
+            sched.step()
+            if t_resume is None and pre.episodes >= 2:
+                t_resume = time.perf_counter()
+            time.sleep(0.02)
+        sched.shutdown()
+    states = {j.name: j.state for j in (base, pre, urgent)}
+    if set(states.values()) != {fl.COMPLETED} or pre.preempt_count != 1 \
+            or base.preempt_count:
+        fail(f"5o lenet: states {states}, preempts {pre.preempt_count}")
+    a, b = np.load(base.out_path), np.load(pre.out_path)
+    diverged = [k for k in a.files if not k.startswith("__")
+                and not np.array_equal(a[k], b[k])]
+    if diverged:
+        fail(f"5o lenet: the preempted tenant's params {diverged} differ "
+             f"from the unpreempted run's")
+    import glob
+    logs = sorted(glob.glob(os.path.join(pre.job_dir, "runner", "**",
+                                         "rank_0.log"), recursive=True))
+    text = "".join(open(p).read() for p in logs)
+    m = re.search(r"stopped cleanly at round boundary (\d+)", text)
+    resumed = re.search(r"resumed at round (\d+)", text)
+    if not m or not resumed or m.group(1) != resumed.group(1):
+        fail(f"5o lenet: no clean stop and matching resume in the "
+             f"tenant's logs")
+    # planted: the tenant's checkpoint at its stop, resumed by a driver
+    # that feeds round r the batch of round r + 1
+    stop = int(m.group(1))
+    planted_ck = os.path.join(d, "c_planted_ckpt")
+    shutil.copytree(pre.ckpt_dir, planted_ck)
+    for name in os.listdir(planted_ck):
+        digits = re.findall(r"_(\d{8})\.", name)
+        if digits and int(digits[0]) > stop:
+            os.unlink(os.path.join(planted_ck, name))
+    planted_out = os.path.join(d, "c_planted.npz")
+    proc = subprocess.run(
+        child_command("driver-planted", out) + [
+            "--out", planted_out, "--ckpt-dir", planted_ck, "--rounds",
+            str(LENET_ROUNDS), "--local-devices", str(LENET_WORLD),
+            "--expect-devices", str(LENET_WORLD), "--device", dev.type],
+        capture_output=True, text=True, timeout=240,
+        # a later incarnation than every fleet episode: the directory's
+        # fence admits its checkpoints
+        env=fleet_env(SPARKNET_FENCE_TOKEN=str(10**9)))
+    if proc.returncode != 0:
+        fail(f"5o lenet: the planted resume exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    c = np.load(planted_out)
+    if all(np.array_equal(a[k], c[k]) for k in a.files
+           if not k.startswith("__")):
+        fail("5o lenet: a resume fed the wrong round's batch was not "
+             "caught")
+    recs = child_records(out, "driver")
+    total = dict(FLEET_POOL_ONLY, max_pool_bwd=0)
+    for r in recs:
+        want = {"max_pool_bwd": LENET_POOLS * r["workers"] * LENET_TAU
+                * r["rounds"], **FLEET_POOL_ONLY}
+        got = {k: r["launches"][k] for k in want}
+        if r["rc"] != 0 or got != want:
+            fail(f"5o lenet: driver pid {r['pid']} ({r['job']}) launches "
+                 f"{got}, want {want}")
+        total["max_pool_bwd"] += got["max_pool_bwd"]
+    rounds = sorted((r["job"], r["rounds"]) for r in recs)
+    if rounds != sorted([("lenet-base", LENET_ROUNDS), ("lenet-urgent", 2),
+                         ("lenet-tenant", stop),
+                         ("lenet-tenant", LENET_ROUNDS - stop)]):
+        fail(f"5o lenet: rounds by process {rounds}")
+    orphans = fleet_orphans(wd)
+    if orphans:
+        fail(f"5o lenet: orphans {orphans}")
+    return {"stopped_at": stop, "rounds_by_process": rounds,
+            "preempt_to_resume_s": t_resume - t_pre,
+            "fleet_s": time.perf_counter() - t0,
+            "launches": {"fleet_lenet_drivers_5o": total}}
+
+
+def rollout_5o(ck, dev, smi: str, d: str) -> dict:
+    """(d) Three published CaffeNet versions (the zoo's seeded weights:
+    one golden answer set), each served by an engine of its own behind
+    one router.  v2 canaried at 0.25 of the plain traffic and promoted on
+    sustained health; v3, whose weights are planted at 1.01x, canaried
+    and rolled back by the judge on its rows off the golden answers, with
+    every request pinned to the stable version bit for bit golden.
+    Planted: a router that resolves a pinned request to the canary must
+    fail the pinned check."""
+    from sparknet_tpu_torch.parallel.registry import ModelRegistry, versioned
+    from sparknet_tpu_torch.parallel.rollout import (RolloutConfig,
+                                                     RolloutController)
+    from sparknet_tpu_torch.parallel.router import (InProcessReplica,
+                                                    RolloutState, Router,
+                                                    RouterConfig)
+    from sparknet_tpu_torch.parallel.serving import (InferenceEngine,
+                                                     ModelHouse, ServeConfig)
+    inputs, refs, _ = caffenet_refs(ck, dev, ROLLOUT_SHAPES, 33)
+    ck.reset_launch_counts()
+    reg = ModelRegistry(os.path.join(d, "d_registry"))
+    v1, v2, v3 = (reg.publish(FLEET_MODEL, notes=f"5o {n}")
+                  for n in ("v1", "v2", "v3 (planted)"))
+    cfg = ServeConfig(batch_shapes=ROLLOUT_SHAPES, dtype="f32", seed=0,
+                      slo_fast_window_s=1.5, slo_window_s=6.0,
+                      slo_min_requests=4, slo_reject_budget=0.05,
+                      slo_sample_every_s=0.1)
+    router = Router(RouterConfig(spill_depth=8))
+    live: dict = {}
+    counts = {"warmups": 0, "dispatches": 0}
+    off_golden: dict = collections.Counter()
+
+    def ensure(name):
+        if name in live:
+            return
+        model, _, version = name.partition("@")
+        house = ModelHouse(cfg, device=dev)
+        lm = house.load_version(model, version, registry=reg)
+        counts["warmups"] += len(cfg.batch_shapes)
+        if version == v3:
+            with torch.no_grad():
+                for blobs in lm.params.values():
+                    for b in blobs:
+                        b.mul_(PLANTED_CANARY_SCALE)
+        eng = InferenceEngine(house, cfg)
+        router.add_replica(f"r-{version}", InProcessReplica(
+            f"r-{version}", eng))
+        live[name] = eng
+
+    def retire(name):
+        eng = live.pop(name, None)
+        if eng is not None:
+            router.drain(f"r-{name.partition('@')[2]}", timeout_s=30.0)
+            counts["dispatches"] += eng.stats()["dispatches"]
+            eng.stop()
+
+    ctl = RolloutController(
+        reg, os.path.join(d, "d_rollout"), ensure=ensure, retire=retire,
+        verdict=lambda name: live[name].slo.evaluate() if name in live
+        else None,
+        bands=lambda name: ([f"{off_golden[name]} rows off the golden "
+                             f"answers"] if off_golden[name] else []),
+        router=router,
+        cfg=RolloutConfig(fraction=ROLLOUT_FRACTION, judge_s=1.0,
+                          poll_s=0.05, min_requests=8, breach_polls=2))
+
+    seq = itertools.count()
+
+    def drive(pin=None) -> tuple:
+        """One request an input, each with a routing key of its own (the
+        canary split is a hash of it): the versions that answered, and
+        the requests pinned to ``pin`` that another version answered or
+        that came back off the golden answers."""
+        served, pinned_bad = collections.Counter(), 0
+        for i, x in enumerate(inputs):
+            res = router.classify(FLEET_MODEL, x, tenant="rollout",
+                                  timeout=60, version=pin,
+                                  rkey=f"req-{next(seq)}")
+            served[res.model] += 1
+            golden = np.array_equal(res.probs, refs[res.padded_to][i])
+            if not golden:
+                off_golden[res.model] += 1
+            if pin is not None and (
+                    res.model != versioned(FLEET_MODEL, pin) or not golden):
+                pinned_bad += 1
+        return served, pinned_bad
+
+    report: dict = {}
+    with cudnn_deterministic():
+        reg.set_channels(FLEET_MODEL, stable=v1)
+        ensure(versioned(FLEET_MODEL, v1))
+        router.set_rollout(RolloutState(model=FLEET_MODEL, stable=v1))
+        t0 = time.perf_counter()
+        ctl.start_canary(FLEET_MODEL, v2)
+        served, decision = collections.Counter(), "canary"
+        deadline = time.monotonic() + 60
+        while decision == "canary" and time.monotonic() < deadline:
+            served.update(drive()[0])
+            decision = ctl.judge(FLEET_MODEL)
+        canary_share = served[versioned(FLEET_MODEL, v2)] / sum(
+            served.values())
+        if decision != "promote" or off_golden or not \
+                0.1 <= canary_share <= 0.4:
+            fail(f"5o rollout: v2 {decision}, served {dict(served)}, off "
+                 f"golden {dict(off_golden)}")
+        ctl.promote(FLEET_MODEL)
+        report["promote_s"] = time.perf_counter() - t0
+        report["canary_share"] = canary_share
+        pre = [router.classify(FLEET_MODEL, x, version=v2).probs
+               for x in inputs[:4]]
+        # the planted canary
+        t0 = time.perf_counter()
+        ctl.start_canary(FLEET_MODEL, v3)
+        decision, pinned_bad, polls = "canary", 0, 0
+        while decision == "canary" and time.monotonic() < deadline + 60:
+            drive()
+            pinned_bad += drive(pin=v2)[1]
+            decision = ctl.judge(FLEET_MODEL)
+            polls += 1
+        judged_s = time.perf_counter() - t0
+        report["planted_rows_off_golden"] = off_golden[
+            versioned(FLEET_MODEL, v3)]
+        if decision != "rollback" or pinned_bad or \
+                not report["planted_rows_off_golden"]:
+            fail(f"5o rollout: planted canary {decision} after {polls} "
+                 f"polls, pinned requests missed {pinned_bad}")
+        # planted: a router that answers a request pinned to the stable
+        # version from the canary, through the same pinned check
+        with mock.patch.object(Router, "_resolve", lambda self, model, x,
+                               tenant, version, rkey:
+                               versioned(model, v3)):
+            planted_bad = drive(pin=v2)[1]
+        report["planted_router_pinned_missed"] = planted_bad
+        if planted_bad != len(inputs):
+            fail(f"5o rollout: a router answering pinned requests from "
+                 f"the canary failed {planted_bad} of {len(inputs)} in "
+                 f"the pinned check")
+        t0 = time.perf_counter()
+        ctl.rollback(FLEET_MODEL, reason="rows off the golden answers")
+        # the canary's start to its rollback, the planted router's
+        # requests left out
+        report["rollback_s"] = judged_s + time.perf_counter() - t0
+        post = [router.classify(FLEET_MODEL, x, version=v2).probs
+                for x in inputs[:4]]
+        ch = reg.channels(FLEET_MODEL)
+        if not all(np.array_equal(a, b) for a, b in zip(pre, post)) or \
+                ch["stable"] != v2 or ch["canary"] is not None or \
+                versioned(FLEET_MODEL, v3) in live:
+            fail(f"5o rollout: after the rollback {ch}, live {list(live)}")
+        for name in list(live):
+            retire(name)
+    sync(dev)
+    got = launched(ck)
+    want = {"lrn_across_channels":
+            2 * (counts["warmups"] + counts["dispatches"]), **FLEET_B2_ONLY}
+    if {k: got[k] for k in want} != want:
+        fail(f"5o rollout: launches {got}, want {want}")
+    report["launches"] = {"rollout_caffenet_f32_5o": got}
+    return report
+
+
+def planted_orphan_caught(d: str) -> None:
+    """An orphan left running: a process with a fleet job's tag whose
+    pid the journal recorded must be found by the orphan check."""
+    from sparknet_tpu_torch.parallel.fleet import ENV_JOB_TAG, FleetScheduler
+    wd = os.path.join(d, "orphan_fleet")
+    sched = FleetScheduler(wd, 1)
+    proc = subprocess.Popen([sys.executable, "-c",
+                             "import time; time.sleep(60)"],
+                            env={**os.environ, ENV_JOB_TAG: "ghost"})
+    try:
+        sched.journal.append("pids", job="ghost", pids=[proc.pid])
+        sched.journal.close()
+        deadline = time.monotonic() + 30
+        while fleet_orphans(wd) != [proc.pid]:
+            if time.monotonic() > deadline:
+                fail("5o: an orphan left running was not found")
+            time.sleep(0.05)
+    finally:
+        proc.kill()
+        proc.wait()
+
+
+def fleet_on_card(ck, dev, smi: str) -> dict:
+    """Phase 5o."""
+    import tempfile
+    t0 = time.perf_counter()
+    report: dict = {}
+    with tempfile.TemporaryDirectory(prefix="fleet_5o_") as d:
+        report["serve_fleet"] = serve_fleet_5o(ck, dev, smi, d)
+        report["fleet_report"] = fleet_report_5o(ck, dev, smi, d)
+        report["rollout"] = rollout_5o(ck, dev, smi, d)
+        planted_orphan_caught(d)
+        report["lenet"] = lenet_tenant_5o(dev, d)
+    report["launches"] = {k: v for part in report.values()
+                          for k, v in part.pop("launches").items()}
+    report["seconds"] = time.perf_counter() - t0
+    print(f"fleet_5o [{smi}] " + json.dumps(
+        {k: v for k, v in report.items() if k != "launches"},
+        default=str), flush=True)
+    return report
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
                  rows: list[dict], main: list[dict],
                  relu_launches: dict | None = None) -> dict:
@@ -8717,6 +9417,13 @@ def kernel_entry(name: str, source: str, replaces: str, launches: dict,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--fleet-child"]:
+        # phase 5o's replicas, fronts and drivers: ``--fleet-child KIND
+        # OUTDIR -- <the tool's arguments>``
+        if not torch.cuda.is_available():
+            return 2
+        kind, outdir = sys.argv[2:4]
+        return fleet_child(kind, outdir, sys.argv[5:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="PATH",
                     help="write per-kernel device-time tables of batch-64 "
@@ -8830,6 +9537,8 @@ def main() -> int:
     prof = args.profile
     if prof:
         open(prof, "a").close()
+    # the apps' synthetic images, drawn once a set from here to 5f
+    drawn = drawn_once().__enter__()
     trained = {
         "caffenet": train_imagenet(ck, dev, smi, "train", "caffenet",
                                    mode="host", profile_path=prof,
@@ -8920,6 +9629,7 @@ def main() -> int:
     # CaffeNet b256 and the telemetry plane on the card
     bench_report = the_bench(ck, dev, smi,
                              solved["caffenet"]["solver_ms_per_iter_b256"])
+    drawn.__exit__()
     mark("5f bench")
 
     # phase 5g: the layers of the slice on the card, mnist_siamese and
@@ -8969,6 +9679,13 @@ def main() -> int:
     obs5n = observability_and_bench(ck, dev, smi, d5c)
     mark("5n observability and bench plane")
     d5c_dir.cleanup()
+
+    # phase 5o: the fleet on one card: serve --fleet on CaffeNet through
+    # the router, serveload's fleet legs (a replica killed and healed, a
+    # drain), a lenet tenant preempted and resumed, a rollout with a
+    # planted bad canary; every replica and driver a child of this script
+    fleet5o = fleet_on_card(ck, dev, smi)
+    mark("5o fleet")
 
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
@@ -9060,7 +9777,11 @@ def main() -> int:
         **serving_5l["pycaffe"]["launches"],
         # phase 5n: perf_probe's parts, serveload, the profiler capture,
         # feedbench (no kernel) and roundbench
-        **obs5n["launches"]}
+        **obs5n["launches"],
+        # phase 5o: the fleet's replicas (each cleanly exited process's
+        # own counts, summed), this process's references and rollout
+        # engines, and the lenet drivers
+        **fleet5o["launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}

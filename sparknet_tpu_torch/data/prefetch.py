@@ -19,8 +19,10 @@ before a pull), and a feed still dead after that raises
 :class:`FeedStalled`.  Each restart is a ``feed_restart`` flight event
 and a ``feed_restarts_total`` count; a stall past the budget records
 ``feed_stalled`` and dumps the flight recorder (``utils/telemetry.py``).
-The JAX package's health-plane heartbeat is not ported (ROADMAP A12); :meth:`PrefetchIterator._before_pull` is where
-the injector fires there, and a test overrides it here.
+A stall past the budget also publishes a ``feed_stalled`` heartbeat
+(``parallel/health.py``) while ``SPARKNET_HEARTBEAT_DIR`` is set.
+:meth:`PrefetchIterator._before_pull` is where the JAX package's fault
+injector fires; a test overrides it here.
 """
 
 from __future__ import annotations
@@ -160,6 +162,10 @@ class PrefetchIterator:
             rec.record("feed_stalled", delivered=self._delivered,
                        reason=reason)
             rec.dump("feed_stalled")
+            # the consumer is alive and names its feed as the culprit: a
+            # straggler monitor must not read its silence as a hung rank
+            from ..parallel import health
+            health.maybe_beat(self._delivered, "feed_stalled")
             raise self._err
         telemetry.get_recorder().record(
             "feed_restart", delivered=self._delivered, reason=reason,

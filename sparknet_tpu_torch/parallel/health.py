@@ -15,10 +15,17 @@ Env contract (consumed by ``maybe_beat`` and the serving beacons):
   SPARKNET_PROC_ID:       the rank stamped into the beat.
   SPARKNET_FAULT_ATTEMPT: the job attempt stamped into the beat.
 
-Ages compare the reader's clock against the writer's.  The supervisor
-half of the JAX module (``LeaseMonitor``, ``GangHealth``,
-``StragglerMonitor``, :240-414) is not ported: it comes with the fleet,
-ROADMAP A12.
+Ages compare the reader's clock against the writer's.
+
+The supervisor half turns beat ages into verdicts: ``StragglerMonitor``
+names the live ranks whose last beat is older than a per-round deadline
+(a rank that never beat is never flagged: startup is the job timeout's
+business), ``LeaseMonitor`` calls a host SUSPECT when its newest beat
+across all ranks is older than ``lease_window_s``, and ``GangHealth``
+combines the two so a silent host's ranks are suspended rather than
+killed.  ``tools/launch.py`` runs the straggler monitor; ``GangHealth``
+serves a launcher over remote hosts (the pod half); the fleet's status
+views read the lease window.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import sys
 import time
 from typing import Callable
 
@@ -198,3 +206,200 @@ def maybe_beat(round_idx: int, phase: str = "round_start",
                round_idx, phase,
                attempt=knobs.get_int("SPARKNET_FAULT_ATTEMPT", 0),
                extras=extras)
+
+
+def lease_window_s(lease_s: float | None = None,
+                   misses: int | None = None) -> float:
+    """The lease window: SPARKNET_LEASE_S x SPARKNET_LEASE_MISSES seconds
+    of whole-host beacon silence before a host is SUSPECT."""
+    lease = knobs.get_float("SPARKNET_LEASE_S", 2.0) \
+        if lease_s is None else lease_s
+    n = knobs.get_int("SPARKNET_LEASE_MISSES", 3) if misses is None \
+        else misses
+    if lease <= 0:
+        raise ValueError(f"SPARKNET_LEASE_S must be > 0, got {lease}")
+    if n < 1:
+        raise ValueError(f"SPARKNET_LEASE_MISSES must be >= 1, got {n}")
+    return lease * n
+
+
+LEASE_LIVE = "live"
+LEASE_SUSPECT = "suspect"
+LEASE_NO_BEATS = "no_beats"
+
+
+class LeaseMonitor:
+    """Per-host lease over the beacon tree: a host whose NEWEST beat
+    (across all its ranks) is older than the lease window is SUSPECT —
+    the whole-host-silent signature of a severed link.  A single stale
+    rank on an otherwise-beating host is NOT a lease event (that is the
+    per-rank straggler discipline's case).  The lease never says "lost":
+    death is only ever confirmed out-of-band (``host_down_probe``)."""
+
+    def __init__(self, directory: str, *, lease_s: float | None = None,
+                 misses: int | None = None,
+                 clock: Callable[[], float] = time.time):
+        self.directory = directory
+        self.window_s = lease_window_s(lease_s, misses)
+        self._clock = clock
+
+    def beat_age(self, host: str) -> float | None:
+        """Age of ``host``'s newest beat across its ranks, or None."""
+        beats = _read_flat(host_dir(self.directory, host))
+        if not beats:
+            return None
+        now = self._clock()
+        return min(b.age(now) for b in beats.values())
+
+    def state(self, host: str) -> str:
+        age = self.beat_age(host)
+        if age is None:
+            return LEASE_NO_BEATS
+        return LEASE_SUSPECT if age > self.window_s else LEASE_LIVE
+
+    def states(self, hosts) -> dict[str, str]:
+        return {str(h): self.state(str(h)) for h in hosts}
+
+
+class GangHealth:
+    """Lease-aware gang monitor — the ``launch_ssh`` supervisor's check
+    loop for remote transports.  Each tick it (1) pumps the transport's
+    beat relay (staging dir -> supervisor ``host_<name>/`` dir; relay
+    silence during a partition IS the signal), (2) classifies hosts:
+    lease-expired or ``suspect_probe``-flagged hosts become SUSPECT and
+    their ranks are *suspended* from straggler discipline — a partition
+    must not kill a healthy gang — unless ``down_probe`` confirms the
+    machine is actually dead, in which case straggler discipline
+    proceeds and the resilience layer takes the lost-host path.  A host
+    leaving suspension gets one round-deadline of grace before its ranks
+    are judged again (its first post-heal beat may still be in flight).
+    Drop-in monitor for ``tools.launch._wait_all`` (same ``check`` /
+    ``deadline_s`` / ``last_age`` surface as StragglerMonitor)."""
+
+    def __init__(self, directory: str, deadline_s: float, *, host_map,
+                 transport=None, suspect_probe: Callable | None = None,
+                 down_probe: Callable | None = None,
+                 lease: LeaseMonitor | None = None,
+                 clock: Callable[[], float] = time.time):
+        self.straggler = StragglerMonitor(directory, deadline_s, clock)
+        self.lease = lease or LeaseMonitor(directory, clock=clock)
+        self.host_map = [str(h) for h in host_map]
+        self.transport = transport
+        self.suspect_probe = suspect_probe
+        self.down_probe = down_probe
+        self._clock = clock
+        self.suspect_hosts: set[str] = set()
+        self.ever_suspect: set[str] = set()
+        self.confirmed_down: set[str] = set()
+        self._grace_until: dict[str, float] = {}
+
+    @property
+    def deadline_s(self) -> float:
+        return self.straggler.deadline_s
+
+    @property
+    def directory(self) -> str:
+        return self.straggler.directory
+
+    def _pump(self) -> None:
+        if self.transport is None or self.transport.local:
+            return
+        for host in dict.fromkeys(self.host_map):
+            stage = stage_dir(self.directory, host)
+            try:
+                self.transport.beat_sync(host, stage,
+                                         host_dir(self.directory, host))
+            except OSError:
+                pass   # severed link: no beats arrive — that IS the data
+
+    def check(self, live_ranks) -> list[int]:
+        self._pump()
+        now = self._clock()
+        suspects: set[str] = set()
+        # only hosts that still have live ranks can be suspects — a host
+        # whose ranks all exited cleanly simply stops beating
+        live_hosts = {self.host_map[r] for r in live_ranks
+                      if r < len(self.host_map)}
+        for host in (h for h in dict.fromkeys(self.host_map)
+                     if h in live_hosts):
+            flagged = (self.suspect_probe(host)
+                       if self.suspect_probe else False)
+            expired = self.lease.state(host) == LEASE_SUSPECT
+            if not (flagged or expired):
+                continue
+            if self.down_probe is not None and self.down_probe(host):
+                if host not in self.confirmed_down:
+                    print(f"health: host {host} silent AND down-probe "
+                          f"confirmed dead; escalating to lost-host "
+                          f"path", file=sys.stderr, flush=True)
+                self.confirmed_down.add(host)
+                continue    # dead, not partitioned: straggler kill runs
+            suspects.add(host)
+        for host in sorted(suspects - self.suspect_hosts):
+            print(f"health: host {host} lease expired "
+                  f"({self.lease.window_s:.3g}s) — SUSPECT, suspending "
+                  f"its ranks (partition != death; no restart burned)",
+                  file=sys.stderr, flush=True)
+        for host in sorted(self.suspect_hosts - suspects):
+            print(f"health: host {host} beating again — healed, "
+                  f"resuming straggler discipline after grace",
+                  file=sys.stderr, flush=True)
+            self._grace_until[host] = now + self.deadline_s
+        self.suspect_hosts = suspects
+        self.ever_suspect |= suspects
+        shielded = set(suspects)
+        for host, until in list(self._grace_until.items()):
+            if now < until:
+                shielded.add(host)
+            else:
+                del self._grace_until[host]
+        ranks = [r for r in live_ranks
+                 if self.host_map[r] not in shielded]
+        return self.straggler.check(ranks)
+
+    def last_age(self, rank: int) -> float | None:
+        return self.straggler.last_age(rank)
+
+
+def stage_dir(root: str, host: str) -> str:
+    """Where a remote host's ranks beat locally before the relay moves
+    them into the supervisor's ``host_<name>/`` dir.  In the fake-ssh CI
+    rig this is a real local dir; a real deployment mounts it."""
+    return os.path.join(root, f"stage_{host}")
+
+
+class StragglerMonitor:
+    """Supervisor side of the health plane: given the heartbeat dir and a
+    per-round ``deadline_s``, :meth:`check` names the live ranks whose
+    last beat is older than the deadline.  A rank with no beat yet is
+    never flagged (startup grace — see module docstring); each rank is
+    flagged at most once."""
+
+    def __init__(self, directory: str, deadline_s: float,
+                 clock: Callable[[], float] = time.time):
+        if deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        self.directory = directory
+        self.deadline_s = deadline_s
+        self._clock = clock
+        self._flagged: set[int] = set()
+
+    def check(self, live_ranks) -> list[int]:
+        """Ranks from ``live_ranks`` past the deadline (newly flagged)."""
+        now = self._clock()
+        beats = read_all(self.directory)
+        out = []
+        for rank in live_ranks:
+            if rank in self._flagged:
+                continue
+            beat = beats.get(rank)
+            if beat is not None and beat.age(now) > self.deadline_s:
+                self._flagged.add(rank)
+                out.append(rank)
+        return out
+
+    def last_age(self, rank: int) -> float | None:
+        """Age of ``rank``'s last beat, or None if it never beat — the
+        post-mortem datum ResilientRunner folds into its error report."""
+        beat = read_beat(self.directory, rank)
+        return None if beat is None else beat.age(self._clock())

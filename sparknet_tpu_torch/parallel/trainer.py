@@ -71,7 +71,10 @@ round's span closes where the round already waits for the card (the
 loss fetch without a harvest lag) or, with a lag, when its work is
 enqueued.  The plane adds no synchronisation to a round.  The JAX
 package's ``trainer_audit_trips_total`` belongs to the cross-replica
-audit (ROADMAP A12).
+audit (ROADMAP A12).  While ``SPARKNET_HEARTBEAT_DIR`` is set the trainer
+beats (``parallel/health.py``) at ``init``, ``round_start`` and
+``round_end``, the last with the JAX trainer's extras: ``stall_s``, the
+trip counters and the feed's stats.
 """
 
 from __future__ import annotations
@@ -478,6 +481,8 @@ class DistributedTrainer:
             if cfg.guard_numerics and self.resumed is None:
                 # a baseline, so the very first round can roll back
                 self.save_round_checkpoint()
+        from . import health
+        health.maybe_beat(self.round, "init")
 
     def _state_tier(self) -> int:
         """Solver states (and residuals) kept: one per host under
@@ -704,6 +709,8 @@ class DistributedTrainer:
                                  f"{self.n_workers} workers")
         round_idx = self.round
         lag = self.config.harvest_lag
+        from . import health
+        health.maybe_beat(round_idx, "round_start")
         injector = faults.get_injector()
         if any(s.kind == "bitflip_params" for s in injector.specs):
             raise NotImplementedError(
@@ -762,11 +769,25 @@ class DistributedTrainer:
         if (self.config.checkpoint_dir
                 and self.round % self.config.checkpoint_every == 0):
             self.save_round_checkpoint()
+        health.maybe_beat(round_idx, "round_end", extras=self._beat_extras())
         while len(self._pending) > lag:
             h = self._harvest_one()
             if h is not None:
                 loss_val = h
         return loss_val
+
+    def _beat_extras(self) -> dict:
+        """Telemetry riding the round_end heartbeat: per-component host
+        stalls, trip counters and the feed's stats, under the JAX
+        trainer's keys (the fleet status view reads them)."""
+        extras = {
+            "stall_s": {k: round(v, 4) for k, v in self.stall_s.items()},
+            "guard_trips": self.guard_trips,
+            "audit_trips": 0,   # the cross-replica audit is not ported
+        }
+        if self.feed_stats is not None:
+            extras["feed"] = self.feed_stats.snapshot()
+        return extras
 
     # -- the numerical guard (the JAX package's trainer.py:1048-1130) -----
     @staticmethod
@@ -1179,9 +1200,13 @@ class DistributedTrainer:
                     os.remove(p)
                 except OSError:
                     pass
-        # temporaries of writers killed mid-write (ours are renamed away
-        # by now, so anything *.tmp.* is an orphan)
+        # temporaries of writers killed mid-write.  This process's own
+        # may be in flight: the main thread claims the fence of the next
+        # round (FENCE.json.tmp.<pid>) while this writer thread prunes
+        own = f".tmp.{os.getpid()}"
         for p in glob.glob(os.path.join(directory, "*.tmp.*")):
+            if p.endswith(own):
+                continue
             try:
                 os.remove(p)
             except OSError:

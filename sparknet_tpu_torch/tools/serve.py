@@ -1,6 +1,6 @@
 """Long-lived inference server over the serving plane.
 
-The port's own copy of the root ``tools/serve.py`` (its single mode), with
+The port's own copy of the root ``tools/serve.py``, with
 the port's ``--device`` (cuda unless the caller asks for the CPU).  A thin
 stdlib-HTTP shell around ``parallel/serving.py``: the engine owns dynamic
 micro-batching, admission control, hot load and evict, the SLO monitor and
@@ -41,12 +41,24 @@ Usage:
   python -m sparknet_tpu_torch.tools.serve --models lenet,caffenet \
       --port 8100 --shapes 1,4,16,64 --max-delay-ms 5 --queue-depth 256 \
       --quota acme=200 --hbm-budget-mb 2048 --dtype bf16 [--device cpu]
+  python -m sparknet_tpu_torch.tools.serve --models caffenet --fleet 2 \
+      --port 8100 --dtype f32 [--device cpu]
 
 With SPARKNET_HEARTBEAT_DIR set the engine writes serving beacons.  The
-ready line on stdout starts with ``serving on http://``.  ``--fleet N``
-(replicas behind a request router) is not ported: it and each of its
-``--fleet-*`` flags raise naming :data:`FLEET_ITEM`.  ``--endpoint-file`` publishes {url, pid, models}
-atomically once the socket is up.
+ready line on stdout starts with ``serving on http://``.
+``--endpoint-file`` publishes {url, pid, models} atomically once the
+socket is up.
+
+``--fleet N`` runs N replicas per model as serve-kind jobs of a
+``FleetScheduler`` (each a process of this tool with the front's
+``--device``, configured through the ``SPARKNET_SERVE_*`` knobs of
+:func:`serve_env_from`), the request router at the front and the
+autoscaler behind it.  The front owns no engine: ``/v1/classify`` routes
+(consistent-hash home, depth spill, typed failover), ``/healthz`` gives
+the router table and the device budget, ``/fleet`` the scheduler's
+status, ``/slo`` the replicas' verdicts, ``/v1/scale`` sets a model's
+replica count; ``--fleet-devices``, ``--fleet-workdir``,
+``--fleet-tenant`` and ``--fleet-priority`` shape the fleet.
 """
 
 from __future__ import annotations
@@ -61,9 +73,6 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
-
-FLEET_ITEM = "ROADMAP A11, fleet half (A12)"
-
 
 def decode_array(payload: dict) -> np.ndarray:
     """The wire formats the server accepts: raw-bytes b64 (the fast path,
@@ -199,6 +208,145 @@ def make_handler(engine, house):
     return Handler
 
 
+def make_fleet_handler(fleet):
+    """The front endpoint of ``--fleet`` mode: same wire format as a
+    single replica, but /v1/classify routes through the request router
+    (consistent-hash home + spill + failover) and the observability
+    routes aggregate the whole fleet."""
+    from ..classify import http_json
+    from ..parallel.serving import (
+        EngineDead, Overloaded, ServingError, UnknownModel,
+    )
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # noqa: N802
+            pass
+
+        def _send(self, code: int, obj: dict) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _read_json(self) -> dict:
+            n = int(self.headers.get("Content-Length", "0") or 0)
+            return json.loads(self.rfile.read(n).decode()) if n else {}
+
+        def do_GET(self):  # noqa: N802
+            from urllib.parse import parse_qs, urlparse
+            u = urlparse(self.path)
+            if u.path == "/healthz":
+                st = fleet.router.stats()
+                live = [r for r, v in st["replicas"].items()
+                        if v["state"] == "ACTIVE"]
+                self._send(200 if live else 503, {
+                    "alive": bool(live), "router": st,
+                    "devices": {
+                        "total": fleet.sched.allocator.total,
+                        "free": fleet.sched.allocator.free_count}})
+            elif u.path == "/slo":
+                # per-replica verdicts, scoped to ?model= when given —
+                # tenant isolation is judged per model, not fleet-wide
+                model = (parse_qs(u.query).get("model") or [None])[0]
+                docs, ok = {}, True
+                for rid in fleet.router.replica_ids(model=model,
+                                                    live_only=False):
+                    url = fleet._endpoints.get(rid)
+                    if not url:
+                        continue
+                    try:
+                        docs[rid] = http_json(f"{url}/slo", timeout=10.0)
+                    except RuntimeError as e:
+                        if "HTTP 503" in str(e):
+                            docs[rid] = {"state": "breach",
+                                         "error": str(e)}
+                        else:
+                            docs[rid] = {"state": "unknown",
+                                         "error": str(e)}
+                    except OSError as e:
+                        docs[rid] = {"state": "unknown",
+                                     "error": repr(e)}
+                    ok = ok and docs[rid].get("state") == "ok"
+                self._send(200 if (ok and docs) else 503,
+                           {"state": "ok" if (ok and docs) else "breach",
+                            "model": model, "replicas": docs})
+            elif u.path == "/fleet":
+                self._send(200, fleet.sched.status())
+            elif u.path == "/v1/models":
+                models: dict = {}
+                for r in fleet.router.stats()["replicas"].values():
+                    for m in r["models"]:
+                        models.setdefault(m, {"replicas": 0})
+                        models[m]["replicas"] += 1
+                reg = None
+                if any("@" in m for m in models):
+                    from ..parallel.registry import active_registry
+                    reg = active_registry()
+                for m, info in models.items():
+                    base, sep, ver = m.partition("@")
+                    if sep:
+                        info["version"] = ver
+                        if reg is not None:
+                            info["channel"] = reg.channel_of(base, ver)
+                self._send(200, {"models": models})
+            elif u.path == "/metrics":
+                from ..utils import telemetry
+                body = telemetry.get_registry().render().encode()
+                self.send_response(200)
+                self.send_header(
+                    "Content-Type",
+                    "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            else:
+                self._send(404, {"error": f"no route {self.path!r}"})
+
+        def do_POST(self):  # noqa: N802
+            try:
+                payload = self._read_json()
+            except (ValueError, json.JSONDecodeError) as e:
+                return self._send(400, {"error": f"bad JSON: {e}"})
+            try:
+                if self.path == "/v1/classify":
+                    res = fleet.router.classify(
+                        payload.get("model", ""), decode_array(payload),
+                        tenant=str(payload.get("tenant", "anon")),
+                        timeout=float(payload.get("timeout_s", 30.0)),
+                        version=payload.get("version") or None)
+                    return self._send(200, {
+                        "model": res.model, "request_id": res.request_id,
+                        "probs": [float(p) for p in res.probs],
+                        "top": res.top, "queue_ms": res.queue_ms,
+                        "infer_ms": res.infer_ms, "total_ms": res.total_ms,
+                        "batch_n": res.batch_n, "padded_to": res.padded_to})
+                if self.path == "/v1/scale":
+                    model = payload["model"]
+                    want = int(payload["replicas"])
+                    have = fleet.active_replica_jobs(model)
+                    while len(have) < want and fleet.scale_up(model):
+                        have = fleet.active_replica_jobs(model)
+                    while len(have) > want \
+                            and fleet.scale_down(model) is not None:
+                        have = fleet.active_replica_jobs(model)
+                    return self._send(200, {"model": model,
+                                            "replicas": len(have)})
+                return self._send(404, {"error": f"no route {self.path!r}"})
+            except Overloaded as e:
+                self._send(429, {"error": str(e), "reason": e.reason})
+            except UnknownModel as e:
+                self._send(404, {"error": str(e),
+                                 "reason": "unknown_model"})
+            except EngineDead as e:
+                self._send(503, {"error": str(e), "reason": "engine_dead"})
+            except (ServingError, TimeoutError, KeyError, ValueError) as e:
+                self._send(400, {"error": str(e)})
+
+    return Handler
+
+
 def parse_models(specs) -> list[tuple[str, str | None]]:
     """``lenet,caffenet=weights.caffemodel`` -> [(name, weights|None)]."""
     out = []
@@ -266,28 +414,24 @@ def main(argv=None) -> int:
                     help="publish {url, pid, models} here (atomic) once "
                          "the socket is up")
     ap.add_argument("--fleet", type=int, default=0, metavar="N",
-                    help=f"fleet mode: N serving replicas per model behind "
-                         f"a request router (not ported: {FLEET_ITEM})")
-    # the fleet's own flags, kept for the JAX tool's command lines: each
-    # raises as --fleet does
+                    help="fleet mode: run N serving replicas per model "
+                         "as fleet tenants behind a request router + "
+                         "autoscaler, and serve the router at --port")
     ap.add_argument("--fleet-devices", type=int, default=None,
-                    help=f"device budget for the replica fleet (not "
-                         f"ported: {FLEET_ITEM})")
+                    help="device budget for the replica fleet "
+                         "(default: N x models)")
     ap.add_argument("--fleet-workdir", default=None,
-                    help=f"fleet state dir (not ported: {FLEET_ITEM})")
-    ap.add_argument("--fleet-tenant", default=None,
-                    help=f"tenant the replica jobs bill against (not "
-                         f"ported: {FLEET_ITEM})")
-    ap.add_argument("--fleet-priority", type=int, default=None,
-                    help=f"priority of the replica jobs (not ported: "
-                         f"{FLEET_ITEM})")
+                    help="fleet state dir (journal, replica job dirs, "
+                         "autoscale.json/router.json; default: a temp "
+                         "dir)")
+    ap.add_argument("--fleet-tenant", default="serving",
+                    help="tenant the replica jobs bill against")
+    ap.add_argument("--fleet-priority", type=int, default=0,
+                    help="priority of the replica jobs (training jobs "
+                         "above it can preempt them — through drain)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    fleet_flags = [f"--{k.replace('_', '-')}" for k, v in vars(args).items()
-                   if k.startswith("fleet") and v]
-    if fleet_flags:
-        return fleet_main(fleet_flags)
 
     from ..parallel.serving import InferenceEngine, ModelHouse, ServeConfig
 
@@ -320,6 +464,9 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, on_signal)
     signal.signal(signal.SIGINT, on_signal)
+
+    if args.fleet:
+        return fleet_main(args, cfg, stop)
 
     house = ModelHouse(cfg, device=args.device)
     declared_p99: list[float] = []
@@ -371,6 +518,29 @@ def main(argv=None) -> int:
     return 0
 
 
+def serve_env_from(cfg) -> dict:
+    """The ServeConfig as env knobs — how fleet replicas inherit the
+    front's serving configuration with no per-replica CLI."""
+    env = {
+        "SPARKNET_SERVE_SHAPES": ",".join(str(s)
+                                          for s in cfg.batch_shapes),
+        "SPARKNET_SERVE_MAX_DELAY_MS": str(cfg.max_delay_ms),
+        "SPARKNET_SERVE_QUEUE": str(cfg.max_queue),
+        "SPARKNET_SERVE_INFLIGHT": str(cfg.inflight_batches),
+        "SPARKNET_SERVE_HBM_MB": str(cfg.hbm_budget_mb),
+        "SPARKNET_SERVE_DTYPE": cfg.dtype,
+        "SPARKNET_SLO_REJECT_BUDGET": str(cfg.slo_reject_budget),
+        "SPARKNET_SLO_WINDOW_S": str(cfg.slo_window_s),
+        "SPARKNET_SLO_FAST_S": str(cfg.slo_fast_window_s),
+    }
+    if cfg.tenant_qps:
+        env["SPARKNET_SERVE_QUOTAS"] = ",".join(
+            f"{t}={q:g}" for t, q in sorted(cfg.tenant_qps.items()))
+    if cfg.slo_p99_ms is not None:
+        env["SPARKNET_SLO_P99_MS"] = str(cfg.slo_p99_ms)
+    return env
+
+
 def write_endpoint(path: str, host, port: int, models: list) -> None:
     """Atomic endpoint publication (tmp + rename: a reader never sees a
     torn doc)."""
@@ -392,12 +562,63 @@ class Server(ThreadingHTTPServer):
     request_queue_size = 128
 
 
-def fleet_main(flags: list[str]) -> int:
-    """``--fleet N`` and its flags: replicas behind the request router
-    and the autoscaler.  Not ported; never falls back to single mode."""
-    raise NotImplementedError(
-        f"serve {' '.join(flags)}: replica fleets behind a request router "
-        f"are not ported yet ({FLEET_ITEM})")
+def fleet_main(args, cfg, stop) -> int:
+    """``--fleet N``: N replicas per model as serve-kind fleet tenants,
+    the request router at the front, the autoscaler closing the SLO
+    loop.  The front process owns no engine — replicas are subprocesses
+    the FleetScheduler placed, each a full single-model server started
+    with the front's ``--device``."""
+    import tempfile
+
+    from ..parallel.autoscale import Autoscaler, fleet_stats_fn
+    from ..parallel.router import ServingFleet
+    from ..utils.device import resolve_device
+
+    model_specs = [name if not weights else f"{name}={weights}"
+                   for name, weights in parse_models(args.models)]
+    if not model_specs:
+        raise SystemExit("--fleet needs at least one --models entry")
+    device = resolve_device(args.device).type   # no card: raise here
+    devices = args.fleet_devices or args.fleet * len(model_specs)
+    workdir = args.fleet_workdir or tempfile.mkdtemp(
+        prefix="sparknet-servefleet-")
+    fleet = ServingFleet(
+        workdir, devices, tenant=args.fleet_tenant,
+        priority=args.fleet_priority, serve_env=serve_env_from(cfg),
+        device=device)
+    autoscaler = Autoscaler(
+        fleet_stats_fn(fleet), fleet.scale_up, fleet.scale_down,
+        state_path=os.path.join(workdir, "autoscale.json"))
+    for spec in model_specs:
+        fleet.ensure(spec, args.fleet)
+    fleet.run_background()
+    try:
+        for spec in model_specs:
+            fleet.wait_ready(spec, args.fleet, timeout_s=300.0)
+    except TimeoutError as e:
+        print(f"[serve] fleet never became ready: {e}", file=sys.stderr,
+              flush=True)
+        fleet.stop()
+        return 1
+    # the autoscaler starts once every replica answers: started with the
+    # fleet, its idle rule can release a replica still in its cold start
+    # (a CaffeNet replica on an H100 took longer than the idle window)
+    fleet.attach_autoscaler(autoscaler)
+    autoscaler.start()
+
+    httpd = Server((args.host, args.port), make_fleet_handler(fleet))
+    host, port = httpd.server_address[:2]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    print(f"serving on http://{host}:{port} "
+          f"(fleet: {args.fleet} replica(s) x "
+          f"{', '.join(model_specs)}; workdir {workdir})", flush=True)
+    if args.endpoint_file:
+        write_endpoint(args.endpoint_file, host, port, model_specs)
+    stop.wait()
+    print("[serve] shutting the fleet down", file=sys.stderr, flush=True)
+    httpd.shutdown()
+    fleet.stop()
+    return 0
 
 
 if __name__ == "__main__":

@@ -159,6 +159,10 @@ _SERVING, _TRAINER = _P + "parallel/serving.py", _P + "parallel/trainer.py"
 _PIPELINE, _RECORDS = _P + "data/pipeline.py", _P + "data/records.py"
 _TELEMETRY, _FAULTS = _P + "utils/telemetry.py", _P + "utils/faults.py"
 _CKPT = _P + "utils/checkpoint.py"
+_CLUSTER, _RESIL = _P + "parallel/cluster.py", _P + "parallel/resilience.py"
+_FLEET, _ROUTER = _P + "parallel/fleet.py", _P + "parallel/router.py"
+_AUTOSCALE, _ROLLOUT = _P + "parallel/autoscale.py", \
+    _P + "parallel/rollout.py"
 
 _register(
     # --- graph: the lowering tuner, fusion ---
@@ -320,6 +324,78 @@ _register(
          "Refused by name: the JAX package's per-shard round "
          "checkpoints; comm_config_from_env raises when it is set "
          "(ROADMAP A12).", _TRAINER),
+    # --- the fleet: launcher contract, supervision, scheduler ---
+    Knob("SPARKNET_COORDINATOR", "str", "",
+         "Gang coordinator address set by tools/launch.py with NUM_PROCS "
+         "and PROC_ID; the port accepts only the one-process contract.",
+         _CLUSTER),
+    Knob("SPARKNET_NUM_PROCS", "int", "",
+         "World size under the launcher contract; above 1 is refused "
+         "(ROADMAP A12, pod half).", _CLUSTER),
+    Knob("SPARKNET_RESTART_COUNT", "int", "0",
+         "Exported by the supervisor to relaunched children: restarts so "
+         "far.", _RESIL),
+    Knob("SPARKNET_FENCE_BASE", "int", "0",
+         "Fleet-stamped incarnation fence base (episode * 1e5); the runner "
+         "adds its attempt to mint SPARKNET_FENCE_TOKEN; 0 = fencing off.",
+         _RESIL),
+    Knob("SPARKNET_LEASE_S", "float", "2",
+         "Heartbeat lease: a host whose newest beat is older than "
+         "LEASE_S * LEASE_MISSES is SUSPECT (suspended, never killed).",
+         _P + "parallel/health.py"),
+    Knob("SPARKNET_LEASE_MISSES", "int", "3",
+         "Missed leases before a host turns SUSPECT.",
+         _P + "parallel/health.py"),
+    Knob("SPARKNET_SSH_CMD", "str", "",
+         "Refused by name: the ssh binary of the JAX package's remote "
+         "launch; the fleet scheduler raises when it is set (ROADMAP A12, "
+         "pod half).", _FLEET),
+    Knob("SPARKNET_FLEET_HOSTS", "spec", "",
+         "Host inventory for placement: 'name=devices[@addr],...' inline "
+         "or a JSON list path; a remote addr is refused (pod half); unset "
+         "= the single-host device budget.", _FLEET),
+    Knob("SPARKNET_FLEET_HOST", "str", "",
+         "Host label the launcher stamps on each worker; joins beats and "
+         "telemetry to the placement.", _P + "tools/launch.py"),
+    Knob("SPARKNET_FLEET_HOSTVEC", "str", "",
+         "Comma-separated per-slot host labels of the gang's placement, "
+         "exported to fleet tenants.", _FLEET),
+    # --- router, autoscaler, rollout ---
+    Knob("SPARKNET_ROUTER_SPILL_DEPTH", "int", "16",
+         "Queue depth at the home replica beyond which the router spills "
+         "to the next ring member.", _ROUTER),
+    Knob("SPARKNET_ROUTER_FAILOVERS", "int", "3",
+         "Most alternate replicas tried before a typed routing failure.",
+         _ROUTER),
+    Knob("SPARKNET_ROUTER_DRAIN_S", "float", "30",
+         "Seconds a draining replica keeps answering in-flight work.",
+         _ROUTER),
+    Knob("SPARKNET_AUTOSCALE_MIN", "int", "1", "Replica floor.", _AUTOSCALE),
+    Knob("SPARKNET_AUTOSCALE_MAX", "int", "4",
+         "Replica ceiling (device budget).", _AUTOSCALE),
+    Knob("SPARKNET_AUTOSCALE_UP_QUEUE", "float", "8.0",
+         "Mean queue depth per replica that triggers scale-up.",
+         _AUTOSCALE),
+    Knob("SPARKNET_AUTOSCALE_DOWN_IDLE_S", "float", "10.0",
+         "Idle seconds before a replica may be scaled down.", _AUTOSCALE),
+    Knob("SPARKNET_AUTOSCALE_COOLDOWN_S", "float", "5.0",
+         "Least seconds between scaling decisions.", _AUTOSCALE),
+    Knob("SPARKNET_AUTOSCALE_EVAL_S", "float", "1.0",
+         "Policy evaluation period in seconds.", _AUTOSCALE),
+    Knob("SPARKNET_ROLLOUT_CANARY_FRACTION", "float", "0.1",
+         "Traffic share a newly started canary takes, in (0, 1].",
+         _ROLLOUT),
+    Knob("SPARKNET_ROLLOUT_JUDGE_S", "float", "8.0",
+         "Seconds of sustained health before the judge promotes a canary.",
+         _ROLLOUT),
+    Knob("SPARKNET_ROLLOUT_POLL_S", "float", "0.5",
+         "Judge poll interval in seconds.", _ROLLOUT),
+    Knob("SPARKNET_ROLLOUT_MIN_REQUESTS", "int", "20",
+         "Observed requests needed before a canary may be promoted.",
+         _ROLLOUT),
+    Knob("SPARKNET_ROLLOUT_BREACH_POLLS", "int", "2",
+         "Consecutive breach verdicts that trigger the rollback.",
+         _ROLLOUT),
     # --- tombstones: the JAX package's, window closed ---
     Knob("SPARKNET_LRN_CUMSUM", "bool", "",
          "REMOVED: pin LRN window-sum form per key in the SPARKNET_TUNE "

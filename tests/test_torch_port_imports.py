@@ -705,3 +705,42 @@ def test_observability_and_bench_tools_run_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+FLEET_MODULES = ["tools/launch.py", "parallel/health.py",
+                 "parallel/resilience.py", "parallel/cluster.py",
+                 "tools/multihost_driver.py", "parallel/fleet.py",
+                 "tools/fleet.py", "parallel/router.py",
+                 "parallel/autoscale.py", "parallel/rollout.py",
+                 "tools/serve.py", "tools/serveload.py", "tools/soak.py"]
+FLEET_TOOLS = ["launch", "multihost_driver", "fleet", "serve", "serveload",
+               "soak"]
+
+
+def test_fleet_modules_are_scanned_and_tools_run_with_jax_blocked():
+    """The fleet's modules are among the files the scans above cover,
+    and with ``jax`` and ``sparknet_tpu`` blocked each fleet tool's
+    ``--help`` runs and names ``--device``."""
+    for rel in FLEET_MODULES:
+        assert PKG / rel in SOURCES, rel
+    code = (
+        "import sys, contextlib, io, importlib\n"
+        "for m in ('jax', 'sparknet_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for tool in {FLEET_TOOLS!r}:\n"
+        "    mod = importlib.import_module("
+        "'sparknet_tpu_torch.tools.' + tool)\n"
+        "    out = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(out):\n"
+        "        try:\n"
+        "            mod.main(['--help'])\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, (tool, e.code)\n"
+        "    assert '--device' in out.getvalue(), tool\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.')) for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")

@@ -12,8 +12,9 @@ JSON keys from both, and probabilities within 1e-5 of each other;
 ``/metrics`` carries the same metric names.  A registry version the JAX
 package published loads over ``/v1/models/load`` and serves when pinned
 by ``version``.  ``classify_cli --server`` gives the local CLI's
-probabilities within 1e-5.  ``--fleet`` raises naming ROADMAP A12, and
-without ``--device cpu`` and without a card the server refuses to run.
+probabilities within 1e-5.  Without ``--device cpu`` and without a card
+the server refuses to run, ``--fleet`` included (the fleet itself is
+held in tests/test_torch_fleet_serving.py).
 """
 
 from __future__ import annotations
@@ -386,15 +387,19 @@ def test_parse_helpers_match_the_jax_tool():
     ids=lambda f: f[0].lstrip("-"))
 def test_fleet_raises_naming_a12_and_never_serves(monkeypatch, tmp_path,
                                                   flag):
-    """``--fleet`` and each of its flags raise naming A12; none is read
-    and dropped, and nothing falls back to single mode."""
+    """``--fleet`` (with each of its flags) left to its default device on
+    a machine with no card raises before any replica starts: no
+    endpoint, no fleet journal, and nothing carries on on the CPU."""
+    import torch
     monkeypatch.setattr(signal, "signal", lambda *a: None)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11, fleet "
-                                                  r"half \(A12\)"):
-        port_serve.main(["--models", "lenet", *flag, "--device",
-                         "cpu", "--endpoint-file",
-                         str(tmp_path / "e.json")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    fleet = [] if flag[0] == "--fleet" else ["--fleet", "2"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_serve.main(["--models", "lenet", *fleet, *flag,
+                         "--endpoint-file", str(tmp_path / "e.json")])
     assert not (tmp_path / "e.json").exists()
+    assert not list(tmp_path.rglob("fleet_journal.jsonl"))
 
 
 def test_server_refuses_the_cpu_unless_asked(monkeypatch):

@@ -7,7 +7,8 @@ its solo references (bit for bit), its overload leg rejects and keeps
 its p99 under the bound, the SLO monitor reads ok after the paced sweep
 and breach (with a flight dump) under overload; ``--smoke`` exits 0; a
 served answer one ulp off its reference is caught; ``--url`` counts a
-429 as the engine's typed rejection; ``--fleet`` raises naming A12."""
+429 as the engine's typed rejection; ``--fleet`` needs the card unless
+the CPU is asked for."""
 
 from __future__ import annotations
 
@@ -124,11 +125,16 @@ def test_remote_transport_builds_the_engines_result(monkeypatch):
 @pytest.mark.parametrize("argv", [["--fleet", "2"],
                                   ["--fleet-devices", "3"],
                                   ["--workdir", "/tmp/x"]])
-def test_fleet_legs_raise_naming_a12(argv):
-    with pytest.raises(NotImplementedError, match="A12"):
-        serveload.main(argv + ["--device", "cpu"])
-    assert "A12" in serve.FLEET_ITEM
-    with pytest.raises(NotImplementedError, match=serve.FLEET_ITEM[:20]):
+def test_fleet_legs_raise_naming_a12(monkeypatch, argv):
+    """The fleet legs left to their default device on a machine with no
+    card raise before any replica starts (the legs themselves are held
+    in tests/test_torch_fleet_serving.py)."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fleet = [] if argv[0] == "--fleet" else ["--fleet", "2"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serveload.main(fleet + argv)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         serveload.run_fleet_report()
 
 
