@@ -50,7 +50,8 @@ launches); a ``DistributedTrainer`` from ``comm_config_from_env`` (2
 workers x 64, τ=5, the crop on the card) with each codec (none, bf16,
 int8, int8_channel, and int8 with ``comm_overlap``): exchange bytes, the
 error-feedback invariant and the card's encode against the CPU's on the
-card's own deltas, overlap bit-identical; recovery in child processes
+card's own deltas, overlap bit-identical with less comm stall, above 0;
+recovery in child processes
 (``--round-child``): a run killed by ``crash_in_ckpt`` mid-checkpoint
 and resumed, bit for bit the fault-free run, a ``nan_inject`` under the
 guard rolled back to the same bits, with planted faults (a codec that
@@ -125,9 +126,9 @@ CaffeNet from 5c's LMDB as record shards through the Solver at batch 256
 with the host transform, with ``set_augment`` on the host and on the
 card (those two bit for bit; planted: a mirror along the rows), ms an
 iteration beside 5c's ``caffe_cli train`` with the native transform;
-the learning proxy on full-width cifar10_full at ``--scale 1400`` (1x,
-8-way, hier 2x4, 50 iterations each) and a τ sweep (τ 2 and 10, codecs
-none and int8, 50 iterations), img/s per card, exact launches, and the
+the learning proxy on full-width cifar10_full at ``--scale 3500`` (1x,
+8-way, hier 2x4, 20 iterations each) and a τ sweep (τ 2 and 10, codecs
+none and int8, 20 iterations), img/s per card, exact launches, and the
 first 10 iterations of 1x on the card against the CPU.  Phase 5l runs
 pycaffe's ``caffe`` module and the serving plane: ``python -m
 sparknet_tpu_torch.tools.serve --models caffenet=W`` (f32, through
@@ -181,8 +182,22 @@ higher priority, requeued and resumed bit for bit an unpreempted run
 resume fed the wrong round's batch, an orphan left running); every replica, front and driver is a
 ``--fleet-child`` of this script that writes its own launch counts, B2
 twice a forward and the pool backward twice a worker step exact in each
-that exits cleanly, and no fleet process is left.  The kernels line counts
-the launches with the ReLU folded in apart (``relu_launches``).  A
+that exits cleanly, and no fleet process is left.  Phase 5p (after 5o)
+runs the round over the wire: ``tools/commbench.py`` in this process
+(lenet, 4 workers, τ=2, 8 rounds a training: codec none bit for bit,
+error feedback exact with the planted residual dropper caught, the loss
+band, int8 with overlap bit for bit and with less comm stall, above 0,
+a 50 ms spin queued ahead of each measured round keeping the card behind
+the host, int8's bytes 4x fewer), then ``tools/soak.py --net --net-slice`` with
+every lenet driver (4 workers) a ``--fleet-child`` started over the
+fake-ssh wire with ``--device cuda``: the partition leg SUSPECT with no
+kill and no straggler, the fenced leg resumed past a torn ship with the
+zombie refused and no temporaries left, both bit for bit the baseline;
+the pool backward twice a worker step exact in commbench and in every
+driver; planted: ``_verified_copy`` without its crc checks lands a
+flipped chunk, which the manifest's sha256 must refuse.  The kernels
+line counts the launches with the ReLU folded in apart
+(``relu_launches``).  A
 ``timeline`` line gives each phase's seconds.
 Prints the card, timings, a
 ``{"kernels": [...]}`` line and,
@@ -1070,12 +1085,13 @@ def check_feed(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_WORKERS, TRAIN_TAU = 2, 5
-# Round 0 warms up and rounds 1-4 are steady.  The feed builds rounds
+# Round 0 warms up and rounds 1-3 are steady.  The feed builds rounds
 # ahead while round 0 runs, so the first steady rounds can take stock
 # the feed built then; by the later ones a feed-bound loop waits for
-# every round it takes.  (8 rounds until phase 5o took the time.)
-TRAIN_ROUNDS = 5
-PROFILE_ROUND = 4         # the steady round that --profile traces
+# every round it takes.  (8 rounds until phase 5o took the time, 5 until
+# phase 5p did.)
+TRAIN_ROUNDS = 4
+PROFILE_ROUND = 3         # the steady round that --profile traces
 TRAIN_RESIZE, TRAIN_CROP = 256, 227     # bvlc_reference_caffenet's
 GN_CROP = 224                           # bvlc_googlenet's and VGG-16's
 CIFAR_TAU, CIFAR_ROUNDS = 10, 2         # CifarApp.scala:111
@@ -3686,9 +3702,12 @@ def codec_rounds(ck, dev, rounds: list) -> dict:
         torch.cuda.empty_cache()
     if differing(finals["int8"], finals["int8_overlap"]):
         fail("round: int8 with comm_overlap differs from without")
-    if out["int8_overlap"]["stall_s"] != {k: 0.0 for k in (
-            "comm_encode", "comm_allreduce", "comm_decode")} or \
-            out["int8"]["stall_s"]["comm_encode"] <= 0:
+    # both charge each stage's host time (F4); only the run without
+    # overlap also waits for the device after each stage
+    ov, sy = out["int8_overlap"]["stall_s"], out["int8"]["stall_s"]
+    if not (ov["comm_encode"] > 0 and ov["comm_decode"] > 0
+            and sy["comm_encode"] > 0
+            and sum(ov.values()) < sum(sy.values())):
         fail(f"round: stall_s with/without overlap "
              f"{out['int8_overlap']['stall_s']} / {out['int8']['stall_s']}")
     gap = abs(out["int8"]["losses"][-1] - out["none"]["losses"][-1])
@@ -4008,13 +4027,13 @@ def bench_solver(dev, cfg, dtype: str):
 
 def bench_in_process(ck, dev, smi: str, solver_ms_b256: float) -> dict:
     """The bench at its defaults but 1 timed window, 1 epoch of the
-    records tier, 2 rounds a round leg and 1 s serving points (the
+    records tier, 1 round a round leg and 1 s serving points (the
     script's time limit), each phase's launches
     counted from 0 and each of its timed windows also timed by CUDA
     events recorded inside it, around its blocks' launches; every check
     of the line."""
     from sparknet_tpu_torch import bench as bench_mod
-    cfg = bench_mod.BenchConfig(windows=1, records_epochs=1, round_n=2,
+    cfg = bench_mod.BenchConfig(windows=1, records_epochs=1, round_n=1,
                                 serve_seconds=1.0)
     launches: dict[str, dict] = {}
     windows: dict[str, list] = {}
@@ -6814,18 +6833,20 @@ def tools_and_classifiers(ck, dev, smi: str) -> dict:
 # the learning proxy and the τ sweep on full-width cifar10_full
 # ---------------------------------------------------------------------------
 
-AUG_ITERS, AUG_WARM = 12, 2     # Solver iterations a feed, the first warm
+AUG_ITERS, AUG_WARM = 8, 2      # Solver iterations a feed, the first warm
+                                # (12 until phase 5p took the time)
 FEED_BATCHES = 4                # one epoch of 5c's 1,024 records at 256
 NATIVE_JPEGS = ("s420", "s422", "s444", "gray", "progressive", "restart",
                 "truncated")
-# the published cifar10_full schedule (70,000 iterations) divided by 1,400:
-# 50 iterations, the lr drops at 42 and 46; the tool's defaults
-# otherwise (10,000 + 2,000 images, batch 100, 8 workers, τ=10, hier 2x4)
-PROXY_SCALE, PROXY_WORKERS = 1400, 8
+# the published cifar10_full schedule (70,000 iterations) divided by 3,500
+# (1,400 until phase 5p took the time): 20 iterations, whole rounds of
+# every τ, the lr drops at 17 and 18; the tool's defaults otherwise
+# (10,000 + 2,000 images, batch 100, 8 workers, τ=10, hier 2x4)
+PROXY_SCALE, PROXY_WORKERS = 3500, 8
 PROXY_ITERS = 70000 // PROXY_SCALE
-# the τ sweep: 2 τ x 2 codecs at 50 iterations (divided by 1,400) on the
+# the τ sweep: 2 τ x 2 codecs at 20 iterations (divided by 3,500) on the
 # sweep tool's 2,000 + 400 images
-SWEEP_SCALE, SWEEP_TAUS, SWEEP_CODECS = 1400, (2, 10), ("none", "int8")
+SWEEP_SCALE, SWEEP_TAUS, SWEEP_CODECS = 3500, (2, 10), ("none", "int8")
 SWEEP_ITERS = 70000 // SWEEP_SCALE
 # the first 10 iterations of 1x on 2,000 + 100 images, card against CPU:
 # their mean loss within 1e-4 relative (the CPU tests' bound against the
@@ -7125,7 +7146,7 @@ def pool_only(n: int) -> dict:
 
 
 def learning_proxy_runs(ck, dev, d: str) -> dict:
-    """(c) the learning proxy at ``--scale 1400`` (1x, 8-way, hier) and the τ
+    """(c) the learning proxy at ``--scale 3500`` (1x, 8-way, hier) and the τ
     sweep, through their ``main``s on the card; exact launches, finite
     curves, img/s per card."""
     from sparknet_tpu_torch.parallel import comms
@@ -8167,7 +8188,7 @@ FUSE_BOUND = 1e-5       # fused against per-layer params and served rows
 # summation order flips a few ReLU and pool branches); swapping a
 # group's slices reads 2.112 in fusebench (both H100 80GB HBM3, 700 W)
 HFUSE_GRAD_BOUND = 1e-3
-STALENESS_BUDGET_S = 20
+STALENESS_BUDGET_S = 8     # 20 until phase 5p took the time
 
 
 def committed_plan(model: str) -> str:
@@ -8747,7 +8768,7 @@ FLEET_SPILL_DEPTH = "2"                 # (a): both replicas take requests
 # (b): the JAX tool's legs at 1 s points, 2 replicas in a budget of 3, no
 # bystander model (the isolation leg needs a fourth replica start)
 FLEET_REPORT_5O = dict(model=FLEET_MODEL, replicas=2, devices=3,
-                       shapes=(1, 4, 16), dtype="f32", clients=4,
+                       shapes=(1, 16), dtype="f32", clients=4,
                        seconds=1.0, inputs_n=8, isolation_model=None)
 LENET_WORLD, LENET_ROUNDS, LENET_TAU = 2, 4, 2   # the driver's τ
 LENET_POOLS = 2                          # lenet's MAX pools
@@ -9384,6 +9405,225 @@ def fleet_on_card(ck, dev, smi: str) -> dict:
     return report
 
 
+# Phase 5p: the round over the wire on the card.  (a) ``tools/commbench.py``
+# in this process: lenet, 4 workers x 16 rows, τ=2, 8 rounds a training,
+# its five verdicts (the overlap's stall gated on the card) with the
+# planted residual dropper caught.  (b) ``tools/soak.py --net --net-slice``:
+# its fault-free baseline and both legs' lenet drivers (4 workers) are
+# ``--fleet-child`` drivers of this script, started over the fake-ssh wire
+# with ``--device cuda`` on their command line.  (c) planted: the real
+# ``_verified_copy`` with its crc checks skipped lands a flipped chunk,
+# which the manifest's sha256 must refuse.
+COMMBENCH_ROUNDS, COMMBENCH_WORKERS, COMMBENCH_TAU = 8, 4, 2
+COMMBENCH_ARGV = ["--rounds", str(COMMBENCH_ROUNDS), "--devices",
+                  str(COMMBENCH_WORKERS), "--batch", "16", "--tau",
+                  str(COMMBENCH_TAU)]
+# commbench's trainings: none three times (no codec, off, on), the three
+# real codecs, int8 with overlap
+COMMBENCH_TRAININGS = 7
+NET_WORKERS = 4                  # soak's wire driver: --local-devices 4
+SHIP_CHUNK = 65536               # the net legs' SPARKNET_SHIP_CHUNK_MB
+
+
+def commbench_5p(ck, dev, d: str) -> dict:
+    """(a) commbench in this process, every training's rounds counted."""
+    import io
+    from sparknet_tpu_torch.parallel import trainer
+    from sparknet_tpu_torch.tools import commbench
+    rounds = [0]
+    real_round = trainer.DistributedTrainer.train_round
+
+    def counted_round(self, batches):
+        rounds[0] += 1
+        return real_round(self, batches)
+
+    want_rounds = COMMBENCH_TRAININGS * COMMBENCH_ROUNDS
+    want = {"max_pool_bwd": LENET_POOLS * COMMBENCH_WORKERS * COMMBENCH_TAU
+            * want_rounds, **FLEET_POOL_ONLY}
+    path = os.path.join(d, "commbench.json")
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer.DistributedTrainer, "train_round",
+                           counted_round), \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = commbench.main(COMMBENCH_ARGV + ["--device", dev.type,
+                                              "--out", path])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    got = launched(ck)
+    with open(path) as f:
+        doc = json.load(f)
+    if rc != 0 or not doc["ok"] or doc["failures"]:
+        fail(f"5p commbench: rc {rc}, failures {doc['failures']}")
+    if not doc["stall_gated"] or doc["ef_invariant"]["int8_dropres"]:
+        fail(f"5p commbench: stall gated {doc['stall_gated']}, planted "
+             f"dropper {doc['ef_invariant']}")
+    if not doc["comm_stall_overlap_s"] > 0:
+        fail(f"5p commbench: no comm stall under overlap "
+             f"{doc['overlap_int8']}")
+    if rounds[0] != want_rounds or {k: got[k] for k in want} != want:
+        fail(f"5p commbench: {rounds[0]} rounds, launches {got}, want "
+             f"{want_rounds} rounds, {want}")
+    return {"wall_s": wall, "device": doc["device"],
+            "comm_stall_sync_s": doc["comm_stall_sync_s"],
+            "comm_stall_overlap_s": doc["comm_stall_overlap_s"],
+            "wall_s_by_codec": {"none": doc["none"]["wall_s"],
+                                **{c: r["wall_s"]
+                                   for c, r in doc["codecs"].items()},
+                                "int8_overlap":
+                                    doc["overlap_int8"]["wall_s"]},
+            "exchange_bytes": {"none": doc["exchange_bytes_none"],
+                               **{c: r["exchange_bytes"]
+                                  for c, r in doc["codecs"].items()}},
+            "shrink_x": doc["comm_bytes_shrink_x"],
+            "launches": {"commbench_lenet_5p": {
+                k: got[k] for k in want}}}
+
+
+def net_soak_5p(ck, dev, d: str) -> dict:
+    """(b) ``soak --net --net-slice`` on the card: the partition leg SUSPECT
+    with no kill and no straggler, the fenced leg resumed past a torn ship
+    with the zombie refused and no temporaries left, both bit for bit the
+    baseline; each driver's pool launches exact."""
+    from sparknet_tpu_torch.parallel import fleet as fl
+    from sparknet_tpu_torch.tools import multihost_driver, soak
+    out = os.path.join(d, "p_counts")
+    os.makedirs(out)
+    path = os.path.join(d, "net.json")
+    rounds = soak.NET_ROUNDS
+    want_rounds = sorted([rounds, rounds, rounds // 2, rounds - rounds // 2])
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ), \
+            mock.patch.object(fl, "DRIVER_CMD", child_command("driver", out)):
+        rc = soak.main(["--net", "--net-slice", "--device", dev.type,
+                        "--out", path, "--workdir", os.path.join(d, "net")])
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        rep = json.load(f)
+    part, fenced = rep["episodes"]
+    if rc != 0 or not rep["ok"]:
+        fail(f"5p net soak: rc {rc}, " + json.dumps(rep["episodes"]))
+    if part["suspects"] != ["hostb"] or part["stragglers"] \
+            or part["cause"] != "clean" or not part["match"]:
+        fail(f"5p net soak: partition leg {part}")
+    ship = fenced["ship"]
+    if not (ship["resumed_bytes"] > 0 and fenced["zombie"]["refused"]
+            and fenced["match"] and "torn_leftovers" not in fenced):
+        fail(f"5p net soak: fenced leg {fenced}")
+    parent = {k: launched(ck)[k] for k in ("max_pool_bwd",
+                                            *FLEET_POOL_ONLY)}
+    if any(parent.values()):
+        fail(f"5p net soak: this process launched {parent}")
+    recs = child_records(out, "driver")
+    total = dict(FLEET_POOL_ONLY, max_pool_bwd=0)
+    for r in recs:
+        want = {"max_pool_bwd": LENET_POOLS * r["workers"]
+                * multihost_driver.TAU * r["rounds"], **FLEET_POOL_ONLY}
+        got = {k: r["launches"][k] for k in want}
+        if r["rc"] != 0 or got != want or r["workers"] != NET_WORKERS:
+            fail(f"5p net soak: driver pid {r['pid']} launches {got}, "
+                 f"want {want}")
+        total["max_pool_bwd"] += got["max_pool_bwd"]
+    if sorted(r["rounds"] for r in recs) != want_rounds:
+        fail(f"5p net soak: rounds by driver "
+             f"{sorted(r['rounds'] for r in recs)}, want {want_rounds}")
+    return {"wall_s": wall,
+            "partition_s": part["elapsed_s"],
+            "lease_detect_s": part.get("lease_detect_s"),
+            "suspect_to_heal_s": part.get("suspect_to_heal_s"),
+            "fenced_s": fenced["elapsed_s"],
+            "ship_bytes": ship["bytes"],
+            "resumed_bytes": ship["resumed_bytes"],
+            "ship_mb_per_s": ship["bytes"] / ship["wall_s"] / 1e6,
+            "soak_s": rep["elapsed_s"],
+            "rounds_by_driver": sorted(r["rounds"] for r in recs),
+            "launches": {"net_soak_lenet_drivers_5p": total}}
+
+
+def crc_skipping_copy(src: str, dst: str, *, chunk: int | None = None
+                      ) -> dict:
+    """``transport._verified_copy`` with its crc checks taken out: the
+    torn temporary's whole chunks are kept as they are, the rest copied,
+    nothing read back before the rename."""
+    from sparknet_tpu_torch.parallel import transport as tp
+    chunk = chunk or tp._ship_chunk_bytes()
+    size = os.path.getsize(src)
+    tmp = f"{dst}.tmp.ship"
+    have = os.path.getsize(tmp) if os.path.exists(tmp) else 0
+    resumed = min(have, size) // chunk * chunk
+    with open(src, "rb") as f, open(tmp, "r+b" if resumed else "wb") as o:
+        f.seek(resumed)
+        o.seek(resumed)
+        o.truncate(resumed)
+        o.write(f.read())
+    os.replace(tmp, dst)
+    return {"bytes": size, "chunks": -(-(size - resumed) // chunk),
+            "resumed_bytes": resumed}
+
+
+def planted_crc_skip_caught(d: str) -> dict:
+    """(c) The fenced leg's checkpoints shipped again onto a host whose
+    temporary holds a torn earlier transfer with a flipped byte in its
+    second chunk: the real copy resumes past the first chunk only and
+    lands the manifest's bytes; the same copy with its crc checks skipped
+    keeps the flipped chunk, and the manifest's sha256 must refuse it."""
+    import shutil
+    from sparknet_tpu_torch.parallel import transport as tp
+    src = os.path.join(d, "net", "fenced_zombie_ship", "ckpt_host_hosta")
+    r = tp.newest_valid_round(src)
+    name = f"ckpt_round_{r:08d}.npz"
+    with open(os.path.join(src, name), "rb") as f:
+        torn = bytearray(f.read(3 * SHIP_CHUNK))
+    torn[SHIP_CHUNK + 17] ^= 0x01
+    out = {}
+    for label in ("real", "planted"):
+        dst = os.path.join(d, f"crc_{label}")
+        os.makedirs(dst)
+        with open(os.path.join(dst, name + ".tmp.ship"), "wb") as f:
+            f.write(torn)
+        copy = (crc_skipping_copy if label == "planted"
+                else tp._verified_copy)
+        with mock.patch.dict(os.environ, {"SPARKNET_SHIP_CHUNK_MB":
+                                          str(SHIP_CHUNK / 2**20)}), \
+                mock.patch.object(tp, "_verified_copy", copy):
+            try:
+                out[label] = tp.ship_latest_checkpoint(
+                    tp.LocalTransport(), "hostc", src, dst)
+            except tp.ShipError as e:
+                out[label] = e
+        if label == "real":
+            rec = out["real"]
+            if isinstance(rec, Exception) or rec["round"] != r \
+                    or rec["resumed_bytes"] != SHIP_CHUNK \
+                    or tp.newest_valid_round(dst) != r:
+                fail(f"5p planted crc: the real copy gave {rec}")
+        shutil.rmtree(dst)
+    if not isinstance(out["planted"], tp.ShipError):
+        fail(f"5p planted crc: a copy that skips the crc check landed a "
+             f"flipped chunk unseen ({out['planted']})")
+    return {"real": out["real"], "planted": str(out["planted"])}
+
+
+def net_on_card(ck, dev, smi: str) -> dict:
+    """Phase 5p."""
+    import tempfile
+    t0 = time.perf_counter()
+    report: dict = {}
+    with tempfile.TemporaryDirectory(prefix="net_5p_") as d:
+        report["commbench"] = commbench_5p(ck, dev, d)
+        report["net_soak"] = net_soak_5p(ck, dev, d)
+        report["planted_crc"] = planted_crc_skip_caught(d)
+    report["launches"] = {k: v for part in report.values()
+                          if "launches" in part
+                          for k, v in part.pop("launches").items()}
+    report["seconds"] = time.perf_counter() - t0
+    print(f"net_5p [{smi}] " + json.dumps(
+        {k: v for k, v in report.items() if k != "launches"},
+        default=str), flush=True)
+    return report
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
                  rows: list[dict], main: list[dict],
                  relu_launches: dict | None = None) -> dict:
@@ -9687,6 +9927,13 @@ def main() -> int:
     fleet5o = fleet_on_card(ck, dev, smi)
     mark("5o fleet")
 
+    # phase 5p: the round over the wire: commbench's five verdicts on the
+    # card, soak's partition and fenced-ship legs with every lenet driver
+    # a child of this script started over the fake-ssh wire, and a planted
+    # copy that skips its crc checks
+    net5p = net_on_card(ck, dev, smi)
+    mark("5p the round over the wire")
+
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
     # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
@@ -9781,7 +10028,9 @@ def main() -> int:
         # phase 5o: the fleet's replicas (each cleanly exited process's
         # own counts, summed), this process's references and rollout
         # engines, and the lenet drivers
-        **fleet5o["launches"]}
+        **fleet5o["launches"],
+        # phase 5p: commbench's trainings and the net soak's drivers
+        **net5p["launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}

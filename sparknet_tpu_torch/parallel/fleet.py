@@ -45,11 +45,14 @@ renders it as a table.
 
 The built-in commands are module-level values (:data:`SERVE_CMD`,
 :data:`DRIVER_CMD`), so a harness can wrap them; each built-in command
-gets the scheduler's ``device`` as ``--device``.  Placement on remote
-hosts (a host transport, checkpoint shipping) is the pod half: a
-``HostPool`` with a remote address, or SPARKNET_SSH_CMD, makes the
-scheduler raise (ROADMAP A12, pod half); a ``HostPool`` of local hosts
-places gangs, every gang checkpointing into its job's ``ckpt/``.
+gets the scheduler's ``device`` as ``--device``.  A gang placed on a
+``HostPool`` host with a remote address, or anywhere while
+SPARKNET_SSH_CMD is set, launches through a host transport
+(``parallel/transport.py``, the ssh wire format) and checkpoints into a
+host-local ``ckpt_host_<host>/``; before it launches, the newest valid
+round any of the job's checkpoint dirs holds is shipped there
+(crc-verified, resumable, sha256-checked against its manifest).  A gang
+of local hosts checkpoints into its job's ``ckpt/``.
 """
 
 from __future__ import annotations
@@ -66,7 +69,6 @@ import time
 from typing import Any, Callable, Iterable, Mapping
 
 from ..utils import telemetry
-from ..tools.launch import LOCAL_ADDRS
 from .resilience import ResilientRunner, RestartPolicy
 
 # job lifecycle states (journaled verbatim)
@@ -90,7 +92,6 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 DRIVER_CMD = [sys.executable, "-m",
               "sparknet_tpu_torch.tools.multihost_driver"]
 SERVE_CMD = [sys.executable, "-m", "sparknet_tpu_torch.tools.serve"]
-POD_HALF = "ROADMAP A12, pod half"
 
 # models the built-in driver workload can train (the zoo driver trains
 # lenet; anything else needs an explicit JobSpec.cmd)
@@ -491,6 +492,9 @@ class FleetJob:
         self.signaled_pids: set[int] = set()
         self.all_pids: set[int] = set()
         self.error: str | None = None
+        # remote placements checkpoint into a host-local dir (set per
+        # launch); None = the shared default ``ckpt/``
+        self.active_ckpt_dir: str | None = None
 
     @property
     def name(self) -> str:
@@ -503,6 +507,13 @@ class FleetJob:
     @property
     def ckpt_dir(self) -> str:
         return os.path.join(self.job_dir, "ckpt")
+
+    def host_ckpt_dir(self, host: str) -> str:
+        """Where a gang placed on ``host`` over a remote transport keeps
+        its checkpoints: host-local state, not assumed shared.  A requeue
+        onto another host ships the newest valid checkpoint here before
+        it launches (see FleetScheduler._launch)."""
+        return os.path.join(self.job_dir, f"ckpt_host_{host}")
 
     def ckpt_dirs(self) -> list[str]:
         """Every checkpoint dir this job has ever written (shared
@@ -531,7 +542,7 @@ class FleetJob:
         filled (``{device}`` too), else the built-in driver or replica
         command with ``--device device`` appended when given."""
         spec = self.spec
-        ckpt = self.ckpt_dir
+        ckpt = self.active_ckpt_dir or self.ckpt_dir
         os.makedirs(ckpt, exist_ok=True)
         if spec.cmd is not None:
             sub = {"out": self.out_path, "ckpt": ckpt,
@@ -614,17 +625,6 @@ class FleetScheduler:
                  clock: Callable[[], float] = time.monotonic,
                  _journal: bool = True):
         self.workdir = os.path.abspath(workdir)
-        remote = [h.name for h in (hosts.specs() if hosts else ())
-                  if h.addr not in LOCAL_ADDRS]
-        from ..utils import knobs
-        if remote or knobs.raw("SPARKNET_SSH_CMD"):
-            # the JAX scheduler ships checkpoints to such hosts and
-            # launches over ssh
-            what = (f"hosts {remote} with remote addresses" if remote
-                    else "SPARKNET_SSH_CMD")
-            raise NotImplementedError(
-                f"{what}: placement through a host transport is not "
-                f"ported yet ({POD_HALF})")
         os.makedirs(self.workdir, exist_ok=True)
         self.pool = hosts
         self.allocator = GangAllocator(total_devices, pool=hosts)
@@ -746,6 +746,19 @@ class FleetScheduler:
         return (self._clock() - job.submitted_at) >= job.spec.not_before_s
 
     # -- launch -----------------------------------------------------------
+    def _job_transport(self, job: FleetJob):
+        """The host transport for ``job``'s placement, or None when the
+        gang is purely local (the direct-spawn path).  Remote means
+        SPARKNET_SSH_CMD is set (the fake-ssh rig included) or a placed
+        host has a non-local address; network fault specs chaos-wrap
+        it."""
+        if not job.hosts or self.pool is None:
+            return None
+        from .transport import default_transport
+        tp = default_transport(
+            [self.pool.spec(h).addr for h in job.hosts])
+        return None if tp.local else tp
+
     def _default_runner(self, job: FleetJob, cmd: list[str],
                         env: dict) -> ResilientRunner:
         # with a pool, the runner knows its placement (one supervised
@@ -764,6 +777,13 @@ class FleetScheduler:
                 host_down_probe=lambda h: pool.state.get(h) == HOST_LOST,
                 host_suspect_probe=(
                     lambda h: pool.state.get(h) == HOST_SUSPECT))
+            transport = self._job_transport(job)
+            if transport is not None:
+                # the gang rides the transport: ssh wire format, staged
+                # beats and lease discipline, host-local checkpoints
+                place_kw = dict(
+                    hosts=[pool.spec(job.hosts[0]).addr],
+                    transport=transport)
         return ResilientRunner(
             cmd,
             timeout=job.spec.timeout_s,
@@ -790,6 +810,44 @@ class FleetScheduler:
         if job.preempt_requested:
             self._signal_job(job, signal.SIGTERM)
 
+    def _ship_checkpoints(self, job: FleetJob, transport) -> None:
+        """Checkpoint locality before a launch: a gang placed over a
+        remote transport on a host whose checkpoint dir lacks the newest
+        valid round pulls it from wherever the job last checkpointed
+        (crc-verified resumable chunks, sha256-checked against the
+        manifest at the destination, manifest shipped last).  A ship that
+        fails in the end is loud but not fatal: the gang launches from
+        whatever its host has (an older round resumes correctly, just
+        further back; round 0 launches cold)."""
+        from .transport import (TransportError, newest_valid_round,
+                                ship_latest_checkpoint)
+        dst = job.active_ckpt_dir
+        best_dir, best_r = None, None
+        for d in job.ckpt_dirs():
+            if os.path.realpath(d) == os.path.realpath(dst):
+                continue
+            r = newest_valid_round(d)
+            if r is not None and (best_r is None or r > best_r):
+                best_dir, best_r = d, r
+        if best_dir is None:
+            return
+        try:
+            rec = ship_latest_checkpoint(transport, job.hosts[0],
+                                         best_dir, dst)
+        except (TransportError, OSError) as e:
+            print(f"fleet: checkpoint ship to {job.hosts[0]!r} failed "
+                  f"({e}); launching from local state", file=sys.stderr,
+                  flush=True)
+            self._journal_ev("ship_fail", job=job.name,
+                             host=job.hosts[0], error=str(e))
+            return
+        if rec and not rec.get("skipped"):
+            print(f"fleet: shipped round {rec['round']} checkpoint "
+                  f"({rec['bytes']} B) to {job.hosts[0]!r} for "
+                  f"{job.name!r}", file=sys.stderr, flush=True)
+            self._journal_ev("ship", job=job.name, host=job.hosts[0],
+                             **rec)
+
     def _launch(self, job: FleetJob, slots: tuple[int, ...]) -> None:
         job.slots = slots
         job.hosts = self.allocator.hosts_of(slots)
@@ -802,6 +860,11 @@ class FleetScheduler:
         job.signaled_pids = set()
         job.procs = []
         job.episodes += 1
+        transport = self._job_transport(job)
+        job.active_ckpt_dir = (job.host_ckpt_dir(job.hosts[0])
+                               if transport is not None else None)
+        if job.active_ckpt_dir is not None:
+            self._ship_checkpoints(job, transport)
         cmd = job.build_cmd(self.device)
         env = dict(self.extra_env)
         env.update(job.spec.env)
@@ -828,11 +891,12 @@ class FleetScheduler:
         if job.spec.fault:
             env["SPARKNET_FAULT"] = job.spec.fault
         job.runner = self.runner_factory(job, cmd, env)
+        tkind = transport.kind if transport is not None else "local"
         for h in job.hosts:
-            self._host_transports[h] = "local"
+            self._host_transports[h] = tkind
         self._journal_ev("launch", job=job.name, episode=job.episodes,
                          slots=list(slots), hosts=list(job.hosts), cmd=cmd,
-                         transport="local")
+                         transport=tkind)
         job.thread = threading.Thread(
             target=self._supervise, args=(job, job.runner),
             name=f"fleet-{job.name}", daemon=True)

@@ -290,6 +290,8 @@ class GangHealth:
         self._clock = clock
         self.suspect_hosts: set[str] = set()
         self.ever_suspect: set[str] = set()
+        # host -> when (by ``clock``) it first turned SUSPECT
+        self.suspect_since: dict[str, float] = {}
         self.confirmed_down: set[str] = set()
         self._grace_until: dict[str, float] = {}
 
@@ -336,6 +338,7 @@ class GangHealth:
                 continue    # dead, not partitioned: straggler kill runs
             suspects.add(host)
         for host in sorted(suspects - self.suspect_hosts):
+            self.suspect_since.setdefault(host, now)
             print(f"health: host {host} lease expired "
                   f"({self.lease.window_s:.3g}s) — SUSPECT, suspending "
                   f"its ranks (partition != death; no restart burned)",

@@ -7,7 +7,8 @@ stage; ``spark.task.maxFailures`` is pinned to 1 at CifarApp.scala:36)
 and the driver's reschedule.  The launcher (``tools/launch.py``)
 reproduces fail-fast; this module is the reschedule half, in two tiers.
 
-**Restart**: ``ResilientRunner`` wraps ``launch_local``, watches the
+**Restart**: ``ResilientRunner`` wraps ``launch_local`` (``nprocs=``) or
+``launch_ssh`` (``hosts=``, over a host transport), watches the
 worker set, and on any nonzero exit relaunches the whole job with
 jittered exponential backoff under a bounded restart budget.  Recovery is
 round-granular: the relaunched job finds the newest valid checkpoint
@@ -32,8 +33,11 @@ runs with a per-rank log tee and a heartbeat dir, so the final failure
 (``run_or_raise`` / ``.failure``) names the culprit rank with the tail of
 its log and the age of its last heartbeat.
 
-Placement on other hosts (``hosts=``, ``transport=``) is the pod half of
-the fleet and raises (ROADMAP A12, pod half).
+With ``hosts=`` each attempt runs one rank a host through ``launch_ssh``
+(``transport=``, or the one the env names): the ssh wire format, beats
+staged on the host and relayed, and lease discipline, so a partitioned
+host is suspended rather than restarted; an elastic re-form drops the
+host itself.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import tempfile
 import time
 from typing import Callable
 
-from ..tools.launch import EXIT_STRAGGLER, POD_HALF, free_port, launch_local
+from ..tools.launch import EXIT_STRAGGLER, free_port, launch_local, launch_ssh
 from ..utils import telemetry
 from . import health
 
@@ -164,10 +168,6 @@ class ResilientRunner:
                  on_spawn: Callable[[list], None] | None = None):
         if (nprocs is None) == (hosts is None):
             raise ValueError("exactly one of nprocs / hosts is required")
-        if hosts is not None or transport is not None:
-            raise NotImplementedError(
-                f"ResilientRunner over hosts={hosts!r}: placement through "
-                f"a host transport is not ported yet ({POD_HALF})")
         self.cmd = list(cmd)
         self.nprocs = nprocs
         self.hosts = list(hosts) if hosts else None
@@ -326,6 +326,16 @@ class ResilientRunner:
             report=report,
             host_map=list(self.host_map) if self.host_map else None,
             on_spawn=self.on_spawn)
+        if self.hosts is not None:
+            return launch_ssh(self.cmd, self.hosts,
+                              coordinator_port=free_port(),
+                              cwd=self.cwd, timeout=self.timeout,
+                              device=self.device,
+                              local_devices=self.local_devices,
+                              extra_env=env, transport=self.transport,
+                              host_suspect_probe=self.host_suspect_probe,
+                              host_down_probe=self.host_down_probe,
+                              **health_kw)
         return launch_local(self.cmd, self.nprocs, device=self.device,
                             local_devices=self.local_devices,
                             coordinator=f"127.0.0.1:{free_port()}",

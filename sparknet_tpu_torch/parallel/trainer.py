@@ -642,27 +642,28 @@ class DistributedTrainer:
         """The compressed τ-boundary average (the JAX package's
         ``_run_comm_round``, :805-836): encode, exchange the stacked
         payload (on one card it passes as it is; ``comms.exchange_bytes``
-        counts what a wire would carry), decode.  Without
-        ``comm_overlap`` the host waits for the device after each stage
-        and ``stall_s`` charges the wait; with it the three stages queue
-        without a wait and give the same bits."""
+        counts what a wire would carry), decode.  ``stall_s`` charges each
+        stage's host time under both settings.  Without ``comm_overlap``
+        the host also waits for the device after each stage, and the wait
+        is charged with it; with it the three stages queue without a wait
+        and give the same bits."""
         overlap = self.config.comm_overlap
         t0 = time.perf_counter()
         payload, self.comm_residual = self._encode(
             _stack(local), self.params, self.comm_residual)
         if not overlap:
             self._sync_device()
-            self.stall_s["comm_encode"] += time.perf_counter() - t0
+        self.stall_s["comm_encode"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         gathered = payload
         if not overlap:
             self._sync_device()
-            self.stall_s["comm_allreduce"] += time.perf_counter() - t0
+        self.stall_s["comm_allreduce"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         self.params = self._decode(gathered, self.params)
         if not overlap:
             self._sync_device()
-            self.stall_s["comm_decode"] += time.perf_counter() - t0
+        self.stall_s["comm_decode"] += time.perf_counter() - t0
 
     def train_round(self, batches: Mapping[str, Any]) -> float:
         """Run one round.  ``batches`` maps each input blob to an array or

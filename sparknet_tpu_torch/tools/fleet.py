@@ -22,14 +22,15 @@ Usage:
   python -m sparknet_tpu_torch.tools.fleet --devices 4 --workdir /tmp/fl \\
       --jobs jobs.json --quota acme=2 [--device cpu]
   python -m sparknet_tpu_torch.tools.fleet --hosts 'a=2,b=2' \\
-      --workdir /tmp/fl --jobs jobs.json     # local hosts only
+      --workdir /tmp/fl --jobs jobs.json
   python -m sparknet_tpu_torch.tools.fleet --workdir /tmp/fl --resume
   python -m sparknet_tpu_torch.tools.fleet status --workdir /tmp/fl [--json]
   python -m sparknet_tpu_torch.tools.fleet mark-host b lost --workdir /tmp/fl
 
 ``--hosts`` takes an inline inventory (``name=devices[@addr]``) or a
 JSON file path; SPARKNET_FLEET_HOSTS supplies it when the flag is absent.
-A host with a remote address is refused (ROADMAP A12, pod half).
+A host with a remote address (or any host while SPARKNET_SSH_CMD is set)
+places its gangs through a host transport, with checkpoint shipping.
 ``mark-host <host> live|suspect|draining|lost`` appends to the
 host-control channel the running scheduler polls.  ``status`` reads the
 journal, the heartbeats and the metrics snapshots the workers wrote,

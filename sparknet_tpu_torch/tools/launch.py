@@ -16,7 +16,11 @@ Modes:
          process per gang (the workers of a round share the card), so a
          training command is launched with ``nprocs=1``; ``parallel/
          cluster.py`` refuses a world of more than one process.
-  ssh    not ported: ``launch_ssh`` raises (ROADMAP A12, pod half).
+  ssh    run the command on each host of ``--hosts`` through a host
+         transport (``parallel/transport.py``), process i on host i; a
+         host transport places processes, it carries no tensor traffic.
+         Each remote process gets ``--device``/``--local-devices`` on its
+         command line like a local one.
 
 Health plane: with ``heartbeat_dir`` set the children get
 SPARKNET_HEARTBEAT_DIR (workers publish per-round beats through
@@ -34,6 +38,9 @@ Usage:
   python -m sparknet_tpu_torch.tools.launch --nprocs 1 --device cpu \
       -- python -m sparknet_tpu_torch.tools.multihost_driver \
       --local-devices 2 --out /tmp/out.npz --ckpt-dir /tmp/ckpt
+  SPARKNET_SSH_CMD=./fake-ssh python -m sparknet_tpu_torch.tools.launch \
+      --hosts 127.0.0.1 --device cpu -- python -m \
+      sparknet_tpu_torch.tools.multihost_driver --local-devices 2 ...
 """
 
 from __future__ import annotations
@@ -58,9 +65,6 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
-
-
-POD_HALF = "ROADMAP A12, pod half"
 
 
 def _proc_env(base: dict, coordinator: str, nprocs: int, pid: int,
@@ -170,13 +174,25 @@ def _stream(prefix: str, pipe, log_path: str | None = None) -> None:
             log.close()
 
 
-def _make_monitor(heartbeat_dir: str | None, round_deadline: float | None):
+def _make_monitor(heartbeat_dir: str | None, round_deadline: float | None,
+                  *, host_map: list | None = None, transport=None,
+                  host_suspect_probe=None, host_down_probe=None):
     if not (heartbeat_dir and round_deadline):
         return None
     # lazy import: the health plane is optional and the launcher should
     # stay importable without it on minimal rigs
-    from ..parallel.health import StragglerMonitor
+    from ..parallel.health import GangHealth, StragglerMonitor
     os.makedirs(heartbeat_dir, exist_ok=True)
+    # lease-aware gang monitor when beats ride a remote transport (the
+    # relay is part of the tick) or the fleet can mark hosts suspect —
+    # either way partition-vs-death discipline applies
+    if host_map is not None and (
+            (transport is not None and not transport.local)
+            or host_suspect_probe is not None):
+        return GangHealth(heartbeat_dir, round_deadline, host_map=host_map,
+                          transport=transport,
+                          suspect_probe=host_suspect_probe,
+                          down_probe=host_down_probe)
     return StragglerMonitor(heartbeat_dir, round_deadline)
 
 
@@ -255,13 +271,120 @@ def launch_local(cmd: list[str], nprocs: int, *, device: str | None = None,
     return rc
 
 
-def launch_ssh(cmd: list[str], hosts: list[str], **kwargs) -> int:
-    """Run ``cmd`` on every host through a host transport.  Not ported:
-    processes on other hosts exchange tensors over a process group, which
-    is the pod half of the fleet."""
-    raise NotImplementedError(
-        f"launch_ssh over {len(hosts)} host(s): remote placement is not "
-        f"ported yet ({POD_HALF})")
+def launch_ssh(cmd: list[str], hosts: list[str], *,
+               coordinator_port: int | None = None,
+               cwd: str | None = None,
+               timeout: float | None = None,
+               extra_env: dict | None = None,
+               heartbeat_dir: str | None = None,
+               round_deadline: float | None = None,
+               log_dir: str | None = None,
+               report: dict | None = None,
+               device: str | None = None,
+               local_devices: int | None = None,
+               host_map: list | None = None,
+               on_spawn=None,
+               transport=None,
+               host_suspect_probe=None,
+               host_down_probe=None) -> int:
+    """Run ``cmd`` on every host through the host transport; host 0 is
+    the coordinator.  ``transport`` (a ``parallel.transport.
+    HostTransport``) is the exec/ship/beat seam; when omitted it comes
+    from the env: ssh when ``SPARKNET_SSH_CMD`` is set or any address is
+    remote, local otherwise, chaos-wrapped when network faults are
+    active.  Addresses in ``LOCAL_ADDRS`` are spawned directly only under
+    a local transport; with SPARKNET_SSH_CMD set even ``localhost`` rides
+    the ssh wire format (the fake-ssh rig: the argv, env and stdio
+    plumbing are the production path, no sshd).
+
+    Health plane: under a local transport ranks beat straight into the
+    shared ``heartbeat_dir``; under a remote one each rank beats into a
+    host-local staging dir and the monitor relays the beats back over
+    the transport each tick, with lease discipline on top: a whole-host
+    beacon silence marks the host SUSPECT and suspends its ranks (a
+    partition must not kill a healthy gang or burn restart budget)
+    unless ``host_down_probe`` confirms real death, in which case the
+    straggler kill proceeds and the resilience layer takes the lost-host
+    path.  ``host_suspect_probe`` lets the fleet feed suspicion it knows
+    of into the same suspension.
+
+    ``device`` and ``local_devices`` ride every rank's command line
+    (:func:`device_args`), a remote rank's too, so a driver launched
+    over ssh runs on the device the caller named.  ``host_map`` gives
+    each rank its host label (default: its address) for beacon routing
+    and the SPARKNET_FLEET_HOST tag.  ``on_spawn`` receives the local
+    ``Popen`` handles (signalling an ssh one ends its remote command
+    through the ssh session, so preemption still works host by host)."""
+    _check_host_map(host_map, len(hosts))
+    if host_map is None:
+        host_map = [str(h) for h in hosts]
+    if transport is None:
+        from ..parallel.transport import default_transport
+        transport = default_transport(hosts)
+    cmd = device_args(cmd, device, local_devices)
+    all_local = all(h in LOCAL_ADDRS for h in hosts)
+    port = coordinator_port or (free_port() if all_local else 9876)
+    addr0 = "127.0.0.1" if hosts[0] in LOCAL_ADDRS else hosts[0]
+    coordinator = f"{addr0}:{port}"
+    cwd = cwd or os.getcwd()
+    monitor = _make_monitor(heartbeat_dir, round_deadline,
+                            host_map=host_map, transport=transport,
+                            host_suspect_probe=host_suspect_probe,
+                            host_down_probe=host_down_probe)
+    if log_dir:
+        os.makedirs(log_dir, exist_ok=True)
+    procs = []
+    threads = []
+    for pid, host in enumerate(hosts):
+        direct = host in LOCAL_ADDRS and transport.local
+        if direct:
+            hb = _rank_hb_dir(heartbeat_dir, host_map, pid)
+            env = _proc_env(os.environ, coordinator, len(hosts), pid,
+                            extra_env)
+            if hb:
+                os.makedirs(hb, exist_ok=True)
+                env["SPARKNET_HEARTBEAT_DIR"] = hb
+            env["SPARKNET_FLEET_HOST"] = str(host_map[pid])
+            p = subprocess.Popen(cmd, env=env, cwd=cwd,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT)
+        else:
+            pairs = [
+                ("SPARKNET_COORDINATOR", coordinator),
+                ("SPARKNET_NUM_PROCS", str(len(hosts))),
+                ("SPARKNET_PROC_ID", str(pid)),
+                ("SPARKNET_FLEET_HOST", str(host_map[pid])),
+            ]
+            if heartbeat_dir:
+                # remote ranks beat into host-local staging; the
+                # monitor's relay moves beats into host_<name>/ — the
+                # shared-filesystem assumption stops at the supervisor
+                from ..parallel.health import stage_dir
+                pairs.append(("SPARKNET_HEARTBEAT_DIR",
+                              stage_dir(heartbeat_dir,
+                                        str(host_map[pid]))))
+            if extra_env:
+                pairs.extend((k, str(v)) for k, v in extra_env.items())
+            p = transport.popen(host, cmd, env_pairs=pairs, cwd=cwd)
+        log = os.path.join(log_dir, f"rank_{pid}.log") if log_dir else None
+        tag = host_map[pid] if direct else host
+        t = threading.Thread(target=_stream, args=(tag, p.stdout, log),
+                             daemon=True)
+        t.start()
+        procs.append(p)
+        threads.append(t)
+    if on_spawn is not None:
+        on_spawn(list(procs))
+    rc = _wait_all(procs, timeout, monitor=monitor, report=report)
+    for t in threads:
+        t.join(timeout=5)
+    if report is not None:
+        report["transport"] = transport.kind
+        if monitor is not None and hasattr(monitor, "ever_suspect"):
+            report["suspect_hosts"] = sorted(monitor.ever_suspect)
+            report["suspect_since"] = dict(monitor.suspect_since)
+            report["confirmed_down"] = sorted(monitor.confirmed_down)
+    return rc
 
 
 def main(argv=None) -> int:
@@ -316,15 +439,13 @@ def main(argv=None) -> int:
     health = dict(heartbeat_dir=args.heartbeat_dir,
                   round_deadline=args.round_deadline, log_dir=args.log_dir,
                   extra_env=feed_env or None)
+    place = dict(device=args.device or args.platform,
+                 local_devices=args.devices_per_proc, timeout=args.timeout)
     if args.hosts:
-        return launch_ssh(cmd, args.hosts.split(","), timeout=args.timeout,
-                          **health)
+        return launch_ssh(cmd, args.hosts.split(","), **place, **health)
     if not args.nprocs:
         ap.error("--nprocs or --hosts required")
-    return launch_local(cmd, args.nprocs,
-                        device=args.device or args.platform,
-                        local_devices=args.devices_per_proc,
-                        timeout=args.timeout, **health)
+    return launch_local(cmd, args.nprocs, **place, **health)
 
 
 if __name__ == "__main__":

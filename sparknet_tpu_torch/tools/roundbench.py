@@ -28,7 +28,6 @@ Prints one JSON line on stdout (the JAX line's keys and
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -36,7 +35,6 @@ import tempfile
 import time
 
 import numpy as np
-import torch
 
 TAU = 2
 # the newest checkpoint's fields held bit for bit: the JAX tool's, the
@@ -135,29 +133,16 @@ def parity_failures(sync: dict, async_: dict) -> list[str]:
     return failures
 
 
-@contextlib.contextmanager
-def _deterministic_cudnn():
-    """cuDNN's deterministic algorithms for both loops: bit parity asks
-    two runs of the same steps to give the same bits, which the default
-    algorithms do not promise on the card (no effect on the CPU)."""
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = saved
-
-
 def run(rounds: int = 6, lag: int = 2, devices: int = 4, batch: int = 16,
         device: str = "cuda") -> dict:
     """Both loops and the verdict: the line :func:`main` prints."""
-    from ..utils.device import resolve_device
+    from ..utils.device import deterministic_cudnn, resolve_device
     dev = resolve_device(device)
     kw = dict(rounds=rounds, lag=lag, workers=devices, batch=batch,
               device=dev)
     with tempfile.TemporaryDirectory() as d_sync, \
             tempfile.TemporaryDirectory() as d_async, \
-            _deterministic_cudnn():
+            deterministic_cudnn():
         sync = run_loop("sync", d_sync, **kw)
         async_ = run_loop("async", d_async, **kw)
     failures = parity_failures(sync, async_)

@@ -29,13 +29,33 @@ promotion, a poisoned canary (``bad_canary``) is rolled back with no
 damage to stable traffic, and a controller killed mid-rollout resumes to
 a consistent fleet.
 
-``--pod`` and ``--net`` (processes on other hosts, host transports)
-raise: they are the pod half of the fleet (ROADMAP A12, pod half).
+Net mode (``--net``): the network chaos legs over the ssh wire format
+(``SshTransport`` through a local fake-ssh shim, or a caller-supplied
+SPARKNET_SSH_CMD) wrapped in a ``ChaosTransport``: (1) partition, suspend,
+heal: the beat relay to a gang in mid-round is severed; the lease must
+mark the host SUSPECT (no straggler kill, no restart), the heal lift the
+suspension, and the params finish bit for bit the fault-free baseline;
+(2) fenced zombie ship: an incarnation checkpoints on one host, its
+requeue on a checkpoint-less host pulls the newest valid round over a
+link that tears the first transfer (the retry resumes the torn prefix,
+crc-verified), resumes bit for bit, and the fenced-off incarnation's
+return is refused at the fence; (3, full runs only) slow link: a delayed
+relay is not silence (no suspect, no kill, bit for bit).  ``--net-slice``
+runs legs 1 and 2.  The gangs are one driver process of 4 workers on the
+device (``--device`` rides the remote command line).  The JAX leg 1 holds
+its gang in mid-round while XLA compiles its first round; the port's
+driver has nothing to compile, so leg 1 holds it with a straggle
+(``PARTITION_HOLD``) longer than the round deadline, which only the
+suspension keeps from a straggler kill.
+
+``--pod`` (multi-host gangs with their tensor traffic) raises: it is the
+pod half's tensors (ROADMAP A12, pod half, order 3).
 
 Usage:
   python -m sparknet_tpu_torch.tools.soak --runs 8 --seed 0 [--device cpu]
   python -m sparknet_tpu_torch.tools.soak --fleet 4 --fleet-kill --seed 0
   python -m sparknet_tpu_torch.tools.soak --rollout --seed 0
+  python -m sparknet_tpu_torch.tools.soak --net --net-slice [--device cpu]
 
 Exit code 0 iff every run recovered exactly.
 """
@@ -117,6 +137,316 @@ def _params_match(base_npz, out_npz):
         if not np.array_equal(a[k], b[k]):
             return False, k
     return True, None
+
+
+# ---------------------------------------------------------------------------
+# Net chaos legs (--net): partition vs death, fenced checkpoint shipping,
+# and slow-link attribution over the ssh wire format (SshTransport through
+# a fake-ssh shim) with ChaosTransport injecting the network faults
+# ---------------------------------------------------------------------------
+
+NET_ROUNDS = 8
+# leg 1's gang: a straggle at round 1, longer than the 3 s round deadline,
+# keeps the driver in mid-round while the link is severed
+PARTITION_HOLD = "straggle:3.5s@round:1"
+ROUND_DEADLINE_S = 3.0
+
+
+def _fake_ssh_shim(workdir: str) -> str:
+    """Write the fake-ssh shim: it runs the remote command string
+    locally with the exact argv ssh receives (``$4`` is the remote string
+    after ``-o BatchMode=yes <host>``), so the wire format, env contract
+    and stdio plumbing are the production path with no sshd.  ``exec``
+    keeps the worker pid the Popen pid."""
+    path = os.path.join(workdir, "fake-ssh")
+    with open(path, "w") as f:
+        f.write('#!/bin/bash\nexec bash -c "$4"\n')
+    os.chmod(path, 0o755)
+    return path
+
+
+class _TornOnceInjector:
+    """Minimal injector for ChaosTransport: tear the first ``torn`` ship
+    attempts (each leaves a half-written temporary the retry must resume
+    past), then run clean.  Duck-typed to the injector surface the
+    transport consumes."""
+
+    def __init__(self, torn: int = 1):
+        self.torn = torn
+        self.specs = ()
+
+    def net_specs(self):
+        return []
+
+    def drop_ship(self, seq):
+        return False
+
+    def torn_ship(self):
+        if self.torn > 0:
+            self.torn -= 1
+            return True
+        return False
+
+
+def _net_knobs(workdir: str) -> None:
+    """The net legs' env: the fake-ssh wire (unless the caller supplied a
+    real SPARKNET_SSH_CMD), a tight lease so a partition is suspected
+    within about 1 s, and small ship chunks so a torn transfer's resume
+    moves a real whole-chunk prefix.  The ssh-spawned workers inherit
+    this process's env through the shim."""
+    os.environ.setdefault("SPARKNET_SSH_CMD", _fake_ssh_shim(workdir))
+    os.environ.setdefault("SPARKNET_LEASE_S", "0.5")
+    os.environ.setdefault("SPARKNET_LEASE_MISSES", "2")
+    os.environ.setdefault("SPARKNET_SHIP_CHUNK_MB", "0.0625")
+
+
+def _wire_driver(out, rounds, *, host, device, ckpt=None, extra_env=None,
+                 transport=None, heartbeat_dir=None, round_deadline=None,
+                 report=None) -> int:
+    """One driver run over the ssh wire: a single rank of 4 workers on
+    the fake remote host (SPARKNET_NUM_PROCS=1, the gang shape the fleet
+    places).  ``host`` is the host label (beat staging and lease
+    identity); the transport address stays 127.0.0.1, the name-vs-addr
+    split a HostPool inventory makes."""
+    from ..parallel.fleet import _REPO, DRIVER_CMD
+    from .launch import free_port, launch_ssh
+    cmd = [*DRIVER_CMD, "--strategy", "sync", "--out", out,
+           "--local-devices", "4", "--expect-devices", "4",
+           "--rounds", str(rounds)]
+    if ckpt:
+        cmd += ["--ckpt-dir", ckpt]
+    return launch_ssh(cmd, hosts=["127.0.0.1"], host_map=[host],
+                      coordinator_port=free_port(), device=device,
+                      cwd=_REPO, timeout=300,
+                      extra_env={**_child_env(), **(extra_env or {})},
+                      transport=transport, heartbeat_dir=heartbeat_dir,
+                      round_deadline=round_deadline, report=report)
+
+
+def _net_partition_episode(workdir, baseline, rounds, *, device,
+                           slow_ms: float | None = None) -> dict:
+    """Symmetric partition in mid-round (or, with ``slow_ms``, a degraded
+    link): sever the beat relay to a healthy gang.  The lease must mark
+    the host SUSPECT and suspend its rank (no straggler kill, no restart)
+    and lift the suspension on heal, and the params must finish bit for
+    bit the baseline.  The slow-link variant holds the opposite: delay is
+    not silence, so no suspect and no kill."""
+    import threading
+
+    from ..parallel import health
+    from ..parallel.transport import ChaosTransport, SshTransport
+
+    name = "slow_link_attribution" if slow_ms else "partition_suspend_heal"
+    epdir = os.path.join(workdir, name)
+    os.makedirs(epdir, exist_ok=True)
+    out = os.path.join(epdir, "out.npz")
+    hb = os.path.join(epdir, "hb")
+    host = "hostb"
+    chaos = ChaosTransport(SshTransport(), injector=_TornOnceInjector(0))
+    flap: dict = {}
+
+    def flapper():
+        # wait until the first beat has been relayed (the monitor has the
+        # host's liveness on file: a partition before any relayed beat is
+        # startup grace, not a lease event), then flap the link
+        hdir = health.host_dir(hb, host)
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            if health._read_flat(hdir):
+                break
+            time.sleep(0.05)
+        else:
+            flap["error"] = "no beat ever relayed"
+            return
+        if slow_ms:
+            chaos.set_slow(host, slow_ms)
+            flap["slow_ms"] = slow_ms
+            time.sleep(3.0)
+            chaos.set_slow(host, 0)
+            flap["restored"] = True
+        else:
+            chaos.partition(host)
+            flap["partitioned"] = time.time()   # the lease monitor's clock
+            time.sleep(4.0)   # 4x the 1 s lease window, > round deadline
+            chaos.heal(host)
+            flap["healed"] = time.time()
+
+    th = threading.Thread(target=flapper, daemon=True)
+    th.start()
+    report: dict = {}
+    t0 = time.monotonic()
+    rc = _wire_driver(out, rounds, host=host, device=device,
+                      transport=chaos, heartbeat_dir=hb,
+                      round_deadline=ROUND_DEADLINE_S, report=report,
+                      extra_env=None if slow_ms
+                      else {"SPARKNET_FAULT": PARTITION_HOLD})
+    th.join(timeout=15.0)
+    match, bad = False, None
+    if rc == 0:
+        match, bad = _params_match(baseline, out)
+    lease: dict = {}
+    if "healed" in flap:
+        cut, healed = flap.pop("partitioned"), flap.pop("healed")
+        flap["partition_s"] = round(healed - cut, 3)
+        flap["healed"] = True
+        since = (report.get("suspect_since") or {}).get(host)
+        if since is not None:
+            # partition -> SUSPECT (the lease's detection), SUSPECT -> heal
+            lease = {"lease_detect_s": round(since - cut, 3),
+                     "suspect_to_heal_s": round(healed - since, 3)}
+    row = {"episode": name, "rc": rc, "cause": report.get("cause"),
+           "transport": report.get("transport"),
+           "suspects": report.get("suspect_hosts"),
+           "confirmed_down": report.get("confirmed_down"),
+           "stragglers": report.get("stragglers"), "flap": flap,
+           **lease,
+           "match": match, "elapsed_s": round(time.monotonic() - t0, 1)}
+    if bad:
+        row["diverged_at"] = bad
+    if slow_ms:
+        row["ok"] = bool(rc == 0 and match
+                         and report.get("cause") == "clean"
+                         and not report.get("suspect_hosts")
+                         and not report.get("stragglers")
+                         and flap.get("restored"))
+    else:
+        row["hold"] = PARTITION_HOLD
+        row["ok"] = bool(rc == 0 and match
+                         and report.get("cause") == "clean"
+                         and report.get("suspect_hosts") == [host]
+                         and not report.get("confirmed_down")
+                         and not report.get("stragglers")
+                         and flap.get("healed"))
+    return row
+
+
+def _net_fenced_ship_episode(workdir, baseline, rounds, *, device) -> dict:
+    """Fenced, resumable checkpoint shipping end to end: incarnation 1
+    (fence token 100001) trains half the rounds checkpointing on hosta;
+    its requeue lands on checkpoint-less hostb, which pulls the newest
+    valid round over a link that tears the first transfer (the retry must
+    resume the torn whole-chunk prefix and land crc-verified).
+    Incarnation 2 (token 200002) resumes from the shipped files and must
+    finish bit for bit the uninterrupted baseline.  Then the fenced-off
+    incarnation returns from behind the partition and tries to reclaim
+    the dir: a typed refusal at the fence, no state touched."""
+    import glob
+
+    from ..parallel.transport import (ChaosTransport, SshTransport,
+                                      newest_valid_round,
+                                      ship_latest_checkpoint)
+    from ..utils.checkpoint import (CheckpointFencedError, advance_fence,
+                                    read_fence)
+
+    epdir = os.path.join(workdir, "fenced_zombie_ship")
+    os.makedirs(epdir, exist_ok=True)
+    ck_a = os.path.join(epdir, "ckpt_host_hosta")
+    ck_b = os.path.join(epdir, "ckpt_host_hostb")
+    out = os.path.join(epdir, "out.npz")
+    t0 = time.monotonic()
+    row: dict = {"episode": "fenced_zombie_ship"}
+
+    rc1 = _wire_driver(os.path.join(epdir, "half.npz"), rounds // 2,
+                       host="hosta", device=device, ckpt=ck_a,
+                       extra_env={"SPARKNET_FENCE_TOKEN": "100001"})
+    row["rc_first"] = rc1
+
+    chaos = ChaosTransport(SshTransport(), injector=_TornOnceInjector())
+    try:
+        rec = ship_latest_checkpoint(chaos, "hostb", ck_a, ck_b)
+    except (OSError, RuntimeError, ValueError) as e:  # ShipError is OSError
+        rec = None
+        row["ship_error"] = f"{type(e).__name__}: {e}"
+    row["ship"] = rec
+
+    rc2 = _wire_driver(out, rounds, host="hostb", device=device, ckpt=ck_b,
+                       extra_env={"SPARKNET_FENCE_TOKEN": "200002"})
+    row["rc_resume"] = rc2
+    match, bad = False, None
+    if rc2 == 0:
+        match, bad = _params_match(baseline, out)
+    if bad:
+        row["diverged_at"] = bad
+
+    zombie: dict = {"refused": False}
+    try:
+        advance_fence(ck_b, 100002)
+    except CheckpointFencedError as e:
+        zombie = {"refused": True, "error": type(e).__name__,
+                  "token": e.token, "fence": e.fence}
+    torn_left = glob.glob(os.path.join(ck_b, "*.tmp*"))
+    row.update(
+        zombie=zombie, fence=read_fence(ck_b),
+        newest_round=newest_valid_round(ck_b), match=match,
+        elapsed_s=round(time.monotonic() - t0, 1),
+        ok=bool(rc1 == 0 and rc2 == 0 and match and rec
+                and rec.get("round") == rounds // 2
+                and rec.get("resumed_bytes", 0) > 0
+                and zombie.get("refused")
+                and zombie.get("fence") == read_fence(ck_b)
+                and not torn_left))
+    if torn_left:
+        row["torn_leftovers"] = torn_left
+    return row
+
+
+def _net_episodes(workdir, baseline, rounds, *, net_slice: bool,
+                  device: str) -> list:
+    """The net chaos leg set."""
+    episodes = [
+        _net_partition_episode(workdir, baseline, rounds, device=device),
+        _net_fenced_ship_episode(workdir, baseline, rounds, device=device),
+    ]
+    if not net_slice:
+        episodes.append(_net_partition_episode(
+            workdir, baseline, rounds, device=device, slow_ms=250.0))
+    for e in episodes:
+        print(f"net-soak: {e['episode']} -> "
+              f"{'OK' if e['ok'] else 'FAIL'} ({e['elapsed_s']}s)",
+              flush=True)
+    return episodes
+
+
+def net_soak(args) -> int:
+    from ..parallel.health import lease_window_s
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device).type
+    _clean_env()
+    own_tmp = args.workdir is None
+    workdir = args.workdir or tempfile.mkdtemp(prefix="sparknet_net_")
+    os.makedirs(workdir, exist_ok=True)
+    _net_knobs(workdir)
+    t0 = time.monotonic()
+    rounds = NET_ROUNDS
+    base = os.path.join(workdir, "base.npz")
+    rc, _ = _run_driver(base, None, [], rounds=rounds, device=device)
+    if rc != 0:
+        raise RuntimeError(f"fault-free baseline failed rc={rc}")
+    episodes = _net_episodes(workdir, base, rounds,
+                             net_slice=args.net_slice, device=device)
+    passed = sum(1 for e in episodes if e["ok"])
+    report = {"mode": "net", "seed": args.seed, "device": device,
+              "slice": bool(args.net_slice), "rounds": rounds,
+              "lease_window_s": lease_window_s(), "episodes": episodes,
+              "passed": passed, "failed": len(episodes) - passed,
+              "elapsed_s": round(time.monotonic() - t0, 1),
+              "ok": bool(episodes) and passed == len(episodes)}
+    text = json.dumps(report, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+        print(f"net-soak: verdict written to {args.out} "
+              f"({passed}/{len(episodes)} episode(s) passed)")
+    else:
+        print(text)
+    if own_tmp and report["ok"]:
+        import shutil
+        shutil.rmtree(workdir, ignore_errors=True)
+    elif not report["ok"]:
+        print(f"net-soak: scratch kept at {workdir} for post-mortem",
+              file=sys.stderr)
+    return 0 if report["ok"] else 1
 
 
 # ---------------------------------------------------------------------------
@@ -698,7 +1028,11 @@ def main(argv=None) -> int:
     ap.add_argument("--pod", type=int, default=0, metavar="N",
                     help=f"pod mode (not ported: {POD_HALF})")
     ap.add_argument("--net", action="store_true",
-                    help=f"net mode (not ported: {POD_HALF})")
+                    help="net mode: the partition/fenced-ship/slow-link "
+                         "chaos legs over the fake-ssh ChaosTransport")
+    ap.add_argument("--net-slice", action="store_true",
+                    help="partition-suspend-heal and fenced-zombie legs "
+                         "only (skips slow-link)")
     ap.add_argument("--rollout", action="store_true",
                     help="rollout mode: canary-promote, bad-canary "
                          "auto-rollback, and controller-kill-resume "
@@ -707,10 +1041,12 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.pod or args.net:
+    if args.pod:
         raise NotImplementedError(
-            f"soak {'--pod' if args.pod else '--net'}: host transports "
-            f"and multi-host gangs are not ported yet ({POD_HALF})")
+            f"soak --pod: multi-host gangs and their tensor traffic are "
+            f"not ported yet ({POD_HALF}, order 3)")
+    if args.net:
+        return net_soak(args)
     if args.rollout:
         return rollout_soak(args)
     if args.fleet:

@@ -30,6 +30,20 @@ def device_label(dev: torch.device) -> str:
     return f"{dev.type}/{kind}"
 
 
+@contextlib.contextmanager
+def deterministic_cudnn() -> Iterator[None]:
+    """cuDNN's deterministic algorithms inside the scope: a bit-parity
+    check asks two runs of the same steps for the same bits, which the
+    default algorithms do not promise on the card (no effect on the
+    CPU)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 # PyTorch's two TF32 flags are process-wide, not per thread, so the scopes
 # that clear them are counted: the first to enter saves and clears them,
 # the last to leave restores them, whatever threads the scopes run on.

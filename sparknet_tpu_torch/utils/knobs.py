@@ -347,13 +347,20 @@ _register(
          "Missed leases before a host turns SUSPECT.",
          _P + "parallel/health.py"),
     Knob("SPARKNET_SSH_CMD", "str", "",
-         "Refused by name: the ssh binary of the JAX package's remote "
-         "launch; the fleet scheduler raises when it is set (ROADMAP A12, "
-         "pod half).", _FLEET),
+         "ssh binary of SshTransport's wire path (default 'ssh'); point it "
+         "at a local fake-ssh script to drive the remote argv, env and "
+         "stdio with no sshd.  Set, it sends loopback addresses over the "
+         "ssh path too.", _P + "parallel/transport.py"),
+    Knob("SPARKNET_SHIP_CHUNK_MB", "float", "4",
+         "Chunk size (MB) of crc-verified checkpoint shipping.",
+         _P + "parallel/transport.py"),
+    Knob("SPARKNET_SHIP_RETRIES", "int", "4",
+         "Attempts for one ship (each retry keeps the destination's "
+         "valid prefix).", _P + "parallel/transport.py"),
     Knob("SPARKNET_FLEET_HOSTS", "spec", "",
          "Host inventory for placement: 'name=devices[@addr],...' inline "
-         "or a JSON list path; a remote addr is refused (pod half); unset "
-         "= the single-host device budget.", _FLEET),
+         "or a JSON list path; a remote addr places over a host "
+         "transport; unset = the single-host device budget.", _FLEET),
     Knob("SPARKNET_FLEET_HOST", "str", "",
          "Host label the launcher stamps on each worker; joins beats and "
          "telemetry to the placement.", _P + "tools/launch.py"),

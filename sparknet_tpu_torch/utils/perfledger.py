@@ -16,9 +16,12 @@ that its bench and op tables feed:
   ``entries_from_op_table`` (``tools/profile_step.py``'s
   ``op_table.json``), ``entries_from_tuning_table`` (``tools/tune.py
   run``'s ``tuning.json``) and ``entries_from_metrics_rollup``
-  (``telemetry.fold_snapshots``).  A bench tier the port marks
-  ``{"not_ported": ...}`` yields no entry.  The pod, net and rollout
-  soak readers and ``entries_from_shardbench`` wait for ROADMAP A12.
+  (``telemetry.fold_snapshots``), ``entries_from_serving_fleet``
+  (``serveload --fleet``), ``entries_from_netsoak`` and
+  ``entries_from_rollout`` (``soak --net`` and ``--rollout``) and
+  ``entries_from_commbench``.  A bench tier the port marks
+  ``{"not_ported": ...}`` yields no entry.  The pod soak's and
+  shardbench's readers wait for ROADMAP A12's pod half (order 3).
 - **Noise-aware baselines** — per (metric, fingerprint key):
   ``median ± k·1.4826·MAD`` over a trailing window; small samples refuse
   to gate, and because device and backend are part of the key, a CPU
@@ -603,6 +606,168 @@ def entries_from_serving(doc: Mapping[str, Any], path: str | None = None, *,
                        round_tag=round_tag, t=t, **prov)]
 
 
+def entries_from_serving_fleet(doc: Mapping[str, Any],
+                               path: str | None = None, *,
+                               round_tag: str | None = None,
+                               t: float | None = None,
+                               device_hint: str | None = None
+                               ) -> list[dict]:
+    """``serveload --fleet`` reports: N routed replicas.  ``replicas``
+    rides the fingerprint, so these never pool with the single-engine
+    serving bands."""
+    if not doc or doc.get("error"):
+        return []
+    prov = _prov_fields(doc)
+    shapes = doc.get("batch_shapes") or []
+    fp = fingerprint(model=doc.get("model"), dtype=doc.get("dtype"),
+                     batch=max(shapes) if shapes else None, world=1,
+                     device=doc.get("device") or device_hint,
+                     replicas=doc.get("replicas"))
+    sat = doc.get("saturation") or {}
+    solo = doc.get("solo") or {}
+    v = doc.get("verdicts") or {}
+    metrics = {
+        "serve_fleet_sat_qps": sat.get("achieved_qps"),
+        "serve_fleet_sat_p99_ms": sat.get("p99_ms"),
+        "serve_fleet_solo_qps": solo.get("achieved_qps"),
+        "serve_fleet_speedup_x": v.get("fleet_scaling_x")
+        or doc.get("value"),
+        "serve_fleet_mismatches": v.get("exact_mismatches"),
+    }
+    return [make_entry("serving_fleet", path, fp,
+                       {k: val for k, val in metrics.items()
+                        if val is not None},
+                       round_tag=round_tag, t=t, **prov)]
+
+
+def entries_from_netsoak(doc: Mapping[str, Any],
+                         path: str | None = None, *,
+                         round_tag: str | None = None,
+                         t: float | None = None,
+                         device_hint: str | None = None) -> list[dict]:
+    """``soak --net`` verdicts: the partition-recovery wall (suspend,
+    heal, bit-identical finish), the fenced ship's rate, the fenced
+    resume's wall and, on full runs, the slow-link episode's wall."""
+    if doc.get("mode") != "net" or not doc.get("episodes"):
+        return []
+    by_name = {ep.get("episode"): ep for ep in doc["episodes"]}
+    prov = _prov_fields(doc)
+    fp = fingerprint(model="lenet", dtype="f32", world=4,
+                     device=device_hint)
+    metrics: dict[str, Any] = {}
+    part = by_name.get("partition_suspend_heal")
+    if part:
+        metrics["netsoak_partition_recovery_s"] = part.get("elapsed_s")
+    fenced = by_name.get("fenced_zombie_ship")
+    if fenced:
+        metrics["netsoak_fenced_resume_s"] = fenced.get("elapsed_s")
+        ship = fenced.get("ship") or {}
+        wall = ship.get("wall_s")
+        if wall and ship.get("bytes"):
+            metrics["netsoak_ship_mb_per_s"] = round(
+                ship["bytes"] / wall / 1e6, 3)
+    slow = by_name.get("slow_link_attribution")
+    if slow:
+        metrics["netsoak_slow_link_episode_s"] = slow.get("elapsed_s")
+    metrics = {k: v for k, v in metrics.items() if v is not None}
+    if not metrics:
+        return []
+    return [make_entry("netsoak", path, fp, metrics,
+                       round_tag=round_tag, t=t,
+                       notes=None if doc.get("ok") else "net soak FAILED",
+                       **prov)]
+
+
+def entries_from_rollout(doc: Mapping[str, Any],
+                         path: str | None = None, *,
+                         round_tag: str | None = None,
+                         t: float | None = None,
+                         device_hint: str | None = None) -> list[dict]:
+    """``soak --rollout`` verdicts: the promote wall, the bad canary's
+    detection-to-rollback wall, the journal-replay resume wall and the
+    stable-pinned error count (which must stay 0)."""
+    if doc.get("mode") != "rollout" or not doc.get("episodes"):
+        return []
+    by_name = {ep.get("episode"): ep for ep in doc["episodes"]}
+    prov = _prov_fields(doc)
+    fp = fingerprint(model="lenet", dtype="f32", world=1, replicas=2,
+                     device=device_hint)
+    metrics: dict[str, Any] = {}
+    promo = by_name.get("canary_promote")
+    if promo:
+        metrics["rollout_promote_s"] = promo.get("elapsed_s")
+        metrics["rollout_stable_errors"] = promo.get("stable_errors")
+    bad = by_name.get("bad_canary_rollback")
+    if bad:
+        metrics["rollout_detect_s"] = bad.get("detect_s")
+        if bad.get("stable_errors") is not None:
+            metrics["rollout_stable_errors"] = (
+                (metrics.get("rollout_stable_errors") or 0)
+                + bad["stable_errors"])
+    kill = by_name.get("controller_kill_resume")
+    if kill:
+        metrics["rollout_resume_s"] = kill.get("elapsed_s")
+    metrics = {k: v for k, v in metrics.items() if v is not None}
+    if not metrics:
+        return []
+    return [make_entry("rollout", path, fp, metrics,
+                       round_tag=round_tag, t=t,
+                       notes=None if doc.get("ok")
+                       else "rollout soak FAILED",
+                       **prov)]
+
+
+def entries_from_commbench(doc: Mapping[str, Any],
+                           path: str | None = None, *,
+                           round_tag: str | None = None,
+                           t: float | None = None,
+                           device_hint: str | None = None) -> list[dict]:
+    """``tools/commbench.py`` reports: one entry per codec (its
+    ``comm_codec`` in the fingerprint) with the round wall, the comm
+    stall by component and the exchange bytes, and one summary entry on
+    the full-precision fingerprint with the sync and overlapped stall
+    and int8's wire shrink."""
+    if not doc.get("commbench"):
+        return []
+    prov = _prov_fields(doc)
+    tau = doc.get("tau")
+    world = doc.get("devices")
+    device = doc.get("device") or device_hint
+    note = None if doc.get("ok") else "commbench gate FAILED"
+    out: list[dict] = []
+    for codec, leg in (doc.get("codecs") or {}).items():
+        fp = fingerprint(model="lenet", dtype="f32",
+                         batch=doc.get("batch"), world=world,
+                         device=device, tau=tau, comm_codec=codec)
+        metrics = {
+            "commbench_wall_s": leg.get("wall_s"),
+            "comm_stall_s": leg.get("comm_stall_s"),
+            "comm_exchange_bytes": leg.get("exchange_bytes"),
+        }
+        for comp, v in (leg.get("stall_s") or {}).items():
+            if comp.startswith("comm_"):
+                metrics[f"stall_{comp}_s"] = v
+        out.append(make_entry(
+            "commbench", path, fp,
+            {k: v for k, v in metrics.items() if v is not None},
+            round_tag=round_tag, t=t, notes=note, **prov))
+    summary = {
+        "comm_stall_sync_s": doc.get("comm_stall_sync_s"),
+        "comm_stall_overlap_s": doc.get("comm_stall_overlap_s"),
+        "comm_bytes_shrink_x": doc.get("comm_bytes_shrink_x"),
+        "commbench_wall_s": (doc.get("none") or {}).get("wall_s"),
+    }
+    summary = {k: v for k, v in summary.items() if v is not None}
+    if summary:
+        fp = fingerprint(model="lenet", dtype="f32",
+                         batch=doc.get("batch"), world=world,
+                         device=device, tau=tau, comm_codec="none")
+        out.append(make_entry("commbench", path, fp, summary,
+                              round_tag=round_tag, t=t, notes=note,
+                              **prov))
+    return out
+
+
 def entries_from_roundbench(doc: Mapping[str, Any],
                             path: str | None = None, *,
                             round_tag: str | None = None,
@@ -761,11 +926,23 @@ def entries_from_any(doc: Mapping[str, Any], path: str | None = None, *,
     if doc.get("metric") == "serving_dynamic_vs_batch1_speedup_x":
         return entries_from_serving(doc, path, round_tag=round_tag, t=t,
                                     device_hint=device_hint)
+    if doc.get("metric") == "serving_fleet_scaling_x":
+        return entries_from_serving_fleet(doc, path, round_tag=round_tag,
+                                          t=t, device_hint=device_hint)
+    if doc.get("mode") == "net" and "episodes" in doc:
+        return entries_from_netsoak(doc, path, round_tag=round_tag, t=t,
+                                    device_hint=device_hint)
+    if doc.get("mode") == "rollout" and "episodes" in doc:
+        return entries_from_rollout(doc, path, round_tag=round_tag, t=t,
+                                    device_hint=device_hint)
     if doc.get("kind") == "tuning_table":
         return entries_from_tuning_table(doc, path, round_tag=round_tag,
                                          t=t)
     if "summary" in doc and "by_category" in doc:
         return entries_from_op_table(doc, path, round_tag=round_tag, t=t)
+    if doc.get("commbench"):
+        return entries_from_commbench(doc, path, round_tag=round_tag,
+                                      t=t, device_hint=device_hint)
     if "stall_total_sync_s" in doc:
         return entries_from_roundbench(doc, path, round_tag=round_tag,
                                        t=t, device_hint=device_hint)

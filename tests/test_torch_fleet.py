@@ -583,17 +583,26 @@ def test_runner_restarts_then_recovers_and_cancel_stops(tmp_path):
 
 
 def test_the_pod_half_raises_by_name(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, pod half"):
-        launch.launch_ssh(["true"], ["h1", "h2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, pod half"):
-        resilience.ResilientRunner(["true"], hosts=["h1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, pod half"):
-        p_fleet.FleetScheduler(str(tmp_path / "f"),
-                               hosts=p_fleet.HostPool.parse("a=2@10.0.0.2"))
+    """What is left of the pod half (a world of several processes,
+    order 3) raises by name; its hosts-and-network part is ported: a
+    remote address or SPARKNET_SSH_CMD places over a host transport
+    (tests/test_torch_transport.py runs them)."""
+    from sparknet_tpu_torch.parallel import transport
+    monkeypatch.delenv("SPARKNET_SSH_CMD", raising=False)
+    r = resilience.ResilientRunner(["true"], hosts=["h1"])
+    assert r.hosts == ["h1"] and r.world_size() == 1
+    pool = p_fleet.HostPool.parse("a=2@10.0.0.2")
+    sched = p_fleet.FleetScheduler(str(tmp_path / "f"), hosts=pool)
+    job = sched.submit(p_fleet.JobSpec(name="j", world=2))
+    job.hosts = ("a",)
+    assert sched._job_transport(job).kind == "ssh"
     monkeypatch.setenv("SPARKNET_SSH_CMD", "/bin/false")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, pod half"):
-        p_fleet.FleetScheduler(str(tmp_path / "g"), 2)
+    assert isinstance(transport.default_transport(["127.0.0.1"]),
+                      transport.SshTransport)
+    p_fleet.FleetScheduler(str(tmp_path / "g"), 2)
     monkeypatch.delenv("SPARKNET_SSH_CMD")
+    assert launch.launch_ssh([sys.executable, "-c", "pass"],
+                             ["127.0.0.1"], timeout=60) == 0
     monkeypatch.setenv("SPARKNET_COORDINATOR", "127.0.0.1:1")
     monkeypatch.setenv("SPARKNET_PROC_ID", "0")
     monkeypatch.setenv("SPARKNET_NUM_PROCS", "1")

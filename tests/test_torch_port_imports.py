@@ -17,11 +17,13 @@ the serving plane's ``tools/serve.py --help``, the model registry, the
 beacons and ``import caffe`` through the port's shim, and the
 observability and bench plane's tools (``knobs``, ``serveload``,
 ``feedbench``, ``roundbench``, ``obs``, ``perf_probe``) and the
-profiler server."""
+profiler server; so do commbench's five gates and a chaos ship over the
+host transport."""
 
 from __future__ import annotations
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -744,3 +746,43 @@ def test_fleet_modules_are_scanned_and_tools_run_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+NET_MODULES = ["parallel/transport.py", "tools/commbench.py",
+               "tools/launch.py", "tools/soak.py"]
+
+
+def test_transport_and_commbench_are_scanned_and_run_with_jax_blocked(
+        tmp_path):
+    """The host transport and commbench are among the files the scans
+    above cover, and with ``jax`` and ``sparknet_tpu`` blocked commbench
+    runs its five gates on the CPU and the transport ships a file over
+    its chaos wrapper through a torn first attempt."""
+    for rel in NET_MODULES:
+        assert PKG / rel in SOURCES, rel
+    src = tmp_path / "blob.bin"
+    src.write_bytes(bytes(range(256)) * 64)
+    code = (
+        "import sys, contextlib, io\n"
+        "for m in ('jax', 'sparknet_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from sparknet_tpu_torch.tools import commbench\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert commbench.main(['--rounds', '2', '--devices', '2', "
+        "'--batch', '8', '--device', 'cpu']) == 0\n"
+        "from sparknet_tpu_torch.parallel import transport\n"
+        "from sparknet_tpu_torch.tools.soak import _TornOnceInjector\n"
+        "t = transport.ChaosTransport(transport.LocalTransport(), "
+        "injector=_TornOnceInjector())\n"
+        f"rec = t.ship({str(src)!r}, 'b', {str(tmp_path / 'd' / 'b')!r})\n"
+        "assert rec['bytes'] == 16384, rec\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.')) for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1",
+                              "SPARKNET_SHIP_CHUNK_MB": "0.001"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+    assert (tmp_path / "d" / "b").read_bytes() == src.read_bytes()
