@@ -195,7 +195,18 @@ kill and no straggler, the fenced leg resumed past a torn ship with the
 zombie refused and no temporaries left, both bit for bit the baseline;
 the pool backward twice a worker step exact in commbench and in every
 driver; planted: ``_verified_copy`` without its crc checks lands a
-flipped chunk, which the manifest's sha256 must refuse.  The kernels
+flipped chunk, which the manifest's sha256 must refuse.  Phase 5q
+runs the pod half's tensors: ``tools/shardbench.py`` in process (six
+verdicts on lenet), CaffeNet at full width on 4 positions through the
+bench's ``shard_round_legs`` (``shard`` off and auto bit for bit, 243,860,896
+against 67,995,040 boundary bytes a position, one sharded checkpoint
+resumed bit for bit), three 2-process x 2-worker gangs of the lenet
+driver started together (each rank a ``--fleet-child driver``):
+hierarchical under ``SPARKNET_SHARD=auto``/``SPARKNET_SHARD_CKPT=1``
+against the one-process 2x2 run, local_sgd with ``--audit-every 1`` and
+a flip on position 3 against the fault-free run, and (planted) a flip
+on position 1 with the audit off, which must differ; roundbench's audit
+leg; a tile with one byte changed, which resume skips.  The kernels
 line counts the launches with the ReLU folded in apart
 (``relu_launches``).  A
 ``timeline`` line gives each phase's seconds.
@@ -218,6 +229,7 @@ import argparse
 import collections
 import contextlib
 import csv
+import gc
 import itertools
 import json
 import math
@@ -3656,7 +3668,15 @@ def codec_rounds(ck, dev, rounds: list) -> dict:
             fail(f"round: comm_config_from_env gave {tr.config}")
         torch.cuda.synchronize()
         ck.reset_launch_counts()
-        losses = [tr.train_round(b) for b in rounds]
+        # the collector held off the rounds, as commbench holds it: a
+        # collection of this process's heap (~0.1 s) landing in one
+        # stage's host window is not the exchange's stall
+        gc.collect()
+        gc.disable()
+        try:
+            losses = [tr.train_round(b) for b in rounds]
+        finally:
+            gc.enable()
         launches = launched(ck)
         if launches != ROUND_WANT:
             fail(f"round {label}: launches {launches}, want {ROUND_WANT}")
@@ -4191,7 +4211,7 @@ def bench_cli(smi: str) -> dict:
             or not {"feed_records", "shard_round"} <= keys:
         fail(f"bench CLI keys: missing {sorted(parsed - keys)}, extra "
              f"{sorted(keys - parsed - BENCH_LINE_EXTRA)}")
-    if "not_ported" not in line["shard_round"] or \
+    if "skipped" not in line["shard_round"] or \
             set(line["feed_records"]) != FEED_RECORDS_KEYS:
         fail(f"bench CLI: shard_round {line['shard_round']}, feed_records "
              f"{line['feed_records']}")
@@ -5367,9 +5387,10 @@ def train_bn_devices(ck, dev, label: str, d: str, model: str,
             built.append(self)
             self.first_step = None
 
-        def _psum_steps(self, params, state, batches, workers):
+        def _psum_steps(self, starts, state, batches, workers, **kw):
             if self.first_step is not None:
-                return super()._psum_steps(params, state, batches, workers)
+                return super()._psum_steps(starts, state, batches, workers,
+                                           **kw)
             wrote, accum = [], self._accum
 
             def spy(p, micro, gen):
@@ -5379,11 +5400,15 @@ def train_bn_devices(ck, dev, label: str, d: str, model: str,
                 return loss, after, grads
             self._accum = spy
             try:
-                out = super()._psum_steps(params, state, batches, workers)
+                out = super()._psum_steps(starts, state, batches, workers,
+                                          **kw)
             finally:
                 self._accum = accum
+            # the step's params: the first worker's (every worker's share
+            # them on one copy)
+            stepped = out[0][workers[0]]
             self.first_step = (wrote, {k: [b.detach().clone() for b in
-                                           out[0][k]]
+                                           stepped[k]]
                                        for k in self._state_keys})
             return out
 
@@ -8810,7 +8835,7 @@ def fleet_child(kind: str, outdir: str, argv: list[str]) -> int:
     from sparknet_tpu_torch.tools import multihost_driver, serve
     record: dict = {"kind": kind, "pid": os.getpid(),
                     "job": os.environ.get("SPARKNET_FLEET_JOB")}
-    engines, houses, rounds = [], [], [0]
+    engines, houses, rounds, trained = [], [], [0], [0]
     if kind == "front":
         fleet.SERVE_CMD = child_command("serve", outdir)
         main_fn = serve.main
@@ -8832,7 +8857,11 @@ def fleet_child(kind: str, outdir: str, argv: list[str]) -> int:
 
         def counted_round(self, batches):
             rounds[0] += 1
-            return real_round(self, batches)
+            trips = self.audit_trips
+            out = real_round(self, batches)
+            # a round the audit dropped before it ran launched nothing
+            trained[0] += self.audit_trips == trips
+            return out
 
         trainer.DistributedTrainer.train_round = counted_round
         if kind == "driver-planted":
@@ -8851,6 +8880,7 @@ def fleet_child(kind: str, outdir: str, argv: list[str]) -> int:
         record["dispatches"] = sum(e.stats()["dispatches"] for e in engines)
     elif kind.startswith("driver"):
         record["rounds"] = rounds[0]
+        record["trained"] = trained[0]
         record["workers"] = int(argv[argv.index("--local-devices") + 1])
     with open(os.path.join(outdir, f"{kind}-{os.getpid()}.json"), "w") as f:
         json.dump(record, f)
@@ -9624,6 +9654,384 @@ def net_on_card(ck, dev, smi: str) -> dict:
     return report
 
 
+# Phase 5q: the pod half's tensors on the card.  (a) ``tools/shardbench.py
+# --device cuda`` in this process, its six verdicts on lenet (4 positions,
+# τ=2, 3 rounds).  (b) CaffeNet at full width, the bench's round batch of
+# 227 crops of 256² images over 4 positions, local_sgd, τ=2, one warm and
+# one measured round, shard "off" then "auto" through the bench's
+# ``shard_round_legs``: losses and params bit for bit, the boundary
+# bytes, one shard_checkpoint write resumed bit for bit.  (c) gangs of 2
+# processes x 2 workers through ``launch_local`` and multihost_driver, every
+# rank a ``--fleet-child driver`` of this script on the one card, started
+# together: hierarchical under SPARKNET_SHARD=auto and SPARKNET_SHARD_CKPT=1
+# against the one-process 2x2 run, local_sgd with ``--audit-every 1`` and
+# a flip on position 3 against the fault-free run, and (planted) a flip on
+# position 1 with the audit off, which must not match.  (d) roundbench's
+# audit leg.  Planted: a tile with one byte changed, which resume skips.
+SHARD_WORKERS, SHARD_TAU = 4, 2
+SHARD_BATCH = 256                 # the bench's round batch, 64 a worker
+SHARD_BYTES_DP, SHARD_BYTES_4 = 243_860_896, 67_995_040
+GANG_PROCS, GANG_LOCAL, GANG_ROUNDS = 2, 2, 4
+GANG_TIMEOUT_S = 240
+
+
+class counted_rounds:
+    """Worker steps of every round run in this process while active: a
+    round the audit dropped before it ran counts none."""
+
+    def __init__(self):
+        self.steps = 0
+
+    def __enter__(self):
+        from sparknet_tpu_torch.parallel import trainer
+        real = trainer.DistributedTrainer.train_round
+        outer = self
+
+        def counted(tr, batches):
+            trips = tr.audit_trips
+            out = real(tr, batches)
+            if tr.audit_trips == trips:
+                outer.steps += tr.n_workers * tr.config.tau
+            return out
+
+        self._patch = mock.patch.object(trainer.DistributedTrainer,
+                                        "train_round", counted)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.__exit__(*exc)
+
+
+def lenet_pools(steps: int) -> dict:
+    return {"max_pool_bwd": LENET_POOLS * steps, **FLEET_POOL_ONLY}
+
+
+def shardbench_5q(ck, dev, d: str) -> dict:
+    """(a) shardbench in this process."""
+    import io
+    from sparknet_tpu_torch.tools import shardbench
+    path = os.path.join(d, "shardbench.json")
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with counted_rounds() as cr, \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = shardbench.main(["--device", dev.type, "--out", path])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    got, want = launched(ck), lenet_pools(cr.steps)
+    with open(path) as f:
+        doc = json.load(f)
+    verdicts = {"parity": doc["parity"],
+                "codec_int8_parity": doc["codec_int8_parity"],
+                "ckpt_roundtrip_ok": doc["ckpt_roundtrip_ok"],
+                "elastic_ok": doc["elastic_ok"], "audit_ok": doc["audit_ok"],
+                "caffenet_shrink_x": doc["caffenet"]["shrink_x"]}
+    if rc != 0 or not doc["ok"] or doc["failures"] \
+            or not all(doc["parity"].values()):
+        fail(f"5q shardbench: rc {rc}, {doc['failures']}, {verdicts}")
+    if {k: got[k] for k in want} != want or not cr.steps:
+        fail(f"5q shardbench: launches {got}, want {want}")
+    return {"wall_s": wall, "verdicts": verdicts, "plan": doc["plan"],
+            "round_s": {"dp": doc["dp"]["round_s"],
+                        "sharded": doc["sharded"]["round_s"]},
+            "boundary_bytes": {"dp": doc["dp"]["boundary_bytes_per_chip"],
+                               "sharded":
+                                   doc["sharded"]["boundary_bytes_per_chip"]},
+            "launches": {"shardbench_lenet_5q": {k: got[k] for k in want}}}
+
+
+def caffenet_shard_round_5q(ck, dev, d: str) -> dict:
+    """(b) CaffeNet's replicated round against its sharded one, at full
+    width, and one sharded checkpoint written and resumed."""
+    from sparknet_tpu_torch import bench as bench_mod
+    from sparknet_tpu_torch.parallel.trainer import (DistributedTrainer,
+                                                     TrainerConfig)
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    from sparknet_tpu_torch.utils.profiling import (BENCH_SOLVER_PROTOTXT,
+                                                    build_bench_model)
+    net, in_shape, classes = build_bench_model("caffenet", SHARD_BATCH)
+    sp = load_solver_prototxt_with_net(BENCH_SOLVER_PROTOTXT, net)
+    rng = np.random.default_rng(SEED + 22)
+    feed = {"data": torch.from_numpy(rng.normal(
+                size=(SHARD_TAU, SHARD_BATCH) + in_shape).astype(
+                    np.float32)).to(dev),
+            "label": torch.from_numpy(rng.integers(
+                0, classes, size=(SHARD_TAU, SHARD_BATCH)).astype(
+                    np.float32)).to(dev)}
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with cudnn_deterministic(), counted_rounds() as cr:
+        legs = bench_mod.shard_round_legs(
+            sp, feed, workers=SHARD_WORKERS, rounds=1, tau=SHARD_TAU,
+            device=dev, shard_checkpoint=True, sync=lambda: sync(dev))
+    got = launched(ck)
+    want = want_steps(cr.steps)
+    dp, sh = legs["off"], legs["auto"]
+    if cr.steps != 2 * 2 * SHARD_WORKERS * SHARD_TAU or got != want:
+        fail(f"5q caffenet shard round: {cr.steps} steps, launches {got}, "
+             f"want {want}")
+    if [np.float32(x).tobytes() for x in dp["losses"]] != \
+            [np.float32(x).tobytes() for x in sh["losses"]] or \
+            differing(host_params(dp["trainer"]),
+                      host_params(sh["trainer"])):
+        fail(f"5q caffenet shard round: sharded {sh['losses']} against dp "
+             f"{dp['losses']}, params "
+             f"{differing(host_params(dp['trainer']), host_params(sh['trainer']))}")
+    plan = sh["trainer"].shard_plan
+    if (dp["boundary_bytes_per_chip"], sh["boundary_bytes_per_chip"]) != \
+            (SHARD_BYTES_DP, SHARD_BYTES_4) or plan is None or \
+            plan.dims_dict() != {"fc6/0": 0, "fc7/0": 0, "fc8/0": 0}:
+        fail(f"5q caffenet shard round: bytes "
+             f"{dp['boundary_bytes_per_chip']} / "
+             f"{sh['boundary_bytes_per_chip']}, plan {plan}")
+    # one sharded checkpoint, written and resumed by a fresh trainer
+    ckdir = os.path.join(d, "caffenet_ckpt")
+    t1 = time.perf_counter()
+    sh["trainer"].save_round_checkpoint(ckdir)
+    sh["trainer"].flush_checkpoints()
+    write_s = time.perf_counter() - t1
+    tiles = sorted(f for f in os.listdir(ckdir) if ".shard" in f)
+    t1 = time.perf_counter()
+    back = DistributedTrainer(sp, SHARD_WORKERS, TrainerConfig(
+        strategy="local_sgd", tau=SHARD_TAU, shard="auto",
+        shard_checkpoint=True, checkpoint_dir=ckdir), seed=1, device=dev)
+    resume_s = time.perf_counter() - t1
+    if len(tiles) != SHARD_WORKERS or back.resumed is None or \
+            differing(host_params(sh["trainer"]), host_params(back)):
+        fail(f"5q caffenet sharded checkpoint: tiles {tiles}, resumed "
+             f"{back.resumed}")
+    mb = sum(os.path.getsize(os.path.join(ckdir, f))
+             for f in os.listdir(ckdir) if f.endswith(".npz")) / 1e6
+    del legs, back
+    torch.cuda.empty_cache()
+    return {"wall_s": time.perf_counter() - t0,
+            "round_s": {"dp": {"warm": dp["warm_s"],
+                               "measured": dp["round_s"]},
+                        "sharded": {"warm": sh["warm_s"],
+                                    "measured": sh["round_s"]}},
+            "img_s": {"dp": dp["img_s"], "sharded": sh["img_s"]},
+            "boundary_bytes": {"dp": dp["boundary_bytes_per_chip"],
+                               "sharded": sh["boundary_bytes_per_chip"]},
+            "plan": sh["trainer"].shard_plan_id,
+            "checkpoint": {"mb": mb, "write_s": write_s,
+                           "resume_s": resume_s, "tiles": len(tiles)},
+            "launches": {"shard_round_caffenet_5q": got}}
+
+
+def gang_5q(ck, dev, d: str) -> dict:
+    """(c) three gangs started together, then the one-process runs they
+    are held against in this process; each gang's ranks' launches from
+    their records."""
+    import threading
+    from sparknet_tpu_torch.tools import multihost_driver
+    from sparknet_tpu_torch.tools.launch import launch_local
+    from sparknet_tpu_torch.utils import faults
+    base = ["--rounds", str(GANG_ROUNDS)]
+    gangs = {
+        "hierarchical_sharded": (["--strategy", "hierarchical",
+                                  "--ckpt-dir", os.path.join(d, "g_hier")],
+                                 {"SPARKNET_SHARD": "auto",
+                                  "SPARKNET_SHARD_CKPT": "1"}),
+        "local_sgd_audit_flip": (["--strategy", "local_sgd",
+                                  "--audit-every", "1", "--ckpt-dir",
+                                  os.path.join(d, "g_audit")],
+                                 {"SPARKNET_FAULT":
+                                  "bitflip_params@rank:3@round:2"}),
+        "planted_flip_no_audit": (["--strategy", "local_sgd"],
+                                  {"SPARKNET_FAULT":
+                                   "bitflip_params@rank:1@round:2"}),
+    }
+    rcs: dict = {}
+    threads, spawned = [], []
+    t0 = time.perf_counter()
+    for name, (argv, env) in gangs.items():
+        out = os.path.join(d, f"rec_{name}")
+        os.makedirs(out)
+        cmd = child_command("driver", out) + base + argv + [
+            "--out", os.path.join(d, f"{name}.npz")]
+
+        up = threading.Event()
+        spawned.append(up)
+
+        def go(name=name, cmd=cmd, env=env, up=up):
+            try:
+                rcs[name] = launch_local(
+                    cmd, GANG_PROCS, device=dev.type,
+                    local_devices=GANG_LOCAL, timeout=GANG_TIMEOUT_S,
+                    extra_env={**env, "OMP_NUM_THREADS": "1"},
+                    on_spawn=lambda procs: up.set())
+            finally:
+                up.set()
+        threads.append(threading.Thread(target=go, daemon=True))
+    for t in threads:
+        t.start()
+    # every rank started (with this process's environment as it was)
+    # before the references below set theirs
+    for up in spawned:
+        up.wait(GANG_TIMEOUT_S)
+    # the one-process runs, meanwhile: the 2x2 pod under the same plan,
+    # and local_sgd on 4 workers with the audit and no fault
+    ck.reset_launch_counts()
+    refs = {}
+    with cudnn_deterministic(), counted_rounds() as cr:
+        for name, argv, env in (
+                ("hierarchical_sharded", ["--strategy", "hierarchical",
+                                          "--ckpt-dir",
+                                          os.path.join(d, "r_hier")],
+                 gangs["hierarchical_sharded"][1]),
+                ("fault_free_audit", ["--strategy", "local_sgd",
+                                      "--audit-every", "1", "--ckpt-dir",
+                                      os.path.join(d, "r_audit")], {})):
+            path = os.path.join(d, f"ref_{name}.npz")
+            with mock.patch.dict(os.environ, env):
+                faults.reset_injector()
+                rc = multihost_driver.main(
+                    base + argv + ["--out", path, "--local-devices",
+                                   str(GANG_PROCS * GANG_LOCAL),
+                                   "--device", dev.type])
+            faults.reset_injector()
+            if rc != 0:
+                fail(f"5q gang reference {name}: rc {rc}")
+            refs[name] = np.load(path)
+    sync(dev)
+    ref_launches = launched(ck)
+    ref_want = lenet_pools(cr.steps)
+    for t in threads:
+        t.join(GANG_TIMEOUT_S + 30)
+    wall = time.perf_counter() - t0
+    if {k: ref_launches[k] for k in ref_want} != ref_want:
+        fail(f"5q gang references: launches {ref_launches}, want "
+             f"{ref_want}")
+    report: dict = {"wall_s": wall, "launches": {
+        "gang_references_one_process_5q":
+            {k: ref_launches[k] for k in ref_want}}}
+    got_npz = {}
+    for name in gangs:
+        recs = child_records(os.path.join(d, f"rec_{name}"), "driver")
+        total = dict(FLEET_POOL_ONLY, max_pool_bwd=0)
+        for r in recs:
+            want = lenet_pools(r["workers"] * multihost_driver.TAU
+                               * r["trained"])
+            got = {k: r["launches"][k] for k in want}
+            if r["rc"] != 0 or got != want or r["workers"] != GANG_LOCAL:
+                fail(f"5q gang {name}: rank pid {r['pid']} rc {r['rc']}, "
+                     f"launches {got}, want {want}")
+            total["max_pool_bwd"] += got["max_pool_bwd"]
+        if rcs.get(name) != 0 or len(recs) != GANG_PROCS:
+            fail(f"5q gang {name}: launcher rc {rcs.get(name)}, "
+                 f"{len(recs)} rank records")
+        report["launches"][f"gang_{name}_5q"] = total
+        got_npz[name] = np.load(os.path.join(d, f"{name}.npz"))
+
+    def params_differ(a, b) -> list:
+        return [k for k in a.files if not k.startswith("__")
+                and not np.array_equal(a[k], b[k])]
+
+    hier = params_differ(refs["hierarchical_sharded"],
+                         got_npz["hierarchical_sharded"])
+    if hier or not os.listdir(os.path.join(d, "g_hier")) or not any(
+            ".shard" in f for f in os.listdir(os.path.join(d, "g_hier"))):
+        fail(f"5q gang hierarchical sharded: params {hier} differ from "
+             f"the one-process 2x2 run, or no tiles written")
+    flip = got_npz["local_sgd_audit_flip"]
+    flip_diff = params_differ(refs["fault_free_audit"], flip)
+    if int(flip["__audit_trips__"]) != 1 or flip_diff:
+        fail(f"5q gang audit: {int(flip['__audit_trips__'])} trips, params "
+             f"{flip_diff} differ from the fault-free run")
+    planted = params_differ(refs["fault_free_audit"],
+                            got_npz["planted_flip_no_audit"])
+    if not planted:
+        fail("5q planted: a rank flipped a bit with the audit off and the "
+             "gang's params still match the fault-free run")
+    report.update(ranks=GANG_PROCS, workers_per_rank=GANG_LOCAL,
+                  audit_trips=int(flip["__audit_trips__"]),
+                  planted_params_differing=len(planted))
+    return report
+
+
+def roundbench_audit_5q(ck, dev) -> dict:
+    """(d) roundbench with its audit leg on the card."""
+    from sparknet_tpu_torch.tools import roundbench
+    ck.reset_launch_counts()
+    with counted_rounds() as cr:
+        line = roundbench.run(device=dev.type)
+    got, want = launched(ck), lenet_pools(cr.steps)
+    stalls = (line["sync"]["stall_s"]["audit_fetch"],
+              line["async"]["stall_s"]["audit_fetch"])
+    if not line["ok"] or not all(isinstance(x, float) and x > 0
+                                 for x in stalls):
+        fail(f"5q roundbench: {line['failures']}, audit_fetch {stalls}")
+    if {k: got[k] for k in want} != want:
+        fail(f"5q roundbench: launches {got}, want {want}")
+    return {"audit_fetch_s": {"sync": stalls[0], "async": stalls[1]},
+            "wall_s": {"sync": line["sync"]["wall_s"],
+                       "async": line["async"]["wall_s"]},
+            "launches": {"roundbench_audit_5q": {k: got[k] for k in want}}}
+
+
+def planted_tile_refused(ck, dev, d: str) -> dict:
+    """Planted: the newest sharded checkpoint's tile with one byte
+    changed; a fresh trainer must skip it and resume the one before."""
+    from sparknet_tpu_torch.models import lenet
+    from sparknet_tpu_torch.parallel.trainer import (DistributedTrainer,
+                                                     TrainerConfig)
+    from sparknet_tpu_torch.proto import load_solver_prototxt_with_net
+    sp = load_solver_prototxt_with_net(
+        'base_lr: 0.005\nmomentum: 0.9\nlr_policy: "fixed"\n',
+        lenet(16, 16))
+    ckdir = os.path.join(d, "tile_plant")
+    cfg = TrainerConfig(strategy="local_sgd", tau=SHARD_TAU, shard="auto",
+                        shard_checkpoint=True, checkpoint_dir=ckdir,
+                        async_checkpoint=False)
+    ck.reset_launch_counts()
+    with counted_rounds() as cr:
+        tr = DistributedTrainer(sp, SHARD_WORKERS, cfg, seed=0, device=dev)
+        rng = np.random.default_rng(SEED + 23)
+        for _ in range(2):
+            tr.train_round({
+                "data": rng.normal(size=(SHARD_TAU, 16, 1, 28, 28)
+                                   ).astype(np.float32),
+                "label": rng.integers(0, 10, size=(SHARD_TAU, 16)
+                                      ).astype(np.float32)})
+    got, want = launched(ck), lenet_pools(cr.steps)
+    tile = os.path.join(ckdir, "ckpt_round_00000002.shard01.npz")
+    with open(tile, "r+b") as f:
+        f.seek(os.path.getsize(tile) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0x01]))
+    back = DistributedTrainer(sp, SHARD_WORKERS, cfg, seed=0, device=dev)
+    if back.resumed is None or back.resumed["round"] != 1 or \
+            {k: got[k] for k in want} != want:
+        fail(f"5q planted tile: resume took "
+             f"{back.resumed and back.resumed['round']} (want 1, the tile "
+             f"of round 2 changed), launches {got}")
+    return {"resumed_round": back.resumed["round"],
+            "launches": {"planted_tile_lenet_5q": {k: got[k] for k in want}}}
+
+
+def pod_tensors_on_card(ck, dev, smi: str) -> dict:
+    """Phase 5q."""
+    import tempfile
+    t0 = time.perf_counter()
+    report: dict = {}
+    with tempfile.TemporaryDirectory(prefix="pod_5q_") as d:
+        report["shardbench"] = shardbench_5q(ck, dev, d)
+        report["caffenet_shard_round"] = caffenet_shard_round_5q(ck, dev, d)
+        report["gangs"] = gang_5q(ck, dev, d)
+        report["roundbench_audit"] = roundbench_audit_5q(ck, dev)
+        report["planted_tile"] = planted_tile_refused(ck, dev, d)
+    report["launches"] = {k: v for part in report.values()
+                          if "launches" in part
+                          for k, v in part.pop("launches").items()}
+    report["seconds"] = time.perf_counter() - t0
+    print(f"pod_5q [{smi}] " + json.dumps(
+        {k: v for k, v in report.items() if k != "launches"},
+        default=str), flush=True)
+    return report
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict,
                  rows: list[dict], main: list[dict],
                  relu_launches: dict | None = None) -> dict:
@@ -9934,6 +10342,14 @@ def main() -> int:
     net5p = net_on_card(ck, dev, smi)
     mark("5p the round over the wire")
 
+    # phase 5q: the pod half's tensors: shardbench's six verdicts, CaffeNet's
+    # sharded round against its replicated one at full width with a
+    # sharded checkpoint, 2-process gangs (hierarchical under a plan, the
+    # audit catching a flip) against one process, roundbench's audit leg,
+    # planted faults
+    pod5q = pod_tensors_on_card(ck, dev, smi)
+    mark("5q the pod half's tensors")
+
     # phase 6: the kernels line.  Launches per path, each path's counts set
     # to 0 just before it.  Main-path rows: GoogLeNet's, this slice's main
     # path: norm1 + norm2 at serving batch 64 in bf16 (its default) for
@@ -10030,7 +10446,11 @@ def main() -> int:
         # engines, and the lenet drivers
         **fleet5o["launches"],
         # phase 5p: commbench's trainings and the net soak's drivers
-        **net5p["launches"]}
+        **net5p["launches"],
+        # phase 5q: shardbench, CaffeNet's sharded and replicated rounds,
+        # each gang's ranks (summed), the one-process references,
+        # roundbench and the planted tile's trainer
+        **pod5q["launches"]}
     def solver_launches(kernel):   # the paths that run ``kernel``
         return {m: c[kernel] for m, c in solver_paths.items()
                 if c.get(kernel)}

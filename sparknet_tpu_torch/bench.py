@@ -36,10 +36,9 @@ Tiers (each a key of the line):
   the per-stage seconds of ``FeedStats``.
 - **Round** (``round_overhead``): ``parallel/trainer.py``'s
   ``DistributedTrainer`` on one card, bare rounds against rounds with
-  checkpoints and the guard, synchronous against asynchronous
-  (``SPARKNET_ASYNC_CKPT``, ``harvest_lag``), with the ``stall_s``
-  components.  The cross-replica audit leg is ROADMAP A12 (``null``,
-  the reason under ``not_ported_legs``).
+  checkpoints, the guard and the cross-replica audit, synchronous
+  against asynchronous (``SPARKNET_ASYNC_CKPT``, ``harvest_lag``), with
+  the ``stall_s`` components (``audit_fetch`` the audit's).
 - **Serving** (``serving``): ``tools/serveload.run_report`` as the JAX
   bench runs it: closed-loop batch-1 against dynamic saturation through
   ``InferenceEngine``/``run_closed_loop``, a paced sweep at 0.5x and 1x
@@ -59,7 +58,14 @@ Tiers (each a key of the line):
   256² (``create_imagenet.sh``'s resize), batch 256, 5 epochs, so that
   the timed records window holds 5,120 images (the JAX bench's are 96
   of 64², batch 32, 3 epochs).
-- ``shard_round`` (ROADMAP A12) is reported as ``{"not_ported": ...}``.
+- **Sharded round** (``shard_round``, :func:`shard_round_legs`): the
+  τ-boundary bytes a position receives and the round wall of the
+  replicated round (``shard="off"``) against the tensor-sharded one
+  (``"auto"``, ``parallel/partition.py``), ``local_sgd``, codec none, the
+  same seed and feed, with ``parity_ok`` asserting the losses bit for
+  bit.  Its workers are ``--local-devices`` (the launcher's contract for
+  the round's workers, default 1): with one it reports ``skipped``, as
+  the JAX tier does on one device.
 
 Env knobs, the JAX bench's names where they apply: BENCH_MODEL
 (caffenet | googlenet | vgg16 | lenet), BENCH_BATCH, BENCH_ITERS,
@@ -69,12 +75,13 @@ BENCH_FEED_U8; BENCH_ROUND=0, BENCH_ROUND_N, BENCH_ROUND_TAU,
 BENCH_ROUND_LAG, BENCH_ROUND_BATCH, BENCH_ROUND_EVERY; BENCH_SERVING=0,
 BENCH_SERVE_MODEL, BENCH_SERVE_CLIENTS, BENCH_SERVE_WINDOW,
 BENCH_SERVE_SECONDS; BENCH_FEED_RECORDS=0, BENCH_RECORDS_N,
-BENCH_RECORDS_EDGE, BENCH_RECORDS_BATCH, BENCH_RECORDS_EPOCHS.  The JAX bench's ``BENCH_PLATFORM=cpu`` is
+BENCH_RECORDS_EDGE, BENCH_RECORDS_BATCH, BENCH_RECORDS_EPOCHS;
+BENCH_SHARD=0, BENCH_SHARD_N, BENCH_SHARD_TAU, BENCH_SHARD_BATCH.  The
+JAX bench's ``BENCH_PLATFORM=cpu`` is
 ``--device cpu`` here; ``BENCH_SCAN`` does not apply (a block is a
 plain loop); ``BENCH_FUSE`` (off | auto | all | a plan file) sets
 ``SPARKNET_FUSE`` for every net the child builds, and the line's
-``fuse_plan`` and ``tune_plan`` are the train net's ids;
-``BENCH_SHARD`` raises (ROADMAP A12).
+``fuse_plan`` and ``tune_plan`` are the train net's ids.
 """
 
 from __future__ import annotations
@@ -102,9 +109,6 @@ _BASELINES = {
     "googlenet": (128 / 1.1238, 128 / 0.5628, None),
 }
 
-NOT_PORTED = {
-    "shard_round": {"not_ported": "ROADMAP A12"},
-}
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -151,6 +155,11 @@ class BenchConfig:
     records_edge: int = 256
     records_batch: int = 256
     records_epochs: int = 5
+    shard: bool = True
+    shard_n: int = 4
+    shard_tau: int = 4
+    shard_batch: int | None = None      # None: ``batch``
+    workers: int = 1                    # --local-devices
 
     @classmethod
     def from_env(cls) -> "BenchConfig":
@@ -160,11 +169,6 @@ class BenchConfig:
                 and not os.path.isfile(fuse):
             raise ValueError(f"BENCH_FUSE={fuse!r}: not off|auto|all and "
                              f"no such plan file")
-        if env.get("BENCH_SHARD", "0") != "0" or any(
-                env.get(k) for k in ("BENCH_SHARD_N", "BENCH_SHARD_TAU",
-                                     "BENCH_SHARD_BATCH")):
-            raise NotImplementedError(
-                "BENCH_SHARD: the sharded round is not ported (ROADMAP A12)")
         dtype = env.get("BENCH_DTYPE") or None
         if dtype not in (None, "f32", "bf16"):
             raise ValueError(f"BENCH_DTYPE={dtype!r} invalid (use f32 or "
@@ -196,7 +200,11 @@ class BenchConfig:
             records_n=_env_int("BENCH_RECORDS_N", 1024),
             records_edge=_env_int("BENCH_RECORDS_EDGE", 256),
             records_batch=_env_int("BENCH_RECORDS_BATCH", 256),
-            records_epochs=_env_int("BENCH_RECORDS_EPOCHS", 5))
+            records_epochs=_env_int("BENCH_RECORDS_EPOCHS", 5),
+            shard=env.get("BENCH_SHARD", "1") != "0",
+            shard_n=_env_int("BENCH_SHARD_N", 4),
+            shard_tau=_env_int("BENCH_SHARD_TAU", 4),
+            shard_batch=_env_int("BENCH_SHARD_BATCH", 0) or None)
 
 
 def timed_windows(run: Callable[[], Any], reps: int, windows: int,
@@ -551,7 +559,9 @@ def run(cfg: BenchConfig, device: str = "cuda",
                         harvest_lag=lag if async_on else 0,
                         checkpoint_dir=ck if instrumented else None,
                         checkpoint_every=every, checkpoint_keep=keep,
-                        guard_numerics=instrumented), seed=0, device=dev)
+                        guard_numerics=instrumented,
+                        audit_every=1 if instrumented else 0), seed=0,
+                        device=dev)
                     tr.train_round(feed)   # warm-up
                     tr.drain()
                     tr.stall_s = {k: 0.0 for k in tr.stall_s}
@@ -587,7 +597,6 @@ def run(cfg: BenchConfig, device: str = "cuda",
             "harvest_lag": lag, "checkpoint_every": every,
             "workers": 1, "dtype": "f32",
             "bare": bare, "sync": sync_leg, "async": async_leg,
-            "audit": None, "not_ported_legs": {"audit": "ROADMAP A12"},
             "sync_overhead_pct": round(
                 (sync_leg["round_s"] - bare["round_s"])
                 / bare["round_s"] * 100, 1),
@@ -635,6 +644,14 @@ def run(cfg: BenchConfig, device: str = "cuda",
     feed = measure_feed(best) if cfg.feed else None
     feed_records = measure_feed_records() if cfg.feed_records else None
     round_overhead = measure_round_overhead() if cfg.round else None
+    shard_round = None
+    if cfg.shard:
+        if cfg.workers >= 2:
+            phase("bench_shard_round")
+        shard_round = measure_shard_round(
+            sp, in_shape, classes, workers=cfg.workers,
+            rounds=cfg.shard_n, tau=cfg.shard_tau,
+            batch=cfg.shard_batch or batch_n, device=dev, rng=rng)
     serving = measure_serving() if cfg.serving else None
     if serving is not None and not serving["verdicts"]["bit_identical"]:
         raise RuntimeError(f"serving: {serving['verdicts']['exact_mismatches']}"
@@ -677,9 +694,89 @@ def run(cfg: BenchConfig, device: str = "cuda",
         "feed_records": feed_records,
         "round_overhead": round_overhead,
         "serving": serving,
-        **NOT_PORTED,
+        "shard_round": shard_round,
         "provenance": perfledger.provenance(fp),
     }
+
+
+# ---------------------------------------------------------------------------
+# The sharded round
+# ---------------------------------------------------------------------------
+
+def shard_round_legs(sp, feed: dict, *, workers: int, rounds: int, tau: int,
+                     device, shard_checkpoint: bool = False,
+                     sync: Callable[[], None] = lambda: None) -> dict:
+    """The replicated round against the tensor-sharded one on ``feed``
+    (``[tau, batch, ...]`` per blob), ``local_sgd`` over ``workers``
+    positions, codec none, seed 0: one warm round and ``rounds`` timed;
+    each leg's trainer, losses, ``warm_s``, ``img_s``/``round_s`` and
+    analytic ``boundary_bytes_per_chip``.  ``shard_checkpoint`` sets the
+    sharded leg's config to write tiles when it is checkpointed."""
+    from .parallel import partition
+    from .parallel.trainer import DistributedTrainer, TrainerConfig
+    batch = next(iter(feed.values())).shape[1]
+    legs = {}
+    for shard in ("off", "auto"):
+        tr = DistributedTrainer(sp, workers, TrainerConfig(
+            strategy="local_sgd", tau=tau, shard=shard,
+            shard_checkpoint=shard_checkpoint and shard == "auto"),
+            seed=0, device=device)
+        t0 = time.perf_counter()
+        losses = [tr.train_round(feed)]    # warm-up
+        sync()
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            losses.append(tr.train_round(feed))
+        sync()
+        dt = time.perf_counter() - t0
+        legs[shard] = {
+            "trainer": tr, "losses": losses, "warm_s": round(warm, 4),
+            "img_s": round(batch * tau * rounds / dt, 1),
+            "round_s": round(dt / rounds, 4),
+            "boundary_bytes_per_chip": partition.boundary_bytes_per_chip(
+                tr.params, tr.shard_plan)}
+    return legs
+
+
+def measure_shard_round(sp, in_shape, classes, *, workers: int,
+                        rounds: int, tau: int, batch: int, device,
+                        rng) -> dict:
+    """The bench's ``shard_round`` tier (the JAX bench's
+    ``measure_shard_round``, bench.py:582-645): :func:`shard_round_legs`
+    on a random feed, reported with the plan, the shrink and
+    ``parity_ok`` (the losses bit for bit).  One worker is ``skipped``."""
+    import numpy as np
+    import torch
+    if workers < 2:
+        return {"skipped": f"{workers} worker(s): nothing to shard"}
+    feed = {"data": torch.from_numpy(rng.normal(
+                size=(tau, batch) + in_shape).astype(np.float32)).to(device),
+            "label": torch.from_numpy(rng.integers(
+                0, classes, size=(tau, batch)).astype(np.float32)).to(device)}
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    legs = shard_round_legs(sp, feed, workers=workers, rounds=rounds,
+                            tau=tau, device=device, sync=sync)
+    sh_tr = legs["auto"]["trainer"]
+    if sh_tr.shard_plan is None:
+        return {"skipped": "no shardable leaves for this model"}
+    dp, sh = ({k: legs[m][k] for k in ("img_s", "round_s",
+                                       "boundary_bytes_per_chip")}
+              for m in ("off", "auto"))
+    parity_ok = all(
+        np.float32(a).tobytes() == np.float32(b).tobytes()
+        for a, b in zip(legs["off"]["losses"], legs["auto"]["losses"]))
+    shrink = round(dp["boundary_bytes_per_chip"]
+                   / max(sh["boundary_bytes_per_chip"], 1), 2)
+    _log(f"shard_round[{sh_tr.shard_plan_id}]: dp {dp['round_s']}s / "
+         f"{dp['boundary_bytes_per_chip']} B vs sharded {sh['round_s']}s "
+         f"/ {sh['boundary_bytes_per_chip']} B per chip ({shrink}x, "
+         f"parity {'OK' if parity_ok else 'FAILED'})")
+    return {"batch": batch, "tau": tau, "rounds": rounds,
+            "workers": workers, "dtype": "f32",
+            "plan": sh_tr.shard_plan_id, "dp": dp, "sharded": sh,
+            "bytes_shrink_x": shrink, "parity_ok": parity_ok}
 
 
 # ---------------------------------------------------------------------------
@@ -691,7 +788,7 @@ def _failure_line(model: str, note: str) -> str:
                        "value": 0.0, "unit": "img/s", "error": note})
 
 
-def run_child(device: str) -> int:
+def run_child(device: str, workers: int = 1) -> int:
     """Measure in this process and print the line; a failure prints the
     error line and returns 1."""
     model = os.environ.get("BENCH_MODEL") or "caffenet"
@@ -700,7 +797,8 @@ def run_child(device: str) -> int:
     if os.environ.get("BENCH_FUSE"):
         os.environ["SPARKNET_FUSE"] = os.environ["BENCH_FUSE"]
     try:
-        result = run(BenchConfig.from_env(), device)
+        result = run(dataclasses.replace(BenchConfig.from_env(),
+                                         workers=workers), device)
     except Exception as e:   # the boundary: the line names the failure
         import traceback
         traceback.print_exc()
@@ -710,7 +808,7 @@ def run_child(device: str) -> int:
     return 0
 
 
-def run_parent(device: str) -> int:
+def run_parent(device: str, workers: int = 1) -> int:
     """Run the child under ``BENCH_TIMEOUT_S`` (default 900 s) and relay
     its one line; a child that fails, times out or prints no JSON gives
     the error line and exit 1."""
@@ -718,7 +816,8 @@ def run_parent(device: str) -> int:
     timeout_s = _env_float("BENCH_TIMEOUT_S", 900.0)
     child = subprocess.Popen(
         [sys.executable, "-m", "sparknet_tpu_torch.bench", "--child",
-         "--device", device], stdout=subprocess.PIPE, cwd=_REPO_DIR)
+         "--device", device, "--local-devices", str(workers)],
+        stdout=subprocess.PIPE, cwd=_REPO_DIR)
 
     def on_signal(signum, frame):
         child.kill()
@@ -751,9 +850,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to measure (default cuda)")
+    ap.add_argument("--local-devices", type=int, default=1,
+                    help="workers of the sharded round tier, sharing the "
+                         "device (default 1: the tier is skipped)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    return run_child(args.device) if args.child else run_parent(args.device)
+    if args.child:
+        return run_child(args.device, args.local_devices)
+    return run_parent(args.device, args.local_devices)
 
 
 if __name__ == "__main__":

@@ -21,8 +21,8 @@ The quantize arithmetic lives in ``ops/quant.py``.
 
 Codec ``none`` is registered (identity, 4 bytes a weight), but the
 trainer never routes it through this module: ``comm_codec="none"`` is
-the plain round.  ``sharded_exchange_bytes`` waits for the partition
-plans (ROADMAP A12).
+the plain round.  ``sharded_exchange_bytes`` (:173-196) counts the
+exchange under a partition plan (``parallel/partition.py``).
 """
 
 from __future__ import annotations
@@ -151,3 +151,25 @@ def exchange_bytes(codec: Codec, params: Tree, n_tier: int) -> int:
                                dtype=torch.float32, device="meta")
                    for b in blobs] for k, blobs in params.items()}
     return payload_bytes(encode_tree(codec, stacked))
+
+
+def sharded_exchange_bytes(codec: Codec, params: Tree, n_tier: int,
+                           plan=None) -> int:
+    """``exchange_bytes`` under a partition plan
+    (``parallel.partition.ShardPlan``): each position moves only its own
+    tile of each sharded leaf, the replicated leaves whole.
+    ``plan=None`` is :func:`exchange_bytes` exactly."""
+    if plan is None:
+        return exchange_bytes(codec, params, n_tier)
+    shard = {}
+    for name, blobs in params.items():
+        row = []
+        for i, b in enumerate(blobs):
+            dim = plan.dim_of(f"{name}/{i}")
+            shape = list(b.shape)
+            if dim is not None:
+                shape[dim] //= plan.n_shards
+            row.append(torch.empty(tuple(shape), dtype=torch.float32,
+                                   device="meta"))
+        shard[name] = row
+    return exchange_bytes(codec, shard, n_tier)

@@ -57,21 +57,68 @@ ships raw images.  Every one of Caffe's six update rules trains here
 JAX package's checkpoint layout, each rule's state slots under their JAX
 names.
 
-Not ported: sharding (``shard``, ``shard_checkpoint``) and the
-cross-replica audit (``audit_every``), which need resident replicas on
-several devices (ROADMAP A12), and ``remat`` (ROADMAP A5); asking for
-any of them raises.
+Positions (the JAX package's mesh positions, :371-391, :626-730).  A JAX
+position holds its own copy of the params between rounds.  When a
+partition plan resolves (``shard``, ``parallel/partition.py``), or
+``audit_every > 0``, or the gang has more than one process, the trainer
+keeps one resident tree per position it holds: the replicated leaves
+whole and, under a plan, its own tile of each sharded leaf (a flat layout
+shards over its ``n_workers`` positions, ``hierarchical`` over its chips,
+a host's chip c holding tile c).  Each worker starts its round from its
+own tree, the sharded leaves gathered from the tiles of its axis
+(``torch.cat``); at the τ boundary each position keeps its own tile of
+the mean (``narrow``) and shares the replicated leaves of the mean until
+one of its own is rewritten, as a flipped bit is.  ``sync`` runs
+positions with identical trees as one group and a divergent position on
+its own, so a rotted copy stays resident as it does on a mesh.
+Otherwise the one-copy path runs as before, byte for byte.
+``self.params`` is the logical tree either way: the mean, with full
+leaves.
+
+The gang.  With a process group (``parallel/cluster.py``) each process
+runs its own positions, a contiguous block in position order (whole hosts
+under ``hierarchical``), in turn as one process does.  Wherever the round
+takes a mean over positions, the processes all-gather the positions'
+trees (under ``sync`` each step's gradients and stateful blobs; under a
+codec the encoded payload, the ``comm_allreduce`` stage) and every
+process computes the same mean over the same stacked values in position
+order, so the gang's params equal the one-process round's bit for bit
+and every process holds the same bits.  ``test()`` gathers its scores
+and sums them in worker order; the checkpoint blob gathers each tier's
+state, residual and generator rows from their owners, and process 0
+writes while the others wait at a barrier.
+
+The cross-replica audit (``audit_every``, :484-530, :938-966,
+:1231-1395).  Before every ``audit_every``-th round each position
+fingerprints its resident tree: every float leaf cast to f32 and read as
+uint32, integer leaves cast to uint32, all summed mod 2**32 (in int64,
+order-free, so the JAX trainer's value exactly); under a plan two
+columns, the replicated leaves and the resident tile.  The culprits are
+the positions off the majority, mesh-wide and, for the tile column,
+within the positions that hold the same tile (a chip column under
+``hierarchical``).  A mismatch rolls back to the newest checkpoint at or
+before the last audit that passed, records ``audit_mismatch`` and dumps
+the flight recorder.  ``bitflip_params@rank:R@round:N`` flips bit 22 of
+the first element of position R's copy of the first non-empty f32 leaf,
+in sorted layer order (:1370-1395); in a gang only the process that
+holds R flips it.
+
+Round checkpoints under a plan carry ``shard_plan`` (the trainer's
+``shard_plan_id``) in the blob and the manifest; with
+``shard_checkpoint`` the sharded leaves go to one npz tile a shard
+(``ckpt_round_%08d.shard%02d.npz``, each sha256 in the manifest with
+``shard_dims``) and resume joins them (:1494-1535, :1707-1770,
+:1857-1876).  ``remat`` (ROADMAP A5) raises.
 
 Telemetry (``utils/telemetry.py``, the JAX package's names): the
 ``trainer.round``, ``trainer.harvest`` and ``trainer.ckpt_submit`` spans;
 ``trainer_rounds_total``, ``trainer_guard_trips_total``,
-``trainer_stall_seconds{comp}`` and ``trainer_pending_rounds``; the
-``guard_trip`` and ``resume`` flight events.  A span is host time: the
+``trainer_audit_trips_total``, ``trainer_stall_seconds{comp}`` and
+``trainer_pending_rounds``; the ``guard_trip``, ``audit_mismatch`` and
+``resume`` flight events.  A span is host time: the
 round's span closes where the round already waits for the card (the
 loss fetch without a harvest lag) or, with a lag, when its work is
-enqueued.  The plane adds no synchronisation to a round.  The JAX
-package's ``trainer_audit_trips_total`` belongs to the cross-replica
-audit (ROADMAP A12).  While ``SPARKNET_HEARTBEAT_DIR`` is set the trainer
+enqueued.  The plane adds no synchronisation to a round.  While ``SPARKNET_HEARTBEAT_DIR`` is set the trainer
 beats (``parallel/health.py``) at ``init``, ``round_start`` and
 ``round_end``, the last with the JAX trainer's extras: ``stall_s``, the
 trip counters and the feed's stats.
@@ -99,7 +146,7 @@ from ..solvers.step import make_step_fns
 from ..solvers.update_rules import make_update_rule, preprocess_grads
 from ..utils import telemetry
 from ..utils.device import full_f32, resolve_device
-from . import comms
+from . import cluster, comms, partition
 from .mesh import CHIP_AXIS, DATA_AXIS, HOST_AXIS, Layout, make_mesh
 
 STRATEGIES = ("local_sgd", "sync", "hierarchical")
@@ -135,7 +182,10 @@ class TrainerConfig:
     loss_spike_factor: float = 0.0
     guard_lr_backoff: float = 1.0
     guard_max_trips: int = 3
-    audit_every: int = 0          # not ported (ROADMAP A12)
+    # every audit_every rounds (0: off), before the round runs, each
+    # position fingerprints its resident params and the positions off
+    # the majority roll the trainer back; needs checkpoint_dir
+    audit_every: int = 0
     # K > 0: the loss and the guard's verdict stay on the device and are
     # read K rounds late; drain() reads the rest
     harvest_lag: int = 0
@@ -148,8 +198,11 @@ class TrainerConfig:
     # no host synchronisation between encode, exchange and decode (the
     # same results bit for bit; stall_s charges the stages only without)
     comm_overlap: bool = False
-    shard: str = "off"            # not ported (ROADMAP A12)
-    shard_checkpoint: bool = False  # not ported (ROADMAP A12)
+    # the partition rule table (parallel/partition.py): "off", "auto"
+    # (FC weights shard across the layout's fast axis) or a JSON table
+    shard: str = "off"
+    # under a plan: round checkpoints as one npz tile a shard
+    shard_checkpoint: bool = False
 
 
 class TrainingDivergedError(RuntimeError):
@@ -161,12 +214,6 @@ def _not_ported(config: TrainerConfig) -> list[str]:
     """The settings of ``config`` this port does not implement, each
     with the ROADMAP item it waits for."""
     bad = []
-    if config.shard != "off":
-        bad.append(f"shard={config.shard!r} (ROADMAP A12)")
-    if config.shard_checkpoint:
-        bad.append("shard_checkpoint (ROADMAP A12)")
-    if config.audit_every:
-        bad.append("audit_every (ROADMAP A12)")
     if config.remat:
         bad.append("remat (ROADMAP A5)")
     return bad
@@ -175,10 +222,10 @@ def _not_ported(config: TrainerConfig) -> list[str]:
 def comm_config_from_env(base: TrainerConfig | None = None
                          ) -> TrainerConfig:
     """``base`` (or a default config) with the round's shape from the
-    knobs that are set: ``SPARKNET_TAU``, ``SPARKNET_COMM_CODEC`` and
-    ``SPARKNET_COMM_OVERLAP`` (the JAX package's trainer.py:286-315).
-    Unset knobs leave ``base`` as it is.  ``SPARKNET_SHARD`` and
-    ``SPARKNET_SHARD_CKPT`` raise: sharding is not ported."""
+    knobs that are set: ``SPARKNET_TAU``, ``SPARKNET_COMM_CODEC``,
+    ``SPARKNET_COMM_OVERLAP``, ``SPARKNET_SHARD`` (off | auto | a rule
+    table's path) and ``SPARKNET_SHARD_CKPT`` (the JAX package's
+    trainer.py:286-315).  Unset knobs leave ``base`` as it is."""
     from ..utils import knobs
     cfg = base or TrainerConfig()
     tau = knobs.get_int("SPARKNET_TAU", 0)
@@ -190,10 +237,13 @@ def comm_config_from_env(base: TrainerConfig | None = None
     if knobs.is_set("SPARKNET_COMM_OVERLAP"):
         cfg = dataclasses.replace(
             cfg, comm_overlap=knobs.get_bool("SPARKNET_COMM_OVERLAP", False))
-    for name in ("SPARKNET_SHARD", "SPARKNET_SHARD_CKPT"):
-        if knobs.is_set(name):
-            raise NotImplementedError(
-                f"{name} is set: sharding is not ported yet (ROADMAP A12)")
+    shard = knobs.get_str("SPARKNET_SHARD", "")
+    if shard:
+        cfg = dataclasses.replace(cfg, shard=shard)
+    if knobs.is_set("SPARKNET_SHARD_CKPT"):
+        cfg = dataclasses.replace(
+            cfg, shard_checkpoint=knobs.get_bool("SPARKNET_SHARD_CKPT",
+                                                 False))
     return cfg
 
 
@@ -245,6 +295,39 @@ def _manifest_round(path: str) -> int:
 
 def _copy(params: Params) -> Params:
     return {k: [b.detach().clone() for b in v] for k, v in params.items()}
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a tree of dicts and lists, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return [t for v in tree for t in _leaves(v)]
+
+
+def _unleaves(like, it):
+    """A tree shaped like ``like`` from an iterator of its leaves."""
+    if isinstance(like, torch.Tensor):
+        return next(it)
+    if isinstance(like, dict):
+        return {k: _unleaves(v, it) for k, v in like.items()}
+    return [_unleaves(v, it) for v in like]
+
+
+def _leaf_bits(leaf: torch.Tensor) -> torch.Tensor | None:
+    """The leaf's elements as uint32 bit patterns summed, in int64 (the
+    JAX trainer's ``leaf_sum``, :1250-1259, before its mod 2**32): a
+    float leaf cast to f32 and read as uint32, an integer one cast to
+    uint32; None for any other type."""
+    leaf = leaf.detach()
+    if leaf.is_floating_point():
+        bits = leaf.float().contiguous().view(torch.int32).to(torch.int64)
+    elif leaf.dtype != torch.bool and not leaf.is_complex():
+        bits = leaf.to(torch.int64)
+    else:
+        return None
+    return (bits & 0xFFFFFFFF).sum()
 
 
 def crop_mirror_mean(data: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
@@ -397,12 +480,30 @@ class DistributedTrainer:
         if cfg.guard_numerics and not cfg.checkpoint_dir:
             raise ValueError("guard_numerics needs checkpoint_dir: rollback "
                              "is the guard's only recovery action")
-        if cfg.harvest_lag and cfg.guard_numerics:
-            # a poison at round r surfaces up to harvest_lag rounds later;
-            # the newest checkpoint before it must outlive the pruning of
-            # the checkpoints written meanwhile
+        if cfg.audit_every < 0:
+            raise ValueError(
+                f"audit_every must be >= 0, got {cfg.audit_every}")
+        if cfg.audit_every:
+            if not cfg.checkpoint_dir:
+                raise ValueError(
+                    "audit_every needs checkpoint_dir — rollback is the "
+                    "audit's only recovery action")
             horizon = cfg.checkpoint_every * max(cfg.checkpoint_keep - 1, 0)
-            need = cfg.harvest_lag + cfg.checkpoint_every - 1
+            if horizon < cfg.audit_every:
+                raise ValueError(
+                    f"audit_every={cfg.audit_every} outruns the "
+                    f"checkpoint retention (checkpoint_every="
+                    f"{cfg.checkpoint_every} x (checkpoint_keep="
+                    f"{cfg.checkpoint_keep} - 1) = {horizon} "
+                    f"rounds): by the time a mismatch is detected, every "
+                    f"pre-divergence checkpoint may be pruned")
+        if cfg.harvest_lag and (cfg.guard_numerics or cfg.audit_every):
+            # a poison at round r surfaces up to harvest_lag rounds (plus
+            # the audit's cadence) later; the newest checkpoint before it
+            # must outlive the pruning of the checkpoints written meanwhile
+            horizon = cfg.checkpoint_every * max(cfg.checkpoint_keep - 1, 0)
+            need = (cfg.harvest_lag + cfg.audit_every
+                    + cfg.checkpoint_every - 1)
             if horizon < need:
                 raise ValueError(
                     f"harvest_lag={cfg.harvest_lag} outruns the checkpoint "
@@ -412,6 +513,19 @@ class DistributedTrainer:
                     f"raise checkpoint_keep or lower harvest_lag")
         self.mesh = layout
         self.n_workers = layout.n_workers
+        # the gang: this process runs positions [first, first + n_local)
+        self._procs, self._rank = (cluster.process_count(),
+                                   cluster.process_index())
+        if self.n_workers % self._procs:
+            raise ValueError(f"{self.n_workers} workers do not divide over "
+                             f"{self._procs} processes")
+        n_local = self.n_workers // self._procs
+        if cfg.strategy == "hierarchical" and n_local % self.n_chips:
+            raise ValueError(
+                f"a process must hold whole hosts: {n_local} workers a "
+                f"process, {self.n_chips} chips a host")
+        self._local = range(self._rank * n_local,
+                            (self._rank + 1) * n_local)
         self.device = resolve_device(device)
         net_param = sp.net_param or sp.train_net_param
         if net_param is None:
@@ -419,8 +533,23 @@ class DistributedTrainer:
         self.train_net = Net(net_param, NetState(Phase.TRAIN))
         self.test_net = Net(net_param, NetState(Phase.TEST))
         self.rule = make_update_rule(sp)
-        self.params: Params = self.train_net.init(
+        # one resident tree per position held (module docstring), or None
+        # on the one-copy path
+        self._resident: dict[int, Params] | None = None
+        self.params = self.train_net.init(
             torch.Generator().manual_seed(seed), device=self.device)
+        # the partition plan over the layout's fast axis: the chips under
+        # hierarchical, the one data axis otherwise
+        if cfg.strategy == "hierarchical":
+            axis, n_shards = CHIP_AXIS, self.n_chips
+        else:
+            axis, n_shards = DATA_AXIS, self.n_workers
+        self.shard_plan = partition.resolve_plan(
+            cfg.shard, self.params, axis=axis, n_shards=n_shards)
+        self.shard_plan_id = partition.shard_plan_id(self.shard_plan)
+        if (self.shard_plan is not None or cfg.audit_every
+                or self._procs > 1):
+            self._ensure_resident()
         self.state = self.init_state()
         self._lr_mults = self.train_net.lr_mult_tree(self.params)
         self._decay_mults = self.train_net.decay_mult_tree(self.params)
@@ -459,12 +588,16 @@ class DistributedTrainer:
         self.data_cursor: Any = None
         self.resumed: dict[str, Any] | None = None
         self.guard_trips = 0
+        # the audit: its trips, and the newest round whose audit passed
+        # (the rollback horizon)
+        self.audit_trips = 0
+        self._last_audit_ok = 0
         self._loss_history: list[float] = []
         self._pending: collections.deque = collections.deque()
         self._ckpt_writer = None
         # host seconds the loop waited, by what it waited for
         self.stall_s = {"loss_fetch": 0.0, "finite_check": 0.0,
-                        "checkpoint": 0.0,
+                        "audit_fetch": 0.0, "checkpoint": 0.0,
                         **{k: 0.0 for k in COMM_STAGES}}
         # telemetry handles (shared no-ops under SPARKNET_TELEMETRY=0)
         reg = telemetry.get_registry()
@@ -472,13 +605,16 @@ class DistributedTrainer:
             "trainer_rounds_total", "training rounds run (replays included)")
         self._m_guard = reg.counter(
             "trainer_guard_trips_total", "numerical-guard rollbacks")
+        self._m_audit = reg.counter(
+            "trainer_audit_trips_total", "cross-replica audit rollbacks")
         self._m_stall = reg.gauge(
             "trainer_stall_seconds", "cumulative host stall by component")
         self._m_pending = reg.gauge(
             "trainer_pending_rounds", "in-flight rounds awaiting harvest")
         if cfg.checkpoint_dir:
             self.resumed = self.resume_latest(cfg.checkpoint_dir)
-            if cfg.guard_numerics and self.resumed is None:
+            if (cfg.guard_numerics or cfg.audit_every) \
+                    and self.resumed is None:
                 # a baseline, so the very first round can roll back
                 self.save_round_checkpoint()
         from . import health
@@ -505,6 +641,116 @@ class DistributedTrainer:
         return {k: [torch.zeros((n,) + tuple(b.shape), dtype=torch.float32,
                                 device=self.device) for b in blobs]
                 for k, blobs in self.params.items()}
+
+    # -- positions and their resident trees ------------------------------
+    @property
+    def params(self) -> Params:
+        """The logical params: full leaves, the mean of the last round."""
+        return self._params
+
+    @params.setter
+    def params(self, tree: Params) -> None:
+        self._params = tree
+        if self._resident is not None:
+            self._reside({w: tree for w in self._local})
+
+    def _ensure_resident(self) -> None:
+        """Keep one resident tree per position from here on, each made
+        from the logical params."""
+        if self._resident is None:
+            self._resident = {}
+            self._reside({w: self._params for w in self._local})
+
+    def _tile_index(self, w: int) -> int:
+        """The tile position ``w`` holds: its chip under hierarchical,
+        itself on a flat layout."""
+        if self.config.strategy == "hierarchical":
+            return w % self.n_chips
+        return w
+
+    def _reside(self, trees: Mapping[int, Params]) -> None:
+        """Position w keeps ``trees[w]``: its replicated leaves as they
+        are (shared until one is rewritten), its own tile of each sharded
+        leaf in storage of its own."""
+        plan = self.shard_plan
+        for w, tree in trees.items():
+            if plan is None:
+                self._resident[w] = {k: list(v) for k, v in tree.items()}
+                continue
+            own = plan.take_shard(tree, self._tile_index(w))
+            self._resident[w] = {
+                k: [b.clone() if plan.dim_of(f"{k}/{i}") is not None else b
+                    for i, b in enumerate(v)] for k, v in own.items()}
+
+    def _gather_group(self, w: int) -> range:
+        """The positions whose tiles widen worker ``w``'s sharded leaves:
+        its host's chips under hierarchical, every position otherwise."""
+        if self.config.strategy == "hierarchical":
+            h = w // self.n_chips
+            return range(h * self.n_chips, (h + 1) * self.n_chips)
+        return range(self.n_workers)
+
+    def _tiles(self) -> dict[int, Params]:
+        """Every position's resident tree for a gather; another process's
+        positions carry only their tiles, gathered from it."""
+        if self._procs == 1 or self.config.strategy == "hierarchical":
+            return self._resident
+        plan = self.shard_plan
+        keys = [(k, i) for k, blobs in self._params.items()
+                for i in range(len(blobs))
+                if plan.dim_of(f"{k}/{i}") is not None]
+        rows = cluster.all_gather_tensors(
+            [self._resident[w][k][i] for w in self._local for k, i in keys])
+        out = {}
+        n = len(self._local)
+        for r, row in enumerate(rows):
+            it = iter(row)
+            for j in range(n):
+                tree = {k: [None] * len(v) for k, v in self._params.items()}
+                for k, i in keys:
+                    tree[k][i] = next(it)
+                out[r * n + j] = tree
+        return out
+
+    def _starts(self, workers, share: bool) -> dict[int, Params]:
+        """Each worker's params to start the round from, in storage the
+        round may update in place: its resident tree with the sharded
+        leaves gathered.  With ``share`` the workers whose trees are the
+        same share one copy (the groups of ``_psum_steps``)."""
+        plan = self.shard_plan
+        tiles = self._tiles() if plan is not None else None
+        full: dict[tuple, Params] = {}
+        copies: dict[tuple, Params] = {}
+        out = {}
+        for w in workers:
+            res = self._resident[w]
+            group = self._gather_group(w)
+            key = (tuple(id(b) for k, blobs in res.items()
+                         for i, b in enumerate(blobs)
+                         if plan is None or plan.dim_of(f"{k}/{i}") is None),
+                   group.start)
+            if key not in full:
+                full[key] = res if plan is None else plan.gather(
+                    res, [tiles[p] for p in group])
+            if not share:
+                out[w] = _copy(full[key])
+                continue
+            if key not in copies:
+                copies[key] = _copy(full[key])
+            out[w] = copies[key]
+        return out
+
+    def _gather_rows(self, rows: list) -> list:
+        """Every process's ``rows`` (trees or tensors, the same structure
+        in every process), concatenated in rank order: the positions' (or
+        hosts') values in position order.  Alone, ``rows`` as it is."""
+        if self._procs == 1:
+            return list(rows)
+        got = cluster.all_gather_tensors(_leaves(list(rows)))
+        out = []
+        for part in got:
+            out += _unleaves(list(rows), iter(part))
+        return out
 
     @property
     def batches_per_round(self) -> int:
@@ -540,25 +786,31 @@ class DistributedTrainer:
     def _micro(self, batches: Mapping[str, Any], t: int,
                w: int) -> dict[str, torch.Tensor]:
         """Worker ``w``'s micro-batches of step ``t`` on the device, put
-        through ``device_preprocess``: blobs [iter_size, batch, ...]."""
+        through ``device_preprocess``: blobs [iter_size, batch, ...].
+        ``batches`` holds this process's rows, its workers' in order."""
         iter_size = self.sp.iter_size
+        local = w - self._local.start
         micro = {}
         for k, v in batches.items():
-            b = v.shape[1] // self.n_workers
+            b = v.shape[1] // len(self._local)
             micro[k] = self._to_device(
-                v[t * iter_size:(t + 1) * iter_size, w * b:(w + 1) * b])
+                v[t * iter_size:(t + 1) * iter_size,
+                  local * b:(local + 1) * b])
         pre = self.config.device_preprocess
         if pre is not None:
             micro = pre(micro, self.crop_generators[w])
         return micro
 
     # -- the rounds ------------------------------------------------------
-    def _local_sgd_round(self, batches) -> tuple[list[Params], torch.Tensor]:
-        """τ local steps per worker; each worker's params and the mean
-        loss."""
-        workers, worker_losses = [], []
-        for w in range(self.n_workers):
-            params, state = _copy(self.params), self.state[w]
+    def _local_sgd_round(self, batches) -> tuple[dict, list]:
+        """τ local steps for each of this process's workers: each
+        worker's params and mean loss, by position."""
+        workers, worker_losses = {}, []
+        starts = (self._starts(self._local, share=False)
+                  if self._resident is not None else None)
+        for w in self._local:
+            params = starts[w] if starts else _copy(self.params)
+            state = self.state[w]
             losses = []
             for t in range(self.config.tau):
                 params, state, loss = self._local_update(
@@ -566,55 +818,128 @@ class DistributedTrainer:
                     self.generators[w], self.lr_scale)
                 losses.append(loss)
             self.state[w] = state
-            workers.append(params)
+            workers[w] = params
             worker_losses.append(torch.stack(losses).mean())
-        return workers, torch.stack(worker_losses).mean()
+        return workers, worker_losses
 
-    def _psum_steps(self, params: Params, state, batches,
-                    workers: range):
+    def _psum_steps(self, starts: Mapping[int, Params], state, batches,
+                    workers: range, *, gang: bool = False):
         """τ ``sync`` steps over ``workers`` (the JAX make_psum_step,
         :577-604): per step each worker's accumulated loss and gradients,
-        their means, ``preprocess_grads`` and one update of ``params``
-        and ``state``.  Returns them and the mean loss.  Every worker's
-        forward starts from the step's params; the blobs of stateful
-        layers (BatchNorm's running statistics), and only those, become
-        the mean of what the workers' forwards wrote, before
-        ``preprocess_grads`` (:591-597)."""
+        their means, ``preprocess_grads`` and one update.  Every worker's
+        forward starts from its position's params of the step; the blobs
+        of stateful layers (BatchNorm's running statistics), and only
+        those, become the mean of what the workers' forwards wrote, before
+        ``preprocess_grads`` (:591-597).  Workers whose ``starts`` are one
+        tree form a group: one copy of the params and of the state, one
+        update (the first group updates ``state`` in place; a later group,
+        a position whose copy diverged, a copy of it).  With ``gang`` the
+        means run over every process's workers.  Returns each worker's
+        params, the first group's state and the mean loss."""
+        by_tree, group_of, trees = {}, {}, []
+        for w in workers:
+            key = id(starts[w])
+            if key not in by_tree:
+                by_tree[key] = len(trees)
+                trees.append(starts[w])
+            group_of[w] = by_tree[key]
+        states = [state] + [
+            {name: {k: [b.clone() for b in v] for k, v in tree.items()}
+             for name, tree in state.items()} for _ in trees[1:]]
         losses = []
         for t in range(self.config.tau):
             it = self.iter + t
             step_losses, step_grads, step_params = [], [], []
             for w in workers:
                 loss, after, grads = self._accum(
-                    params, self._micro(batches, t, w), self.generators[w])
+                    trees[group_of[w]], self._micro(batches, t, w),
+                    self.generators[w])
                 step_losses.append(loss)
                 step_grads.append(grads)
                 step_params.append({k: after[k] for k in self._state_keys})
-            if self._state_keys:
-                params = {**params, **_mean(step_params)}
-            grads = preprocess_grads(self.sp, params, _mean(step_grads),
-                                     self._lr_mults, self._decay_mults)
-            params, state = self.rule.apply(
-                params, grads, state,
-                learning_rate(self.sp, it) * self.lr_scale, it,
-                lr_mults=self._lr_mults)
+            if gang:
+                step_losses = self._gather_rows(step_losses)
+                step_grads = self._gather_rows(step_grads)
+                step_params = self._gather_rows(step_params)
+            stateful = _mean(step_params) if self._state_keys else None
+            grads_mean = _mean(step_grads)
+            rate = learning_rate(self.sp, it) * self.lr_scale
+            for g, params in enumerate(trees):
+                if stateful is not None:
+                    params = {**params, **(stateful if g == 0
+                                           else _copy(stateful))}
+                grads = preprocess_grads(self.sp, params, grads_mean,
+                                         self._lr_mults, self._decay_mults)
+                trees[g], states[g] = self.rule.apply(
+                    params, grads, states[g], rate, it,
+                    lr_mults=self._lr_mults)
             losses.append(torch.stack(step_losses).mean())
-        return params, state, torch.stack(losses).mean()
+        return ({w: trees[group_of[w]] for w in workers}, states[0],
+                torch.stack(losses).mean())
 
-    def _hierarchical_round(self, batches
-                            ) -> tuple[list[Params], torch.Tensor]:
-        """Per host, τ ``sync`` steps over its chips from the master
-        params with the host's state; each host's params and the mean
-        loss."""
-        hosts, host_losses = [], []
+    def _local_hosts(self) -> range:
         c = self.n_chips
-        for h in range(self.n_hosts):
-            params, self.state[h], loss = self._psum_steps(
-                _copy(self.params), self.state[h], batches,
-                range(h * c, (h + 1) * c))
-            hosts.append(params)
+        return range(self._local.start // c, self._local.stop // c)
+
+    def _hierarchical_round(self, batches) -> tuple[dict, list]:
+        """Per host of this process, τ ``sync`` steps over its chips from
+        its positions' params with the host's state: each chip's params,
+        by position, and each host's mean loss."""
+        finals, host_losses = {}, []
+        c = self.n_chips
+        for h in self._local_hosts():
+            chips = range(h * c, (h + 1) * c)
+            if self._resident is not None:
+                starts = self._starts(chips, share=True)
+            else:
+                start = _copy(self.params)
+                starts = {w: start for w in chips}
+            out, self.state[h], loss = self._psum_steps(
+                starts, self.state[h], batches, chips)
+            finals.update(out)
             host_losses.append(loss)
-        return hosts, torch.stack(host_losses).mean()
+        return finals, host_losses
+
+    def _sync_round(self, batches) -> torch.Tensor:
+        """τ ``sync`` steps over every worker; sets the params, the
+        state and, with positions, each position's tree."""
+        if self._resident is None:
+            starts = {w: self.params for w in self._local}
+        else:
+            starts = self._starts(self._local, share=True)
+        finals, self.state, loss = self._psum_steps(
+            starts, self.state, batches, self._local,
+            gang=self._procs > 1)
+        self._params = finals[self._local.start]
+        if self._resident is not None:
+            self._reside(finals)
+        return loss
+
+    def _boundary_mean(self, finals: dict[int, Params]) -> None:
+        """The τ-boundary average of ``local_sgd`` and ``hierarchical``
+        on the plain exchange.  One copy: the mean of the tier's trees.
+        With positions (after the gang's gather): under ``local_sgd``
+        every position keeps the mean of every position's params; under
+        ``hierarchical`` chip column c keeps the mean over hosts of its
+        chips' params (one mean for all columns while a host's chips
+        agree, as they do unless a copy rotted)."""
+        if self.config.strategy == "local_sgd":
+            mean = _mean([finals[w] for w in sorted(finals)])
+            self.params = mean
+            return
+        c, n = self.n_chips, self.n_hosts
+        means: dict[tuple, Params] = {}
+        by_pos = {}
+        for col in range(c):
+            trees = [finals[h * c + col] for h in range(n)]
+            key = tuple(id(t) for t in trees)
+            if key not in means:
+                means[key] = _mean(trees)
+            for h in range(n):
+                by_pos[h * c + col] = means[key]
+        self._params = by_pos[0]
+        if self._resident is not None:
+            self._reside({w: by_pos[w] for w in self._local})
 
     def _sync_device(self) -> None:
         if self.device.type == "cuda":
@@ -638,24 +963,55 @@ class DistributedTrainer:
         return {k: [r + d.mean(0) for r, d in zip(ref[k], deltas[k])]
                 for k in ref}
 
+    def _tier_rows(self) -> range:
+        """This process's rows of the stacked per-tier state: its
+        workers, or its hosts under hierarchical."""
+        if self.config.strategy == "hierarchical":
+            return self._local_hosts()
+        return self._local
+
     def _exchange(self, local: list[Params]) -> None:
         """The compressed τ-boundary average (the JAX package's
-        ``_run_comm_round``, :805-836): encode, exchange the stacked
-        payload (on one card it passes as it is; ``comms.exchange_bytes``
-        counts what a wire would carry), decode.  ``stall_s`` charges each
-        stage's host time under both settings.  Without ``comm_overlap``
-        the host also waits for the device after each stage, and the wait
-        is charged with it; with it the three stages queue without a wait
-        and give the same bits."""
+        ``_run_comm_round``, :805-836): encode this process's tier rows,
+        exchange the stacked payload (alone it passes as it is; in a gang
+        the processes all-gather it, ``comms.exchange_bytes`` counting
+        what the wire carries), decode every row and average.
+        ``stall_s`` charges each stage's host time under both settings.
+        Without ``comm_overlap`` the host also waits for the device after
+        each stage, and the wait is charged with it; with it the three
+        stages queue without a wait and give the same bits."""
         overlap = self.config.comm_overlap
+        rows = self._tier_rows()
+        whole = len(rows) == self._state_tier()
         t0 = time.perf_counter()
-        payload, self.comm_residual = self._encode(
-            _stack(local), self.params, self.comm_residual)
+        residual = (self.comm_residual if whole else
+                    {k: [r[rows.start:rows.stop] for r in v]
+                     for k, v in self.comm_residual.items()})
+        payload, residual = self._encode(_stack(local), self.params,
+                                         residual)
+        if whole:
+            self.comm_residual = residual
+        else:
+            for k, v in self.comm_residual.items():
+                for r, new in zip(v, residual[k]):
+                    r[rows.start:rows.stop] = new
         if not overlap:
             self._sync_device()
         self.stall_s["comm_encode"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         gathered = payload
+        if not whole:
+            leaves = [t for blobs in payload.values() for p in blobs
+                      for t in comms._leaves(p)]
+            parts = cluster.all_gather_tensors(leaves)
+            joined = iter([torch.cat(ts) for ts in zip(*parts)])
+
+            def rebuild(p):
+                if isinstance(p, torch.Tensor):
+                    return next(joined)
+                return type(p)(rebuild(q) for q in p)
+            gathered = {k: [rebuild(p) for p in blobs]
+                        for k, blobs in payload.items()}
         if not overlap:
             self._sync_device()
         self.stall_s["comm_allreduce"] += time.perf_counter() - t0
@@ -705,18 +1061,40 @@ class DistributedTrainer:
             if v.shape[0] != expect:
                 raise ValueError(f"{k}: leading dim {v.shape[0]} != "
                                  f"tau*iter_size {expect}")
-            if v.shape[1] % self.n_workers:
+            if v.shape[1] % len(self._local):
                 raise ValueError(f"{k}: batch {v.shape[1]} not divisible by "
-                                 f"{self.n_workers} workers")
+                                 f"{len(self._local)} local workers")
         round_idx = self.round
         lag = self.config.harvest_lag
         from . import health
         health.maybe_beat(round_idx, "round_start")
         injector = faults.get_injector()
-        if any(s.kind == "bitflip_params" for s in injector.specs):
-            raise NotImplementedError(
-                "SPARKNET_FAULT=bitflip_params needs the cross-replica "
-                "audit, which is not ported yet (ROADMAP A12)")
+        # a flipped bit in one position's resident copy between rounds
+        # (the event the audit exists to catch before the next average
+        # folds it in)
+        flip = injector.bitflip_rank(round_idx)
+        if flip is not None:
+            print(f"FAULT: bitflip_params corrupting replica {flip}'s "
+                  f"params at round {round_idx}", file=sys.stderr,
+                  flush=True)
+            self._inject_bitflip(flip)
+        audit_fps = None
+        if (self.config.audit_every
+                and round_idx % self.config.audit_every == 0):
+            if lag:
+                # over the params the round starts from, read with the
+                # round's loss
+                audit_fps = self._fingerprints()
+            else:
+                t0 = time.perf_counter()
+                fps = self.audit_params()
+                self.stall_s["audit_fetch"] += time.perf_counter() - t0
+                if not self._audit_ok(fps):
+                    # the round is dropped before it runs; self.round
+                    # rewinds to the rollback point and the loop replays
+                    self._audit_trip(round_idx, fps)
+                    return float("nan")
+                self._last_audit_ok = round_idx
         if injector.nan_inject(round_idx):
             print(f"FAULT: nan_inject poisoning round {round_idx} feed",
                   file=sys.stderr, flush=True)
@@ -724,26 +1102,38 @@ class DistributedTrainer:
         t0 = time.perf_counter()
         with full_f32():
             if self.config.strategy == "sync":
-                self.params, self.state, loss = self._psum_steps(
-                    self.params, self.state, batches, range(self.n_workers))
+                loss = self._sync_round(batches)
                 self.worker_params = []
             else:
                 if self.config.strategy == "hierarchical":
-                    local, loss = self._hierarchical_round(batches)
+                    finals, losses = self._hierarchical_round(batches)
+                    rows = [finals[h * self.n_chips]
+                            for h in self._local_hosts()]
                     self.worker_params = []
                 else:
-                    local, loss = self._local_sgd_round(batches)
-                    self.worker_params = local
+                    finals, losses = self._local_sgd_round(batches)
+                    rows = [finals[w] for w in self._local]
+                loss = torch.stack(self._gather_rows(losses)).mean()
                 if self._codec is None:
-                    self.params = _mean(local)
+                    if self._procs > 1:
+                        finals = dict(zip(range(self.n_workers),
+                                          self._gather_rows(
+                                              [finals[w]
+                                               for w in self._local])))
+                    if self.config.strategy == "local_sgd":
+                        self.worker_params = [finals[w]
+                                              for w in sorted(finals)]
+                    self._boundary_mean(finals)
                 else:
-                    self._exchange(local)
-                del local
+                    if self.config.strategy == "local_sgd":
+                        self.worker_params = rows
+                    self._exchange(rows)
+                del finals, rows
         if lag:
             finite = (self._finite(self.params)
                       if self.config.guard_numerics else None)
             self._pending.append({"round": round_idx, "loss": loss,
-                                  "finite": finite})
+                                  "finite": finite, "fps": audit_fps})
             loss_val = float("nan")
         else:
             t1 = time.perf_counter()
@@ -784,7 +1174,7 @@ class DistributedTrainer:
         extras = {
             "stall_s": {k: round(v, 4) for k, v in self.stall_s.items()},
             "guard_trips": self.guard_trips,
-            "audit_trips": 0,   # the cross-replica audit is not ported
+            "audit_trips": self.audit_trips,
         }
         if self.feed_stats is not None:
             extras["feed"] = self.feed_stats.snapshot()
@@ -857,6 +1247,132 @@ class DistributedTrainer:
             print(f"guard: LR scale backed off to {self.lr_scale:g}",
                   file=sys.stderr, flush=True)
 
+    # -- the cross-replica audit (the JAX package's :1231-1395) -----------
+    def _fingerprints(self):
+        """Every position's fingerprint of its resident tree: an int64
+        tensor [n_pos] (or [n_pos, 2] under a plan: the replicated
+        leaves, the resident tile), each the sum of its leaves' uint32
+        bit patterns mod 2**32.  This process's positions are summed on
+        the device; a gang gathers the others'."""
+        self._ensure_resident()
+        plan = self.shard_plan
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        rows = []
+        for w in self._local:
+            rep, tile = zero, zero
+            for name, blobs in self._resident[w].items():
+                for i, leaf in enumerate(blobs):
+                    s = _leaf_bits(leaf)
+                    if s is None:
+                        continue
+                    if plan is None or plan.dim_of(f"{name}/{i}") is None:
+                        rep = rep + s
+                    else:
+                        tile = tile + s
+            rows.append(rep if plan is None else torch.stack([rep, tile]))
+        fps = torch.stack(self._gather_rows(rows)) & 0xFFFFFFFF
+        return fps
+
+    def audit_params(self) -> np.ndarray:
+        """Per-position parameter fingerprints, uint32: one a position,
+        or [replicated, tile] a position under a plan.  A healthy layout
+        gives one value (one a tile group), the JAX trainer's exactly."""
+        return self._fps_host(self._fingerprints())
+
+    @staticmethod
+    def _fps_host(fps) -> np.ndarray:
+        if isinstance(fps, torch.Tensor):
+            fps = fps.cpu().numpy()
+        return np.asarray(fps).astype(np.uint32)
+
+    def _audit_groups(self) -> list[list[int]]:
+        """Positions that hold the same tile: a chip column across hosts
+        under hierarchical, each position alone on a flat layout (whose
+        tile column can then only trip the replicated column)."""
+        if self.config.strategy == "hierarchical":
+            return [[h * self.n_chips + c for h in range(self.n_hosts)]
+                    for c in range(self.n_chips)]
+        return [[i] for i in range(self.n_workers)]
+
+    def _audit_culprits(self, fps: np.ndarray) -> list[int]:
+        """Positions whose fingerprints disagree with their group's
+        majority: 1-D fps against the whole layout; 2-D fps column 0
+        layout-wide, column 1 within each tile group."""
+        fps = np.asarray(fps)
+        if fps.ndim == 1:
+            checks = [(list(range(fps.shape[0])), fps)]
+        else:
+            checks = [(list(range(fps.shape[0])), fps[:, 0])]
+            checks += [(g, fps[:, 1]) for g in self._audit_groups()]
+        culprits: set[int] = set()
+        for group, col in checks:
+            sel = col[group]
+            vals, counts = np.unique(sel, return_counts=True)
+            if vals.size <= 1:
+                continue
+            majority = vals[int(np.argmax(counts))]
+            culprits.update(g for g, f in zip(group, sel) if f != majority)
+        return sorted(culprits)
+
+    def _audit_ok(self, fps) -> bool:
+        return not self._audit_culprits(self._fps_host(fps))
+
+    def _audit_trip(self, round_idx: int, fps) -> None:
+        """A position's params diverged: roll back to the newest
+        checkpoint at or before the last audit that passed, the guard's
+        rollback with its generator replay."""
+        self.audit_trips += 1
+        self.guard_trips += 1
+        fps = self._fps_host(fps)
+        culprits = self._audit_culprits(fps)
+        fps_hex = [hex(int(f)) for f in fps.reshape(-1)]
+        self._m_audit.inc()
+        rec = telemetry.get_recorder()
+        rec.record("audit_mismatch", round=round_idx, culprits=culprits,
+                   fingerprints=fps_hex, last_ok=self._last_audit_ok)
+        rec.dump("audit_mismatch")
+        print(f"audit: round {round_idx} REJECTED — cross-replica param "
+              f"fingerprints diverge (replicas {culprits} vs the "
+              f"majority: {fps_hex}); rolling back to "
+              f"a round <= {self._last_audit_ok} checkpoint "
+              f"(trip {self.guard_trips}/{self.config.guard_max_trips})",
+              file=sys.stderr, flush=True)
+        if self.guard_trips > self.config.guard_max_trips:
+            raise TrainingDivergedError(
+                f"audit tripped at round {round_idx} and the trip budget "
+                f"is spent ({self.guard_trips} > guard_max_trips="
+                f"{self.config.guard_max_trips}); replicas {culprits} "
+                f"keep diverging")
+        manifest = self.resume_latest(self.config.checkpoint_dir,
+                                      max_round=self._last_audit_ok)
+        if manifest is None:
+            raise TrainingDivergedError(
+                f"round {round_idx}: replicas {culprits} diverged and no "
+                f"checkpoint at round <= {self._last_audit_ok} remains "
+                f"in {self.config.checkpoint_dir!r}")
+
+    def _inject_bitflip(self, replica: int) -> None:
+        """``bitflip_params@rank:R``: flip bit 22 of the first element of
+        position R's copy of the first non-empty f32 leaf, in sorted
+        layer order (its tile, where the plan shards that leaf).  The
+        value stays finite, so only the audit sees it.  In a gang only
+        the process that holds R flips it."""
+        self._ensure_resident()
+        w = replica % self.n_workers
+        if w not in self._resident:
+            return
+        for name in sorted(self._params):
+            blobs = self._params[name]
+            if blobs and blobs[0].numel() and blobs[0].dtype == torch.float32:
+                break
+        else:
+            return
+        own = self._resident[w][name]
+        leaf = own[0].detach().clone()
+        flat = leaf.view(-1).view(torch.int32)
+        flat[0] = flat[0] ^ (1 << 22)
+        own[0] = leaf
+
     # -- the harvest lag (the JAX package's trainer.py:1132-1229) ---------
     def _harvest_one(self) -> float | None:
         with telemetry.span("trainer.harvest", cat="trainer",
@@ -864,12 +1380,27 @@ class DistributedTrainer:
             return self._harvest_one_impl()
 
     def _harvest_one_impl(self) -> float | None:
-        """Read the oldest round in flight: its loss, then its finite
-        verdict.  A trip drops every younger round in flight, flushes the
-        writer, rolls back and removes the checkpoints newer than the
-        rollback.  Returns the loss (a poisoned one too)."""
+        """Read the oldest round in flight: its audit verdict, its loss,
+        then its finite verdict.  A trip drops every younger round in
+        flight, flushes the writer, rolls back and removes the
+        checkpoints newer than the rollback.  Returns the loss (a
+        poisoned one too), or None when the audit dropped the round
+        before it counted."""
         e = self._pending.popleft()
         round_idx = int(e["round"])
+        if e["fps"] is not None:
+            # the audit looked at the params the round started from: its
+            # verdict comes first
+            t0 = time.perf_counter()
+            fps = self._fps_host(e["fps"])
+            self.stall_s["audit_fetch"] += time.perf_counter() - t0
+            if not self._audit_ok(fps):
+                self._pending.clear()
+                self.flush_checkpoints()
+                self._audit_trip(round_idx, fps)
+                self._drop_checkpoints_after(self.round)
+                return None
+            self._last_audit_ok = round_idx
         t0 = time.perf_counter()
         loss_val = float(e["loss"])
         self.stall_s["loss_fetch"] += time.perf_counter() - t0
@@ -916,13 +1447,14 @@ class DistributedTrainer:
         lagged trip rolled back, those written during the lag descend
         from the poisoned round."""
         directory = self.config.checkpoint_dir
-        if not directory:
+        if not directory or self._rank != 0:
             return
         for mpath in glob.glob(os.path.join(directory, "manifest_*.json")):
             r = _manifest_round(mpath)
             if r > round_idx:
-                for p in (mpath, os.path.join(directory,
-                                              f"ckpt_round_{r:08d}.npz")):
+                # the glob sweeps a sharded checkpoint's tiles too
+                for p in (mpath, *glob.glob(os.path.join(
+                        directory, f"ckpt_round_{r:08d}*.npz"))):
                     try:
                         os.remove(p)
                     except OSError:
@@ -933,35 +1465,47 @@ class DistributedTrainer:
         """Distributed eval (reference: ImageNetApp.scala:108-141): each
         worker scores ITS rows of every test batch with the master params;
         scalar outputs are summed over worker-batches, batched outputs
-        over rows too.  An optional ``"__valid__"`` (n_workers,) 0/1 mask
-        drops exhausted workers' padding rows.  ``"__test_batches__"``
-        counts the worker-batches scored, so ``totals[k] /
-        totals["__test_batches__"]`` is the reference's normalization."""
-        totals: dict[str, Any] = {"__test_batches__": 0.0}
+        over rows too.  An optional ``"__valid__"`` (local workers,) 0/1
+        mask drops exhausted workers' padding rows.
+        ``"__test_batches__"`` counts the worker-batches scored, so
+        ``totals[k] / totals["__test_batches__"]`` is the reference's
+        normalization.  In a gang each process feeds its own rows and
+        the scores of every worker are summed in worker order, step by
+        step, in every process (the JAX trainer's psum, :1427-1445)."""
+        n_local = len(self._local)
+        scored: list = []
         with torch.inference_mode(), full_f32():
-            for _ in range(num_steps):
+            for step in range(num_steps):
                 raw = dict(next(feed))
-                valid = np.asarray(raw.pop("__valid__",
-                                           np.ones(self.n_workers)))
-                if valid.shape != (self.n_workers,):
+                valid = np.asarray(raw.pop("__valid__", np.ones(n_local)))
+                if valid.shape != (n_local,):
                     raise ValueError(
-                        f"__valid__ must have shape ({self.n_workers},), got "
+                        f"__valid__ must have shape ({n_local},), got "
                         f"{valid.shape}")
-                for w in range(self.n_workers):
-                    if not valid[w]:
+                for j, w in enumerate(self._local):
+                    if not valid[j]:
                         continue
                     batch = {}
                     for k, v in raw.items():
-                        b = v.shape[0] // self.n_workers
-                        batch[k] = self._to_device(v[w * b:(w + 1) * b])
+                        b = v.shape[0] // n_local
+                        batch[k] = self._to_device(v[j * b:(j + 1) * b])
                     out = self.test_net.forward(self.params, batch,
                                                 train=False)
+                    vals = {}
                     for k, val in out.blobs.items():
                         val = val.float()
                         val = (val.sum(0) if val.dim() else val).cpu()
-                        val = float(val) if val.dim() == 0 else val.numpy()
-                        totals[k] = totals.get(k, 0.0) + val
-                    totals["__test_batches__"] += 1.0
+                        vals[k] = (float(val) if val.dim() == 0
+                                   else val.numpy())
+                    scored.append((step, w, vals))
+        if self._procs > 1:
+            scored = sorted((rec for part in cluster.all_gather_objects(
+                scored) for rec in part), key=lambda r: (r[0], r[1]))
+        totals: dict[str, Any] = {"__test_batches__": 0.0}
+        for _, _, vals in scored:
+            for k, val in vals.items():
+                totals[k] = totals.get(k, 0.0) + val
+            totals["__test_batches__"] += 1.0
         return totals
 
     # -- snapshots (the JAX package's layout, trainer.py:1494-1638) -------
@@ -971,20 +1515,36 @@ class DistributedTrainer:
         (workers under ``local_sgd``, hosts under ``hierarchical``) and
         unstacked under ``sync``; ``iter``, ``round``, ``strategy``,
         ``n_workers``, ``lr_scale``; ``n_hosts`` under hierarchical;
-        ``comm_residual`` and ``comm_codec`` with a codec.  Leaves are
+        ``comm_residual`` and ``comm_codec`` with a codec;
+        ``shard_plan`` (the plan's id) under a plan, whose params are the
+        full logical leaves all the same.  Leaves are
         tensors where they live (``save_checkpoint`` and
         ``snapshot_tree`` copy them out); the stacked state is a fresh
         stack, so it aliases nothing.  The port's generator states go
         under ``torch_generators`` (the JAX package ignores that key; the
         port ignores the JAX package's ``rng``, a ``jax.random`` key)."""
+        states, residual = self.state, self.comm_residual
+        gens = [[g.get_state(), c.get_state()]
+                for g, c in zip(self.generators, self.crop_generators)]
+        if self._procs > 1:
+            # a collective: each tier's rows from the process that owns
+            # them
+            rows = self._tier_rows()
+            if self.config.strategy != "sync":
+                states = self._gather_rows([self.state[t] for t in rows])
+            gens = self._gather_rows([gens[w] for w in self._local])
+            if residual is not None:
+                residual = {k: [torch.cat(self._gather_rows(
+                    [r[rows.start:rows.stop]])) for r in v]
+                    for k, v in residual.items()}
         if self.config.strategy == "sync":
-            state = self.state
+            state = states
         else:
             state = {name: {k: [torch.stack([s[name][k][i]
-                                             for s in self.state])
+                                             for s in states])
                                 for i in range(len(blobs))]
                             for k, blobs in tree.items()}
-                     for name, tree in self.state[0].items()}
+                     for name, tree in states[0].items()}
         blob = {
             "params": self.params,
             "state": state,
@@ -993,14 +1553,15 @@ class DistributedTrainer:
             "strategy": self.config.strategy,
             "n_workers": self.n_workers,
             "lr_scale": np.float64(self.lr_scale),
-            "torch_generators": {
-                "dropout": [g.get_state() for g in self.generators],
-                "crop": [g.get_state() for g in self.crop_generators]},
+            "torch_generators": {"dropout": [g for g, _ in gens],
+                                 "crop": [c for _, c in gens]},
         }
+        if self.shard_plan is not None:
+            blob["shard_plan"] = self.shard_plan_id
         if self.config.strategy == "hierarchical":
             blob["n_hosts"] = self.n_hosts
-        if self.comm_residual is not None:
-            blob["comm_residual"] = self.comm_residual
+        if residual is not None:
+            blob["comm_residual"] = residual
             blob["comm_codec"] = self.config.comm_codec
         return blob
 
@@ -1088,9 +1649,14 @@ class DistributedTrainer:
                 g.set_state(torch.from_numpy(np.array(s, np.uint8)))
 
     def snapshot(self, path: str) -> None:
-        """Write the training state to ``path`` (npz, checksummed)."""
+        """Write the training state to ``path`` (npz, checksummed); in a
+        gang every process calls it, process 0 writes and the others wait
+        for it."""
         from ..utils.checkpoint import save_checkpoint
-        save_checkpoint(path, self._host_blob())
+        blob = self._host_blob()
+        if self._rank == 0:
+            save_checkpoint(path, blob)
+        cluster.barrier()
 
     def restore(self, path: str) -> None:
         """Read a snapshot written by either package.  Refuses one of
@@ -1099,15 +1665,20 @@ class DistributedTrainer:
         self._apply_blob(load_checkpoint(path))
 
     # -- round checkpoints and resume (the JAX package's :1642-1907) ------
-    def save_round_checkpoint(self, directory: str | None = None) -> str:
+    def save_round_checkpoint(self, directory: str | None = None
+                              ) -> str | None:
         """Write ``ckpt_round_<round>.npz`` and its manifest for the
-        current round, in the JAX package's order: the npz (tmp+rename),
-        the fault hooks, the manifest with the npz's sha256 (tmp+rename,
-        last, behind the fence check), then pruning to
-        ``checkpoint_keep`` and the sweep of orphan temporaries.  With
-        the asynchronous writer the state is copied out without blocking
-        and the write runs on the writer's thread; ``flush_checkpoints``
-        waits for it.  Returns the npz's path."""
+        current round, in the JAX package's order: the npz (tmp+rename;
+        with ``shard_checkpoint`` under a plan the sharded leaves as one
+        ``.shardNN.npz`` tile a shard beside it), the fault hooks, the
+        manifest with every file's sha256 (tmp+rename, last, behind the
+        fence check), then pruning to ``checkpoint_keep`` and the sweep
+        of orphan temporaries.  With the asynchronous writer the state is
+        copied out without blocking and the write runs on the writer's
+        thread; ``flush_checkpoints`` waits for it.  In a gang every
+        process calls it (the blob is a collective), process 0 writes and
+        the others wait at a barrier.  Returns the npz's path on process
+        0, None elsewhere."""
         with telemetry.span("trainer.ckpt_submit", cat="ckpt",
                             round=self.round):
             return self._save_round_checkpoint_impl(directory)
@@ -1117,7 +1688,7 @@ class DistributedTrainer:
         from ..utils.checkpoint import (
             AsyncCheckpointWriter, CheckpointFencedError, advance_fence,
             async_checkpoints_enabled, check_fence, save_checkpoint,
-            snapshot_tree)
+            snapshot_tree, split_sharded_tree)
         directory = directory or self.config.checkpoint_dir
         if not directory:
             raise ValueError("no checkpoint directory configured")
@@ -1126,6 +1697,10 @@ class DistributedTrainer:
         injector = faults.get_injector()
         t0 = time.perf_counter()
         blob = self._host_blob()
+        if self._rank != 0:
+            cluster.barrier()
+            self.stall_s["checkpoint"] += time.perf_counter() - t0
+            return None
         os.makedirs(directory, exist_ok=True)
         fence_token = knobs.get_int("SPARKNET_FENCE_TOKEN", 0)
         if fence_token:
@@ -1144,12 +1719,35 @@ class DistributedTrainer:
             "tau": self.config.tau,
             "data_cursor": self.data_cursor,
         }
+        # the sharded layout: the tiles' files and the manifest's shards
+        # and shard_dims; the manifest still appears last, so a torn
+        # write of several files is no checkpoint at all
+        plan = self.shard_plan
+        shard_ckpt = plan is not None and self.config.shard_checkpoint
+        if plan is not None:
+            manifest["shard_plan"] = self.shard_plan_id
+        shard_paths: list[str] = []
 
         def job(blob=blob) -> None:
             if not isinstance(blob, dict):
                 blob = blob.wait()
             check_fence(directory, fence_token)
-            save_checkpoint(path, blob)
+            if shard_ckpt:
+                common, parts = split_sharded_tree(
+                    blob["params"], plan.dims_dict(), plan.n_shards)
+                save_checkpoint(path, {**blob, "params": common})
+                entries = []
+                for k, part in enumerate(parts):
+                    sname = f"ckpt_round_{round_now:08d}.shard{k:02d}.npz"
+                    spath = os.path.join(directory, sname)
+                    save_checkpoint(spath, part)
+                    shard_paths.append(spath)
+                    entries.append({"file": sname,
+                                    "sha256": _sha256_file(spath)})
+                manifest["shards"] = entries
+                manifest["shard_dims"] = plan.dims_dict()
+            else:
+                save_checkpoint(path, blob)
             # the torn-write window: the npz is durable, the manifest is
             # not yet; crash_in_ckpt dies here
             injector.on_checkpoint_write(round_now)
@@ -1165,7 +1763,7 @@ class DistributedTrainer:
             try:
                 check_fence(directory, fence_token)
             except CheckpointFencedError:
-                for p in (tmp, path):
+                for p in (tmp, path, *shard_paths):
                     try:
                         os.remove(p)
                     except OSError:
@@ -1185,6 +1783,7 @@ class DistributedTrainer:
             self._ckpt_writer.submit(lambda: job(snap))
         else:
             job()
+        cluster.barrier()
         self.stall_s["checkpoint"] += time.perf_counter() - t0
         return path
 
@@ -1195,8 +1794,10 @@ class DistributedTrainer:
              glob.glob(os.path.join(directory, "manifest_*.json"))),
             reverse=True)
         for r in rounds[keep:]:
+            # the glob sweeps a sharded checkpoint's tiles too
             for p in (os.path.join(directory, f"manifest_{r:08d}.json"),
-                      os.path.join(directory, f"ckpt_round_{r:08d}.npz")):
+                      *glob.glob(os.path.join(
+                          directory, f"ckpt_round_{r:08d}*.npz"))):
                 try:
                     os.remove(p)
                 except OSError:
@@ -1224,9 +1825,12 @@ class DistributedTrainer:
         resumed from, or None when there is no valid checkpoint."""
         from ..utils import knobs
         from ..utils.checkpoint import (CheckpointError, advance_fence,
-                                        flush_all_writers, load_checkpoint)
-        # the newest manifest must not be sitting in a writer's queue
+                                        flush_all_writers, join_sharded_tree,
+                                        load_checkpoint)
+        # the newest manifest must not be sitting in a writer's queue,
+        # process 0's in a gang
         flush_all_writers()
+        cluster.barrier()
         fence_token = knobs.get_int("SPARKNET_FENCE_TOKEN", 0)
         if fence_token and os.path.isdir(directory):
             advance_fence(directory, fence_token)
@@ -1246,6 +1850,23 @@ class DistributedTrainer:
                         f"{manifest['sha256'][:12]}…, file {got[:12]}…)",
                         path)
                 blob = load_checkpoint(path)
+                entries = manifest.get("shards") or []
+                if entries:
+                    # every tile against the manifest, then the full
+                    # leaves: a bad tile fails the whole checkpoint
+                    parts = []
+                    for e in entries:
+                        spath = os.path.join(directory, e["file"])
+                        sgot = _sha256_file(spath)
+                        if sgot != e["sha256"]:
+                            raise CheckpointError(
+                                f"shard sha256 mismatch (manifest "
+                                f"{e['sha256'][:12]}…, file {sgot[:12]}…)",
+                                spath)
+                        parts.append(load_checkpoint(spath))
+                    blob["params"] = join_sharded_tree(
+                        blob["params"], parts,
+                        manifest.get("shard_dims") or {})
             except (OSError, json.JSONDecodeError, KeyError, TypeError,
                     CheckpointError) as e:
                 print(f"resume: skipping {os.path.basename(mpath)}: {e}",
@@ -1264,6 +1885,8 @@ class DistributedTrainer:
             self._apply_blob(blob)
             self.round = int(manifest.get("round", self.round))
             self.data_cursor = manifest.get("data_cursor")
+            # the restore gives every position the same params
+            self._last_audit_ok = self.round
             telemetry.get_recorder().record(
                 "resume", round=self.round, iter=self.iter,
                 file=os.path.basename(manifest["file"]))

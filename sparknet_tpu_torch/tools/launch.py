@@ -12,10 +12,11 @@ the command rather than carried in the environment; a child left to its
 default device runs on the card and raises where there is none.
 
 Modes:
-  local  spawn N processes on this machine.  The port trains with one
-         process per gang (the workers of a round share the card), so a
-         training command is launched with ``nprocs=1``; ``parallel/
-         cluster.py`` refuses a world of more than one process.
+  local  spawn N processes on the local host.  A gang of one process runs
+         its round's workers on the device in turn; a gang of N > 1
+         joins one gloo process group (``parallel/cluster.py``), each
+         process its ``--local-devices`` workers of the N·L, every rank
+         on the same card.
   ssh    run the command on each host of ``--hosts`` through a host
          transport (``parallel/transport.py``), process i on host i; a
          host transport places processes, it carries no tensor traffic.

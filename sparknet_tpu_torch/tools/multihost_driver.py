@@ -3,9 +3,17 @@
 The port's own copy of the JAX package's ``tests/multihost_driver.py``,
 with all of its flags and the port's ``--device`` (cuda unless the caller
 asks for the CPU).  It trains a fixed lenet workload through the port's
-``DistributedTrainer`` with ``--local-devices N`` workers sharing the one
-device, and writes the final params, the per-round losses, the guard's
-trips and the test scores to ``--out`` (npz, the JAX driver's keys).
+``DistributedTrainer`` with ``--local-devices N`` workers sharing the
+device, and process 0 writes the final params, the per-round losses, the
+guard's and the audit's trips and the test scores to ``--out`` (npz, the
+JAX driver's keys).  Launched as a gang of P processes (``tools/launch.py
+--nprocs P``, the env contract), each process joins the gloo group
+(``parallel/cluster.py``), runs its ``--local-devices`` workers of the
+P·N and feeds them its ``local_batch_slice`` of every batch;
+``hierarchical`` then takes the P processes as its hosts (alone, two
+virtual hosts).  The partition knobs ``SPARKNET_SHARD`` and
+``SPARKNET_SHARD_CKPT`` (and the codec's) reach the trainer through
+``comm_config_from_env``; the round stays τ=2.
 
 Resilience: ``--ckpt-dir`` turns on round checkpoints and a relaunched
 driver resumes from the newest valid manifest.  Every round start passes
@@ -14,8 +22,9 @@ the fault-injection hook (``SPARKNET_FAULT=crash@round:N`` etc.,
 round index (:func:`round_batch`, numpy), so a resumed round refeeds
 exactly the batch the lost round would have seen.  ``--elastic`` lets a
 checkpoint of another worker count resume, ``--guard`` arms the
-numerical guard, and the loop follows ``tr.round``, so a guard rollback
-replays the dropped round.  Heartbeats are published while the launcher
+numerical guard, ``--audit-every K`` the cross-replica audit, and the loop
+follows ``tr.round``, so a guard or audit rollback replays the dropped
+round.  Heartbeats are published while the launcher
 sets SPARKNET_HEARTBEAT_DIR.  SIGTERM/SIGINT give one final round
 checkpoint and a clean exit (the preemption contract,
 ``utils/signals.py``).
@@ -23,11 +32,15 @@ checkpoint and a clean exit (the preemption contract,
 Usage:
   python -m sparknet_tpu_torch.tools.multihost_driver --out out.npz \\
       --local-devices 2 --rounds 3 --ckpt-dir ckpt [--device cpu]
+  python -m sparknet_tpu_torch.tools.launch --nprocs 2 --device cpu -- \\
+      python -m sparknet_tpu_torch.tools.multihost_driver --out out.npz \\
+      --local-devices 2 --strategy hierarchical
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -65,10 +78,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--strategy", default="sync")
     ap.add_argument("--out", required=True)
     ap.add_argument("--local-devices", type=int, default=None,
-                    help="workers of the round, sharing the device "
-                         "(default 1)")
+                    help="this process's workers of the round, sharing "
+                         "the device (default 1)")
     ap.add_argument("--expect-devices", type=int, default=4,
-                    help="worker count the layout must have "
+                    help="worker count the whole layout must have "
                          "(0 = don't check — elastic worlds vary)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--global-batch", type=int, default=16)
@@ -83,7 +96,7 @@ def parser() -> argparse.ArgumentParser:
                          "--ckpt-dir)")
     ap.add_argument("--audit-every", type=int, default=0,
                     help="cross-replica parameter audit cadence in rounds "
-                         "(0 = off; > 0 is not ported, ROADMAP A12)")
+                         "(0 = off; needs --ckpt-dir)")
     ap.add_argument("--harvest-lag", type=int, default=0,
                     help="zero-stall outer loop: keep up to K rounds in "
                          "flight, harvesting loss/guard verdicts up to K "
@@ -98,29 +111,30 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    if args.audit_every:
-        raise NotImplementedError(
-            "--audit-every > 0: the cross-replica audit is not ported yet "
-            "(ROADMAP A12)")
 
     from ..models import lenet
     from ..parallel import DistributedTrainer, TrainerConfig, make_mesh, \
         make_pod_mesh
-    from ..parallel.cluster import init_cluster_from_env, local_batch_slice
+    from ..parallel import cluster
+    from ..parallel.trainer import comm_config_from_env
     from ..proto import load_solver_prototxt_with_net
     from ..utils import faults
     from ..utils.device import resolve_device
     from ..utils.signals import SolverAction, preemption_guard
 
     dev = resolve_device(args.device)
-    distributed = init_cluster_from_env()
-    n_workers = args.local_devices or 1
+    distributed = cluster.init_cluster_from_env()
+    procs, rank = cluster.process_count(), cluster.process_index()
+    n_workers = (args.local_devices or 1) * procs
     if args.strategy == "hierarchical":
-        # the JAX driver's single-process topology: two virtual hosts
-        if n_workers % 2:
-            raise ValueError(f"hierarchical needs an even worker count, "
-                             f"got {n_workers}")
-        layout = make_pod_mesh(2, n_workers // 2)
+        # the processes are the hosts (the weight average crosses the
+        # process boundary); alone, the JAX driver's two virtual hosts
+        n_hosts = procs if procs > 1 else 2
+        if n_workers % n_hosts:
+            raise ValueError(f"hierarchical needs a worker count "
+                             f"divisible by {n_hosts} hosts, got "
+                             f"{n_workers}")
+        layout = make_pod_mesh(n_hosts, n_workers // n_hosts)
     else:
         layout = make_mesh(n_workers)
     if args.expect_devices:
@@ -131,18 +145,17 @@ def main(argv=None) -> int:
     sp = load_solver_prototxt_with_net(
         'base_lr: 0.05\nmomentum: 0.9\nlr_policy: "fixed"\n',
         lenet(global_batch, global_batch))
-    tr = DistributedTrainer(
-        sp, layout,
-        TrainerConfig(strategy=args.strategy, tau=TAU,
-                      checkpoint_dir=args.ckpt_dir,
-                      checkpoint_every=args.ckpt_every,
-                      elastic=args.elastic,
-                      guard_numerics=args.guard,
-                      harvest_lag=args.harvest_lag),
-        seed=0, device=dev)
-    rows = local_batch_slice(global_batch)
+    cfg = TrainerConfig(strategy=args.strategy, tau=TAU,
+                        checkpoint_dir=args.ckpt_dir,
+                        checkpoint_every=args.ckpt_every,
+                        elastic=args.elastic,
+                        guard_numerics=args.guard,
+                        audit_every=args.audit_every,
+                        harvest_lag=args.harvest_lag)
+    cfg = dataclasses.replace(comm_config_from_env(cfg), tau=TAU)
+    tr = DistributedTrainer(sp, layout, cfg, seed=0, device=dev)
+    rows = cluster.local_batch_slice(global_batch)
     injector = faults.get_injector()
-    rank = 0   # a gang is one process
     if tr.resumed:
         print(f"driver: resumed at round {tr.round} (attempt "
               f"{injector.attempt})", flush=True)
@@ -201,20 +214,22 @@ def main(argv=None) -> int:
                   "label": eval_y[rows].astype(np.float32)}] * 2)
     scores = tr.test(feed, num_steps=2)   # totals, as the JAX driver keeps
 
-    flat = {}
-    for lname, blobs in tr.params.items():
-        for i, b in enumerate(blobs):
-            flat[f"{lname}/{i}"] = b.detach().cpu().numpy()
-    flat["__losses__"] = np.asarray(losses)
-    flat["__guard_trips__"] = np.asarray(tr.guard_trips)
-    flat["__audit_trips__"] = np.asarray(0)
-    flat["__scores__"] = np.asarray(
-        [scores.get("loss", 0.0), scores.get("accuracy", 0.0)])
-    tmp = f"{args.out}.tmp.{os.getpid()}.npz"
-    np.savez(tmp, **flat)
-    os.replace(tmp, args.out)   # the completion artifact appears whole
-    print(f"driver ok: distributed={distributed} procs=1 "
+    if rank == 0:
+        flat = {}
+        for lname, blobs in tr.params.items():
+            for i, b in enumerate(blobs):
+                flat[f"{lname}/{i}"] = b.detach().cpu().numpy()
+        flat["__losses__"] = np.asarray(losses)
+        flat["__guard_trips__"] = np.asarray(tr.guard_trips)
+        flat["__audit_trips__"] = np.asarray(tr.audit_trips)
+        flat["__scores__"] = np.asarray(
+            [scores.get("loss", 0.0), scores.get("accuracy", 0.0)])
+        tmp = f"{args.out}.tmp.{os.getpid()}.npz"
+        np.savez(tmp, **flat)
+        os.replace(tmp, args.out)   # the completion artifact appears whole
+    print(f"driver ok: distributed={distributed} procs={procs} "
           f"workers={n_workers} device={dev} losses={losses}", flush=True)
+    cluster.shutdown_cluster()
     return 0
 
 

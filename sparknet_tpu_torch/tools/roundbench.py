@@ -7,22 +7,18 @@ The port's copy of the root ``tools/roundbench.py``, with the port's
 ``--device`` (the card unless the caller asks for the CPU).  The
 zero-stall outer loop (``TrainerConfig.harvest_lag`` round pipelining
 and the asynchronous checkpoint writer) must be a pure latency
-optimisation: with round checkpoints and the numerics guard on, the
-asynchronous loop gives the same round losses, bit-identical final
-parameters and a bit-identical newest checkpoint as the synchronous
-loop.  Both loops run ``--devices`` LeNet workers (``local_sgd``, τ=2)
+optimisation: with round checkpoints, the numerics guard and the
+cross-replica audit (``audit_every=1``) on, the asynchronous loop gives
+the same round losses, bit-identical final parameters and a
+bit-identical newest checkpoint as the synchronous loop.  Both loops run ``--devices`` LeNet workers (``local_sgd``, τ=2)
 on one device; the run fails on any divergence and reports each loop's
-host stall seconds by component (``DistributedTrainer.stall_s``).
+host stall seconds by component (``DistributedTrainer.stall_s``,
+``audit_fetch`` the audit's fingerprint fetch).  The checkpoint fields
+compared are the JAX tool's, with the port's generator states
+(``torch_generators``) in the place of the JAX package's ``rng`` key.
 
-The JAX tool also runs the cross-replica audit (``audit_every=1``),
-which the port refuses (ROADMAP A12): the loops run without it,
-``audit_fetch`` is ``null`` and the line carries ``"not_ported_legs":
-{"audit": "ROADMAP A12"}``.  The checkpoint fields compared are the JAX
-tool's, with the port's generator states (``torch_generators``) in the
-place of the JAX package's ``rng`` key.
-
-Prints one JSON line on stdout (the JAX line's keys and
-``not_ported_legs``); exit 0 when parity holds.
+Prints one JSON line on stdout (the JAX line's keys); exit 0 when parity
+holds.
 """
 
 from __future__ import annotations
@@ -40,7 +36,6 @@ TAU = 2
 # the newest checkpoint's fields held bit for bit: the JAX tool's, the
 # port's generator states in the place of its ``rng``
 CKPT_FIELDS = ("params", "state", "iter", "round", "torch_generators")
-NOT_PORTED = {"audit": "ROADMAP A12"}
 
 
 def _leaves(tree) -> list[np.ndarray]:
@@ -78,7 +73,7 @@ def run_loop(mode: str, ckdir: str, *, rounds: int, lag: int, workers: int,
     try:
         cfg = TrainerConfig(
             strategy="local_sgd", tau=TAU, checkpoint_dir=ckdir,
-            checkpoint_keep=4, guard_numerics=True,
+            checkpoint_keep=4, guard_numerics=True, audit_every=1,
             harvest_lag=lag if mode == "async" else 0)
         tr = DistributedTrainer(sp, workers, cfg, seed=0, device=device)
         t0 = time.perf_counter()
@@ -93,7 +88,6 @@ def run_loop(mode: str, ckdir: str, *, rounds: int, lag: int, workers: int,
             os.environ["SPARKNET_ASYNC_CKPT"] = saved
     newest = sorted(f for f in os.listdir(ckdir) if f.endswith(".npz"))[-1]
     stalls = {k: round(v, 4) for k, v in tr.stall_s.items()}
-    stalls["audit_fetch"] = None     # the audit is ROADMAP A12
     return {
         "losses": [losses[r] for r in range(rounds)],
         "params": {k: [b.detach().cpu().numpy() for b in v]
@@ -148,7 +142,7 @@ def run(rounds: int = 6, lag: int = 2, devices: int = 4, batch: int = 16,
     failures = parity_failures(sync, async_)
 
     def total(stalls: dict) -> float:
-        return round(sum(v for v in stalls.values() if v is not None), 4)
+        return round(sum(stalls.values()), 4)
 
     return {
         "ok": not failures,
@@ -160,7 +154,6 @@ def run(rounds: int = 6, lag: int = 2, devices: int = 4, batch: int = 16,
         "async": {k: async_[k] for k in ("wall_s", "stall_s")},
         "stall_total_sync_s": total(sync["stall_s"]),
         "stall_total_async_s": total(async_["stall_s"]),
-        "not_ported_legs": dict(NOT_PORTED),
     }
 
 

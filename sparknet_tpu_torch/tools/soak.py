@@ -12,8 +12,8 @@ crash) with a seeded round, run the 4-round lenet driver
 (``sparknet_tpu_torch.tools.multihost_driver``, 4 workers on the device)
 under ResilientRunner supervision, and require the finished params to
 equal the fault-free baseline bit for bit.  The JAX tool's
-``bitflip_params`` schedule needs the cross-replica audit and is not in
-the menu (ROADMAP A12, pod half).
+``bitflip_params`` schedule (multihost_driver's ``--audit-every``) is not in
+the menu yet: it comes with the pod soak (ROADMAP A, order 3b).
 
 Fleet mode (``--fleet N``): N seeded jobs, each with its own injected
 crash / preempt / nan / straggle schedule, run concurrently under one
@@ -48,8 +48,9 @@ driver has nothing to compile, so leg 1 holds it with a straggle
 (``PARTITION_HOLD``) longer than the round deadline, which only the
 suspension keeps from a straggler kill.
 
-``--pod`` (multi-host gangs with their tensor traffic) raises: it is the
-pod half's tensors (ROADMAP A12, pod half, order 3).
+``--pod`` (multi-process training gangs over simulated hosts beside a
+served tenant) raises: it is the next slice (ROADMAP A12, pod half;
+ROADMAP A, order 3b).
 
 Usage:
   python -m sparknet_tpu_torch.tools.soak --runs 8 --seed 0 [--device cpu]
@@ -1043,8 +1044,9 @@ def main(argv=None) -> int:
 
     if args.pod:
         raise NotImplementedError(
-            f"soak --pod: multi-host gangs and their tensor traffic are "
-            f"not ported yet ({POD_HALF}, order 3)")
+            f"soak --pod: the pod soak (gangs over simulated hosts beside "
+            f"a served tenant, host kills) is not ported yet ({POD_HALF}; "
+            f"ROADMAP A, order 3b)")
     if args.net:
         return net_soak(args)
     if args.rollout:

@@ -34,7 +34,10 @@ other pieces (:61-120, :277-446):
   ``ckpt_queue_depth`` gauges the jobs queued or running
   (``utils/telemetry.py``).
 
-Not ported: sharded split and join (ROADMAP A12).
+Sharded round checkpoints (``TrainerConfig.shard_checkpoint``) split
+the params with :func:`split_sharded_tree` into a common part and one
+tile file per shard, and :func:`join_sharded_tree` joins them back, the
+JAX package's (:206-276) bit for bit.
 """
 
 from __future__ import annotations
@@ -195,6 +198,82 @@ def load_checkpoint(path: str, verify: bool = True) -> Any:
         raise CheckpointError(
             f"malformed checkpoint structure ({type(e).__name__}: {e})",
             path) from e
+
+
+# ---------------------------------------------------------------------------
+# The sharded split and join (the JAX package's utils/checkpoint.py:206-276)
+# ---------------------------------------------------------------------------
+
+def _host_array(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def split_sharded_tree(params: dict, shard_dims: dict[str, int],
+                       n_shards: int):
+    """Split a params tree (``dict[name, list[leaf]]``) into a ``common``
+    part and ``n_shards`` per-shard parts by a plan's ``shard_dims``
+    (``"name/idx" -> axis``).  The parts are ``{name: {str(idx): leaf}}``
+    and cover every leaf once: an unsharded leaf lands in ``common``, a
+    sharded one is split into equal tiles along its dim, tile *k* in part
+    *k*.  Leaves may be tensors or arrays; the parts hold numpy arrays.
+    :func:`join_sharded_tree` inverts it bit for bit (``np.split`` and
+    ``np.concatenate``, no arithmetic)."""
+    common: dict[str, dict[str, np.ndarray]] = {}
+    shards: list[dict[str, dict[str, np.ndarray]]] = [
+        {} for _ in range(n_shards)]
+    for name, blobs in params.items():
+        for i, leaf in enumerate(blobs):
+            leaf = _host_array(leaf)
+            dim = shard_dims.get(f"{name}/{i}")
+            if dim is None:
+                common.setdefault(name, {})[str(i)] = leaf
+            else:
+                if leaf.shape[dim] % n_shards:
+                    raise CheckpointError(
+                        f"leaf {name}/{i} dim {dim} size {leaf.shape[dim]} "
+                        f"not divisible into {n_shards} shards", "<split>")
+                for k, tile in enumerate(np.split(leaf, n_shards, axis=dim)):
+                    shards[k].setdefault(name, {})[str(i)] = tile
+    return common, shards
+
+
+def join_sharded_tree(common: dict, shards: list,
+                      shard_dims: dict[str, int]) -> dict:
+    """Inverse of :func:`split_sharded_tree`: the params tree
+    (``dict[name, list[leaf]]``) from a common part and per-shard parts
+    written at any world size; the full leaf is the same whatever n it
+    was tiled by, which lets an elastic resume re-tile to a new world
+    bit for bit."""
+    merged: dict[str, dict[int, np.ndarray]] = {}
+    for name, idx_map in common.items():
+        for i, leaf in idx_map.items():
+            merged.setdefault(name, {})[int(i)] = np.asarray(leaf)
+    by_leaf: dict[tuple[str, int], list[np.ndarray]] = {}
+    for part in shards:
+        for name, idx_map in part.items():
+            for i, tile in idx_map.items():
+                by_leaf.setdefault((name, int(i)), []).append(
+                    np.asarray(tile))
+    for (name, i), tiles in by_leaf.items():
+        dim = shard_dims.get(f"{name}/{i}")
+        if dim is None:
+            raise CheckpointError(
+                f"shard files carry leaf {name}/{i} but the manifest's "
+                f"shard_dims does not — mismatched checkpoint halves",
+                "<join>")
+        merged.setdefault(name, {})[i] = np.concatenate(tiles, axis=dim)
+    out: dict[str, list[np.ndarray]] = {}
+    for name, idx_map in merged.items():
+        n = max(idx_map) + 1
+        if sorted(idx_map) != list(range(n)):
+            raise CheckpointError(
+                f"layer {name}: blob indices {sorted(idx_map)} have holes "
+                f"— common/shard parts do not cover the collection",
+                "<join>")
+        out[name] = [idx_map[i] for i in range(n)]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -121,12 +121,12 @@ replacement for "the cosmic ray does not strike twice").
 Hook points in the port: ``feed_delay`` / ``feeder_event`` in
 ``data.prefetch.PrefetchIterator._before_pull``, ``corrupt_record`` in
 ``data.db.corrupt_record`` (the seam ``db_feed`` pulls through), and
-``nan_inject`` / ``corrupt_checkpoint`` / ``on_checkpoint_write`` in
-``parallel.trainer.DistributedTrainer``.  ``FaultInjector.on_round`` is
-for training loops.  ``bitflip_params`` parses, but the trainer
-refuses it: the cross-replica audit it exists for needs resident
-replicas on several devices (ROADMAP A12).  The network kinds parse for
-a transport layer the port does not have yet (ROADMAP A12).
+``nan_inject`` / ``corrupt_checkpoint`` / ``on_checkpoint_write`` and
+``bitflip_params`` (``bitflip_rank``: the trainer flips a bit in the
+named position's resident copy, the one the cross-replica audit must
+catch) in ``parallel.trainer.DistributedTrainer``.
+``FaultInjector.on_round`` is for training loops.  The network kinds
+act in ``parallel/transport.py``'s chaos transport.
 """
 
 from __future__ import annotations

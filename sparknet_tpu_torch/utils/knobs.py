@@ -16,9 +16,7 @@ registry is the one source of
   written and drift-checked by ``python -m sparknet_tpu_torch.tools.knobs
   --emit|--check`` (the counterpart of the root ``tools/lint.py knobs``).
 
-It registers the JAX package's names the port refuses by name
-(``SPARKNET_SHARD``, ``SPARKNET_SHARD_CKPT``: reading one that is set
-raises, ROADMAP A12) and the JAX package's tombstones.  Values are never
+It registers the JAX package's tombstones too.  Values are never
 cached: every accessor reads ``os.environ`` live.  Imports nothing of
 the rest of the port.
 """
@@ -305,7 +303,7 @@ _register(
     Knob("SPARKNET_HEARTBEAT_DIR", "path", "",
          "Directory of liveness beat files; unset writes no beats.",
          _P + "parallel/health.py"),
-    # --- the round (τ, codec, overlap) and the refused sharding knobs ---
+    # --- the round (τ, codec, overlap, the partition plan) ---
     Knob("SPARKNET_TAU", "int", "",
          "Steps per round for comm_config_from_env; unset keeps the "
          "config's tau.", _TRAINER),
@@ -317,21 +315,29 @@ _register(
          "Set to 1 to dispatch encode/exchange/decode without host syncs "
          "(bit-identical results); unset keeps the config's.", _TRAINER),
     Knob("SPARKNET_SHARD", "str", "",
-         "Refused by name: the JAX package's partition rule table; "
-         "comm_config_from_env raises when it is set (sharding is "
-         "ROADMAP A12).", _TRAINER),
+         "Partition rule table for comm_config_from_env: off, auto (FC "
+         "weights shard across the layout's fast axis) or a JSON table's "
+         "path; unset keeps the config's.", _TRAINER),
     Knob("SPARKNET_SHARD_CKPT", "bool", "",
-         "Refused by name: the JAX package's per-shard round "
-         "checkpoints; comm_config_from_env raises when it is set "
-         "(ROADMAP A12).", _TRAINER),
+         "Set to 1 to write a sharded round checkpoint as one npz tile a "
+         "shard (comm_config_from_env); unset keeps the config's.",
+         _TRAINER),
     # --- the fleet: launcher contract, supervision, scheduler ---
     Knob("SPARKNET_COORDINATOR", "str", "",
-         "Gang coordinator address set by tools/launch.py with NUM_PROCS "
-         "and PROC_ID; the port accepts only the one-process contract.",
+         "Gang coordinator host:port set by tools/launch.py with NUM_PROCS "
+         "and PROC_ID; rank 0 hosts the gloo group's store there.",
          _CLUSTER),
     Knob("SPARKNET_NUM_PROCS", "int", "",
-         "World size under the launcher contract; above 1 is refused "
-         "(ROADMAP A12, pod half).", _CLUSTER),
+         "World size under the launcher contract; above 1 joins a gloo "
+         "process group.", _CLUSTER),
+    Knob("SPARKNET_CONNECT_RETRIES", "int", "3",
+         "Process-group join attempts (TIME_WAIT races on relaunch).",
+         _CLUSTER),
+    Knob("SPARKNET_CONNECT_BACKOFF", "float", "0.5",
+         "Base seconds for the join's exponential backoff.", _CLUSTER),
+    Knob("SPARKNET_CONNECT_JITTER", "float", "0.25",
+         "Jitter fraction on the join's backoff (de-lockstep relaunched "
+         "ranks).", _CLUSTER),
     Knob("SPARKNET_RESTART_COUNT", "int", "0",
          "Exported by the supervisor to relaunched children: restarts so "
          "far.", _RESIL),

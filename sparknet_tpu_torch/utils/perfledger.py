@@ -19,9 +19,10 @@ that its bench and op tables feed:
   (``telemetry.fold_snapshots``), ``entries_from_serving_fleet``
   (``serveload --fleet``), ``entries_from_netsoak`` and
   ``entries_from_rollout`` (``soak --net`` and ``--rollout``) and
-  ``entries_from_commbench``.  A bench tier the port marks
-  ``{"not_ported": ...}`` yields no entry.  The pod soak's and
-  shardbench's readers wait for ROADMAP A12's pod half (order 3).
+  ``entries_from_commbench`` and ``entries_from_shardbench``
+  (``tools/shardbench.py``).  A bench tier the port marks
+  ``{"not_ported": ...}`` yields no entry.  The pod soak's reader waits
+  for the pod soak (ROADMAP A, order 3b).
 - **Noise-aware baselines** — per (metric, fingerprint key):
   ``median ± k·1.4826·MAD`` over a trailing window; small samples refuse
   to gate, and because device and backend are part of the key, a CPU
@@ -768,6 +769,48 @@ def entries_from_commbench(doc: Mapping[str, Any],
     return out
 
 
+def entries_from_shardbench(doc: Mapping[str, Any],
+                            path: str | None = None, *,
+                            round_tag: str | None = None,
+                            t: float | None = None,
+                            device_hint: str | None = None) -> list[dict]:
+    """``tools/shardbench.py`` reports: one entry on the ``sharding="dp"``
+    fingerprint (the replicated round's wall and boundary bytes) and one
+    on the plan's (its wall, per-position boundary bytes and the
+    ``shard_bytes_shrink_x`` headline), so the two histories band apart."""
+    if not doc.get("shardbench"):
+        return []
+    prov = _prov_fields(doc)
+    world = doc.get("devices")
+    tau = doc.get("tau")
+    device = doc.get("device") or device_hint
+    note = None if doc.get("ok") else "shardbench gate FAILED"
+    out: list[dict] = []
+    for mode, shard_id in (("dp", "dp"),
+                           ("sharded", doc.get("plan") or "sharded")):
+        leg = doc.get(mode) or {}
+        if not leg:
+            continue
+        fp = fingerprint(model=doc.get("model") or "lenet", dtype="f32",
+                         batch=doc.get("batch"), world=world,
+                         device=device, tau=tau, sharding=shard_id)
+        metrics = {
+            "shard_round_s": leg.get("round_s"),
+            "shard_boundary_bytes": leg.get("boundary_bytes_per_chip"),
+            "shard_exchange_bytes": leg.get("exchange_bytes"),
+        }
+        if mode == "sharded":
+            metrics["shard_bytes_shrink_x"] = doc.get(
+                "shard_bytes_shrink_x")
+            metrics["shard_caffenet_shrink_x"] = (
+                doc.get("caffenet") or {}).get("shrink_x")
+        out.append(make_entry(
+            "shardbench", path, fp,
+            {k: v for k, v in metrics.items() if v is not None},
+            round_tag=round_tag, t=t, notes=note, **prov))
+    return out
+
+
 def entries_from_roundbench(doc: Mapping[str, Any],
                             path: str | None = None, *,
                             round_tag: str | None = None,
@@ -943,6 +986,9 @@ def entries_from_any(doc: Mapping[str, Any], path: str | None = None, *,
     if doc.get("commbench"):
         return entries_from_commbench(doc, path, round_tag=round_tag,
                                       t=t, device_hint=device_hint)
+    if doc.get("shardbench"):
+        return entries_from_shardbench(doc, path, round_tag=round_tag,
+                                       t=t, device_hint=device_hint)
     if "stall_total_sync_s" in doc:
         return entries_from_roundbench(doc, path, round_tag=round_tag,
                                        t=t, device_hint=device_hint)

@@ -1,7 +1,9 @@
 """Bounded retry with backoff for one-shot opens.
 
 The port's own copy of ``sparknet_tpu/utils/retry.py`` (:28-87):
-``backoff_delays``, ``retry_call`` and ``io_retry``.  The reference
+``backoff_delays`` (with the jittered backoff the gang's coordinator
+connect uses, ``parallel/cluster.py``), ``retry_call`` and
+``io_retry``.  The reference
 inherits retry semantics from Spark (a failed task is rescheduled up to
 ``spark.task.maxFailures`` times; reference: CifarApp.scala:36 pins it to
 1), but its one-shot opens (an LMDB mmap, a source list) have no such
@@ -15,6 +17,7 @@ Knobs (read per call):
 
 from __future__ import annotations
 
+import random
 import sys
 import time
 from typing import Any, Callable, Iterable
@@ -22,17 +25,28 @@ from typing import Any, Callable, Iterable
 from . import knobs
 
 
-def backoff_delays(attempts: int, base: float) -> Iterable[float]:
-    """The sleep schedule between ``attempts`` tries: base, 2·base,
-    4·base, ... capped at 30 s (len == attempts - 1).  The JAX package's
-    ``jitter`` serves only its multi-host restarts (ROADMAP A12), so the
-    port has none."""
+def backoff_delays(attempts: int, base: float, factor: float = 2.0,
+                   max_delay: float = 30.0, jitter: float = 0.0,
+                   rng: random.Random | None = None) -> Iterable[float]:
+    """The sleep schedule between ``attempts`` tries: base, base·factor,
+    base·factor², ... capped at ``max_delay`` (len == attempts - 1).
+    ``jitter`` > 0 spreads each delay uniformly over ``[delay·(1-jitter),
+    delay·(1+jitter)]``, so the ranks of a relaunched gang do not re-dial
+    the coordinator in lockstep; ``rng`` is injectable for tests."""
+    if not 0.0 <= jitter < 1.0:
+        raise ValueError(f"jitter must be in [0, 1), got {jitter}")
+    rng = rng or random
     for i in range(max(attempts - 1, 0)):
-        yield min(base * 2.0 ** i, 30.0)
+        delay = min(base * factor ** i, max_delay)
+        if jitter:
+            delay *= 1.0 + jitter * (2.0 * rng.random() - 1.0)
+        yield delay
 
 
 def retry_call(fn: Callable[..., Any], *args: Any,
                attempts: int = 3, base_delay: float = 0.1,
+               factor: float = 2.0, max_delay: float = 30.0,
+               jitter: float = 0.0,
                retry_on: tuple[type[BaseException], ...] = (OSError,),
                sleep: Callable[[float], None] = time.sleep,
                describe: str | None = None, **kwargs: Any) -> Any:
@@ -42,7 +56,8 @@ def retry_call(fn: Callable[..., Any], *args: Any,
     is Spark's maxFailures contract, not an infinite supervisor)."""
     if attempts < 1:
         raise ValueError(f"attempts must be >= 1, got {attempts}")
-    delays = list(backoff_delays(attempts, base_delay))
+    delays = list(backoff_delays(attempts, base_delay, factor, max_delay,
+                                 jitter))
     for i in range(attempts):
         try:
             return fn(*args, **kwargs)

@@ -243,16 +243,27 @@ def test_feeder_die_is_restarted_with_nothing_lost(monkeypatch):
 
 
 def test_trainer_refuses_bitflip_naming_a12(monkeypatch):
+    """``bitflip_params`` is no longer refused: the trainer flips bit 22
+    of position 1's copy of conv1's weight at round 0 (finite, so no
+    guard sees it), position 1 trains from it and the round's average
+    differs from a clean run's by that position's share; the fault fires
+    once."""
     sp = load_solver_prototxt_with_net(
         'base_lr: 0.01\nlr_policy: "fixed"\n', lenet(2, 2))
+    batch = {"data": np.zeros((1, 4, 1, 28, 28), np.float32),
+             "label": np.zeros((1, 4), np.float32)}
+    clean = DistributedTrainer(sp, 2, TrainerConfig(), device="cpu")
+    clean.train_round(batch)
     tr = DistributedTrainer(sp, 2, TrainerConfig(), device="cpu")
     monkeypatch.setenv("SPARKNET_FAULT", "bitflip_params@rank:1@round:0")
     faults.reset_injector()
-    batch = {"data": np.zeros((1, 4, 1, 28, 28), np.float32),
-             "label": np.zeros((1, 4), np.float32)}
     try:
-        with pytest.raises(NotImplementedError, match="A12"):
-            tr.train_round(batch)
+        tr.train_round(batch)
+        got = tr.params["conv1"][0].reshape(-1)
+        want = clean.params["conv1"][0].reshape(-1)
+        assert not np.array_equal(got.numpy(), want.numpy())
+        assert np.isfinite(got.numpy()).all()
+        assert faults.get_injector().bitflip_rank(0) is None   # fired once
     finally:
         monkeypatch.delenv("SPARKNET_FAULT")
         faults.reset_injector()

@@ -583,10 +583,11 @@ def test_runner_restarts_then_recovers_and_cancel_stops(tmp_path):
 
 
 def test_the_pod_half_raises_by_name(monkeypatch, tmp_path):
-    """What is left of the pod half (a world of several processes,
-    order 3) raises by name; its hosts-and-network part is ported: a
-    remote address or SPARKNET_SSH_CMD places over a host transport
-    (tests/test_torch_transport.py runs them)."""
+    """The pod half is ported but its soak: a remote address or
+    SPARKNET_SSH_CMD places over a host transport
+    (tests/test_torch_transport.py runs them), and a world of several
+    processes joins a gloo group, whose join fails typed and fast when
+    no coordinator answers (tests/test_torch_gang.py runs the gangs)."""
     from sparknet_tpu_torch.parallel import transport
     monkeypatch.delenv("SPARKNET_SSH_CMD", raising=False)
     r = resilience.ResilientRunner(["true"], hosts=["h1"])
@@ -608,9 +609,14 @@ def test_the_pod_half_raises_by_name(monkeypatch, tmp_path):
     monkeypatch.setenv("SPARKNET_NUM_PROCS", "1")
     assert cluster.init_cluster_from_env() is True
     assert cluster.local_batch_slice(16) == slice(0, 16)
+    # a world of two joins a process group: rank 1 dialing a coordinator
+    # nobody serves fails typed within its short timeout, not a hang
     monkeypatch.setenv("SPARKNET_NUM_PROCS", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, pod half"):
-        cluster.init_cluster_from_env()
+    monkeypatch.setenv("SPARKNET_PROC_ID", "1")
+    monkeypatch.setenv("SPARKNET_CONNECT_RETRIES", "1")
+    with pytest.raises(cluster.ClusterConnectError, match="127.0.0.1:1"):
+        cluster.init_cluster_from_env(timeout_s=2.0)
+    assert cluster.process_count() == 1
     monkeypatch.delenv("SPARKNET_COORDINATOR")
     with pytest.raises(ValueError, match="SPARKNET_COORDINATOR"):
         cluster.init_cluster_from_env()

@@ -125,10 +125,22 @@ def test_preempted_and_resumed_run_equals_the_unpreempted(tmp_path):
 
 
 def test_audit_and_multi_process_worlds_are_refused(tmp_path):
+    """``--audit-every`` is live: multihost_driver audits every round, writes
+    the trainer's audit trips (0 on a healthy run) and ends with the
+    params of the run without the audit."""
     from sparknet_tpu_torch.tools import multihost_driver
-    with pytest.raises(NotImplementedError, match="A12"):
-        multihost_driver.main(["--out", str(tmp_path / "o.npz"),
-                               "--audit-every", "1", "--device", "cpu"])
+    outs = {}
+    for audit in ("0", "1"):
+        out = str(tmp_path / f"o{audit}.npz")
+        assert multihost_driver.main(
+            ["--out", out, "--audit-every", audit, "--local-devices", "4",
+             "--ckpt-dir", str(tmp_path / f"ck{audit}"),
+             "--device", "cpu"]) == 0
+        outs[audit] = np.load(out)
+    assert int(outs["1"]["__audit_trips__"]) == 0
+    for k in outs["0"].files:
+        if not k.startswith("__"):
+            np.testing.assert_array_equal(outs["0"][k], outs["1"][k])
 
 
 # ---------------------------------------------------------------------------

@@ -128,12 +128,16 @@ def test_every_live_knob_is_read_by_its_owner():
 
 
 def test_refused_jax_names_say_so_and_raise(monkeypatch):
+    """The JAX package's partition knobs are live in the port now: their
+    docs name no refusal and each sets its field of the config."""
     from sparknet_tpu_torch.parallel.trainer import comm_config_from_env
-    for name in ("SPARKNET_SHARD", "SPARKNET_SHARD_CKPT"):
-        assert "A12" in knobs.get(name).doc
-        monkeypatch.setenv(name, "1")
-        with pytest.raises(NotImplementedError, match="A12"):
-            comm_config_from_env()
+    for name, field, value in (("SPARKNET_SHARD", "shard", "auto"),
+                               ("SPARKNET_SHARD_CKPT", "shard_checkpoint",
+                                True)):
+        assert "A12" not in knobs.get(name).doc
+        assert "Refused" not in knobs.get(name).doc
+        monkeypatch.setenv(name, "auto" if field == "shard" else "1")
+        assert getattr(comm_config_from_env(), field) == value
         monkeypatch.delenv(name)
 
 

@@ -4,8 +4,9 @@ ROADMAP C).
 
 ``entries_from_any`` of each package on the committed root reports
 ``BENCH_serving_fleet_r11.json``, ``SOAK_rollout_r18.json``,
-``SOAK_net_r17.json`` and ``BENCH_comm_r19.json`` gives 1, 1, 1 and 4
-entries, the same in both (source, round, metrics and their values,
+``SOAK_net_r17.json``, ``BENCH_comm_r19.json`` and shardbench's
+``BENCH_shard_r20.json`` gives 1, 1, 1, 4 and 2 entries, the same in
+both (source, round, metrics and their values,
 notes and the fingerprint but for its ``backend``, which the port reads
 as ``cuda`` where the JAX package reads ``tpu``).  The reports the port's
 own tools write (``serveload --fleet``, ``soak --net`` and ``--rollout``,
@@ -29,7 +30,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPORTS = {"BENCH_serving_fleet_r11.json": ("serving_fleet", 1),
            "SOAK_rollout_r18.json": ("rollout", 1),
            "SOAK_net_r17.json": ("netsoak", 1),
-           "BENCH_comm_r19.json": ("commbench", 4)}
+           "BENCH_comm_r19.json": ("commbench", 4),
+           "BENCH_shard_r20.json": ("shardbench", 2)}
 
 
 def _comparable(entry: dict) -> dict:
@@ -83,7 +85,8 @@ def test_the_port_puts_its_own_device_in_the_fingerprint():
 
 @pytest.mark.parametrize("doc", [
     {"mode": "net", "episodes": []}, {"mode": "rollout"},
-    {"commbench": False}, {"metric": "serving_fleet_scaling_x",
+    {"commbench": False}, {"shardbench": False},
+    {"metric": "serving_fleet_scaling_x",
                            "error": "no replica"}])
 def test_empty_or_broken_reports_give_nothing_in_both(doc):
     assert p_ledger.entries_from_any(doc) == \
@@ -93,7 +96,8 @@ def test_empty_or_broken_reports_give_nothing_in_both(doc):
 def test_the_docstring_names_only_what_still_waits():
     text = p_ledger.__doc__
     for reader in ("entries_from_serving_fleet", "entries_from_netsoak",
-                   "entries_from_rollout", "entries_from_commbench"):
+                   "entries_from_rollout", "entries_from_commbench",
+                   "entries_from_shardbench"):
         assert reader in text and callable(getattr(p_ledger, reader))
     assert "rollout soak readers" not in text
-    assert "pod soak's and\n  shardbench's readers wait" in text
+    assert "The pod soak's reader waits" in text

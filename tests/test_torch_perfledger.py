@@ -3,10 +3,9 @@
 Every ingester the port keeps gives the JAX function's entries, exactly,
 on the same document and timestamp: the JAX bench capture
 (``BENCH_r05.json``, driver wrapper and bare line), a bench line of the
-port's shape (device ``cuda/<card>``, so ``fp.backend`` is ``"cuda"``;
-a tier marked ``{"not_ported": ...}`` yields no entry in the port, where
-the JAX function, which does not know the mark, makes one with no
-metrics), the serving capture (``BENCH_serving_r07.json``), a round
+port's shape (device ``cuda/<card>``, so ``fp.backend`` is ``"cuda"``,
+its round tier with the audit's stall and its sharded round's dp and
+plan legs), the serving capture (``BENCH_serving_r07.json``), a round
 parity report, the op table (``profiles/caffenet_cpu/op_table.json``) and
 a folded metrics rollup.  ``fingerprint``, ``fp_key``,
 ``higher_is_better``, ``compute_baseline`` and ``verdict`` agree on the
@@ -42,14 +41,15 @@ def _port_line() -> dict:
     doc["feed_in_loop"] = dict(doc["feed_in_loop"], read_s=0.0,
                                decode_s=0.0, transform_s=0.0,
                                device_put_s=0.01, staged_dtype="uint8")
-    stalls = {"loss_fetch": 0.01, "finite_check": 0.002, "checkpoint": 0.3}
+    stalls = {"loss_fetch": 0.01, "finite_check": 0.002,
+              "audit_fetch": 0.004, "checkpoint": 0.3}
     doc["round_overhead"] = {
         "batch": 256, "tau": 4, "workers": 1, "dtype": "f32",
         "bare": {"round_s": 0.2}, "sync": {
             "round_s": 0.9, "stall_total_s_per_round": 0.7},
         "async": {"round_s": 0.3, "stall_total_s_per_round": 0.1,
                   "stall_s_per_round": stalls},
-        "audit": None, "not_ported_legs": {"audit": "ROADMAP A12"}}
+        }
     serving = _load("BENCH_serving_r07.json")
     doc["serving"] = dict(serving, device=_CARD, overload=None, sweep=None)
     doc["feed_records"] = {
@@ -57,7 +57,14 @@ def _port_line() -> dict:
         "epochs": 3, "images_per_sec": 5000.0, "serial_img_s": 400.0,
         "speedup_x": 12.5, "convert_s": 0.4, "read_s": 0.001,
         "serial_decode_s": 0.07, "cache": {"ram_hits": 90, "misses": 1}}
-    doc["shard_round"] = {"not_ported": "ROADMAP A12"}
+    doc["shard_round"] = {
+        "batch": 256, "tau": 2, "rounds": 1, "workers": 4, "dtype": "f32",
+        "plan": "shard:f20c289b1d11",
+        "dp": {"img_s": 4236.2, "round_s": 0.1209,
+               "boundary_bytes_per_chip": 243860896},
+        "sharded": {"img_s": 4270.4, "round_s": 0.1199,
+                    "boundary_bytes_per_chip": 67995040},
+        "bytes_shrink_x": 3.59, "parity_ok": True}
     return doc
 
 
@@ -76,7 +83,7 @@ def test_entries_from_bench_equal_the_jax_entries(which):
         assert {e["fp"]["backend"] for e in ours} == {"cuda"}
         assert {e["fp"]["device"] for e in ours} == {_CARD}
         assert {e["source"] for e in ours} == {
-            "bench", "bench_feed", "bench_round", "serving"}
+            "bench", "bench_feed", "bench_round", "bench_shard", "serving"}
 
 
 def test_other_ingesters_equal_the_jax_entries(tmp_path, monkeypatch):

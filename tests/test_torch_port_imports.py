@@ -18,7 +18,8 @@ beacons and ``import caffe`` through the port's shim, and the
 observability and bench plane's tools (``knobs``, ``serveload``,
 ``feedbench``, ``roundbench``, ``obs``, ``perf_probe``) and the
 profiler server; so do commbench's five gates and a chaos ship over the
-host transport."""
+host transport, and shardbench's six verdicts and a gang of two driver
+processes."""
 
 from __future__ import annotations
 
@@ -786,3 +787,46 @@ def test_transport_and_commbench_are_scanned_and_run_with_jax_blocked(
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
     assert (tmp_path / "d" / "b").read_bytes() == src.read_bytes()
+
+
+POD_MODULES = ["parallel/partition.py", "parallel/cluster.py",
+               "parallel/trainer.py", "tools/shardbench.py",
+               "tools/multihost_driver.py", "utils/checkpoint.py"]
+
+
+def test_pod_modules_are_scanned_and_run_with_jax_blocked(tmp_path):
+    """The pod half's tensors (partition plans, the process group, the
+    sharded round, sharded checkpoints, the audit, shardbench) are among
+    the files the scans above cover, and with ``jax`` and
+    ``sparknet_tpu`` blocked shardbench's six verdicts hold on the CPU and
+    a gang of two driver processes (each with both blocked) finishes."""
+    for rel in POD_MODULES:
+        assert PKG / rel in SOURCES, rel
+    block = ("import sys\n"
+             "for m in ('jax', 'sparknet_tpu'):\n"
+             "    sys.modules[m] = None\n")
+    code = (
+        block + "import contextlib, io\n"
+        "from sparknet_tpu_torch.tools import shardbench, launch\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert shardbench.main(['--device', 'cpu', '--rounds', "
+        "'2']) == 0\n"
+        f"child = {block!r} + 'import runpy\\n' + "
+        "'runpy.run_module(\"sparknet_tpu_torch.tools.multihost_driver\", "
+        "run_name=\"__main__\")\\n'\n"
+        "rc = launch.launch_local([sys.executable, '-c', child, '--out', "
+        f"{str(tmp_path / 'g.npz')!r}, '--strategy', 'local_sgd'], 2, "
+        "device='cpu', local_devices=2, timeout=200)\n"
+        "assert rc == 0, rc\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'sparknet_tpu.')) for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("SPARKNET_")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**env, "OMP_NUM_THREADS": "1",
+                              "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+    assert (tmp_path / "g.npz").exists()

@@ -347,6 +347,14 @@ def test_comm_config_from_env_equals_jax(monkeypatch, env):
 
 
 def test_comm_config_from_env_refuses_the_shard_knobs(monkeypatch):
+    """The partition knobs are live: they set ``shard`` and
+    ``shard_checkpoint`` as the JAX package's reader does."""
     monkeypatch.setenv("SPARKNET_SHARD", "auto")
-    with pytest.raises(NotImplementedError, match="A12"):
-        comm_config_from_env()
+    monkeypatch.setenv("SPARKNET_SHARD_CKPT", "1")
+    ours = comm_config_from_env()
+    theirs = jax_from_env()
+    assert (ours.shard, ours.shard_checkpoint) == ("auto", True) == \
+        (theirs.shard, theirs.shard_checkpoint)
+    monkeypatch.setenv("SPARKNET_SHARD_CKPT", "0")
+    assert comm_config_from_env(TrainerConfig(shard_checkpoint=True)
+                                ).shard_checkpoint is False

@@ -3,9 +3,9 @@ against the root ``tools/roundbench.py``, on the CPU.
 
 Parity holds: the asynchronous loop's round losses equal the
 synchronous loop's, its params and its newest checkpoint's fields are
-bit for bit (exact equality).  A planted asynchronous writer that drops
-a checkpoint field fails the run.  The line's keys are the JAX tool's
-line's plus ``not_ported_legs`` (the audit, ROADMAP A12), and it reads
+bit for bit (exact equality), with the cross-replica audit on in both
+loops.  A planted asynchronous writer that drops a checkpoint field fails
+the run.  The line's keys are the JAX tool's line's, and it reads
 through ``perfledger.entries_from_roundbench``."""
 
 from __future__ import annotations
@@ -46,15 +46,16 @@ def test_parity_holds(line):
     assert len(line["sync"]["losses"]) == 3
     assert all(np.isfinite(line["sync"]["losses"]))
     for mode in ("sync", "async"):
-        assert line[mode]["stall_s"]["audit_fetch"] is None
+        # the audit leg runs: its fingerprint fetch is charged
+        assert line[mode]["stall_s"]["audit_fetch"] > 0.0
         assert line[mode]["stall_s"]["checkpoint"] >= 0.0
-    assert line["not_ported_legs"] == {"audit": "ROADMAP A12"}
+    assert "not_ported_legs" not in line
 
 
 def test_line_has_the_jax_lines_keys(line, capsys):
     jline = _jax_line(capsys)
     assert jline["ok"]
-    assert set(line) == set(jline) | {"not_ported_legs"}
+    assert set(line) == set(jline)
     for mode in ("sync", "async"):
         assert set(line[mode]) == set(jline[mode])
         assert set(jline[mode]["stall_s"]) <= set(line[mode]["stall_s"])

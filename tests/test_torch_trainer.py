@@ -201,24 +201,30 @@ def test_distributed_test_sums_worker_batches():
     (TrainerConfig(strategy="hierarchical"), ValueError, "make_pod_mesh"),
     (TrainerConfig(strategy="sync", comm_codec="int8"), ValueError,
      "gradients"),
-    (TrainerConfig(shard="auto"), NotImplementedError, "A12"),
+    # a partition rule table that is not there
+    (TrainerConfig(shard="no_such_table.json"), FileNotFoundError,
+     "no_such_table"),
     (TrainerConfig(checkpoint_dir="ckpt", checkpoint_every=0), ValueError,
      "checkpoint_every"),
     (TrainerConfig(guard_numerics=True), ValueError, "checkpoint_dir"),
-    (TrainerConfig(audit_every=1), NotImplementedError, "A12"),
-    (TrainerConfig(shard_checkpoint=True), NotImplementedError, "A12"),
+    (TrainerConfig(audit_every=1), ValueError, "audit_every needs"),
+    # the audit's cadence against the retention (sharded checkpoints)
+    (TrainerConfig(shard_checkpoint=True, checkpoint_dir="ckpt",
+                   audit_every=5, checkpoint_keep=2), ValueError,
+     "outruns the checkpoint"),
     (TrainerConfig(remat=True), NotImplementedError, "A5"),
     (TrainerConfig(comm_codec="int9"), ValueError, "unknown comm codec")],
     ids=["hierarchical", "codec", "shard", "checkpoint", "guard", "audit",
          "shard_checkpoint", "remat", "unknown_codec"])
 def test_unported_settings_raise(config, error, match):
-    """Only ``shard``, ``shard_checkpoint``, ``audit_every`` and
-    ``remat`` are refused as not ported, each naming its ROADMAP item;
-    the other cases are the JAX package's own ``ValueError``s
-    (sparknet_tpu/parallel/trainer.py:327-347, :473-483)."""
+    """Only ``remat`` is refused as not ported, naming its ROADMAP item;
+    the other cases are the JAX package's own errors
+    (sparknet_tpu/parallel/trainer.py:327-347, :473-530), the partition
+    table's and the audit's among them."""
     sp = load_solver_prototxt_with_net(SOLVER_TXT, lenet(4, 4))
     with pytest.raises(error, match=match):
-        DistributedTrainer(sp, 1, config, device="cpu")
+        # two workers: one shard would resolve no plan and read no table
+        DistributedTrainer(sp, 2, config, device="cpu")
 
 
 def _sync_pair(jax_sp, sp, tau, n_workers=2):
